@@ -1,0 +1,259 @@
+"""Batched Goldilocks field arithmetic on torch int64 tensors.
+
+A field element is the uint64 bit pattern of a canonical residue (< p)
+stored in an int64 tensor: on the CPU torch's uint64 has no add, sub, `>>`
+or `<`, so adds and multiplies wrap as int64 (the same bits as uint64),
+logical shifts are arithmetic shifts followed by a mask, and an unsigned
+compare is `(a ^ MIN) < (b ^ MIN)`. Every function keeps its outputs
+canonical; a Merkle digest over a non-canonical value would differ.
+
+These are plain tensor ops on either device, as the reference runs its
+field ops in XLA outside any kernel. The kernels in `csrc/goldilocks.cuh`
+implement the same algebra per element.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from plonky2_torch.field import scalar
+
+MASK64 = (1 << 64) - 1
+MIN64 = -(1 << 63)
+MASK32 = 0xFFFFFFFF
+EPSILON = scalar.EPSILON  # 2^32 - 1 == 2^64 mod p
+
+
+def i64(x: int) -> int:
+    """The int64 bit pattern of a u64 Python int."""
+    x &= MASK64
+    return x - (1 << 64) if x >= 1 << 63 else x
+
+
+def u64(x: int) -> int:
+    """The u64 value of an int64 bit pattern."""
+    return int(x) & MASK64
+
+
+P = i64(scalar.P)
+
+
+def tensor(values, device) -> torch.Tensor:
+    """u64 values (numpy array, list of ints) -> int64 tensor on `device`.
+    The values are taken as given; callers pass canonical residues."""
+    arr = np.ascontiguousarray(np.asarray(values, dtype=np.uint64))
+    return torch.from_numpy(arr.view(np.int64).copy()).to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """int64 tensor -> numpy uint64 array (one device-to-host copy)."""
+    return t.detach().to("cpu").contiguous().numpy().view(np.uint64)
+
+
+def lt(a, b):
+    """Unsigned a < b on int64 bit patterns."""
+    return (a ^ MIN64) < (b ^ MIN64)
+
+
+def shr32(x):
+    """Logical x >> 32."""
+    return (x >> 32) & MASK32
+
+
+def canonicalize(x):
+    """One conditional subtraction; p > 2^63 makes it canonicalize any u64."""
+    return torch.where(lt(x, P), x, x - P)
+
+
+def add(x, y):
+    s = x + y
+    s = torch.where(lt(s, x), s + EPSILON, s)  # overflow: x+y-p = s+EPSILON
+    return canonicalize(s)
+
+
+def sub(x, y):
+    d = x - y
+    return torch.where(lt(x, y), d - EPSILON, d)  # borrow: x-y+p = d-EPSILON
+
+
+def neg(x):
+    return torch.where(x == 0, x, P - x)
+
+
+def reduce128(lo, hi):
+    """lo + hi·2^64 mod p, using 2^64 = EPSILON and 2^96 = -1."""
+    hi_hi = shr32(hi)
+    hi_lo = hi & MASK32
+    t0 = lo - hi_hi
+    t0 = torch.where(lt(lo, hi_hi), t0 - EPSILON, t0)
+    t1 = hi_lo * EPSILON
+    t2 = t0 + t1
+    t2 = torch.where(lt(t2, t1), t2 + EPSILON, t2)
+    return canonicalize(t2)
+
+
+def mul(x, y):
+    """x·y mod p via 32-bit limb products and reduce128."""
+    xl, xh = x & MASK32, shr32(x)
+    yl, yh = y & MASK32, shr32(y)
+    ll = xl * yl
+    lh = xl * yh
+    hl = xh * yl
+    hh = xh * yh
+    mid = shr32(ll) + (lh & MASK32) + (hl & MASK32)  # < 3·2^32
+    lo = (ll & MASK32) | ((mid & MASK32) << 32)
+    hi = hh + shr32(lh) + shr32(hl) + shr32(mid)
+    return reduce128(lo, hi)
+
+
+def square(x):
+    return mul(x, x)
+
+
+def scalar_tensor(c: int, device) -> torch.Tensor:
+    """A 0-d int64 tensor holding the u64 `c`."""
+    return torch.tensor(i64(c), dtype=torch.int64, device=device)
+
+
+def ext_tensor(c, device):
+    """A host extension element (c0, c1) as a pair of 0-d tensors."""
+    return scalar_tensor(c[0], device), scalar_tensor(c[1], device)
+
+
+def mul_scalar(x, c: int):
+    return mul(x, scalar_tensor(c, x.device))
+
+
+def exp_u64(x, e: int):
+    """x^e for a Python-int exponent (square-and-multiply)."""
+    result = None
+    base = x
+    while e > 0:
+        if e & 1:
+            result = base if result is None else mul(result, base)
+        e >>= 1
+        if e:
+            base = square(base)
+    return torch.ones_like(x) if result is None else result
+
+
+def inverse(x):
+    """x^(p-2) elementwise; inverse(0) == 0."""
+    return exp_u64(x, scalar.P - 2)
+
+
+def inverse_rows(x):
+    """Inverse of [R, n] via the Montgomery trick along axis 0: prefix and
+    suffix products, then one Fermat ladder on [n]. inverse_rows(0) == 0."""
+    is_zero = x == 0
+    xs = torch.where(is_zero, torch.ones_like(x), x)
+    r = xs.shape[0]
+    pre = [torch.ones_like(xs[0])]  # exclusive prefix products
+    for i in range(r - 1):
+        pre.append(mul(pre[-1], xs[i]))
+    suf = [torch.ones_like(xs[0])]  # exclusive suffix products, reversed
+    for i in range(r - 1, 0, -1):
+        suf.append(mul(suf[-1], xs[i]))
+    total_inv = inverse(mul(pre[-1], xs[r - 1]))
+    inv = torch.stack([mul(mul(pre[i], suf[r - 1 - i]), total_inv)
+                       for i in range(r)])
+    return torch.where(is_zero, torch.zeros_like(x), inv)
+
+
+def powers(z, n: int):
+    """[1, z, ..., z^(n-1)] for a 0-d tensor z, by log-doubling."""
+    out = torch.ones((1,), dtype=torch.int64, device=z.device)
+    step = z.reshape(1)  # z^len(out)
+    while out.shape[0] < n:
+        out = torch.cat([out, mul(out, step)])[:n]
+        step = square(step)
+    return out
+
+
+def sum_mod(x, dim: int = 0):
+    """Modular sum along `dim` by pairwise halving."""
+    x = x.movedim(dim, 0)
+    while x.shape[0] > 1:
+        if x.shape[0] % 2:
+            x = torch.cat([x, torch.zeros_like(x[:1])])
+        half = x.shape[0] // 2
+        x = add(x[:half], x[half:])
+    return x[0]
+
+
+# ---------------------------------------------------------------------------
+# Quadratic extension F_p[X]/(X^2 - 7) as (a0, a1) tensor pairs.
+# ---------------------------------------------------------------------------
+
+W2 = 7
+
+
+def ext2_add(a, b):
+    return add(a[0], b[0]), add(a[1], b[1])
+
+
+def ext2_sub(a, b):
+    return sub(a[0], b[0]), sub(a[1], b[1])
+
+
+def ext2_mul(a, b):
+    """(a0 + a1 X)(b0 + b1 X) = a0 b0 + 7 a1 b1 + (a0 b1 + a1 b0) X."""
+    a0, a1 = a
+    b0, b1 = b
+    c0 = add(mul(a0, b0), mul_scalar(mul(a1, b1), W2))
+    c1 = add(mul(a0, b1), mul(a1, b0))
+    return c0, c1
+
+
+def ext2_scalar_mul(c, a):
+    return mul(c, a[0]), mul(c, a[1])
+
+
+def ext2_square(a):
+    return ext2_mul(a, a)
+
+
+def ext2_neg(a):
+    return neg(a[0]), neg(a[1])
+
+
+def ext2_inverse(a):
+    """a^-1 = conj(a) / N(a), N(a) = a0^2 - 7 a1^2."""
+    a0, a1 = a
+    norm = sub(square(a0), mul_scalar(square(a1), W2))
+    ninv = inverse(norm)
+    return mul(a0, ninv), mul(neg(a1), ninv)
+
+
+def ext2_sum_mod(a, dim: int = 0):
+    return sum_mod(a[0], dim), sum_mod(a[1], dim)
+
+
+def ext2_powers(z, n: int):
+    """[1, z, ..., z^(n-1)] for an extension scalar z = (z0, z1) of 0-d
+    tensors, by log-doubling. Returns (p0, p1), each of length n."""
+    z0, z1 = z[0].reshape(1), z[1].reshape(1)
+    p0 = torch.ones((1,), dtype=torch.int64, device=z0.device)
+    p1 = torch.zeros((1,), dtype=torch.int64, device=z0.device)
+    s0, s1 = z0, z1  # z^len(p)
+    while p0.shape[0] < n:
+        q0, q1 = ext2_mul((p0, p1), (s0, s1))
+        p0 = torch.cat([p0, q0])[:n]
+        p1 = torch.cat([p1, q1])[:n]
+        s0, s1 = ext2_square((s0, s1))
+    return p0, p1
+
+
+# ---------------------------------------------------------------------------
+# Host-side constant helpers (numpy, Python ints) for twiddle tables.
+# ---------------------------------------------------------------------------
+
+def np_powers(base: int, n: int) -> np.ndarray:
+    """[1, base, ..., base^(n-1)] as numpy uint64."""
+    out = np.empty(n, dtype=np.uint64)
+    acc = 1
+    for i in range(n):
+        out[i] = acc
+        acc = (acc * base) % scalar.P
+    return out

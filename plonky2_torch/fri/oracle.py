@@ -1,0 +1,125 @@
+"""PolynomialBatch: the FRI commitment oracle, device-resident.
+
+All column polynomials of a commitment are one [num_polys, n] tensor:
+iFFT -> coset LDE -> Poseidon Merkle tree over the LDE's natural layout
+(`NaturalMerkleTree`). `prove_openings` forms the batch quotients by
+evaluating on the LDE domain and dividing by (x - z) pointwise, then one
+coset iFFT, and hands the result to the FRI prover.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from plonky2_torch import resolve_device
+from plonky2_torch.field import goldilocks as g
+from plonky2_torch.field import ntt
+from plonky2_torch.field import scalar as fs
+from plonky2_torch.fri.prover import fri_proof
+from plonky2_torch.hash.merkle import NaturalMerkleTree
+from plonky2_torch.util import log2_strict
+
+def _as_tensor(x, device):
+    """Tensors stay where they are (a device argument must agree); host data
+    uploads to `device` (CUDA unless the caller asks for another)."""
+    if isinstance(x, torch.Tensor):
+        if device is not None and torch.device(device) != x.device:
+            raise ValueError(f"tensor on {x.device}, device={device} requested")
+        if x.dtype != torch.int64:
+            raise ValueError("field tensors are int64")
+        return x.contiguous()
+    return g.tensor(x, resolve_device(device))
+
+
+class PolynomialBatch:
+    """A batch of committed polynomials sharing one Merkle-cap tree."""
+
+    def __init__(self, coeffs, lde, merkle_tree, degree_log: int, rate_bits: int,
+                 blinding: bool):
+        self.polynomials = coeffs  # [num_polys, n] coefficients
+        self.lde = lde  # [num_polys, N] natural-order coset-LDE values
+        self.merkle_tree = merkle_tree
+        self.degree_log = degree_log
+        self.rate_bits = rate_bits
+        self.blinding = blinding
+
+    @staticmethod
+    def from_values(values, rate_bits: int, blinding: bool, cap_height: int,
+                    device=None) -> "PolynomialBatch":
+        values = _as_tensor(values, device)
+        coeffs = ntt.ifft(values)
+        return PolynomialBatch._finish_natural(coeffs, rate_bits, blinding, cap_height)
+
+    @staticmethod
+    def from_coeffs(coeffs, rate_bits: int, blinding: bool, cap_height: int,
+                    device=None) -> "PolynomialBatch":
+        coeffs = _as_tensor(coeffs, device)
+        return PolynomialBatch._finish_natural(coeffs, rate_bits, blinding, cap_height)
+
+    @staticmethod
+    def _finish_natural(coeffs, rate_bits, blinding, cap_height):
+        """Commit straight off the LDE's natural [num_polys, N] layout."""
+        if blinding:
+            raise NotImplementedError("salted (zk) oracles are not ported yet")
+        lde = ntt.coset_lde(coeffs, rate_bits)
+        tree = NaturalMerkleTree(lde, cap_height)
+        return PolynomialBatch(coeffs, lde, tree, log2_strict(coeffs.shape[-1]),
+                               rate_bits, blinding)
+
+    @property
+    def device(self):
+        return self.polynomials.device
+
+    # -- batch opening proof ------------------------------------------------
+
+    @staticmethod
+    def prove_openings(instance, oracles, challenger, fri_params):
+        """FRI opening proof of `instance` over `oracles`; returns FriProof."""
+        alpha = challenger.get_extension_challenge(2)
+        rate_bits = fri_params.config.rate_bits
+        n = 1 << fri_params.degree_bits
+        device = oracles[0].device
+        final = (torch.zeros(n, dtype=torch.int64, device=device),
+                 torch.zeros(n, dtype=torch.int64, device=device))
+        for batch in instance.batches:
+            polys = torch.stack([oracles[p.oracle_index].polynomials[p.polynomial_index]
+                                 for p in batch.polynomials])
+            q = _batch_quotient(polys, alpha, batch.point, rate_bits)
+            # final = alpha^(batch size) * final + quotient (ReducingFactor shift)
+            shift = fs.ext_exp(alpha, len(batch.polynomials))
+            final = g.ext2_add(g.ext2_mul(g.ext_tensor(shift, device), final), q)
+        return fri_proof([o.merkle_tree for o in oracles], final, challenger, fri_params)
+
+
+@functools.lru_cache(maxsize=None)
+def _coset_domain(lg_n: int, device: str):
+    """[N] domain points g_mult · w^i of the FRI evaluation coset."""
+    pts = g.np_powers(fs.primitive_root_of_unity(lg_n), 1 << lg_n).astype(object)
+    pts = (pts * fs.MULTIPLICATIVE_GROUP_GENERATOR) % fs.P
+    return g.tensor(pts.astype("uint64"), device)
+
+
+def _batch_quotient(polys, alpha, z, rate_bits):
+    """Coefficients of (F(X) - F(z)) / (X - z) for F = sum_j alpha^j f_j.
+
+    polys: [J, n] base coefficients; alpha, z: host extension elements.
+    Returns ext coefficient tensors (q0, q1) of length n."""
+    J, n = polys.shape
+    device = polys.device
+    a = g.ext_tensor(alpha, device)
+    zz = g.ext_tensor(z, device)
+    ap0, ap1 = g.ext2_powers(a, J)
+    comp0 = g.sum_mod(g.mul(polys, ap0[:, None]), 0)
+    comp1 = g.sum_mod(g.mul(polys, ap1[:, None]), 0)
+    zp = g.ext2_powers(zz, n)
+    fz = g.ext2_sum_mod(g.ext2_mul((comp0, comp1), zp))
+    ev = ntt.coset_lde(torch.stack([comp0, comp1]), rate_bits)  # [2, N]
+    N = ev.shape[1]
+    xs = _coset_domain(log2_strict(N), str(device))
+    num = (g.sub(ev[0], fz[0]), g.sub(ev[1], fz[1]))
+    den = (g.sub(xs, zz[0]), g.neg(zz[1].expand(N)))
+    qv = g.ext2_mul(num, g.ext2_inverse(den))
+    q = ntt.coset_ifft(torch.stack(qv))[:, :n]  # degree < n: the tail is zero
+    return q[0], q[1]

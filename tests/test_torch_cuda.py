@@ -1,0 +1,72 @@
+"""The port's CUDA kernels (K2-K5) against their plain PyTorch versions on
+the card, at small shapes. Needs an NVIDIA GPU: every test skips without
+one. On the card (no JAX needed):
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest -o addopts="" -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from plonky2_torch.field import goldilocks as g
+from plonky2_torch.field import ntt
+from plonky2_torch.field import scalar as fs
+from plonky2_torch.ops import ntt as kn
+from plonky2_torch.ops import poseidon as kp
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _rand(dev, shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return g.tensor(rng.integers(0, fs.P, size=shape, dtype=np.uint64), dev)
+
+
+@pytest.mark.parametrize("lg", [1, 6, 10, 13])
+def test_k2_rows_match_plain(dev, lg):
+    x = _rand(dev, (3, 1 << lg), lg)
+    for inverse in (False, True):
+        assert torch.equal(kn.ntt_rows(x, inverse), kn.ntt_rows_plain(x, inverse))
+
+
+def test_k2_lde_forms_match_plain(dev):
+    gen = fs.MULTIPLICATIVE_GROUP_GENERATOR
+    x = _rand(dev, (2, 1 << 9), 1)
+    table = ntt._lde_coset_scale_table(gen, 9, 3, str(dev))
+    assert torch.equal(kn.ntt_rows(x, scale=table, fan=8),
+                       kn.ntt_rows_plain(x, scale=table, fan=8))
+    y = _rand(dev, (2, 1 << 5), 2)
+    s = ntt.shift_powers(gen, 32, dev).reshape(1, 32)
+    assert torch.equal(kn.ntt_rows(y, scale=s, repeat_bits=3),
+                       kn.ntt_rows_plain(y, scale=s, repeat_bits=3))
+
+
+@pytest.mark.parametrize("lg", [14, 16])
+def test_k3_four_step_matches_plain(dev, lg):
+    x = _rand(dev, (2, 1 << lg), lg)
+    for inverse in (False, True):
+        assert torch.equal(kn.ntt_four_step(x, inverse), kn.ntt_four_step_plain(x, inverse))
+
+
+@pytest.mark.parametrize("width", [5, 8, 32, 135])
+def test_k4_sponge_matches_plain(dev, width):
+    cols = _rand(dev, (width, 1000), width)
+    assert torch.equal(kp.sponge(cols), kp.sponge_plain(cols))
+
+
+def test_k5_permute_and_grind_match_plain(dev):
+    states = _rand(dev, (12, 1000), 3)
+    assert torch.equal(kp.permute(states), kp.permute_plain(states))
+    inter = _rand(dev, (12,), 4)
+    for pos, bits in ((0, 6), (7, 10)):
+        thr = 1 << (64 - bits)
+        assert (kp.grind_chunk(inter, pos, 0, 1 << 12, thr)
+                == kp.grind_chunk_plain(inter, pos, 0, 1 << 12, thr))
