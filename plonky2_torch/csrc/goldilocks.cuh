@@ -48,8 +48,9 @@ GL_HD uint64_t mulhi(uint64_t a, uint64_t b) {
 #endif
 }
 
-// lo + hi * 2^64 mod p, using 2^64 = EPS and 2^96 = -1 (mod p).
-GL_HD uint64_t reduce128(uint64_t lo, uint64_t hi) {
+// lo + hi * 2^64 mod p, using 2^64 = EPS and 2^96 = -1 (mod p), as a
+// value < 2^64 that may not be canonical.
+GL_HD uint64_t reduce128_nc(uint64_t lo, uint64_t hi) {
   uint64_t hi_hi = hi >> 32;
   uint64_t hi_lo = hi & EPS;
   uint64_t t0 = lo - hi_hi;
@@ -57,18 +58,48 @@ GL_HD uint64_t reduce128(uint64_t lo, uint64_t hi) {
   uint64_t t1 = hi_lo * EPS;
   uint64_t t2 = t0 + t1;
   if (t2 < t1) t2 += EPS;
-  return canon(t2);
+  return t2;
 }
+
+GL_HD uint64_t reduce128(uint64_t lo, uint64_t hi) { return canon(reduce128_nc(lo, hi)); }
 
 GL_HD uint64_t mul(uint64_t a, uint64_t b) { return reduce128(a * b, mulhi(a, b)); }
 
-// lo + hi * 2^32 mod p for lo, hi < 2^42 (the Poseidon MDS accumulators).
-GL_HD uint64_t reduce_small(uint64_t lo, uint64_t hi) {
+// Non-canonical forms for long chains (the Poseidon rounds): inputs and
+// outputs are any values < 2^64; canon() once at the end.
+GL_HD uint64_t mul_nc(uint64_t a, uint64_t b) { return reduce128_nc(a * b, mulhi(a, b)); }
+
+// a + b for any a < 2^64 and a canonical b (a + b - 2^64 + EPS < 2^64).
+GL_HD uint64_t add_nc(uint64_t a, uint64_t b) {
+  uint64_t s = a + b;
+  if (s < b) s += EPS;
+  return s;
+}
+
+// lo + hi * 2^32 mod p for lo, hi < 2^42 (the Poseidon MDS accumulators),
+// as a value < 2^64 that may not be canonical.
+GL_HD uint64_t reduce_small_nc(uint64_t lo, uint64_t hi) {
   uint64_t t = lo + ((hi & EPS) << 32);
   if (t < lo) t += EPS;
   uint64_t t2 = t + (hi >> 32) * EPS;
   if (t2 < t) t2 += EPS;
-  return canon(t2);
+  return t2;
+}
+
+// x * 2^k mod p for 0 <= k < 192, by shifts (2^96 = -1 mod p): K1's
+// gl_mul_pow2. With k known at compile time the branches fold away.
+GL_HD uint64_t mul_pow2(uint64_t x, int k) {
+  if (k == 0) return x;
+  const bool neg = k >= 96;
+  if (neg) k -= 96;
+  uint64_t r;
+  if (k < 64) {
+    r = k ? reduce128(x << k, x >> (64 - k)) : x;
+  } else {  // x * 2^(k-64), then times 2^64
+    const int k1 = k - 64;
+    r = reduce128(0, k1 ? reduce128_nc(x << k1, x >> (64 - k1)) : x);
+  }
+  return neg ? sub(0, r) : r;
 }
 
 GL_HD uint32_t brev(uint32_t x, int bits) {

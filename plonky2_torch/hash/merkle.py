@@ -1,4 +1,5 @@
-"""Merkle-cap trees over Poseidon, one sponge kernel call per tree level.
+"""Merkle-cap trees over Poseidon, built by kernel K4 (`ops.poseidon.merkle_tree`)
+in at most three launches into one buffer of every level.
 
 A `MerkleCap` of height h is the h-th layer from the root: 2^h digests in
 place of the root. Digests are 4 felts; leaves of width <= 4 pass through
@@ -7,8 +8,9 @@ unhashed (`hash_or_noop`).
 `NaturalMerkleTree` commits the LDE's natural [width, N] layout directly
 (same commitment as the reference's bit-reversed row leaves) and pairs
 contiguous halves per level; `MerkleTree` hashes row leaves [n, width]
-and pairs adjacent rows (the FRI fold trees). Layers stay on the device;
-query openings leave it in one packed copy (`open_many_packed`).
+and pairs adjacent rows (the FRI fold trees). Layers stay on the device as
+views of the tree's buffer; query openings leave it in one packed copy
+(`open_many_packed`).
 """
 
 from __future__ import annotations
@@ -29,43 +31,6 @@ class MerkleProof:
     siblings: list[list[int]]
 
 
-def hash_leaf_cols_dev(cols):
-    """hash_or_noop over natural-order columns [width, n] -> [4, n]."""
-    width, n = cols.shape
-    if width <= 4:
-        pad = torch.zeros((4 - width, n), dtype=torch.int64, device=cols.device)
-        return torch.cat([cols, pad])
-    return kp.sponge(cols.contiguous())
-
-
-def compress_halves_dev(digests):
-    """[4, 2m] natural-order digests -> [4, m] parents, pairing (j, j+m):
-    in the natural layout the reference's bit-reversed neighbours (2i, 2i+1)
-    are exactly the two halves."""
-    m = digests.shape[1] // 2
-    return kp.sponge(torch.cat([digests[:, :m], digests[:, m:]]))
-
-
-def hash_leaves_dev(leaves):
-    """hash_or_noop over row leaves [n, width] -> [n, 4]."""
-    return hash_leaf_cols_dev(leaves.T).T
-
-
-def compress_layer_dev(digests):
-    """[2m, 4] digests -> [m, 4] parents (two_to_one of adjacent rows)."""
-    m = digests.shape[0] // 2
-    return kp.sponge(digests.reshape(m, 8).T.contiguous()).T
-
-
-def _check_height(n: int, cap_height: int) -> int:
-    lg_n = n.bit_length() - 1
-    if 1 << lg_n != n:
-        raise ValueError("leaf count must be a power of two")
-    if cap_height > lg_n:
-        raise ValueError("cap height exceeds the tree height")
-    return lg_n
-
-
 def _proofs(leaves, sibs, levels):
     """Host (leaf, proof) pairs from gathered numpy arrays."""
     return [
@@ -81,11 +46,7 @@ class MerkleTree:
     def __init__(self, leaves, cap_height: int = 0):
         self.leaves = leaves
         self.cap_height = cap_height
-        lg_n = _check_height(int(leaves.shape[0]), cap_height)
-        layers = [hash_leaves_dev(leaves)]
-        for _ in range(lg_n - cap_height):
-            layers.append(compress_layer_dev(layers[-1]))
-        self._layers = layers
+        self._layers = kp.merkle_tree(leaves, cap_height, natural=False)
         self._cap = None
 
     @property
@@ -115,12 +76,9 @@ class NaturalMerkleTree:
 
     def __init__(self, cols, cap_height: int = 0):
         self.cap_height = cap_height
-        self._lg_n = _check_height(int(cols.shape[1]), cap_height)
+        self._lg_n = int(cols.shape[1]).bit_length() - 1
         self._cols = cols
-        layers = [hash_leaf_cols_dev(cols)]
-        for _ in range(self._lg_n - cap_height):
-            layers.append(compress_halves_dev(layers[-1]))
-        self._layers = layers
+        self._layers = kp.merkle_tree(cols, cap_height, natural=True)
         self._cap = None
 
     @property

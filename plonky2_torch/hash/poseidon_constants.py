@@ -111,3 +111,24 @@ ALL_ROUND_CONSTANTS = [
     0xaaed34074b164346, 0x8ffd96bbf9c9c81d, 0x70fc91eb5937085c, 0x7f795e2a5f915440,
     0x4543d9df5476d3cb, 0xf172d73e004fc90d, 0xdfd1c4febcc81238, 0xbc8dfb627fe558fc,
 ]
+
+
+def cuda_header() -> str:
+    """The round constants as `plonky2_torch/csrc/poseidon_constants.cuh`:
+
+        python -m plonky2_torch.hash.poseidon_constants > plonky2_torch/csrc/poseidon_constants.cuh
+    """
+    values = ALL_ROUND_CONSTANTS
+    lines = ["// Poseidon-Goldilocks round constants in device constant memory. Generated",
+             "// by `python -m plonky2_torch.hash.poseidon_constants` from",
+             "// plonky2_torch/hash/poseidon_constants.py; do not edit.",
+             "#pragma once", "", "#include <stdint.h>", "",
+             f"__constant__ uint64_t kRoundConstants[{len(values)}] = {{"]
+    for i in range(0, len(values), 4):
+        lines.append("    " + ", ".join(f"0x{v:016x}ull" for v in values[i:i + 4]) + ",")
+    lines.append("};")
+    return "\n".join(lines) + "\n"
+
+
+if __name__ == "__main__":
+    print(cuda_header(), end="")

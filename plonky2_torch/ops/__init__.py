@@ -27,7 +27,7 @@ K2 = Kernel("K2", "ntt_rows", "plonky2_torch/csrc/ntt.cu",
             "plonky2_tpu/ops/pallas_ntt.py:421")
 K3 = Kernel("K3", "ntt_four_step", "plonky2_torch/csrc/ntt.cu",
             "plonky2_tpu/ops/pallas_ntt.py:524")
-K4 = Kernel("K4", "poseidon_sponge", "plonky2_torch/csrc/poseidon.cu",
+K4 = Kernel("K4", "merkle_tree", "plonky2_torch/csrc/poseidon.cu",
             "plonky2_tpu/ops/pallas_poseidon.py:203")
 K5 = Kernel("K5", "poseidon_permute", "plonky2_torch/csrc/poseidon.cu",
             "plonky2_tpu/ops/pallas_poseidon.py:288")

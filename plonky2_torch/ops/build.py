@@ -23,11 +23,12 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("ntt", "poseidon")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC")
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 build_seconds: float | None = None  # wall time of the last build, if one ran
+ptxas_log: dict[str, str] = {}  # per source, ptxas's registers and spills, if it built here
 
 
 def _nvcc() -> str:
@@ -74,6 +75,7 @@ def build_all() -> dict[str, ctypes.CDLL]:
                 if proc.returncode != 0:
                     failures.append(f"{s}.cu:\n{output.decode(errors='replace')}")
                     continue
+                ptxas_log[s] = output.decode(errors="replace")
                 os.replace(tmp, out_dir / f"lib{s}.so")
             if failures:
                 raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
@@ -95,13 +97,13 @@ _U64 = ctypes.c_uint64
 
 _SIGNATURES = {
     "ntt": {
-        "k2_ntt_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _U64, _P),
+        "k2_ntt_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _U64, _I, _P),
         "k3_ntt_four_step": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
     "poseidon": {
-        "k4_sponge": (_P, _P, _I, _LL, _P, _P),
-        "k5_permute": (_P, _P, _LL, _P, _P),
-        "k5_grind": (ctypes.POINTER(_U64), _I, _U64, _LL, _U64, _P, _P, _P),
+        "k4_tree": (_P, _P, _LL, _I, _I, _I, _I, _I, _P),
+        "k5_permute": (_P, _P, _LL, _P),
+        "k5_grind": (ctypes.POINTER(_U64), _I, _U64, _LL, _U64, _P, _P),
     },
 }
 

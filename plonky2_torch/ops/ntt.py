@@ -160,7 +160,7 @@ def ntt_rows(x, inverse: bool = False, scale=None, fan: int = 1,
     err = library("ntt").k2_ntt_rows(
         x.data_ptr(), out.data_ptr(), stage_twiddles(x.device, inverse).data_ptr(),
         None if scale is None else scale.data_ptr(),
-        B0 * fan, lg_m, repeat_bits, fan, final, stream_ptr(x))
+        B0 * fan, lg_m, repeat_bits, fan, final, int(inverse), stream_ptr(x))
     check(err, "k2_ntt_rows")
     K2.launches += 1
     return out

@@ -1,8 +1,11 @@
-"""Poseidon kernels K4 (`sponge`) and K5 (`permute`, `grind_chunk`) with
-their plain PyTorch versions.
+"""Poseidon kernels K4 (`merkle_tree`, and `sponge` as its leaf step) and
+K5 (`permute`, `grind_chunk`) with their plain PyTorch versions.
 
 States are state-major: [12, N] int64, one column per state, so the batch
-runs along the contiguous axis.
+runs along the contiguous axis. A Merkle tree lives in one flat buffer:
+level k (leaf digests at k = 0, the cap last) starts at word
+8 * (N - (N >> k)) and is [4, N >> k] for a natural-order tree, [N >> k, 4]
+for a row-leaf tree (`tree_layers`).
 """
 
 from __future__ import annotations
@@ -112,23 +115,123 @@ def grind_chunk_plain(inter, pos: int, start: int, count: int, threshold: int):
     return None if ok.numel() == 0 else start + int(ok[0, 0])
 
 
+# -- Merkle trees: layout, launch plan, plain version ------------------------
+
+def tree_words(n: int, levels: int) -> int:
+    """Words of a tree buffer: levels 0..`levels` of 4-word digests."""
+    return 8 * (n - (n >> levels)) + 4 * (n >> levels)
+
+
+def tree_layers(buf, n: int, levels: int, natural: bool):
+    """Views of each level of a tree buffer: [4, n >> k] natural, else [n >> k, 4]."""
+    layers = []
+    for k in range(levels + 1):
+        m = n >> k
+        v = buf[8 * (n - m): 8 * (n - m) + 4 * m]
+        layers.append(v.view(4, m) if natural else v.view(m, 4))
+    return layers
+
+
+def _check_leaves(leaves, cap_height: int, natural: bool):
+    _check_states(leaves)
+    n = int(leaves.shape[1] if natural else leaves.shape[0])
+    lg_n = n.bit_length() - 1
+    if n < 1 or 1 << lg_n != n:
+        raise ValueError("leaf count must be a power of two")
+    if not 0 <= cap_height <= lg_n:
+        raise ValueError("cap height exceeds the tree height")
+    return n, lg_n - cap_height
+
+
+SMS = 132  # streaming multiprocessors of an H100 SXM
+TREE_STATES = 128  # the kernel's largest block, in states
+COALESCED_RUN = 32  # natural leaves: columns a warp reads contiguously
+
+
+def tree_launches(lg_n: int, levels: int, natural: bool):
+    """K4's launch plan for a tree of 2^lg_n leaves compressed `levels`
+    levels: a list of (first level, levels compressed, states a block).
+
+    The leaf launch hashes one leaf a state in blocks of up to 128 states,
+    halved (to 32) while that leaves fewer than two blocks per SM. A block
+    compresses its leaves as far as its subtree goes; for the natural shape
+    it keeps runs of >= 32 contiguous columns, so its depth is lg(states) - 5.
+    Each later launch starts from two digests a state and compresses up to
+    8 levels; the last one is a single block ending at the cap. The first
+    launch is the one that hashes the leaves."""
+    n = 1 << lg_n
+    states = TREE_STATES
+    while states > COALESCED_RUN and n // states < 2 * SMS:
+        states //= 2
+    states = min(states, n)
+    lg_s = states.bit_length() - 1
+    depth = min(levels, max(lg_s - 5, 0) if natural else lg_s)
+    plan = [(0, depth, states)]
+    k = depth
+    while k < levels:
+        states = min(TREE_STATES, (n >> k) // 2)
+        depth = min(levels - k, states.bit_length())
+        plan.append((k, depth, states))
+        k += depth
+    return plan
+
+
+def _hash_or_noop_plain(leaves, natural: bool):
+    cols = leaves if natural else leaves.T
+    width, n = cols.shape
+    if width <= 4:
+        pad = torch.zeros((4 - width, n), dtype=torch.int64, device=cols.device)
+        out = torch.cat([cols, pad])
+    else:
+        out = sponge_plain(cols.contiguous())
+    return out if natural else out.T
+
+
+def merkle_tree_plain(leaves, cap_height: int, natural: bool):
+    """Plain PyTorch version of K4's tree: one `sponge_plain` per level."""
+    n, levels = _check_leaves(leaves, cap_height, natural)
+    buf = torch.empty(tree_words(n, levels), dtype=torch.int64, device=leaves.device)
+    layers = tree_layers(buf, n, levels, natural)
+    layers[0].copy_(_hash_or_noop_plain(leaves, natural))
+    for k in range(1, levels + 1):
+        prev, m = layers[k - 1], n >> k
+        if natural:  # pair (j, j + m)
+            layers[k].copy_(sponge_plain(torch.cat([prev[:, :m], prev[:, m:]])))
+        else:  # pair rows (2i, 2i + 1)
+            layers[k].copy_(sponge_plain(prev.reshape(m, 8).T.contiguous()).T)
+    return layers
+
+
 # -- kernel wrappers ---------------------------------------------------------
 
+def merkle_tree(leaves, cap_height: int, natural: bool):
+    """K4: every level of the Poseidon Merkle tree over `leaves`, from the
+    leaf digests (hash_or_noop) to the 2^cap_height cap, in one buffer;
+    returns `tree_layers` views. natural: leaves are the columns of
+    [width, N] and level k pairs (j, j + (N >> k)); else the rows of
+    [N, width], paired (2i, 2i + 1)."""
+    n, levels = _check_leaves(leaves, cap_height, natural)
+    if not leaves.is_cuda:
+        return merkle_tree_plain(leaves, cap_height, natural)
+    buf = torch.empty(tree_words(n, levels), dtype=torch.int64, device=leaves.device)
+    width = int(leaves.shape[0] if natural else leaves.shape[1])
+    lib = library("poseidon")
+    for i, (k0, depth, states) in enumerate(tree_launches(n.bit_length() - 1, levels, natural)):
+        src = leaves.data_ptr() if i == 0 else None
+        err = lib.k4_tree(src, buf.data_ptr(), n, width, k0, depth, states, int(natural),
+                          stream_ptr(leaves))
+        check(err, "k4_tree")
+        K4.launches += 1
+    return tree_layers(buf, n, levels, natural)
+
+
 def sponge(cols):
-    """K4: [width, N] columns -> [4, N] digests (hash_n_to_m_no_pad(col, 4))."""
+    """K4's leaf step alone: [width, N] columns -> [4, N] digests
+    (hash_or_noop(col); the sponge hash_n_to_m_no_pad(col, 4) for width > 4)."""
     _check_states(cols)
     if not cols.is_cuda:
-        return sponge_plain(cols)
-    width, n = cols.shape
-    out = torch.empty((4, n), dtype=torch.int64, device=cols.device)
-    if n == 0:
-        return out
-    err = library("poseidon").k4_sponge(
-        cols.data_ptr(), out.data_ptr(), width, n,
-        round_constants(cols.device).data_ptr(), stream_ptr(cols))
-    check(err, "k4_sponge")
-    K4.launches += 1
-    return out
+        return _hash_or_noop_plain(cols, True)
+    return merkle_tree(cols, cols.shape[1].bit_length() - 1, True)[0]
 
 
 def permute(states):
@@ -140,9 +243,7 @@ def permute(states):
     out = torch.empty_like(states)
     if n == 0:
         return out
-    err = library("poseidon").k5_permute(
-        states.data_ptr(), out.data_ptr(), n,
-        round_constants(states.device).data_ptr(), stream_ptr(states))
+    err = library("poseidon").k5_permute(states.data_ptr(), out.data_ptr(), n, stream_ptr(states))
     check(err, "k5_permute")
     K5.launches += 1
     return out
@@ -158,10 +259,8 @@ def grind_chunk(inter, pos: int, start: int, count: int, threshold: int):
         return grind_chunk_plain(inter, pos, start, count, threshold)
     host = (ctypes.c_uint64 * W)(*[g.u64(v) for v in inter.tolist()])
     best = torch.full((1,), _NONE, dtype=torch.int64, device=inter.device)
-    err = library("poseidon").k5_grind(
-        host, pos, start, count, threshold,
-        round_constants(inter.device).data_ptr(), best.data_ptr(),
-        stream_ptr(inter))
+    err = library("poseidon").k5_grind(host, pos, start, count, threshold, best.data_ptr(),
+                                       stream_ptr(inter))
     check(err, "k5_grind")
     K5.launches += 1
     found = int(best.item())

@@ -56,10 +56,36 @@ def test_k3_four_step_matches_plain(dev, lg):
         assert torch.equal(kn.ntt_four_step(x, inverse), kn.ntt_four_step_plain(x, inverse))
 
 
+@pytest.mark.parametrize("lg", [1, 6, 10, 13])
+def test_k2_interleaved_fans_match_plain(dev, lg):
+    # fans 2..8 take the cluster epilogue, 16 the strided one
+    gen = fs.MULTIPLICATIVE_GROUP_GENERATOR
+    for rate_bits in (1, 2, 3, 4):
+        if lg + rate_bits > kn.MAX_SMEM_LG:
+            continue
+        x = _rand(dev, (3, 1 << lg), lg + rate_bits)
+        table = ntt._lde_coset_scale_table(gen, lg, rate_bits, str(dev))
+        for inverse in (False, True):
+            assert torch.equal(kn.ntt_rows(x, inverse, table, 1 << rate_bits),
+                               kn.ntt_rows_plain(x, inverse, table, 1 << rate_bits))
+
+
 @pytest.mark.parametrize("width", [5, 8, 32, 135])
 def test_k4_sponge_matches_plain(dev, width):
-    cols = _rand(dev, (width, 1000), width)
+    cols = _rand(dev, (width, 1024), width)
     assert torch.equal(kp.sponge(cols), kp.sponge_plain(cols))
+
+
+@pytest.mark.parametrize("natural, width, lg_n, cap_height", [
+    (True, 135, 12, 4), (True, 3, 10, 0), (True, 20, 8, 8), (True, 8, 1, 0),
+    (False, 32, 12, 4), (False, 8, 14, 4), (False, 4, 9, 2), (False, 32, 6, 6),
+])
+def test_k4_trees_match_plain(dev, natural, width, lg_n, cap_height):
+    n = 1 << lg_n
+    leaves = _rand(dev, (width, n) if natural else (n, width), lg_n)
+    want = kp.merkle_tree_plain(leaves, cap_height, natural)
+    got = kp.merkle_tree(leaves, cap_height, natural)
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_k5_permute_and_grind_match_plain(dev):

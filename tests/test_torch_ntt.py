@@ -88,3 +88,16 @@ def test_wrappers_take_the_plain_version_on_cpu():
     _same(kn.ntt_rows(x), tg.to_numpy(kn.ntt_rows_plain(x)))
     _same(kn.ntt_four_step(x), tg.to_numpy(kn.ntt_four_step_plain(x)))
     assert (K2.launches, K3.launches) == before
+
+
+@pytest.mark.parametrize("fan", [2, 4, 8, 16])
+def test_rows_plain_interleaved_fans_match_reference_lde(fan):
+    """K2's interleaved fan-out epilogue (fan = 2^rate cosets) against the
+    reference's LDE at rates 1..4."""
+    rate_bits = fan.bit_length() - 1
+    lg_m = 10 - rate_bits  # the interleaved form's smallest domain, 2^10
+    x = _rand(200 + fan, (2, 1 << lg_m))
+    table = tntt._lde_coset_scale_table(GEN, lg_m, rate_bits, "cpu")
+    port = kn.ntt_rows_plain(tg.tensor(x, "cpu"), scale=table, fan=fan)
+    lde = jax.jit(jntt.lde_fft, static_argnums=(1, 2))
+    _same(port, lde(jnp.asarray(x), rate_bits, GEN))

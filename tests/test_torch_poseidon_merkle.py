@@ -85,3 +85,71 @@ def test_grind_plain_finds_the_lowest_witness():
         s[pos] = c
         ok = jp.permute_py(s)[7] < threshold
         assert ok == (c == got)
+
+
+def test_plain_permutation_matches_reference_on_edge_states():
+    # all-zero and all-(p-1) states beside random ones: the words the kernels'
+    # non-canonical round arithmetic comes closest to wrapping on
+    states = np.concatenate([np.zeros((12, 1), np.uint64), np.full((12, 1), fs.P - 1, np.uint64),
+                             _rand(21, (12, 4))], axis=1)
+    got = tg.to_numpy(kp.permute_plain(tg.tensor(states, "cpu")))
+    for j in range(states.shape[1]):
+        s = [int(v) for v in states[:, j]]
+        assert [int(v) for v in got[:, j]] == jp.permute(s) == tp.permute(s)
+
+
+def test_cuda_constants_header_is_generated_from_the_tables():
+    from pathlib import Path
+
+    from plonky2_torch.hash import poseidon_constants as pc
+
+    header = Path(tm.__file__).resolve().parent.parent / "csrc" / "poseidon_constants.cuh"
+    assert header.read_text() == pc.cuda_header()
+
+
+def _ref_tree(leaves, cap_height, natural):
+    return (jm.NaturalMerkleTree(jnp.asarray(leaves), cap_height=cap_height) if natural
+            else jm.MerkleTree(leaves, cap_height=cap_height))
+
+
+@pytest.mark.parametrize("natural, width, lg_n, cap_height", [
+    (True, 3, 4, 0), (True, 20, 3, 3), (False, 2, 4, 0), (False, 32, 3, 3),
+])
+def test_tree_entry_point_caps_and_openings_match_reference(natural, width, lg_n, cap_height):
+    """kp.merkle_tree's plain path (through the tree classes) at cap height 0,
+    cap height == height, and leaves of width <= 4 (hash_or_noop)."""
+    n = 1 << lg_n
+    leaves = _rand(1000 + width + lg_n, (width, n) if natural else (n, width))
+    cls = tm.NaturalMerkleTree if natural else tm.MerkleTree
+    port = cls(tg.tensor(leaves, "cpu"), cap_height=cap_height)
+    ref = _ref_tree(leaves, cap_height, natural)
+    assert port.cap == ref.cap
+    idx = [0, n - 1, n // 3]
+    got = port.open_many(idx)
+    want = ref.open_many(idx)
+    assert [(v, p.siblings) for v, p in got] == [(v, p.siblings) for v, p in want]
+
+
+@pytest.mark.parametrize("lg_n, cap_height, natural", [
+    (16, 4, True), (12, 4, False), (8, 4, False), (14, 4, False), (13, 4, True), (10, 10, True),
+])
+def test_tree_launch_plan_covers_every_level_in_three_launches(lg_n, cap_height, natural):
+    plan = kp.tree_launches(lg_n, lg_n - cap_height, natural)
+    assert len(plan) <= 3
+    k = 0
+    for i, (k0, depth, states) in enumerate(plan):
+        assert k0 == k and 1 <= states <= kp.TREE_STATES
+        s0 = states if i == 0 else 2 * states  # nodes a block starts from
+        assert depth <= s0.bit_length() - 1 and ((1 << lg_n) >> k0) % s0 == 0
+        if i == 0 and natural:
+            assert states >> depth >= min(kp.COALESCED_RUN, states)
+        k += depth
+    assert k == lg_n - cap_height
+
+
+def test_tree_layers_are_views_of_one_buffer():
+    cols = tg.tensor(_rand(33, (8, 1 << 5)), "cpu")
+    layers = kp.merkle_tree(cols, 1, natural=True)
+    assert [tuple(x.shape) for x in layers] == [(4, 32 >> k) for k in range(5)]
+    base = layers[0].untyped_storage().data_ptr()
+    assert all(x.untyped_storage().data_ptr() == base for x in layers)
