@@ -1,25 +1,31 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port (plonky2_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # the whole run, on this checkout
+    python3 chip_smoke.py --times DIR     # only K3's and K5's timings, on the
+                                          # checkout at DIR (e.g. the parent commit)
 
 In order: prints the card's name and power limit; builds the CUDA kernels
-from `plonky2_torch/csrc/` (timed); holds each kernel K2-K5 against its
-plain PyTorch version on the same card input at the main path's full shapes
-(exact equality) and times both with CUDA events; checks K2 at every fan
-(1, 2, 4, 8, 16) and size (2^1..2^13) and the zero-tail form, and K4's
+from `plonky2_torch/csrc/` (timed); runs `commit_and_open` at the
+bench_recursion middle-circuit shapes (degree 2^13, oracles of
+85/135/20/16 polynomials) with every launch count set to 0 just before and
+read just after, requires each kernel to have launched and the proof's
+sha256 to be the pinned one (five warm runs, their median wall and each),
+and profiles one more; holds each kernel K2-K5 against its plain PyTorch
+version on the same card input at the main path's full shapes (exact
+equality) and times both with CUDA events; checks K2 at every fan
+(1, 2, 4, 8, 16) and size (2^1..2^13) and the zero-tail form, K3 at every
+size 2^14..2^20 (fans 1, 2, 8, batch 1 and 2, both directions, and batch 16
+at 2^16), K5's grind at thresholds 0, 1 bit and 16 bits, and K4's
 Merkle trees (natural and row-leaf, cap height 0 to the full height, leaves
 of width <= 4) level by level; times K4's whole wires tree and each of its
-launches; runs
-`commit_and_open` at the bench_recursion middle-circuit shapes (degree
-2^13, oracles of 85/135/20/16 polynomials) with every launch count set to
-0 just before and read just after, requires each kernel to have launched
-and the proof's sha256 to be the pinned one (five warm runs, their median
-wall and each); profiles one more; runs
-`commit_and_open` at degree 2^10 on the card and on the CPU (plain
-versions) and requires identical proof bytes. The line before the last is
-the `kernels` JSON object, the last line the ok JSON object. Any failed
-check exits non-zero and prints no result. Imports nothing of JAX.
+launches; times K3 at [2, 2^16], [16, 2^16] and [1, 2^20] and K5 four
+ways (one bare grind launch where no candidate passes and at 16 bits, the
+`grind_chunk` wrapper, and the permute mode on [12, 2^17]); runs `commit_and_open` at
+degree 2^10 on the card and on the CPU (plain versions) and requires
+identical proof bytes. The line before the last is the `kernels` JSON
+object, the last line the ok JSON object. Any failed check exits non-zero
+and prints no result. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -39,10 +45,15 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # One Goldilocks multiply needs at least the four 32x32 partial products
 # of its 64x64 -> 128-bit product.
 OPS_PER_MODMUL = 4
-# One Poseidon permutation as the kernels compute it: 8*12 + 22 S-boxes of
-# 4 multiplies each, and 30 dense MDS layers of 144 constant multiply-adds
-# on two 32-bit halves.
-OPS_PER_PERMUTATION = (8 * 12 + 22) * 4 * OPS_PER_MODMUL + 30 * 144 * 2
+# One Poseidon permutation in the least work the repository computes it
+# with: 8*12 + 22 S-boxes of 4 multiplies each, and 30 MDS layers in the
+# frequency domain (csrc/poseidon_lane.cuh), 182 additions and shifted
+# additions a layer. Every Poseidon bound (K4 and K5) uses it.
+OPS_PER_PERMUTATION = (8 * 12 + 22) * 4 * OPS_PER_MODMUL + 30 * 182
+# The dense MDS's count (144 constant multiply-adds on two 32-bit halves a
+# layer), which K4 still computes and earlier bounds used; printed only.
+OPS_PER_PERMUTATION_DENSE = (8 * 12 + 22) * 4 * OPS_PER_MODMUL + 30 * 144 * 2
+GRIND_CHUNK = 1 << 17
 SEED = 2026
 MIDDLE_SHA256 = "757e4d01343c"  # the middle-shape proof's sha256 (prefix), seed 2026
 MIDDLE_RUNS = 5
@@ -59,8 +70,10 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_ms(torch, fn, reps: int, warmup: int) -> float:
-    """Median of `reps` runs, each bracketed by CUDA events."""
+def time_ms(torch, fn, reps: int, warmup: int, per: int = 1) -> float:
+    """Median of `reps` samples, each `per` back-to-back runs bracketed by
+    CUDA events, divided by `per` (per > 1 keeps a kernel shorter than its
+    host-side call from timing the host)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -68,10 +81,11 @@ def time_ms(torch, fn, reps: int, warmup: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(per):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / per)
     return statistics.median(times)
 
 
@@ -115,17 +129,33 @@ def ptxas_lines(log: str) -> list[str]:
     return out
 
 
+def profiled(torch, run):
+    """The CUDA kernels' key_averages of one `run()`, recorded after one
+    unrecorded warm-up `run()` in the same profiler session: a session that
+    starts recording at once lost its first kernels' records on the H100
+    once an earlier session had run in the process."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    kernels = []
+
+    def ready(prof):
+        kernels.extend(e for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+    with profile(activities=[ProfilerActivity.CUDA], on_trace_ready=ready,
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+    return kernels
+
+
 def profile_line(torch, run, wall_s: float) -> None:
     """One run under the CUDA profiler (kernels only, no CPU-op recording):
     the kernels' summed device time against the unprofiled wall time, the
     number of kernel launches, and the kernels with the most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = profiled(torch, run)
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", 0) or 0
@@ -147,6 +177,97 @@ def profile_line(torch, run, wall_s: float) -> None:
                 ported[kid[:2].upper()] = (ms + dev_us(e) / 1e3, n + e.count)
     print("profile: port kernels' device time on the middle run: " + ", ".join(
         f"{k} {ms:.3f} ms over {n} launches" for k, (ms, n) in sorted(ported.items())))
+
+
+def device_ms(torch, fn, key: str, calls: int = 20):
+    """Device time per call of the kernels whose name holds `key`, summed by
+    the CUDA profiler over `calls` calls (None where it saw none)."""
+
+    def run():
+        for _ in range(calls):
+            fn()
+
+    us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in profiled(torch, run)
+             if key in e.key)
+    return us / calls / 1e3 if us else None
+
+
+def kernel_times(torch, dev, kn, kp, build, stream_ptr, wrapper: bool) -> dict:
+    """K3's and K5's times at the shapes compared across versions, on the
+    checkout whose modules are passed (this one, or one given with
+    --times): K3 inverse at [2, 2^16] (the main path's), [16, 2^16] (the
+    quotient's coset iFFT) and [1, 2^20] (a larger circuit's); K5 as (i)
+    one bare grind launch of 2^17 candidates at a
+    threshold no candidate meets, so that every permutation runs, (ii) the
+    same launch at 16 bits, (iii) the grind_chunk wrapper at 16 bits, with
+    its synchronisation (where `wrapper`: the --times mode leaves it out,
+    since an older wrapper took the state as a tensor), (iv) permute on
+    [12, 2^17]."""
+    import ctypes
+
+    import numpy as np
+
+    from plonky2_torch.field import goldilocks as g
+    from plonky2_torch.field import scalar as fs
+
+    rng = np.random.default_rng(SEED + 7)
+
+    def rand(shape):
+        return g.tensor(rng.integers(0, fs.P, size=shape, dtype=np.uint64), dev)
+
+    t = {}
+    for batch, lg in ((2, 16), (16, 16), (1, 20)):
+        y = rand((batch, 1 << lg))
+        t[f"k3_inverse_{batch}x2^{lg}"] = time_ms(
+            torch, lambda y=y: kn.ntt_four_step(y, inverse=True), reps=20, warmup=3, per=20)
+        t[f"k3_inverse_{batch}x2^{lg}_device"] = device_ms(
+            torch, lambda y=y: kn.ntt_four_step(y, inverse=True), "k3_")
+    inter = [int(v) for v in rng.integers(0, fs.P, size=12, dtype=np.uint64)]
+    host = (ctypes.c_uint64 * 12)(*inter)
+    best = torch.full((1,), -1, dtype=torch.int64, device=dev)
+    lib = build.library("poseidon")
+
+    def bare(threshold):
+        build.check(lib.k5_grind(host, 5, 0, GRIND_CHUNK, threshold, best.data_ptr(),
+                                 stream_ptr(best)), "k5_grind")
+
+    t["k5_grind_bare_none"] = time_ms(torch, lambda: bare(0), reps=10, warmup=2)
+    t["k5_grind_bare_none_device"] = device_ms(torch, lambda: bare(0), "k5_", calls=10)
+    t["k5_grind_bare_16bits"] = time_ms(torch, lambda: bare(1 << 48), reps=10, warmup=2)
+    if wrapper:
+        t["k5_grind_wrapper_16bits"] = time_ms(
+            torch, lambda: kp.grind_chunk(inter, 5, 0, GRIND_CHUNK, 1 << 48, dev),
+            reps=10, warmup=2)
+    states = rand((12, GRIND_CHUNK))
+    t["k5_permute_12x2^17"] = time_ms(torch, lambda: kp.permute(states), reps=10, warmup=2)
+    return t
+
+
+def times_only(root: str) -> int:
+    """--times DIR: build the kernels of the checkout at DIR and print K3's
+    and K5's times as one JSON line; no checks, no ok line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false")
+    sys.path.insert(0, os.path.abspath(root))
+    try:
+        import plonky2_torch
+        from plonky2_torch import ops
+        from plonky2_torch.ops import build
+        from plonky2_torch.ops import ntt as kn
+        from plonky2_torch.ops import poseidon as kp
+    except ImportError as e:
+        return fail(f"the port cannot be imported from {root} ({e})")
+    if not os.path.abspath(plonky2_torch.__file__).startswith(os.path.abspath(root)):
+        return fail(f"plonky2_torch came from {plonky2_torch.__file__}, not {root}")
+    build.build_all()
+    for src, log in build.ptxas_log.items():
+        print(f"ptxas {src}: " + "; ".join(ptxas_lines(log)))
+    t = kernel_times(torch, torch.device("cuda"), kn, kp, build, ops.stream_ptr, wrapper=False)
+    print(json.dumps({"times": t, "root": os.path.abspath(root),
+                      "card": torch.cuda.get_device_name(0)}))
+    return 0
 
 
 def main() -> int:
@@ -193,9 +314,10 @@ def main() -> int:
     results = {}
     failures = []
 
-    def check(kernel, pairs, timed, n_bytes, n_ops):
+    def check(kernel, pairs, timed, n_bytes, n_ops, ms=None):
         """pairs: (label, kernel call, plain call) on the same inputs;
-        timed: the (kernel, plain) pair timed at the main path's shape."""
+        timed: the (kernel, plain) pair timed at the main path's shape (the
+        kernel's time is `ms` where given)."""
         mism, err = 0, 0.0
         for label, run_k, run_p in pairs:
             got, want = run_k(), run_p()
@@ -206,13 +328,44 @@ def main() -> int:
             err = max(err, e)
         if mism:
             failures.append(f"{kernel.kid} disagrees with its plain version")
-        ms = time_ms(torch, timed[0], reps=20, warmup=3)
+        if ms is None:
+            ms = time_ms(torch, timed[0], reps=20, warmup=3)
         plain_ms = time_ms(torch, timed[1], reps=3, warmup=1)
         b_ms, b_by = bound_ms(n_bytes, n_ops)
         print(f"{kernel.kid} {kernel.name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
               f"bound {b_ms:.4f} ms ({b_by})")
         results[kernel.kid] = dict(mismatches=mism, max_abs_err=err, ms=ms,
                                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # the main path at the middle-circuit shapes
+    config = co.middle_fri_config()
+    inputs = co.random_inputs(co.MIDDLE_DEGREE_BITS, co.MIDDLE_COUNTS, seed=SEED)
+    t0 = time.perf_counter()
+    first = co.commit_and_open(inputs, config, device=dev)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    # the host's clock spreads widely on a shared host: several warm runs,
+    # each with the counts set to 0 just before and read just after
+    walls = []
+    for _ in range(MIDDLE_RUNS):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        proof = co.commit_and_open(inputs, config, device=dev)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = {k.kid: k.launches for k in ops.KERNELS}
+        if proof != first:
+            failures.append("two middle-shape runs gave different proof bytes")
+    wall_s = statistics.median(walls)
+    print(f"commit_and_open middle (2^13; 85/135/20/16): {wall_s:.3f} s median of "
+          f"{[round(w, 3) for w in walls]} (first call {first_s:.3f} s), {len(proof)} proof "
+          f"bytes, sha256 {hashlib.sha256(proof).hexdigest()}, launches {launches}")
+    if not hashlib.sha256(proof).hexdigest().startswith(MIDDLE_SHA256):
+        failures.append(f"the middle-shape proof's sha256 is not {MIDDLE_SHA256}...")
+    for kid, n in launches.items():
+        if n == 0:
+            failures.append(f"{kid} was not launched on the main path")
+    profile_line(torch, lambda: co.commit_and_open(inputs, config, device=dev), wall_s)
 
     # K2 at the main path's shapes: the 135-poly coset LDE (2^13 -> 2^16,
     # 8 cosets, fused scale + cluster epilogue), the iFFT, the zero tail
@@ -258,15 +411,58 @@ def main() -> int:
     if k2_mism + n_tail:
         failures.append("K2 disagrees with its plain version at some fan, size or zero tail")
 
-    # K3: the 2^16-point coset iFFT of prove_openings (q0, q1 together)
+    # K3: every size 2^14..2^20 (odd and even splits), fans 1, 2 and 8,
+    # batch 1 and 2, both directions, and batch 16 at 2^16
+    k3_mism = 0
+    for lg in range(14, 21):
+        n_lg = 0
+        for fan in (1, 2, 8):
+            tab = (ntt._lde_coset_scale_table(gen, lg, fan.bit_length() - 1, str(dev))
+                   if fan > 1 else None)
+            for batch in (1, 2):
+                xk = rand((batch, 1 << lg))
+                for inverse in (False, True):
+                    n_lg += compare(kn.ntt_four_step(xk, inverse, tab, fan),
+                                    kn.ntt_four_step_plain(xk, inverse, tab, fan))[0]
+        print(f"K3 2^{lg} points, fans 1/2/8, batch 1/2, forward and inverse: "
+              f"{n_lg} mismatches")
+        k3_mism += n_lg
+    if k3_mism:
+        failures.append("K3 disagrees with its plain version at some size, fan or batch")
+    times = kernel_times(torch, dev, kn, kp, build, ops.stream_ptr, wrapper=True)
+    # the 2^16-point coset iFFT of prove_openings (q0, q1 together), and the
+    # quotient's [16, 2^16]
     y = rand((2, 1 << 16))
+    y16 = rand((16, 1 << 16))
     inv = (lambda: kn.ntt_four_step(y, inverse=True),
            lambda: kn.ntt_four_step_plain(y, inverse=True))
+
+    def k3_bound(batch):
+        """(bytes, operations): input and output once each; n/2 lg n
+        butterfly multiplies and n twiddle multiplies a row."""
+        n = 1 << 16
+        return 8 * 2 * batch * n, OPS_PER_MODMUL * batch * (n // 2 * 16 + n)
+
     check(ops.K3, [("inverse [2, 2^16]", *inv),
                    ("forward [2, 2^16]", lambda: kn.ntt_four_step(y),
-                    lambda: kn.ntt_four_step_plain(y))],
-          inv, n_bytes=8 * (2 * y.numel() + (1 << 16)),
-          n_ops=OPS_PER_MODMUL * 2 * ((1 << 15) * 16 + (1 << 16)))
+                    lambda: kn.ntt_four_step_plain(y)),
+                   ("inverse [16, 2^16]", lambda: kn.ntt_four_step(y16, inverse=True),
+                    lambda: kn.ntt_four_step_plain(y16, inverse=True))],
+          inv, *k3_bound(2), ms=times["k3_inverse_2x2^16"])
+    b16 = bound_ms(*k3_bound(16))
+    results["K3"].update(ms_16x2_16=times["k3_inverse_16x2^16"], bound_ms_16x2_16=b16[0],
+                         bound_by_16x2_16=b16[1], device_ms=times["k3_inverse_2x2^16_device"],
+                         device_ms_16x2_16=times["k3_inverse_16x2^16_device"],
+                         ms_1x2_20=times["k3_inverse_1x2^20"],
+                         device_ms_1x2_20=times["k3_inverse_1x2^20_device"])
+    print(f"K3 inverse [16, 2^16]: {times['k3_inverse_16x2^16']:.4f} ms kernel, "
+          f"bound {b16[0]:.4f} ms ({b16[1]}); inverse [1, 2^20]: "
+          f"{times['k3_inverse_1x2^20']:.4f} ms; profiler device time a call "
+          f"{times['k3_inverse_2x2^16_device']} ms at [2, 2^16], "
+          f"{times['k3_inverse_16x2^16_device']} ms at [16, 2^16], "
+          f"{times['k3_inverse_1x2^20_device']} ms at [1, 2^20]")
+    if k3_mism:
+        results["K3"]["mismatches"] += k3_mism
 
     # K4: the 135-wide leaf step over 2^16 leaves (the wires leaves),
     # then whole trees level by level against the plain per-level tree
@@ -318,47 +514,44 @@ def main() -> int:
     print(f"K4 wires tree by launch (first level, levels, states a block): "
           f"{[(p, round(t, 4)) for p, t in zip(plan, per_launch)]} ms")
 
-    # K5: one PoW grind chunk of 2^17 candidates at 16 bits, and a permutation
-    inter = rand((12,))
-    states = rand((12, 1 << 17))
-    chunk = 1 << 17
-    thr = 1 << (64 - 16)
-    grind = (lambda: kp.grind_chunk(inter, 5, 0, chunk, thr),
-             lambda: kp.grind_chunk_plain(inter, 5, 0, chunk, thr))
-    check(ops.K5, [("grind 2^17 at 16 bits", *grind),
-                   ("permute [12, 2^17]", lambda: kp.permute(states),
-                    lambda: kp.permute_plain(states))],
-          grind, n_bytes=8 * 13, n_ops=OPS_PER_PERMUTATION * chunk)
+    # K5: grind chunks of 2^17 candidates where none passes, at 1 bit and at
+    # 16 bits (the main path's), and permutations of random and edge states
+    inter = [int(v) for v in rng.integers(0, fs.P, size=12, dtype=np.uint64)]
+    states = rand((12, GRIND_CHUNK))
+    p = fs.P
+    edge = [[0] * 12, [p - 1] * 12, [(1 << 32) - 1] * 12, [1 << 63] * 12,
+            [p - 1 if i % 2 else (1 << 32) - 1 for i in range(12)]]
+    edge_states = g.tensor([[c[i] for c in edge] for i in range(12)], dev)
 
-    # the main path at the middle-circuit shapes
-    config = co.middle_fri_config()
-    inputs = co.random_inputs(co.MIDDLE_DEGREE_BITS, co.MIDDLE_COUNTS, seed=SEED)
-    t0 = time.perf_counter()
-    first = co.commit_and_open(inputs, config, device=dev)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    # the host's clock spreads widely on a shared host: several warm runs,
-    # each with the counts set to 0 just before and read just after
-    walls = []
-    for _ in range(MIDDLE_RUNS):
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        proof = co.commit_and_open(inputs, config, device=dev)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        launches = {k.kid: k.launches for k in ops.KERNELS}
-        if proof != first:
-            failures.append("two middle-shape runs gave different proof bytes")
-    wall_s = statistics.median(walls)
-    print(f"commit_and_open middle (2^13; 85/135/20/16): {wall_s:.3f} s median of "
-          f"{[round(w, 3) for w in walls]} (first call {first_s:.3f} s), {len(proof)} proof "
-          f"bytes, sha256 {hashlib.sha256(proof).hexdigest()}, launches {launches}")
-    if not hashlib.sha256(proof).hexdigest().startswith(MIDDLE_SHA256):
-        failures.append(f"the middle-shape proof's sha256 is not {MIDDLE_SHA256}...")
-    for kid, n in launches.items():
-        if n == 0:
-            failures.append(f"{kid} was not launched on the main path")
-    profile_line(torch, lambda: co.commit_and_open(inputs, config, device=dev), wall_s)
+    def grind_pair(threshold):
+        return (lambda: kp.grind_chunk(inter, 5, 0, GRIND_CHUNK, threshold, dev),
+                lambda: kp.grind_chunk_plain(inter, 5, 0, GRIND_CHUNK, threshold, dev))
+
+    if kp.grind_chunk(inter, 5, 0, GRIND_CHUNK, 0, dev) is not None:
+        failures.append("K5 found a witness below threshold 0")
+    grind = grind_pair(1 << 48)
+    check(ops.K5, [("grind 2^17, no candidate passes", *grind_pair(0)),
+                   ("grind 2^17 at 1 bit", *grind_pair(1 << 63)),
+                   ("grind 2^17 at 16 bits", *grind),
+                   ("permute [12, 2^17]", lambda: kp.permute(states),
+                    lambda: kp.permute_plain(states)),
+                   ("permute edge states", lambda: kp.permute(edge_states),
+                    lambda: kp.permute_plain(edge_states))],
+          grind, n_bytes=8 * 13, n_ops=OPS_PER_PERMUTATION * GRIND_CHUNK,
+          ms=times["k5_grind_bare_none"])
+    perm_bound = bound_ms(8 * 2 * states.numel(), OPS_PER_PERMUTATION * GRIND_CHUNK)
+    results["K5"].update(ms_16bits=times["k5_grind_bare_16bits"],
+                         device_ms=times["k5_grind_bare_none_device"],
+                         wrapper_ms_16bits=times["k5_grind_wrapper_16bits"],
+                         permute_ms=times["k5_permute_12x2^17"],
+                         permute_bound_ms=perm_bound[0])
+    print(f"K5 bare grind launch 2^17: {times['k5_grind_bare_none']:.4f} ms where no candidate "
+          f"passes (profiler device time {times['k5_grind_bare_none_device']} ms), "
+          f"{times['k5_grind_bare_16bits']:.4f} ms at 16 bits; grind_chunk wrapper "
+          f"{times['k5_grind_wrapper_16bits']:.4f} ms; permute [12, 2^17] "
+          f"{times['k5_permute_12x2^17']:.4f} ms (bound {perm_bound[0]:.4f} ms); "
+          f"{OPS_PER_PERMUTATION} operations a permutation in the bounds (the frequency-domain "
+          f"MDS), {OPS_PER_PERMUTATION_DENSE} in the dense count")
 
     # kernels vs plain versions end to end at degree 2^10
     small_inputs = co.random_inputs(10, co.MIDDLE_COUNTS, seed=SEED + 1)
@@ -391,4 +584,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--times":
+        sys.exit(times_only(sys.argv[2]))
+    if len(sys.argv) != 1:
+        sys.exit(fail("usage: chip_smoke.py [--times DIR]"))
     sys.exit(main())

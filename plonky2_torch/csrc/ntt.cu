@@ -20,23 +20,32 @@
 // cosets' points through distributed shared memory; any other fan writes
 // at a stride of fan words.
 //
-// K3, k3_four_step_kernel, replaces `fft_four_step_pallas` (Bailey four-step
-// for transforms that do not fit one block). Phase 1 runs NTT_a down the
-// columns of the [a, b] view of each row in shared-memory tiles of T
-// columns and multiplies by the four-step twiddle w^(k1*i2) (1/n folded in
-// for the inverse); phase 2 runs NTT_b along the rows of that result and
-// writes out[k1 + a*k2] (or the interleaved LDE layout). Two launches, one
-// scratch round trip.
+// K3, k3_tile_kernel, replaces `fft_four_step_pallas` (Bailey's four-step NTT
+// for transforms that do not fit one block): with n = a * b, lg a =
+// ceil(lg n / 2) and the input viewed as [a, b], an a-point NTT down each
+// column i2, the twiddle w_n^(k1*i2) (1/n folded in for the inverse), a
+// b-point NTT along each row k1, and out[k1 + a*k2]. Two launches through a
+// scratch buffer: phase 1 runs the column NTTs on tiles of T columns (coset
+// scale fused into the load), phase 2 the row NTTs on tiles of T rows and
+// writes the interleaved LDE layout. Both run K2's register-radix passes
+// over their T = 4 vectors, 2 stages a pass: of the tile sizes (1 to 64
+// vectors) and pass widths (1 to 4 stages) that a probe timed on the H100,
+// the one faster than the earlier radix-2 form (a block sync a stage) at
+// every size from 2^16 to 2^20. At the main path's batch it keeps many
+// threads (one per 4 points) and blocks, with half the syncs. A one-launch
+// form (one thread-block cluster per transform) was slower on the device at
+// [2, 2^16] and [16, 2^16]: a cluster spans at most 16 SMs.
 //
 // What bounds them on the H100: each element costs lg(n)/2 modular
 // multiplies (about 30 integer instructions each) against 16 bytes of
 // traffic. Counted that way a 2^13-point transform needs several times more
 // time on the integer pipes than on HBM at 3.35 TB/s, though the bound
 // chip_smoke.py states (4 instructions per multiply) is the bytes'. The
-// design keeps every intermediate stage on chip (no stage touches device
-// memory), reads the input and writes the output coalesced, and replaces
-// the multiplies of stages 1..4 by shifts. K3 keeps radix-2 stages with a
-// sync each (`dit_stages`).
+// design keeps every intermediate stage on chip (K2 touches device memory
+// once each way, K3 twice), reads the input and writes the output coalesced,
+// and replaces the multiplies of each transform's first pass by shifts. At
+// the main path's batch ([2, 2^16]) K3 is bound by latency instead: 2^17
+// points make few threads for 132 SMs, which the narrow passes offset.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,35 +57,13 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxLg = 13;          // largest transform one block holds (64 KB)
-constexpr int kTileElems = 1 << 11;  // four-step tile: T vectors of L points
-
-// Stage twiddle table: tw[2^(s-1) - 1 + j] = w_{2^s}^j for stage s, j < 2^(s-1).
-__device__ __forceinline__ void dit_stages(uint64_t* sm, int nvec, int lg, int start_stage,
-                                           const uint64_t* __restrict__ tw) {
-  const int half_n = 1 << (lg - 1);
-  const int total = nvec * half_n;
-  for (int s = start_stage + 1; s <= lg; s++) {
-    const int half = 1 << (s - 1);
-    const uint64_t* w = tw + (half - 1);
-    for (int bi = threadIdx.x; bi < total; bi += blockDim.x) {
-      const int v = bi >> (lg - 1);
-      const int j = bi & (half_n - 1);
-      const int pos = j & (half - 1);
-      const int i0 = ((j >> (s - 1)) << s) + pos;
-      uint64_t* base = sm + ((size_t)v << lg);
-      const uint64_t u = base[i0];
-      const uint64_t t = gl::mul(base[i0 + half], __ldg(w + pos));
-      base[i0] = gl::add(u, t);
-      base[i0 + half] = gl::sub(u, t);
-    }
-    __syncthreads();
-  }
-}
+constexpr int kMaxFourStepLg = 2 * kMaxLg;
 
 struct RowsArgs {
   const uint64_t* in;     // [P, m]
   uint64_t* out;          // fan == 1: [P, m << rb]; fan > 1: [P, m * fan]
-  const uint64_t* tw;     // stage twiddles (forward or inverse)
+  // stage twiddles (forward or inverse): tw[2^(s-1) - 1 + j] = w_{2^s}^j, j < 2^(s-1)
+  const uint64_t* tw;
   const uint64_t* scale;  // [fan, m] prologue scale, or null
   int lg_m;
   int rb;                 // zero-tail repeat bits (fan == 1 only)
@@ -126,25 +113,46 @@ __device__ __forceinline__ void radix_stages(uint64_t v[1 << r], int s0, int low
   }
 }
 
-// One pass: every group of 2^r points is loaded from shared memory into
-// registers, runs stages s0+1 .. s0+r there and is stored back in place.
+// One pass over nvec transforms of 2^lg points, transform v at sm + (v << lg):
+// every group of 2^r points is loaded from shared memory into registers,
+// runs stages s0+1 .. s0+r there and is stored back in place.
 template <int r, bool kInverse>
-__device__ __forceinline__ void radix_pass(uint64_t* sm, int lg, int s0,
+__device__ __forceinline__ void radix_pass(uint64_t* sm, int lg, int s0, int nvec,
                                            const uint64_t* __restrict__ tw) {
   const int groups = 1 << (lg - r);
-  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+  for (int gv = threadIdx.x; gv < nvec * groups; gv += blockDim.x) {
+    const int g = gv & (groups - 1);
+    uint64_t* x = sm + ((gv >> (lg - r)) << lg);
     const int low = g & ((1 << s0) - 1);
     const int base = low + ((g >> s0) << (s0 + r));
     uint64_t v[1 << r];
 #pragma unroll
-    for (int t = 0; t < (1 << r); t++) v[t] = sm[swz(base + (t << s0), lg)];
+    for (int t = 0; t < (1 << r); t++) v[t] = x[swz(base + (t << s0), lg)];
     if (s0 == 0)
       radix_stages<r, true, kInverse>(v, 0, 0, tw);
     else
       radix_stages<r, false, kInverse>(v, s0, low, tw);
 #pragma unroll
-    for (int t = 0; t < (1 << r); t++) sm[swz(base + (t << s0), lg)] = v[t];
+    for (int t = 0; t < (1 << r); t++) x[swz(base + (t << s0), lg)] = v[t];
   }
+}
+
+// DIT stages s_start+1 .. lg of nvec bit-reversed transforms in shared
+// memory, r stages a pass (fewer in the last), a block sync before each pass
+// and after the last; the output is in natural order.
+template <bool kInverse, int r = kPassLg>
+__device__ __forceinline__ void radix_passes(uint64_t* sm, int lg, int s_start, int nvec,
+                                             const uint64_t* __restrict__ tw) {
+  for (int s0 = s_start; s0 < lg; s0 += r) {
+    __syncthreads();
+    switch (lg - s0 < r ? lg - s0 : r) {
+      case 1: radix_pass<1, kInverse>(sm, lg, s0, nvec, tw); break;
+      case 2: radix_pass<2, kInverse>(sm, lg, s0, nvec, tw); break;
+      case 3: radix_pass<3, kInverse>(sm, lg, s0, nvec, tw); break;
+      default: radix_pass<r, kInverse>(sm, lg, s0, nvec, tw); break;
+    }
+  }
+  __syncthreads();
 }
 
 template <bool kInverse>
@@ -171,16 +179,7 @@ __global__ void __launch_bounds__(kMaxRowThreads, 2) k2_ntt_rows_kernel(RowsArgs
     for (int r = 0; r < R; r++) sm[swz(k + r, lg)] = v;
   }
   // the zero tail's first rb stages would only repeat each point R times
-  for (int s0 = a.rb; s0 < lg; s0 += kPassLg) {
-    __syncthreads();
-    switch (lg - s0) {
-      case 1: radix_pass<1, kInverse>(sm, lg, s0, a.tw); break;
-      case 2: radix_pass<2, kInverse>(sm, lg, s0, a.tw); break;
-      case 3: radix_pass<3, kInverse>(sm, lg, s0, a.tw); break;
-      default: radix_pass<kPassLg, kInverse>(sm, lg, s0, a.tw); break;
-    }
-  }
-  __syncthreads();
+  radix_passes<kInverse>(sm, lg, a.rb, 1, a.tw);
   const uint64_t fm = a.final_mul;
   if (a.fan == 1) {
     uint64_t* o = a.out + (size_t)b * L;
@@ -216,79 +215,77 @@ __global__ void __launch_bounds__(kMaxRowThreads, 2) k2_ntt_rows_kernel(RowsArgs
 }
 
 struct FourStepArgs {
-  const uint64_t* in;     // phase 1: [P, n] input; phase 2: [B, n] scratch
-  uint64_t* out;          // phase 1: [B, n] scratch; phase 2: final layout
-  const uint64_t* tw;     // stage twiddles
-  const uint64_t* tw4;    // [a, b] four-step twiddles w^(k1*i2) (/n when inverse)
-  const uint64_t* scale;  // [fan, n] prologue scale, or null (phase 1)
+  const uint64_t* in;     // phase 1: [P, n]; phase 2: the [P * fan, n] scratch
+  uint64_t* out;          // phase 1: the scratch; phase 2: [P, n * fan] (out[p, k*fan + j])
+  const uint64_t* tw;     // stage twiddles (forward or inverse)
+  const uint64_t* tw4;    // [a, b] four-step twiddles w_n^(k1*i2), 1/n folded in for the inverse
+  const uint64_t* scale;  // [fan, n] prologue scale, or null (phase 1 only)
   int lg_a, lg_b;
   int fan;
-  int T;                  // vectors per block
-  int phase;              // 1 or 2
 };
 
-__global__ void k3_four_step_kernel(FourStepArgs a) {
+// K3's tiling: a block holds 2^kK3TileVectorsLg vectors (fewer where a
+// transform has fewer, or 128 KB of shared memory holds fewer), and its
+// passes run 2^kK3PassLg stages.
+constexpr int kK3TileVectorsLg = 2;
+constexpr int kK3PassLg = 2;
+constexpr int kK3MaxTileLg = 14;  // 2^14 words, 128 KB
+
+// T vectors a block. Phase 1: vectors are the columns i2 = v0 .. v0+T-1 of
+// the [a, b] view of output row bo (input row p = bo / fan scaled by coset
+// j = bo % fan); their a-point NTTs, twiddled, go to the [a, b] scratch row
+// bo. Phase 2: vectors are the scratch rows k1 = v0 .. v0+T-1; their b-point
+// NTTs go to out[k1 + a*k2] (interleaved).
+template <bool kInverse>
+__global__ void __launch_bounds__(kMaxRowThreads) k3_tile_kernel(FourStepArgs a, int T, int phase) {
   extern __shared__ uint64_t sm[];
   const int lg_n = a.lg_a + a.lg_b;
   const size_t n = (size_t)1 << lg_n;
-  const int A = 1 << a.lg_a;
-  const int Bc = 1 << a.lg_b;
-  const int T = a.T;
-  if (a.phase == 1) {
-    // vectors = columns i2 of the [a, b] view; this block owns T of them
-    const int tiles = Bc / T;
-    const int bo = blockIdx.x / tiles;
-    const int c0 = (blockIdx.x - bo * tiles) * T;
-    const int p = bo / a.fan;
-    const int j = bo - p * a.fan;
+  const int lg = phase == 1 ? a.lg_a : a.lg_b;  // vector length
+  const int L = 1 << lg;
+  const int tiles = (phase == 1 ? 1 << a.lg_b : 1 << a.lg_a) / T;
+  const int bo = blockIdx.x / tiles;
+  const int v0 = (blockIdx.x - bo * tiles) * T;
+  const int p = bo / a.fan;
+  const int j = bo - p * a.fan;
+  if (phase == 1) {
     const uint64_t* x = a.in + (size_t)p * n;
     const uint64_t* sc = a.scale ? a.scale + (size_t)j * n : nullptr;
-    for (int idx = threadIdx.x; idx < T * A; idx += blockDim.x) {
+    for (int idx = threadIdx.x; idx < T * L; idx += blockDim.x) {
       const int v = idx % T;
       const int i1 = idx / T;
-      const size_t e = (size_t)i1 * Bc + c0 + v;
+      const size_t e = ((size_t)i1 << a.lg_b) + v0 + v;
       uint64_t val = x[e];
       if (sc) val = gl::mul(val, __ldg(sc + e));
-      sm[(v << a.lg_a) + gl::brev((uint32_t)i1, a.lg_a)] = val;
-    }
-    __syncthreads();
-    dit_stages(sm, T, a.lg_a, 0, a.tw);
-    uint64_t* o = a.out + (size_t)bo * n;
-    for (int idx = threadIdx.x; idx < T * A; idx += blockDim.x) {
-      const int v = idx % T;
-      const int k1 = idx / T;
-      const size_t e = (size_t)k1 * Bc + c0 + v;
-      o[e] = gl::mul(sm[(v << a.lg_a) + k1], __ldg(a.tw4 + e));
+      sm[(v << lg) + swz((int)gl::brev((uint32_t)i1, lg), lg)] = val;
     }
   } else {
-    // vectors = rows k1 of the phase-1 result; this block owns T of them
-    const int tiles = A / T;
-    const int bo = blockIdx.x / tiles;
-    const int r0 = (blockIdx.x - bo * tiles) * T;
-    const int p = bo / a.fan;
-    const int j = bo - p * a.fan;
     const uint64_t* y = a.in + (size_t)bo * n;
-    for (int idx = threadIdx.x; idx < T * Bc; idx += blockDim.x) {
-      const int v = idx >> a.lg_b;
-      const int i2 = idx & (Bc - 1);
-      sm[(v << a.lg_b) + gl::brev((uint32_t)i2, a.lg_b)] = y[(size_t)(r0 + v) * Bc + i2];
-    }
-    __syncthreads();
-    dit_stages(sm, T, a.lg_b, 0, a.tw);
-    uint64_t* o = a.out + (size_t)p * n * a.fan + j;
-    for (int idx = threadIdx.x; idx < T * Bc; idx += blockDim.x) {
-      const int v = idx % T;
-      const int k2 = idx / T;
-      const size_t k = (size_t)(r0 + v) + (size_t)A * k2;
-      o[k * a.fan] = sm[(v << a.lg_b) + k2];
+    for (int idx = threadIdx.x; idx < T * L; idx += blockDim.x) {
+      const int v = idx >> lg;
+      const int i2 = idx & (L - 1);
+      sm[(v << lg) + swz((int)gl::brev((uint32_t)i2, lg), lg)] =
+          y[((size_t)(v0 + v) << lg) + i2];
     }
   }
-}
-
-int threads_for(int work) {
-  int t = 32;
-  while (t < work && t < 512) t <<= 1;
-  return t;
+  radix_passes<kInverse, kK3PassLg>(sm, lg, 0, T, a.tw);
+  if (phase == 1) {
+    uint64_t* o = a.out + (size_t)bo * n;
+    for (int idx = threadIdx.x; idx < T * L; idx += blockDim.x) {
+      const int v = idx % T;
+      const int k1 = idx / T;
+      const size_t e = ((size_t)k1 << a.lg_b) + v0 + v;
+      o[e] = gl::mul(sm[(v << lg) + swz(k1, lg)], __ldg(a.tw4 + e));
+    }
+  } else {
+    uint64_t* o = a.out + (size_t)p * n * a.fan + j;
+    for (int idx = threadIdx.x; idx < T * L; idx += blockDim.x) {
+      const int v = idx % T;
+      const int k2 = idx / T;
+      const size_t k = (size_t)(v0 + v) + ((size_t)k2 << a.lg_a);
+      o[k * a.fan] = sm[(v << lg) + swz(k2, lg)];
+    }
+  }
 }
 
 }  // namespace
@@ -332,28 +329,35 @@ extern "C" int k2_ntt_rows(const uint64_t* in, uint64_t* out, const uint64_t* tw
   return (int)cudaGetLastError();
 }
 
+// One K3 call: two launches through scratch [batch_out, n]; tw4 is the [a, b]
+// table of the split lg a = ceil(lg_n / 2).
 extern "C" int k3_ntt_four_step(const uint64_t* in, uint64_t* out, uint64_t* scratch,
                                 const uint64_t* tw, const uint64_t* tw4, const uint64_t* scale,
-                                int batch_out, int lg_n, int fan, void* stream) {
+                                int batch_out, int lg_n, int fan, int inverse, void* stream) {
+  if (lg_n < 2 || lg_n > kMaxFourStepLg || batch_out < 1 || fan < 1 || batch_out % fan)
+    return (int)cudaErrorInvalidValue;
   const int lg_a = (lg_n + 1) / 2;
   const int lg_b = lg_n - lg_a;
-  if (lg_b < 1 || lg_a > kMaxLg || batch_out < 1 || fan < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  int T1 = kTileElems >> lg_a;
-  T1 = T1 < 1 ? 1 : (T1 > (1 << lg_b) ? (1 << lg_b) : T1);
-  int T2 = kTileElems >> lg_b;
-  T2 = T2 < 1 ? 1 : (T2 > (1 << lg_a) ? (1 << lg_a) : T2);
-  const int smem1 = (int)(sizeof(uint64_t) * T1) << lg_a;
-  const int smem2 = (int)(sizeof(uint64_t) * T2) << lg_b;
-  const int smem = smem1 > smem2 ? smem1 : smem2;
-  cudaFuncSetAttribute(k3_four_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  FourStepArgs a1{in, scratch, tw, tw4, scale, lg_a, lg_b, fan, T1, 1};
-  const int blocks1 = batch_out * ((1 << lg_b) / T1);
-  k3_four_step_kernel<<<blocks1, threads_for(T1 << (lg_a - 1)), smem1, s>>>(a1);
-  cudaError_t err = cudaGetLastError();
+  void (*kernel)(FourStepArgs, int, int) = inverse ? k3_tile_kernel<true> : k3_tile_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)sizeof(uint64_t) << kK3MaxTileLg);
   if (err != cudaSuccess) return (int)err;
-  FourStepArgs a2{scratch, out, tw, tw4, nullptr, lg_a, lg_b, fan, T2, 2};
-  const int blocks2 = batch_out * ((1 << lg_a) / T2);
-  k3_four_step_kernel<<<blocks2, threads_for(T2 << (lg_b - 1)), smem2, s>>>(a2);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  for (int phase = 1; phase <= 2; phase++) {
+    const int lg = phase == 1 ? lg_a : lg_b;      // vector length
+    const int across = phase == 1 ? lg_b : lg_a;  // vectors of one transform
+    int lg_t = kK3TileVectorsLg;
+    if (lg_t > kK3MaxTileLg - lg) lg_t = kK3MaxTileLg - lg;
+    if (lg_t > across) lg_t = across;
+    const int T = 1 << lg_t;
+    FourStepArgs a = phase == 1 ? FourStepArgs{in, scratch, tw, tw4, scale, lg_a, lg_b, fan}
+                                : FourStepArgs{scratch, out, tw, tw4, nullptr, lg_a, lg_b, fan};
+    // one thread a group of 2^kK3PassLg points, 32 to kMaxRowThreads a block
+    const int groups = T << (lg > kK3PassLg ? lg - kK3PassLg : 0);
+    const int threads = groups < 32 ? 32 : groups > kMaxRowThreads ? kMaxRowThreads : groups;
+    kernel<<<batch_out << (across - lg_t), threads, (sizeof(uint64_t) * T) << lg, s>>>(a, T, phase);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }

@@ -20,11 +20,16 @@
 // The leaf step alone (ops/poseidon.py `sponge`) is the same kernel at depth 0.
 //
 // K5, k5_permute_kernel, replaces `permute_pallas`: one full permutation of
-// state-major [12, N] states. Its grind mode is the FRI proof-of-work search
-// (plonky2_tpu/fri/prover.py `_grind_chunk`): thread j permutes the
-// transcript state with candidate start + j written at the witness position
-// and, when the popped challenge state[7] is below the threshold, takes
-// atomicMin of the candidate, so a chunk yields its lowest valid witness.
+// state-major [12, N] states, one thread a state. Its grind mode is the FRI
+// proof-of-work search (plonky2_tpu/fri/prover.py `_grind_chunk`): thread j
+// permutes the transcript state with candidate start + j written at the
+// witness position and, when the popped challenge state[7] is below the
+// threshold, takes atomicMin of the candidate, so a chunk yields its lowest
+// valid witness. 2^17 one-lane states already fill the card (about one wave
+// at 60 registers), so what bounds K5 is the instructions a permutation
+// issues, most of them the MDS layers': K5 runs the round function of
+// poseidon_lane.cuh, whose MDS is computed in the frequency domain (182
+// additions and shifted additions a layer instead of 288 multiply-adds).
 //
 // What bounds them on the H100: integer work, ~10.5k 32-bit multiplies and
 // multiply-adds a permutation against 96 bytes of state, so the kernels are
@@ -36,8 +41,8 @@
 // rows formed from words gathered by warp shuffles): 4x the warps for the
 // same instructions per state and a ~4x shorter chain per lane. The rounds
 // carry non-canonical words (any value < 2^64) and canonicalise only what
-// leaves the kernel. Every round, partial ones included, is a dense MDS layer:
-// 144 multiply-adds by constants <= 49 on 32-bit halves into two 64-bit
+// leaves the kernel. In K4 every round, partial ones included, is a dense MDS
+// layer: 144 multiply-adds by constants <= 49 on 32-bit halves into two 64-bit
 // accumulators (the sparse fast-partial-round form of plonky2's poseidon.rs
 // takes full 64-bit multiplies and ran slower on the H100). Round constants
 // sit in constant memory (poseidon_constants.cuh).
@@ -46,14 +51,17 @@
 
 #include "goldilocks.cuh"
 #include "poseidon_constants.cuh"
+#include "poseidon_lane.cuh"
 
 namespace {
 
-constexpr int kWidth = 12;
-constexpr int kRate = 8;
-constexpr int kHalfFull = 4;
-constexpr int kPartial = 22;
-constexpr int kRounds = 30;
+using poseidon::kHalfFull;
+using poseidon::kPartial;
+using poseidon::kRate;
+using poseidon::kRounds;
+using poseidon::kWidth;
+using poseidon::sbox;
+
 constexpr int kMaxTreeStates = 128;
 constexpr int kTreeLanes = 4;  // K4 threads a state
 
@@ -67,15 +75,6 @@ __host__ __device__ constexpr uint64_t mds_coef(int r, int i) {
   return circ((i - r + kWidth) % kWidth) + ((r == 0 && i == 0) ? 8 : 0);
 }
 
-// The rounds carry non-canonical words (< 2^64); callers canon() what they
-// output.
-__device__ __forceinline__ uint64_t sbox(uint64_t x) {
-  const uint64_t x2 = gl::mul_nc(x, x);
-  const uint64_t x3 = gl::mul_nc(x2, x);
-  const uint64_t x6 = gl::mul_nc(x3, x3);
-  return gl::mul_nc(x6, x);
-}
-
 // Where a thread sits among the kLanes lanes of a warp that share one state:
 // lane q holds words kPer * q .. kPer * q + kPer - 1 (kPer = 12 / kLanes).
 template <int kLanes>
@@ -85,9 +84,9 @@ struct Lane {
   int first;      // warp lane of the state's part 0
   unsigned mask;  // the state's lanes, for __shfl_sync
   __device__ __forceinline__ Lane()
-      : q(kLanes == 1 ? 0 : threadIdx.x % kLanes),
-        first(kLanes == 1 ? 0 : threadIdx.x % 32 / kLanes * kLanes),
-        mask(kLanes == 1 ? 0u : ((1u << kLanes) - 1) << first) {}
+      : q(threadIdx.x % kLanes),
+        first(threadIdx.x % 32 / kLanes * kLanes),
+        mask(((1u << kLanes) - 1) << first) {}
 };
 
 // MDS layer: row r = sum_i (CIRC[(i - r) mod 12] + DIAG[r] [i == r]) s[i].
@@ -292,18 +291,17 @@ __global__ void k5_permute_kernel(const uint64_t* __restrict__ in, uint64_t* __r
                                   long long n, int grind, GrindArgs g, unsigned long long* best) {
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
-  const Lane<1> ln;
   uint64_t s[kWidth];
   if (grind) {
     const uint64_t cand = g.start + (uint64_t)j;
 #pragma unroll
     for (int i = 0; i < kWidth; i++) s[i] = i == g.pos ? cand : g.inter[i];
-    permute<1>(s, ln);
+    poseidon::permute(s, kRoundConstants);
     if (gl::canon(s[kRate - 1]) < g.threshold) atomicMin(best, (unsigned long long)cand);
   } else {
 #pragma unroll
     for (int i = 0; i < kWidth; i++) s[i] = in[(long long)i * n + j];
-    permute<1>(s, ln);
+    poseidon::permute(s, kRoundConstants);
 #pragma unroll
     for (int i = 0; i < kWidth; i++) out[(long long)i * n + j] = gl::canon(s[i]);
   }

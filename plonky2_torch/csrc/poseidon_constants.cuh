@@ -1,11 +1,20 @@
-// Poseidon-Goldilocks round constants in device constant memory. Generated
-// by `python -m plonky2_torch.hash.poseidon_constants` from
+// Poseidon-Goldilocks round constants (device constant memory under nvcc,
+// a host array otherwise) and the MDS layer's frequency-domain kernels.
+// Generated by `python -m plonky2_torch.hash.poseidon_constants` from
 // plonky2_torch/hash/poseidon_constants.py; do not edit.
 #pragma once
 
 #include <stdint.h>
 
-__constant__ uint64_t kRoundConstants[360] = {
+#ifdef __CUDACC__
+#define POSEIDON_CONSTANT __constant__
+#define POSEIDON_HD __host__ __device__
+#else
+#define POSEIDON_CONSTANT static const
+#define POSEIDON_HD
+#endif
+
+POSEIDON_CONSTANT uint64_t kRoundConstants[360] = {
     0xb585f766f2144405ull, 0x7746a55f43921ad7ull, 0xb2fb0d31cee799b4ull, 0x0f6760a4803427d7ull,
     0xe10d666650f4e012ull, 0x8cae14cb07d09bf1ull, 0xd438539c95f63e9full, 0xef781c7ce35b4c3dull,
     0xcdc4a239b0c44426ull, 0x277fa208bf337bffull, 0xe17653a29da578a1ull, 0xc54302f225db2c76ull,
@@ -97,3 +106,15 @@ __constant__ uint64_t kRoundConstants[360] = {
     0xaaed34074b164346ull, 0x8ffd96bbf9c9c81dull, 0x70fc91eb5937085cull, 0x7f795e2a5f915440ull,
     0x4543d9df5476d3cbull, 0xf172d73e004fc90dull, 0xdfd1c4febcc81238ull, 0xbc8dfb627fe558fcull,
 };
+
+// 3-point kernels at DFT frequencies 0, 2 and 1 (real, imaginary), with
+// the inverse DFT's 1/4 folded in; tap d multiplies input b - d.
+POSEIDON_HD constexpr int64_t kMdsFreq0(int d) { return d == 0 ? 16 : d == 1 ? 32 : 16; }
+POSEIDON_HD constexpr int64_t kMdsFreq2(int d) { return d == 0 ? -1 : d == 1 ? 8 : 2; }
+POSEIDON_HD constexpr int64_t kMdsFreq1Re(int d) { return d == 0 ? 2 : d == 1 ? -1 : -16; }
+POSEIDON_HD constexpr int64_t kMdsFreq1Im(int d) { return d == 0 ? 1 : d == 1 ? 4 : 1; }
+constexpr uint64_t kMdsDiag0 = 8;
+// For 32-bit halves every intermediate of the frequency-domain MDS, and
+// each output with the diagonal added, is below 2^kMdsFreqBoundBits in
+// magnitude (proved by the generator over all inputs).
+constexpr int kMdsFreqBoundBits = 41;

@@ -105,12 +105,11 @@ def fri_proof_of_work(challenger, config, device) -> int:
         pos = len(challenger.input_buffer)
         for i, x in enumerate(challenger.input_buffer):
             intermediate[i] = x
-        inter = g.tensor(intermediate, device)
         threshold = 1 << (64 - pow_bits)
-        chunk = GRIND_CHUNK_CUDA if inter.is_cuda else GRIND_CHUNK_CPU
+        chunk = GRIND_CHUNK_CUDA if torch.device(device).type == "cuda" else GRIND_CHUNK_CPU
         start = 0
         while True:
-            witness = kp.grind_chunk(inter, pos, start, chunk, threshold)
+            witness = kp.grind_chunk(intermediate, pos, start, chunk, threshold, device)
             if witness is not None:
                 break
             start += chunk

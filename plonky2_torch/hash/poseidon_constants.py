@@ -113,20 +113,157 @@ ALL_ROUND_CONSTANTS = [
 ]
 
 
+def _mds_freq_kernels():
+    """The 3-point kernels of the MDS layer's circulant part in the frequency
+    domain, derived from MDS_MATRIX_CIRC.
+
+    Row r of the circulant part is y[r] = sum_i CIRC[(i - r) mod 12] x[i],
+    the cyclic convolution y = h * x with h[k] = CIRC[-k mod 12]. With the
+    Good-Thomas map k <-> (k mod 4, k mod 3), i.e. k = (9a + 4b) mod 12, it
+    is a 4 x 3 two-dimensional cyclic convolution. A real 4-point DFT
+    (omega = -i) along a turns it into 3-point cyclic convolutions along b
+    at the frequencies 0 and 2 (real) and 1 (complex; 3 is its conjugate),
+    and the inverse DFT is y[a] = W0 + (-1)^a W2 + Re(i^a W1). The 1/4 of
+    the inverse is folded into the kernels: (F0, F2, F1) = (H0 / 4, H2 / 4,
+    H1 / 2) with H_f the DFT of h; they must be exact integers."""
+    h = [MDS_MATRIX_CIRC[-k % SPONGE_WIDTH] for k in range(SPONGE_WIDTH)]
+    omega = (0, -1)  # -i as (re, im)
+
+    def cmul(x, y):
+        return (x[0] * y[0] - x[1] * y[1], x[0] * y[1] + x[1] * y[0])
+
+    def dft(f):
+        out = []
+        for b in range(3):
+            acc, w = (0, 0), (1, 0)
+            step = (1, 0)
+            for _ in range(f):
+                step = cmul(step, omega)
+            for a in range(4):
+                v = h[mds_word(a, b)]
+                acc = (acc[0] + w[0] * v, acc[1] + w[1] * v)
+                w = cmul(w, step)
+            out.append(acc)
+        return out
+
+    h0, h1, h2 = dft(0), dft(1), dft(2)
+    assert all(z[1] == 0 and z[0] % 4 == 0 for z in h0 + h2)
+    assert all(z[0] % 2 == 0 and z[1] % 2 == 0 for z in h1)
+    return ([z[0] // 4 for z in h0], [z[0] // 4 for z in h2],
+            [z[0] // 2 for z in h1], [z[1] // 2 for z in h1])
+
+
+def mds_word(a: int, b: int) -> int:
+    """The state word k with k mod 4 = a and k mod 3 = b."""
+    return (9 * a + 4 * b) % SPONGE_WIDTH
+
+
+def mds_freq_symbolic(kernels):
+    """Run the frequency-domain MDS of `csrc/poseidon_lane.cuh` (`circ_freq`)
+    step by step on linear forms in the 12 inputs, in the kernel's order of
+    operations. Returns (the 12 output forms, every intermediate form)."""
+    f0, f2, f1r, f1i = kernels
+    n = SPONGE_WIDTH
+    seen = []
+
+    def form(v):
+        seen.append(v)
+        return v
+
+    def add(x, y):
+        return form([p + q for p, q in zip(x, y)])
+
+    def sub(x, y):
+        return form([p - q for p, q in zip(x, y)])
+
+    def mul(c, x):
+        return form([c * p for p in x])
+
+    v = [[int(i == k) for i in range(n)] for k in range(n)]
+    x0, x2, xr, xi = [], [], [], []
+    for b in range(3):
+        w = [v[mds_word(a, b)] for a in range(4)]
+        z0, z1, z2, z3 = add(w[0], w[2]), sub(w[0], w[2]), add(w[1], w[3]), sub(w[3], w[1])
+        x0.append(add(z0, z2))
+        x2.append(sub(z0, z2))
+        xr.append(z1)
+        xi.append(z3)
+    y = [None] * n
+    for b in range(3):
+        w0 = w2 = wr = wi = [0] * n
+        for d in range(3):
+            e = (b - d) % 3
+            w0 = add(w0, mul(f0[d], x0[e]))
+            w2 = add(w2, mul(f2[d], x2[e]))
+            wr = sub(add(wr, mul(f1r[d], xr[e])), mul(f1i[d], xi[e]))
+            wi = add(add(wi, mul(f1r[d], xi[e])), mul(f1i[d], xr[e]))
+        ev, od = add(w0, w2), sub(w0, w2)
+        y[mds_word(0, b)] = add(ev, wr)
+        y[mds_word(1, b)] = sub(od, wi)
+        y[mds_word(2, b)] = sub(ev, wr)
+        y[mds_word(3, b)] = add(od, wi)
+    return y, seen
+
+
+def mds_freq_bound_bits() -> int:
+    """Proves the frequency-domain MDS right and bounds it: its outputs are
+    the circulant rows for every input, and for inputs in [0, 2^32) (one
+    32-bit half of a word) every intermediate, and each output with the
+    diagonal term added, lies in (-2^bits, 2^bits). Returns bits."""
+    kernels = _mds_freq_kernels()
+    y, seen = mds_freq_symbolic(kernels)
+    n = SPONGE_WIDTH
+    for r in range(n):
+        assert y[r] == [MDS_MATRIX_CIRC[(i - r) % n] for i in range(n)], r
+    assert all(d == 0 for d in MDS_MATRIX_DIAG[1:])
+    seen.append([c + (MDS_MATRIX_DIAG[0] if i == 0 else 0) for i, c in enumerate(y[0])])
+    top = (1 << 32) - 1
+    most = max(max(sum(c for c in f if c > 0), -sum(c for c in f if c < 0)) * top
+               for f in seen)
+    bits = most.bit_length()
+    assert bits <= 42, "gl::reduce_small_nc takes halves below 2^42"
+    return bits
+
+
+def _hd_table(name: str, values) -> str:
+    body = " : ".join(f"d == {i} ? {v}" for i, v in enumerate(values[:-1]))
+    return f"POSEIDON_HD constexpr int64_t {name}(int d) {{ return {body} : {values[-1]}; }}"
+
+
 def cuda_header() -> str:
-    """The round constants as `plonky2_torch/csrc/poseidon_constants.cuh`:
+    """The round constants and the frequency-domain MDS kernels as
+    `plonky2_torch/csrc/poseidon_constants.cuh`:
 
         python -m plonky2_torch.hash.poseidon_constants > plonky2_torch/csrc/poseidon_constants.cuh
     """
     values = ALL_ROUND_CONSTANTS
-    lines = ["// Poseidon-Goldilocks round constants in device constant memory. Generated",
-             "// by `python -m plonky2_torch.hash.poseidon_constants` from",
+    f0, f2, f1r, f1i = _mds_freq_kernels()
+    bits = mds_freq_bound_bits()
+    lines = ["// Poseidon-Goldilocks round constants (device constant memory under nvcc,",
+             "// a host array otherwise) and the MDS layer's frequency-domain kernels.",
+             "// Generated by `python -m plonky2_torch.hash.poseidon_constants` from",
              "// plonky2_torch/hash/poseidon_constants.py; do not edit.",
              "#pragma once", "", "#include <stdint.h>", "",
-             f"__constant__ uint64_t kRoundConstants[{len(values)}] = {{"]
+             "#ifdef __CUDACC__",
+             "#define POSEIDON_CONSTANT __constant__",
+             "#define POSEIDON_HD __host__ __device__",
+             "#else",
+             "#define POSEIDON_CONSTANT static const",
+             "#define POSEIDON_HD",
+             "#endif", "",
+             f"POSEIDON_CONSTANT uint64_t kRoundConstants[{len(values)}] = {{"]
     for i in range(0, len(values), 4):
         lines.append("    " + ", ".join(f"0x{v:016x}ull" for v in values[i:i + 4]) + ",")
-    lines.append("};")
+    lines += ["};", "",
+              "// 3-point kernels at DFT frequencies 0, 2 and 1 (real, imaginary), with",
+              "// the inverse DFT's 1/4 folded in; tap d multiplies input b - d.",
+              _hd_table("kMdsFreq0", f0), _hd_table("kMdsFreq2", f2),
+              _hd_table("kMdsFreq1Re", f1r), _hd_table("kMdsFreq1Im", f1i),
+              f"constexpr uint64_t kMdsDiag0 = {MDS_MATRIX_DIAG[0]};",
+              "// For 32-bit halves every intermediate of the frequency-domain MDS, and",
+              "// each output with the diagonal added, is below 2^kMdsFreqBoundBits in",
+              "// magnitude (proved by the generator over all inputs).",
+              f"constexpr int kMdsFreqBoundBits = {bits};"]
     return "\n".join(lines) + "\n"
 
 

@@ -98,7 +98,7 @@ _U64 = ctypes.c_uint64
 _SIGNATURES = {
     "ntt": {
         "k2_ntt_rows": (_P, _P, _P, _P, _I, _I, _I, _I, _U64, _I, _P),
-        "k3_ntt_four_step": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "k3_ntt_four_step": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
     "poseidon": {
         "k4_tree": (_P, _P, _LL, _I, _I, _I, _I, _I, _P),

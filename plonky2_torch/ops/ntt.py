@@ -8,7 +8,8 @@ out to `fan` scaled copies) and, for fan > 1, the interleaved output layout
 out[p, k*fan + j] = NTT(x[p] * scale[j])[k]. K2 also takes the zero-tail
 form of a small LDE: `repeat_bits` = rb evaluates the m coefficients on the
 (m << rb)-point domain. K2 holds one transform per block, so it serves
-transforms of up to 2^MAX_SMEM_LG points; K3 serves the larger ones.
+transforms of up to 2^MAX_SMEM_LG points; K3 serves the larger ones in two
+launches.
 """
 
 from __future__ import annotations
@@ -187,7 +188,8 @@ def ntt_rows_plain(x, inverse: bool = False, scale=None, fan: int = 1,
 # -- K3 --------------------------------------------------------------------
 
 def ntt_four_step(x, inverse: bool = False, scale=None, fan: int = 1):
-    """K3: Bailey four-step transform for sizes beyond one block.
+    """K3: Bailey four-step transform for sizes beyond one block, in two
+    launches through a scratch buffer.
 
     x: [B, n] natural order. Output [B, n] (fan == 1) or the interleaved
     [B, n * fan]."""
@@ -196,7 +198,7 @@ def ntt_four_step(x, inverse: bool = False, scale=None, fan: int = 1):
         return ntt_four_step_plain(x, inverse, scale, fan)
     B0, n = x.shape
     lg_n = log2_strict(n)
-    if lg_n < 2 or (lg_n + 1) // 2 > MAX_SMEM_LG:
+    if lg_n < 2 or lg_n > 2 * MAX_SMEM_LG:
         raise ValueError(f"ntt_four_step takes 2^2..2^{2 * MAX_SMEM_LG} points")
     out = torch.empty((B0, n * fan), dtype=torch.int64, device=x.device)
     if B0 == 0:
@@ -207,9 +209,9 @@ def ntt_four_step(x, inverse: bool = False, scale=None, fan: int = 1):
         stage_twiddles(x.device, inverse).data_ptr(),
         four_step_twiddles(lg_n, inverse, x.device).data_ptr(),
         None if scale is None else scale.data_ptr(),
-        B0 * fan, lg_n, fan, stream_ptr(x))
+        B0 * fan, lg_n, fan, int(inverse), stream_ptr(x))
     check(err, "k3_ntt_four_step")
-    K3.launches += 1
+    K3.launches += 2
     return out
 
 

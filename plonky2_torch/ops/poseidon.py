@@ -103,12 +103,20 @@ def sponge_plain(cols):
     return state[:4]
 
 
-def grind_chunk_plain(inter, pos: int, start: int, count: int, threshold: int):
+def _check_inter(inter):
+    if len(inter) != W or not all(0 <= int(v) < 1 << 64 for v in inter):
+        raise ValueError("inter must be 12 ints in [0, 2^64)")
+
+
+def grind_chunk_plain(inter, pos: int, start: int, count: int, threshold: int,
+                      device="cpu"):
     """Plain PyTorch version of K5's grind mode: the lowest candidate c in
     [start, start + count) whose permuted state[7] is below `threshold`
-    (u64 compare), or None."""
-    cand = torch.arange(count, dtype=torch.int64, device=inter.device) + g.i64(start)
-    states = inter[:, None].expand(W, count).clone()
+    (u64 compare), or None. `inter` is the transcript state (pending inputs
+    written in) as 12 host ints."""
+    _check_inter(inter)
+    cand = torch.arange(count, dtype=torch.int64, device=device) + g.i64(start)
+    states = g.tensor(list(inter), device)[:, None].expand(W, count).clone()
     states[pos] = cand
     resp = permute_plain(states)[SPONGE_RATE - 1]
     ok = torch.nonzero(g.lt(resp, g.i64(threshold)))
@@ -249,18 +257,19 @@ def permute(states):
     return out
 
 
-def grind_chunk(inter, pos: int, start: int, count: int, threshold: int):
-    """K5 in grind mode over candidates [start, start + count): the lowest
-    valid witness of the chunk, or None. `inter` is the [12] transcript
-    state (pending inputs written in) on the device that grinds."""
-    if inter.shape != (W,) or inter.dtype != torch.int64:
-        raise ValueError("inter must be a [12] int64 tensor")
-    if not inter.is_cuda:
-        return grind_chunk_plain(inter, pos, start, count, threshold)
-    host = (ctypes.c_uint64 * W)(*[g.u64(v) for v in inter.tolist()])
-    best = torch.full((1,), _NONE, dtype=torch.int64, device=inter.device)
+def grind_chunk(inter, pos: int, start: int, count: int, threshold: int, device="cuda"):
+    """K5 in grind mode over candidates [start, start + count) on `device`:
+    the lowest valid witness of the chunk, or None. `inter` is the
+    transcript state (pending inputs written in) as 12 host ints; the one
+    synchronisation is the read of the witness."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return grind_chunk_plain(inter, pos, start, count, threshold, device)
+    _check_inter(inter)
+    host = (ctypes.c_uint64 * W)(*[int(v) for v in inter])
+    best = torch.full((1,), _NONE, dtype=torch.int64, device=device)
     err = library("poseidon").k5_grind(host, pos, start, count, threshold, best.data_ptr(),
-                                       stream_ptr(inter))
+                                       stream_ptr(best))
     check(err, "k5_grind")
     K5.launches += 1
     found = int(best.item())

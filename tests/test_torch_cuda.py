@@ -49,11 +49,30 @@ def test_k2_lde_forms_match_plain(dev):
                        kn.ntt_rows_plain(y, scale=s, repeat_bits=3))
 
 
-@pytest.mark.parametrize("lg", [14, 16])
+@pytest.mark.parametrize("lg", [14, 15, 16, 17, 18, 19, 20])
 def test_k3_four_step_matches_plain(dev, lg):
-    x = _rand(dev, (2, 1 << lg), lg)
-    for inverse in (False, True):
-        assert torch.equal(kn.ntt_four_step(x, inverse), kn.ntt_four_step_plain(x, inverse))
+    # every size from 2^14 (odd and even splits), the interleaved LDE
+    # layout at fans 2 and 8
+    gen = fs.MULTIPLICATIVE_GROUP_GENERATOR
+    for fan in (1, 2, 8):
+        table = (ntt._lde_coset_scale_table(gen, lg, fan.bit_length() - 1, str(dev))
+                 if fan > 1 else None)
+        for batch in (1, 2):
+            x = _rand(dev, (batch, 1 << lg), lg + fan + batch)
+            for inverse in (False, True):
+                assert torch.equal(kn.ntt_four_step(x, inverse, table, fan),
+                                   kn.ntt_four_step_plain(x, inverse, table, fan))
+
+
+def test_k3_quotient_shape_and_launch_count(dev):
+    # [16, 2^16], the quotient's coset iFFT shape: two launches per call
+    from plonky2_torch.ops import K3
+
+    x = _rand(dev, (16, 1 << 16), 16)
+    before = K3.launches
+    got = kn.ntt_four_step(x, inverse=True)
+    assert K3.launches == before + 2
+    assert torch.equal(got, kn.ntt_four_step_plain(x, inverse=True))
 
 
 @pytest.mark.parametrize("lg", [1, 6, 10, 13])
@@ -91,8 +110,25 @@ def test_k4_trees_match_plain(dev, natural, width, lg_n, cap_height):
 def test_k5_permute_and_grind_match_plain(dev):
     states = _rand(dev, (12, 1000), 3)
     assert torch.equal(kp.permute(states), kp.permute_plain(states))
-    inter = _rand(dev, (12,), 4)
+    inter = [g.u64(int(v)) for v in _rand("cpu", (12,), 4)]
     for pos, bits in ((0, 6), (7, 10)):
         thr = 1 << (64 - bits)
-        assert (kp.grind_chunk(inter, pos, 0, 1 << 12, thr)
-                == kp.grind_chunk_plain(inter, pos, 0, 1 << 12, thr))
+        assert (kp.grind_chunk(inter, pos, 0, 1 << 12, thr, dev)
+                == kp.grind_chunk_plain(inter, pos, 0, 1 << 12, thr, dev))
+
+
+@pytest.mark.parametrize("threshold", [0, 1 << 63, 1 << 48])
+def test_k5_grind_thresholds_match_plain(dev, threshold):
+    # 0: no candidate meets it (None); 2^63: 1 bit; 2^48: 16 bits
+    inter = [g.u64(int(v)) for v in _rand("cpu", (12,), 5)]
+    want = kp.grind_chunk_plain(inter, 5, 0, 1 << 17, threshold, dev)
+    assert kp.grind_chunk(inter, 5, 0, 1 << 17, threshold, dev) == want
+    assert (want is None) == (threshold == 0)
+
+
+def test_k5_permute_edge_states_match_plain(dev):
+    p = fs.P
+    cols = [[0] * 12, [p - 1] * 12, [(1 << 32) - 1] * 12, [1 << 63] * 12,
+            [p - 1 if i % 2 else (1 << 32) - 1 for i in range(12)]]
+    states = g.tensor([[c[i] for c in cols] for i in range(12)], dev)
+    assert torch.equal(kp.permute(states), kp.permute_plain(states))

@@ -49,15 +49,34 @@ def test_lde_both_forms_match_reference(lg_m):
     _same(tntt.lde_fft(t, 3, shift=5), lde(j, 3, 5))
 
 
-def test_four_step_plain_matches_reference_fft():
-    # K3's plain version at sizes the tests can afford (the kernel serves
-    # > 2^13 points; the algebra does not depend on the size)
-    for lg in (10, 11):
-        x = _rand(lg, (2, 1 << lg))
-        t = tg.tensor(x, "cpu")
-        j = jnp.asarray(x)
-        _same(kn.ntt_four_step_plain(t), jax.jit(jntt.fft)(j))
-        _same(kn.ntt_four_step_plain(t, inverse=True), jax.jit(jntt.ifft)(j))
+@pytest.mark.parametrize("lg", [10, 11, 14, 16])
+def test_four_step_plain_matches_reference_fft(lg):
+    # K3's plain version on the kernel's split (lg a = ceil(lg n / 2)), up to
+    # 2^16 points (the main path's size)
+    x = _rand(lg, (2, 1 << lg))
+    t = tg.tensor(x, "cpu")
+    j = jnp.asarray(x)
+    _same(kn.ntt_four_step_plain(t), jax.jit(jntt.fft)(j))
+    _same(kn.ntt_four_step_plain(t, inverse=True), jax.jit(jntt.ifft)(j))
+
+
+@pytest.mark.parametrize("lg_n", [10, 16, 17])
+def test_four_step_twiddles_are_powers_on_the_split(lg_n):
+    # entry (k1, i2) of the [a, b] table is w^(k1*i2), times 1/n for the inverse
+    lg_a = (lg_n + 1) // 2
+    b = 1 << (lg_n - lg_a)
+    w = fs.primitive_root_of_unity(lg_n)
+    rng = np.random.default_rng(lg_n)
+    picks = [(0, 0), ((1 << lg_a) - 1, b - 1)] + [
+        (int(k1), int(i2)) for k1, i2 in zip(rng.integers(0, 1 << lg_a, 16),
+                                             rng.integers(0, b, 16))]
+    for inverse in (False, True):
+        table = tg.to_numpy(kn.four_step_twiddles(lg_n, inverse, "cpu")).reshape(-1, b)
+        assert table.shape == (1 << lg_a, b)
+        root = fs.inverse(w) if inverse else w
+        unit = fs.inverse(1 << lg_n) if inverse else 1
+        for k1, i2 in picks:
+            assert int(table[k1, i2]) == unit * pow(root, k1 * i2, fs.P) % fs.P
 
 
 def test_four_step_plain_interleaved_lde_matches_rows_plain():
@@ -65,6 +84,20 @@ def test_four_step_plain_interleaved_lde_matches_rows_plain():
     table = tntt._lde_coset_scale_table(GEN, 10, 2, "cpu")
     want = kn.ntt_rows_plain(x, scale=table, fan=4)
     _same(kn.ntt_four_step_plain(x, scale=table, fan=4), tg.to_numpy(want))
+
+
+@pytest.mark.parametrize("fan", [2, 8])
+def test_four_step_plain_interleaved_lde_at_2_14_matches_definition(fan):
+    """The interleaved LDE as ntt_rows_plain defines it, out[p, k*fan + j] =
+    NTT(x[p] * scale[j])[k], at m = 2^14 (beyond K2), with the reference's
+    fft and Python-int scaling."""
+    lg_m, rate_bits = 14, fan.bit_length() - 1
+    x = _rand(300 + fan, (2, 1 << lg_m))
+    table = tntt._lde_coset_scale_table(GEN, lg_m, rate_bits, "cpu")
+    got = tg.to_numpy(kn.ntt_four_step_plain(tg.tensor(x, "cpu"), scale=table, fan=fan))
+    scaled = (x.astype(object)[:, None, :] * tg.to_numpy(table).astype(object)[None]) % fs.P
+    ffts = np.asarray(jax.jit(jntt.fft)(jnp.asarray(scaled.astype(np.uint64))))  # [2, fan, m]
+    np.testing.assert_array_equal(got, ffts.transpose(0, 2, 1).reshape(2, -1))
 
 
 def test_rows_plain_matches_interpret_mode_pallas_kernel():

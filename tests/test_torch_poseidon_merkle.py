@@ -79,7 +79,8 @@ def test_grind_plain_finds_the_lowest_witness():
     inter = [int(v) for v in _rand(11, (12,))]
     pos, bits = 3, 6
     threshold = 1 << (64 - bits)
-    got = kp.grind_chunk_plain(tg.tensor(inter, "cpu"), pos, 0, 1 << 9, threshold)
+    got = kp.grind_chunk_plain(inter, pos, 0, 1 << 9, threshold)
+    assert kp.grind_chunk(inter, pos, 0, 1 << 9, threshold, "cpu") == got
     for c in range(got + 1):
         s = list(inter)
         s[pos] = c
@@ -105,6 +106,66 @@ def test_cuda_constants_header_is_generated_from_the_tables():
 
     header = Path(tm.__file__).resolve().parent.parent / "csrc" / "poseidon_constants.cuh"
     assert header.read_text() == pc.cuda_header()
+    # the frequency-domain MDS: its kernels are in the header, its symbolic
+    # run gives the circulant rows, and its intermediates fit in int64
+    f0, f2, f1r, f1i = pc._mds_freq_kernels()
+    for name, taps in (("kMdsFreq0", f0), ("kMdsFreq2", f2), ("kMdsFreq1Re", f1r),
+                       ("kMdsFreq1Im", f1i)):
+        assert f"{name}(int d) {{ return d == 0 ? {taps[0]} : d == 1 ? {taps[1]} : {taps[2]}; }}" \
+            in header.read_text()
+    y, seen = pc.mds_freq_symbolic(pc._mds_freq_kernels())
+    assert y == [[pc.MDS_MATRIX_CIRC[(i - r) % 12] for i in range(12)] for r in range(12)]
+    bits = pc.mds_freq_bound_bits()
+    assert f"constexpr int kMdsFreqBoundBits = {bits};" in header.read_text()
+    assert bits <= 42 < 63
+    assert max(abs(c) for f in seen for c in f) << 32 < 1 << bits
+
+
+_DRIVER = r"""
+#include <cstdio>
+#include "poseidon_lane.cuh"
+int main() {
+  unsigned long long v;
+  uint64_t s[12];
+  for (;;) {
+    for (int i = 0; i < 12; i++) {
+      if (scanf("%llu", &v) != 1) return 0;
+      s[i] = v;
+    }
+    poseidon::permute(s, kRoundConstants);
+    for (int i = 0; i < 12; i++)
+      printf("%llu%c", (unsigned long long)gl::canon(s[i]), i == 11 ? '\n' : ' ');
+  }
+}
+"""
+
+
+def test_one_lane_permutation_header_matches_reference_on_host(tmp_path):
+    """K5's round function (csrc/poseidon_lane.cuh, frequency-domain MDS)
+    compiled as host C++ by g++, against the reference permutation on 64
+    seeded random states and the edge states; exact equality."""
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to compile the host driver")
+    csrc = Path(kp.__file__).resolve().parent.parent / "csrc"
+    (tmp_path / "driver.cpp").write_text(_DRIVER)
+    exe = tmp_path / "driver"
+    subprocess.run([gxx, "-std=c++17", "-O1", "-I", str(csrc), "-o", str(exe),
+                    str(tmp_path / "driver.cpp")], check=True, capture_output=True, timeout=120)
+    states = [[int(v) for v in col] for col in _rand(64, (12, 64)).T]
+    for word in (0, fs.P - 1, (1 << 32) - 1, 1 << 63, fs.P):  # fs.P: a non-canonical input
+        states.append([word] * 12)
+    states.append([fs.P - 1 if i % 2 else (1 << 32) - 1 for i in range(12)])
+    text = "\n".join(" ".join(map(str, s)) for s in states) + "\n"
+    out = subprocess.run([str(exe)], input=text, capture_output=True, text=True, check=True,
+                         timeout=60).stdout.split("\n")
+    for s, line in zip(states, out):
+        assert [int(v) for v in line.split()] == jp.permute([v % fs.P for v in s]), s
+    assert len([line for line in out if line]) == len(states)
 
 
 def _ref_tree(leaves, cap_height, natural):
