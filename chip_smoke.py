@@ -6,12 +6,21 @@
                                           # checkout at DIR (e.g. the parent commit)
 
 In order: prints the card's name and power limit; builds the CUDA kernels
-from `plonky2_torch/csrc/` (timed); runs `commit_and_open` at the
-bench_recursion middle-circuit shapes (degree 2^13, oracles of
-85/135/20/16 polynomials) with every launch count set to 0 just before and
-read just after, requires each kernel to have launched and the proof's
-sha256 to be the pinned one (five warm runs, their median wall and each),
-and profiles one more; holds each kernel K2-K5 against its plain PyTorch
+from `plonky2_torch/csrc/` (timed); proves the factorial circuit on the card
+from the port's committed data and requires the bytes of
+`fixtures/factorial.proof.bin`, then proves it on the CPU (plain versions)
+to the same bytes; reads the bench_recursion middle circuit
+(`bench_cache/middle14.circuit.bin`, timed), requires its constants-sigmas
+commitment's cap to equal the file's verifier cap, draws a witness from
+seed 2026 and proves it (the main path): one unrecorded warm-up prove, then
+MIDDLE_PROVES timed proves, each with every launch count set to 0 just
+before and read just after, every kernel launched and the proof's sha256
+the pinned one, the median wall and the phase split (the device
+synchronised at each phase's start and end); profiles one more prove; runs
+`commit_and_open` at the bench_recursion middle-circuit shapes (degree
+2^13, oracles of 85/135/20/16 polynomials) with the counts set to 0 just
+before and read just after each of its runs and its pinned sha256, and
+profiles one more; holds each kernel K2-K5 against its plain PyTorch
 version on the same card input at the main path's full shapes (exact
 equality) and times both with CUDA events; checks K2 at every fan
 (1, 2, 4, 8, 16) and size (2^1..2^13) and the zero-tail form, K3 at every
@@ -24,12 +33,14 @@ ways (one bare grind launch where no candidate passes and at 16 bits, the
 `grind_chunk` wrapper, and the permute mode on [12, 2^17]); runs `commit_and_open` at
 degree 2^10 on the card and on the CPU (plain versions) and requires
 identical proof bytes. The line before the last is the `kernels` JSON
-object, the last line the ok JSON object. Any failed check exits non-zero
-and prints no result. Imports nothing of JAX.
+object (launches: the middle prove's), the last line the ok JSON object.
+Any failed check exits non-zero and prints no result. Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -55,8 +66,13 @@ OPS_PER_PERMUTATION = (8 * 12 + 22) * 4 * OPS_PER_MODMUL + 30 * 182
 OPS_PER_PERMUTATION_DENSE = (8 * 12 + 22) * 4 * OPS_PER_MODMUL + 30 * 144 * 2
 GRIND_CHUNK = 1 << 17
 SEED = 2026
-MIDDLE_SHA256 = "757e4d01343c"  # the middle-shape proof's sha256 (prefix), seed 2026
+MIDDLE_SHA256 = "757e4d01343c"  # the middle-shape commit_and_open's sha256 (prefix), seed 2026
 MIDDLE_RUNS = 5
+# the middle circuit's proof under random_witness(common, 2026): the port's
+# plain path and the reference's host path give it on the CPU
+# (tests/reference_prove_middle.py)
+MIDDLE_PROVE_SHA256 = "0759dc2ebfa4f3097d596d1633f22fa013534b750fe1ba265a2fee16038a23ea"
+MIDDLE_PROVES = 5
 
 
 def fail(msg: str) -> int:
@@ -151,10 +167,11 @@ def profiled(torch, run):
     return kernels
 
 
-def profile_line(torch, run, wall_s: float) -> None:
+def profile_line(torch, run, wall_s: float, label: str) -> None:
     """One run under the CUDA profiler (kernels only, no CPU-op recording):
     the kernels' summed device time against the unprofiled wall time, the
-    number of kernel launches, and the kernels with the most device time."""
+    number of kernel launches, the kernels with the most device time, and
+    each port kernel's device time and launches."""
     kernels = profiled(torch, run)
 
     def dev_us(e):
@@ -162,11 +179,12 @@ def profile_line(torch, run, wall_s: float) -> None:
 
     device_ms = sum(dev_us(e) for e in kernels) / 1e3
     if device_ms == 0:
-        print("profile: device time not measured (the profiler saw no kernels)")
+        print(f"profile {label}: device time not measured (the profiler saw no kernels)")
         return
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
     tops = ", ".join(f"{e.key[:40]} {dev_us(e) / 1e3:.3f} ms x{e.count}" for e in top)
-    print(f"profile: kernels busy the device {device_ms:.3f} ms of the {wall_s * 1e3:.1f} ms "
+    print(f"profile {label}: kernels busy the device {device_ms:.3f} ms of the "
+          f"{wall_s * 1e3:.1f} ms "
           f"unprofiled wall ({device_ms / (wall_s * 1e3):.1%}); "
           f"{sum(e.count for e in kernels)} kernel launches; top device time: {tops}")
     ported = {}
@@ -175,8 +193,20 @@ def profile_line(torch, run, wall_s: float) -> None:
             if kid in e.key:
                 ms, n = ported.get(kid[:2].upper(), (0.0, 0))
                 ported[kid[:2].upper()] = (ms + dev_us(e) / 1e3, n + e.count)
-    print("profile: port kernels' device time on the middle run: " + ", ".join(
+    print(f"profile {label}: port kernels' device time: " + ", ".join(
         f"{k} {ms:.3f} ms over {n} launches" for k, (ms, n) in sorted(ported.items())))
+
+
+@contextlib.contextmanager
+def one_cpu_thread(torch):
+    """Plain CPU runs take one intra-op thread: the plain Poseidon grind's
+    small chunks run faster on one thread than spread over every core."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def device_ms(torch, fn, key: str, calls: int = 20):
@@ -195,8 +225,10 @@ def device_ms(torch, fn, key: str, calls: int = 20):
 def kernel_times(torch, dev, kn, kp, build, stream_ptr, wrapper: bool) -> dict:
     """K3's and K5's times at the shapes compared across versions, on the
     checkout whose modules are passed (this one, or one given with
-    --times): K3 inverse at [2, 2^16] (the main path's), [16, 2^16] (the
-    quotient's coset iFFT) and [1, 2^20] (a larger circuit's); K5 as (i)
+    --times): K3 inverse at [2, 2^16] (the main path's: the quotient's and
+    the FRI batch quotient's coset iFFTs), [16, 2^16] (on no path; the
+    batch earlier records took for the quotient's) and [1, 2^20] (a larger
+    circuit's); K5 as (i)
     one bare grind launch of 2^17 candidates at a
     threshold no candidate meets, so that every permutation runs, (ii) the
     same launch at 16 bits, (iii) the grind_chunk wrapper at 16 bits, with
@@ -287,6 +319,10 @@ def main() -> int:
         from plonky2_torch.ops import build
         from plonky2_torch.ops import ntt as kn
         from plonky2_torch.ops import poseidon as kp
+        from plonky2_torch.plonk import prover as tp
+        from plonky2_torch.plonk.prover_serialization import read_circuit_data, read_prover_data
+        from plonky2_torch.plonk.serialization import proof_to_bytes
+        from plonky2_torch.util import TimingTree
     except ImportError as e:
         return fail(f"the port cannot be imported here ({e})")
 
@@ -337,7 +373,88 @@ def main() -> int:
         results[kernel.kid] = dict(mismatches=mism, max_abs_err=err, ms=ms,
                                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
-    # the main path at the middle-circuit shapes
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def read(*parts) -> bytes:
+        with open(os.path.join(root, *parts), "rb") as f:
+            return f.read()
+
+    # the factorial circuit (degree 2^6, its real witness) on the card and
+    # on the CPU, each to the fixture's bytes
+    fact_prover, fact_common = read_prover_data(read("plonky2_torch", "data",
+                                                     "factorial.prover.bin"))
+    w = np.load(os.path.join(root, "plonky2_torch", "data", "factorial.witness.npz"))
+    fact_args = (fact_prover, fact_common, w["witness"], [int(v) for v in w["public_inputs"]],
+                 [int(v) for v in w["public_inputs_hash"]])
+    fixture = read("fixtures", "factorial.proof.bin")
+    t0 = time.perf_counter()
+    fact_card = proof_to_bytes(tp.prove(*fact_args, device=dev))
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with one_cpu_thread(torch):
+        fact_cpu = proof_to_bytes(tp.prove(*fact_args, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    print(f"factorial prove (2^6): card {card_s:.2f} s (first call), cpu {cpu_s:.1f} s; "
+          f"card = fixture: {fact_card == fixture}, cpu = fixture: {fact_cpu == fixture} "
+          f"(sha256 {hashlib.sha256(fact_card).hexdigest()[:16]})")
+    if fact_card != fixture:
+        failures.append("the factorial proof on the card is not fixtures/factorial.proof.bin")
+    if fact_cpu != fixture:
+        failures.append("the factorial proof on the CPU is not fixtures/factorial.proof.bin")
+
+    # the main path: the bench_recursion middle circuit, proved on the card
+    blob = read("bench_cache", "middle14.circuit.bin")
+    t0 = time.perf_counter()
+    prover_only, common, verifier_only = read_circuit_data(blob)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cap = prover_only.commitment(common, dev).merkle_tree.cap
+    commit_s = time.perf_counter() - t0
+    print(f"middle circuit: read {len(blob)} bytes in {read_s:.3f} s (generators stepped "
+          f"over); constants-sigmas commitment {commit_s:.3f} s (first call, the build-time "
+          f"work); its cap equals the file's verifier cap: "
+          f"{cap == verifier_only.constants_sigmas_cap}")
+    if cap != verifier_only.constants_sigmas_cap:
+        failures.append("the middle circuit's constants-sigmas cap is not the file's")
+    witness, public_inputs, pi_hash = tp.random_witness(common, SEED)
+
+    def middle_prove(timing=None):
+        return proof_to_bytes(tp.prove(prover_only, common, witness, public_inputs, pi_hash,
+                                       device=dev, timing=timing))
+
+    t0 = time.perf_counter()
+    middle_prove()  # warm-up: per-circuit tables, allocator
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    prove_walls, splits = [], []
+    for _ in range(MIDDLE_PROVES):
+        timing = TimingTree("prove", sync=torch.cuda.synchronize)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        proof = middle_prove(timing)
+        torch.cuda.synchronize()
+        prove_walls.append(time.perf_counter() - t0)
+        launches = {k.kid: k.launches for k in ops.KERNELS}
+        splits.append(timing.split())
+        if hashlib.sha256(proof).hexdigest() != MIDDLE_PROVE_SHA256:
+            failures.append(f"a middle proof's sha256 is {hashlib.sha256(proof).hexdigest()}, "
+                            f"not {MIDDLE_PROVE_SHA256}")
+    prove_s = statistics.median(prove_walls)
+    split = {k: statistics.median(sp[k] for sp in splits) for k in splits[0]}
+    print(f"middle prove (2^13, 135 wires, 12 gates, Q = 2^16): {prove_s:.3f} s median wall "
+          f"of {[round(x, 3) for x in prove_walls]} (warm-up {warmup_s:.3f} s), "
+          f"{len(proof)} proof bytes, sha256 {hashlib.sha256(proof).hexdigest()}, "
+          f"launches {launches}")
+    print("middle prove phases, median s, the device synchronised at each phase's start "
+          "and end: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f"; outside the phases {prove_s - sum(split.values()):.4f}")
+    for kid, n in launches.items():
+        if n == 0:
+            failures.append(f"{kid} was not launched on the middle prove")
+    profile_line(torch, middle_prove, prove_s, "middle prove")
+    prove_launches = launches
+
+    # commit_and_open at the middle-circuit shapes
     config = co.middle_fri_config()
     inputs = co.random_inputs(co.MIDDLE_DEGREE_BITS, co.MIDDLE_COUNTS, seed=SEED)
     t0 = time.perf_counter()
@@ -364,8 +481,9 @@ def main() -> int:
         failures.append(f"the middle-shape proof's sha256 is not {MIDDLE_SHA256}...")
     for kid, n in launches.items():
         if n == 0:
-            failures.append(f"{kid} was not launched on the main path")
-    profile_line(torch, lambda: co.commit_and_open(inputs, config, device=dev), wall_s)
+            failures.append(f"{kid} was not launched on commit_and_open")
+    profile_line(torch, lambda: co.commit_and_open(inputs, config, device=dev), wall_s,
+                 "commit_and_open")
 
     # K2 at the main path's shapes: the 135-poly coset LDE (2^13 -> 2^16,
     # 8 cosets, fused scale + cluster epilogue), the iFFT, the zero tail
@@ -430,18 +548,18 @@ def main() -> int:
     if k3_mism:
         failures.append("K3 disagrees with its plain version at some size, fan or batch")
     times = kernel_times(torch, dev, kn, kp, build, ops.stream_ptr, wrapper=True)
-    # the 2^16-point coset iFFT of prove_openings (q0, q1 together), and the
-    # quotient's [16, 2^16]
+    # the 2^16-point coset iFFTs of the quotient and of prove_openings (two
+    # rows each), and [16, 2^16], which no path runs
     y = rand((2, 1 << 16))
     y16 = rand((16, 1 << 16))
     inv = (lambda: kn.ntt_four_step(y, inverse=True),
            lambda: kn.ntt_four_step_plain(y, inverse=True))
 
-    def k3_bound(batch):
+    def k3_bound(batch, lg=16):
         """(bytes, operations): input and output once each; n/2 lg n
         butterfly multiplies and n twiddle multiplies a row."""
-        n = 1 << 16
-        return 8 * 2 * batch * n, OPS_PER_MODMUL * batch * (n // 2 * 16 + n)
+        n = 1 << lg
+        return 8 * 2 * batch * n, OPS_PER_MODMUL * batch * (n // 2 * lg + n)
 
     check(ops.K3, [("inverse [2, 2^16]", *inv),
                    ("forward [2, 2^16]", lambda: kn.ntt_four_step(y),
@@ -450,14 +568,17 @@ def main() -> int:
                     lambda: kn.ntt_four_step_plain(y16, inverse=True))],
           inv, *k3_bound(2), ms=times["k3_inverse_2x2^16"])
     b16 = bound_ms(*k3_bound(16))
+    b20 = bound_ms(*k3_bound(1, 20))
     results["K3"].update(ms_16x2_16=times["k3_inverse_16x2^16"], bound_ms_16x2_16=b16[0],
                          bound_by_16x2_16=b16[1], device_ms=times["k3_inverse_2x2^16_device"],
                          device_ms_16x2_16=times["k3_inverse_16x2^16_device"],
                          ms_1x2_20=times["k3_inverse_1x2^20"],
-                         device_ms_1x2_20=times["k3_inverse_1x2^20_device"])
+                         device_ms_1x2_20=times["k3_inverse_1x2^20_device"],
+                         bound_ms_1x2_20=b20[0], bound_by_1x2_20=b20[1])
     print(f"K3 inverse [16, 2^16]: {times['k3_inverse_16x2^16']:.4f} ms kernel, "
           f"bound {b16[0]:.4f} ms ({b16[1]}); inverse [1, 2^20]: "
-          f"{times['k3_inverse_1x2^20']:.4f} ms; profiler device time a call "
+          f"{times['k3_inverse_1x2^20']:.4f} ms, bound {b20[0]:.4f} ms ({b20[1]}); "
+          f"profiler device time a call "
           f"{times['k3_inverse_2x2^16_device']} ms at [2, 2^16], "
           f"{times['k3_inverse_16x2^16_device']} ms at [16, 2^16], "
           f"{times['k3_inverse_1x2^20_device']} ms at [1, 2^20]")
@@ -557,7 +678,8 @@ def main() -> int:
     small_inputs = co.random_inputs(10, co.MIDDLE_COUNTS, seed=SEED + 1)
     on_card = co.commit_and_open(small_inputs, config, device=dev)
     t0 = time.perf_counter()
-    on_cpu = co.commit_and_open(small_inputs, config, device="cpu")
+    with one_cpu_thread(torch):
+        on_cpu = co.commit_and_open(small_inputs, config, device="cpu")
     cpu_s = time.perf_counter() - t0
     h_card = hashlib.sha256(on_card).hexdigest()
     h_cpu = hashlib.sha256(on_cpu).hexdigest()
@@ -574,10 +696,10 @@ def main() -> int:
     for k in ops.KERNELS:
         r = results[k.kid]
         kernels.append({"name": f"{k.kid} {k.name}", "route": "cuda", "source": k.source,
-                        "replaces": k.replaces, "launches": launches[k.kid],
+                        "replaces": k.replaces, "launches": prove_launches[k.kid],
                         **r, "library_ms": None})
-    print(json.dumps({"kernels": kernels, "card": card,
-                      "commit_and_open_middle_s": wall_s}))
+    print(json.dumps({"kernels": kernels, "card": card, "middle_prove_s": prove_s,
+                      "middle_prove_phases_s": split, "commit_and_open_middle_s": wall_s}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

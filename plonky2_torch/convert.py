@@ -1,7 +1,8 @@
 """Carry state into the port: numpy uint64 arrays <-> the port's int64
 tensors, and FRI parameters given by any object with the reference's field
 names (for example the reference package's FriConfig/FriParams) -> the
-port's dataclasses. Reads attributes only; imports nothing outside the port."""
+port's dataclasses, and the reference's gates and circuit data -> the
+port's. Reads attributes only; imports nothing outside the port."""
 
 from __future__ import annotations
 
@@ -29,3 +30,79 @@ def fri_params(p) -> FriParams:
     return FriParams(config=fri_config(p.config), hiding=p.hiding,
                      degree_bits=p.degree_bits,
                      reduction_arity_bits=tuple(p.reduction_arity_bits))
+
+
+def gate_from_reference(gate):
+    """The port's gate for a reference gate object (by class name and
+    fields). Raises NotImplementedError for a gate the port lacks."""
+    from plonky2_torch.gates import (
+        arithmetic_base,
+        arithmetic_extension,
+        base_sum,
+        coset_interpolation,
+        poseidon_gate,
+        random_access,
+        reducing,
+        simple_gates,
+    )
+
+    make = {
+        "NoopGate": lambda: simple_gates.NoopGate(),
+        "ConstantGate": lambda: simple_gates.ConstantGate(gate.num_consts),
+        "PublicInputGate": lambda: simple_gates.PublicInputGate(),
+        "ArithmeticGate": lambda: arithmetic_base.ArithmeticGate(gate.num_ops),
+        "ArithmeticExtensionGate":
+            lambda: arithmetic_extension.ArithmeticExtensionGate(gate.num_ops),
+        "MulExtensionGate": lambda: arithmetic_extension.MulExtensionGate(gate.num_ops),
+        "BaseSumGate": lambda: base_sum.BaseSumGate(gate.num_limbs, gate.base),
+        "ReducingGate": lambda: reducing.ReducingGate(gate.num_coeffs),
+        "ReducingExtensionGate": lambda: reducing.ReducingExtensionGate(gate.num_coeffs),
+        "RandomAccessGate": lambda: random_access.RandomAccessGate(
+            gate.bits, gate.num_copies, gate.num_extra_constants),
+        "CosetInterpolationGate": lambda: coset_interpolation.CosetInterpolationGate(
+            gate.subgroup_bits, gate.degree()),
+        "PoseidonGate": lambda: poseidon_gate.PoseidonGate(),
+    }.get(type(gate).__name__)
+    if make is None:
+        raise NotImplementedError(f"{type(gate).__name__} is not ported")
+    return make()
+
+
+def circuit_from_reference(prover_only, common):
+    """(ProverOnlyCircuitData, CommonCircuitData) of the port for the
+    reference's circuit objects: its commitment's coefficients, sigmas,
+    subgroup and digest, and every common field the prover reads."""
+    import numpy as np
+
+    from plonky2_torch.plonk.circuit_data import (
+        CommonCircuitData,
+        ProverOnlyCircuitData,
+        SelectorsInfo,
+    )
+    from plonky2_torch.plonk.config import CircuitConfig
+
+    c = common.config
+    config = CircuitConfig(
+        num_wires=c.num_wires, num_routed_wires=c.num_routed_wires,
+        num_constants=c.num_constants, use_base_arithmetic_gate=c.use_base_arithmetic_gate,
+        security_bits=c.security_bits, num_challenges=c.num_challenges,
+        zero_knowledge=c.zero_knowledge, max_quotient_degree_factor=c.max_quotient_degree_factor,
+        fri_config=fri_config(c.fri_config))
+    port_common = CommonCircuitData(
+        config=config, fri_params=fri_params(common.fri_params),
+        gates=[gate_from_reference(gt) for gt in common.gates],
+        selectors_info=SelectorsInfo(list(common.selectors_info.selector_indices),
+                                     [range(r.start, r.stop)
+                                      for r in common.selectors_info.groups]),
+        quotient_degree_factor=common.quotient_degree_factor,
+        num_gate_constraints=common.num_gate_constraints,
+        num_constants=common.num_constants, num_public_inputs=common.num_public_inputs,
+        k_is=[int(k) for k in common.k_is], num_partial_products=common.num_partial_products,
+        num_lookup_polys=common.num_lookup_polys,
+        num_lookup_selectors=common.num_lookup_selectors)
+    u64 = lambda a: np.ascontiguousarray(np.asarray(a, dtype=np.uint64))  # noqa: E731
+    port_prover = ProverOnlyCircuitData(
+        constants_sigmas_coeffs=u64(prover_only.constants_sigmas_commitment.polynomials),
+        sigmas=u64(prover_only.sigmas), subgroup=u64(prover_only.subgroup),
+        circuit_digest=[int(v) for v in prover_only.circuit_digest])
+    return port_prover, port_common

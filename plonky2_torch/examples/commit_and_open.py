@@ -25,7 +25,7 @@ from plonky2_torch import resolve_device
 from plonky2_torch.field import goldilocks as g
 from plonky2_torch.field import scalar as fs
 from plonky2_torch.fri.config import FriConfig, FriReductionStrategy
-from plonky2_torch.fri.oracle import PolynomialBatch
+from plonky2_torch.fri.oracle import PolynomialBatch, eval_polys_at
 from plonky2_torch.fri.serialization import Writer
 from plonky2_torch.fri.structure import (
     FriBatchInfo,
@@ -72,13 +72,6 @@ def random_inputs(degree_bits: int, counts=MIDDLE_COUNTS, seed: int = 0,
     digest = [int(v) for v in rng.integers(0, fs.P, size=4, dtype=np.uint64)]
     pi_hash = [int(v) for v in rng.integers(0, fs.P, size=4, dtype=np.uint64)]
     return CommitAndOpenInputs(cs, w, z, q, digest, pi_hash, num_challenges)
-
-
-def eval_polys_at(coeffs, z):
-    """[J, n] base coefficients at the extension point z -> (e0, e1) [J]."""
-    zp0, zp1 = g.ext2_powers(g.ext_tensor(z, coeffs.device), coeffs.shape[-1])
-    return (g.sum_mod(g.mul(coeffs, zp0[None, :]), 1),
-            g.sum_mod(g.mul(coeffs, zp1[None, :]), 1))
 
 
 def _ext_list(e0, e1) -> list[tuple]:

@@ -143,21 +143,29 @@ def inverse(x):
     return exp_u64(x, scalar.P - 2)
 
 
+def cumprod(x, dim: int = 0):
+    """Inclusive modular prefix products along `dim`, in log2(len) steps
+    (Hillis-Steele). Products are unique, so any association gives the
+    sequential loop's values."""
+    x = x.movedim(dim, 0)
+    k = 1
+    while k < x.shape[0]:
+        x = torch.cat([x[:k], mul(x[k:], x[:-k])])
+        k <<= 1
+    return x.movedim(0, dim)
+
+
 def inverse_rows(x):
     """Inverse of [R, n] via the Montgomery trick along axis 0: prefix and
-    suffix products, then one Fermat ladder on [n]. inverse_rows(0) == 0."""
+    suffix product scans, then one Fermat ladder on [n].
+    inverse_rows(0) == 0."""
     is_zero = x == 0
     xs = torch.where(is_zero, torch.ones_like(x), x)
-    r = xs.shape[0]
-    pre = [torch.ones_like(xs[0])]  # exclusive prefix products
-    for i in range(r - 1):
-        pre.append(mul(pre[-1], xs[i]))
-    suf = [torch.ones_like(xs[0])]  # exclusive suffix products, reversed
-    for i in range(r - 1, 0, -1):
-        suf.append(mul(suf[-1], xs[i]))
-    total_inv = inverse(mul(pre[-1], xs[r - 1]))
-    inv = torch.stack([mul(mul(pre[i], suf[r - 1 - i]), total_inv)
-                       for i in range(r)])
+    pre = cumprod(xs, 0)  # pre[i] = x_0 ... x_i
+    suf = cumprod(xs.flip(0), 0).flip(0)  # suf[i] = x_i ... x_{R-1}
+    one = torch.ones_like(xs[:1])
+    total_inv = inverse(pre[-1])
+    inv = mul(mul(torch.cat([one, pre[:-1]]), torch.cat([suf[1:], one])), total_inv)
     return torch.where(is_zero, torch.zeros_like(x), inv)
 
 
@@ -180,6 +188,12 @@ def sum_mod(x, dim: int = 0):
         half = x.shape[0] // 2
         x = add(x[:half], x[half:])
     return x[0]
+
+
+def matmul_mod(m, x):
+    """[r, c] x [c, Q] modular matrix product (one broadcast multiply and a
+    halving sum over c)."""
+    return sum_mod(mul(m[:, :, None], x[None, :, :]), 1)
 
 
 # ---------------------------------------------------------------------------

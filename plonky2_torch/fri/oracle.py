@@ -93,6 +93,13 @@ class PolynomialBatch:
         return fri_proof([o.merkle_tree for o in oracles], final, challenger, fri_params)
 
 
+def eval_polys_at(coeffs, z):
+    """[J, n] base coefficients at the extension point z -> (e0, e1) [J]."""
+    zp0, zp1 = g.ext2_powers(g.ext_tensor(z, coeffs.device), coeffs.shape[-1])
+    return (g.sum_mod(g.mul(coeffs, zp0[None, :]), 1),
+            g.sum_mod(g.mul(coeffs, zp1[None, :]), 1))
+
+
 @functools.lru_cache(maxsize=None)
 def _coset_domain(lg_n: int, device: str):
     """[N] domain points g_mult · w^i of the FRI evaluation coset."""

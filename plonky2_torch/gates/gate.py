@@ -1,0 +1,51 @@
+"""Gate base class (reference gates/gate.rs:53-254).
+
+A gate defines its constraint polynomials once over the ops protocol
+(`gates/ops.py`); `eval_unfiltered_device` evaluates them over the whole
+quotient domain. Gates with many constraints override it with a tensorized
+form: the same values in the same order, in far fewer tensor operations.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from plonky2_torch.gates.ops import EvaluationVars, TorchBaseOps
+
+
+class Gate:
+    def id(self) -> str:
+        raise NotImplementedError
+
+    def eval_unfiltered(self, ops, vars) -> list:
+        """Constraint values in canonical order."""
+        raise NotImplementedError
+
+    def eval_unfiltered_device(self, wires, constants, public_inputs_hash):
+        """wires: [num_wires, Q] int64; constants: [num_gate_constants, Q]
+        (selector columns stripped); public_inputs_hash: [4] int64.
+        Returns [num_constraints, Q] in the order of eval_unfiltered."""
+        ops = TorchBaseOps(wires.device)
+        vars = EvaluationVars(list(constants), list(wires), list(public_inputs_hash))
+        cs = self.eval_unfiltered(ops, vars)
+        q = wires.shape[-1]
+        if not cs:
+            return torch.zeros((0, q), dtype=torch.int64, device=wires.device)
+        return torch.stack([c.expand(q) for c in cs])
+
+    def num_constraints(self) -> int:
+        raise NotImplementedError
+
+    def __eq__(self, other):
+        return isinstance(other, Gate) and self.id() == other.id()
+
+    def __hash__(self):
+        return hash(self.id())
+
+
+UNUSED_SELECTOR = (1 << 32) - 1  # u32::MAX (reference gates/selectors.rs:14)
+
+
+def rows(wires, idx) -> torch.Tensor:
+    """wires[idx] for a host list of row indices."""
+    return wires[torch.as_tensor(idx, dtype=torch.int64, device=wires.device)]

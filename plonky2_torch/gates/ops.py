@@ -1,0 +1,104 @@
+"""Field-operation backend and extension algebra for gate constraints.
+
+Each gate writes its constraints once against the ops protocol (constant,
+zero, one, add, sub, mul, square, neg, add_const, mul_const), as in the
+reference package's `gates/ops.py`; `TorchBaseOps` instantiates it on int64
+tensors batched over the quotient domain. Constants are 0-d tensors on the
+ops' device, holding the int64 bit pattern of the canonical residue.
+"""
+
+from __future__ import annotations
+
+from plonky2_torch.field import goldilocks as g
+from plonky2_torch.field import scalar as fs
+
+
+class TorchBaseOps:
+    """Values are int64 tensors (base field) on one device."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def constant(self, c: int):
+        return g.scalar_tensor(c % fs.P, self.device)
+
+    def zero(self):
+        return self.constant(0)
+
+    def one(self):
+        return self.constant(1)
+
+    def add(self, a, b):
+        return g.add(a, b)
+
+    def sub(self, a, b):
+        return g.sub(a, b)
+
+    def mul(self, a, b):
+        return g.mul(a, b)
+
+    def square(self, a):
+        return g.square(a)
+
+    def neg(self, a):
+        return g.neg(a)
+
+    def add_const(self, a, c: int):
+        return g.add(a, self.constant(c))
+
+    def mul_const(self, c: int, a):
+        return g.mul(self.constant(c), a)
+
+
+class EvaluationVars:
+    """local_constants / local_wires / public_inputs_hash are sequences of
+    ops-domain values."""
+
+    def __init__(self, local_constants, local_wires, public_inputs_hash):
+        self.local_constants = local_constants
+        self.local_wires = local_wires
+        self.public_inputs_hash = public_inputs_hash
+
+    def get_local_ext_algebra(self, rng) -> tuple:
+        """D consecutive wires as an extension-algebra element."""
+        return tuple(self.local_wires[i] for i in rng)
+
+
+# -- extension algebra F_{p^D}[X]/(X^D - W) over ops-domain coefficients -------
+
+_EALG_W = 7  # W for D = 2 Goldilocks
+
+
+def ealg_zero(ops, d: int = 2) -> tuple:
+    return tuple(ops.zero() for _ in range(d))
+
+
+def ealg_from_base(ops, x, d: int = 2) -> tuple:
+    return (x,) + tuple(ops.zero() for _ in range(d - 1))
+
+
+def ealg_add(ops, a, b) -> tuple:
+    return tuple(ops.add(x, y) for x, y in zip(a, b))
+
+
+def ealg_sub(ops, a, b) -> tuple:
+    return tuple(ops.sub(x, y) for x, y in zip(a, b))
+
+
+def ealg_scalar_mul(ops, c, a) -> tuple:
+    """c is an ops-domain value (the algebra's scalar field)."""
+    return tuple(ops.mul(c, x) for x in a)
+
+
+def ealg_mul(ops, a, b, w: int = _EALG_W) -> tuple:
+    d = len(a)
+    acc = [ops.zero()] * d
+    for i in range(d):
+        for j in range(d):
+            k = i + j
+            t = ops.mul(a[i], b[j])
+            if k >= d:
+                k -= d
+                t = ops.mul_const(w, t)
+            acc[k] = ops.add(acc[k], t)
+    return tuple(acc)

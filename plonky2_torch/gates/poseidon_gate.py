@@ -1,0 +1,200 @@
+"""PoseidonGate: one 30-round Poseidon permutation a row over 135 wires,
+with the Merkle-path swap (reference gates/poseidon.rs).
+
+The constraints follow the fast partial-round decomposition (the sparse
+w-hat / v MDS of `hash/poseidon_fast_partial.py`); the wire layout and the
+constraint order are part of the protocol. The generic form runs the
+layers on the ops protocol; the device form runs each layer on [12, Q]
+states, the MDS layers as modular matrix products."""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from plonky2_torch.field import goldilocks as g
+from plonky2_torch.field import scalar as fs
+from plonky2_torch.gates.gate import Gate
+from plonky2_torch.hash.poseidon_constants import (
+    ALL_ROUND_CONSTANTS,
+    HALF_N_FULL_ROUNDS,
+    MDS_MATRIX_CIRC,
+    MDS_MATRIX_DIAG,
+    N_PARTIAL_ROUNDS,
+    SPONGE_WIDTH,
+)
+from plonky2_torch.hash.poseidon_fast_partial import (
+    FAST_PARTIAL_FIRST_ROUND_CONSTANT,
+    FAST_PARTIAL_ROUND_CONSTANTS,
+    FAST_PARTIAL_ROUND_INITIAL_MATRIX,
+    FAST_PARTIAL_ROUND_VS,
+    FAST_PARTIAL_ROUND_W_HATS,
+)
+
+W = SPONGE_WIDTH
+WIRE_SWAP = 2 * W
+START_DELTA = 2 * W + 1
+START_FULL_0 = START_DELTA + 4
+START_PARTIAL = START_FULL_0 + W * (HALF_N_FULL_ROUNDS - 1)
+START_FULL_1 = START_PARTIAL + N_PARTIAL_ROUNDS
+MDS0TO0 = MDS_MATRIX_CIRC[0] + MDS_MATRIX_DIAG[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _tables_np() -> dict:
+    """The device form's constant tables as numpy u64."""
+    mds = np.array([[(MDS_MATRIX_CIRC[(c - r) % W] + (MDS_MATRIX_DIAG[r] if r == c else 0))
+                     for c in range(W)] for r in range(W)], dtype=np.uint64)
+    p_init = np.zeros((W, W), dtype=np.uint64)
+    p_init[0, 0] = 1
+    for c in range(1, W):
+        for r in range(1, W):
+            p_init[c, r] = FAST_PARTIAL_ROUND_INITIAL_MATRIX[r - 1][c - 1] % fs.P
+    w_hat = np.array([[MDS0TO0] + [x % fs.P for x in FAST_PARTIAL_ROUND_W_HATS[r]]
+                      for r in range(N_PARTIAL_ROUNDS)], dtype=np.uint64)
+    vs = np.array([[x % fs.P for x in FAST_PARTIAL_ROUND_VS[r]]
+                   for r in range(N_PARTIAL_ROUNDS)], dtype=np.uint64)
+    partial_rcs = np.array(FAST_PARTIAL_ROUND_CONSTANTS[:N_PARTIAL_ROUNDS], dtype=np.uint64)
+    partial_rcs[N_PARTIAL_ROUNDS - 1] = 0  # the last partial round adds no constant
+    return {
+        "round_constants": np.array(ALL_ROUND_CONSTANTS, dtype=np.uint64).reshape(-1, W),
+        "mds": mds,
+        "partial_init": p_init,
+        "w_hat": w_hat,
+        "vs": vs,
+        "partial_rcs": partial_rcs,
+        "partial_first": np.array(FAST_PARTIAL_FIRST_ROUND_CONSTANT, dtype=np.uint64),
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(device: str) -> dict:
+    return {k: g.tensor(v, device) for k, v in _tables_np().items()}
+
+
+# -- the layers on the ops protocol (fast partial-round form) ------------------
+
+def _sbox(ops, x):
+    x3 = ops.mul(ops.square(x), x)
+    return ops.mul(ops.square(x3), x)
+
+
+def _mds_layer(ops, state):
+    out = []
+    for r in range(W):
+        acc = ops.zero()
+        for i in range(W):
+            acc = ops.add(acc, ops.mul_const(MDS_MATRIX_CIRC[i], state[(i + r) % W]))
+        out.append(ops.add(acc, ops.mul_const(MDS_MATRIX_DIAG[r], state[r])))
+    return out
+
+
+def _mds_partial_layer_init(ops, state):
+    result = [state[0]] + [ops.zero()] * (W - 1)
+    for r in range(1, W):
+        for c in range(1, W):
+            t = FAST_PARTIAL_ROUND_INITIAL_MATRIX[r - 1][c - 1]
+            result[c] = ops.add(result[c], ops.mul_const(t, state[r]))
+    return result
+
+
+def _mds_partial_layer_fast(ops, state, r):
+    d = ops.mul_const(MDS0TO0, state[0])
+    for i in range(1, W):
+        d = ops.add(d, ops.mul_const(FAST_PARTIAL_ROUND_W_HATS[r][i - 1], state[i]))
+    return [d] + [ops.add(ops.mul_const(FAST_PARTIAL_ROUND_VS[r][i - 1], state[0]), state[i])
+                  for i in range(1, W)]
+
+
+class PoseidonGate(Gate):
+    def id(self) -> str:
+        return ("PoseidonGate(PhantomData<plonky2_field::goldilocks_field::GoldilocksField>)"
+                f"<WIDTH={W}>")
+
+    def eval_unfiltered(self, ops, vars) -> list:
+        w = vars.local_wires
+        swap = w[WIRE_SWAP]
+        constraints = [ops.mul(swap, ops.add_const(swap, -1))]
+        for i in range(4):
+            constraints.append(ops.sub(ops.mul(swap, ops.sub(w[i + 4], w[i])),
+                                       w[START_DELTA + i]))
+        state = ([ops.add(w[i], w[START_DELTA + i]) for i in range(4)]
+                 + [ops.sub(w[i + 4], w[START_DELTA + i]) for i in range(4)]
+                 + [w[i] for i in range(8, W)])
+        round_ctr = 0
+        for r in range(HALF_N_FULL_ROUNDS):
+            state = [ops.add_const(x, ALL_ROUND_CONSTANTS[i + W * round_ctr])
+                     for i, x in enumerate(state)]
+            if r != 0:
+                sbox_in = [w[START_FULL_0 + W * (r - 1) + i] for i in range(W)]
+                constraints += [ops.sub(x, s) for x, s in zip(state, sbox_in)]
+                state = sbox_in
+            state = _mds_layer(ops, [_sbox(ops, x) for x in state])
+            round_ctr += 1
+        state = [ops.add_const(x, FAST_PARTIAL_FIRST_ROUND_CONSTANT[i])
+                 for i, x in enumerate(state)]
+        state = _mds_partial_layer_init(ops, state)
+        for r in range(N_PARTIAL_ROUNDS):
+            sbox_in = w[START_PARTIAL + r]
+            constraints.append(ops.sub(state[0], sbox_in))
+            s0 = _sbox(ops, sbox_in)
+            if r < N_PARTIAL_ROUNDS - 1:
+                s0 = ops.add_const(s0, FAST_PARTIAL_ROUND_CONSTANTS[r])
+            state = _mds_partial_layer_fast(ops, [s0] + state[1:], r)
+        round_ctr += N_PARTIAL_ROUNDS
+        for r in range(HALF_N_FULL_ROUNDS):
+            state = [ops.add_const(x, ALL_ROUND_CONSTANTS[i + W * round_ctr])
+                     for i, x in enumerate(state)]
+            sbox_in = [w[START_FULL_1 + W * r + i] for i in range(W)]
+            constraints += [ops.sub(x, s) for x, s in zip(state, sbox_in)]
+            state = _mds_layer(ops, [_sbox(ops, x) for x in sbox_in])
+            round_ctr += 1
+        constraints += [ops.sub(state[i], w[W + i]) for i in range(W)]
+        return constraints
+
+    def eval_unfiltered_device(self, wires, constants, public_inputs_hash):
+        t = _tables(str(wires.device))
+
+        def sbox(x):
+            x3 = g.mul(g.square(x), x)
+            return g.mul(g.square(x3), x)
+
+        swap = wires[WIRE_SWAP]
+        one = g.scalar_tensor(1, wires.device)
+        inputs = wires[:W]
+        deltas = wires[START_DELTA:START_DELTA + 4]
+        constraints = [g.mul(swap, g.sub(swap, one))[None],
+                       g.sub(g.mul(swap[None], g.sub(inputs[4:8], inputs[:4])), deltas)]
+        state = torch.cat([g.add(inputs[:4], deltas), g.sub(inputs[4:8], deltas), inputs[8:]])
+        rc = t["round_constants"]
+        round_ctr = 0
+        for r in range(HALF_N_FULL_ROUNDS):
+            state = g.add(state, rc[round_ctr][:, None])
+            if r != 0:
+                sbox_in = wires[START_FULL_0 + W * (r - 1):START_FULL_0 + W * r]
+                constraints.append(g.sub(state, sbox_in))
+                state = sbox_in
+            state = g.matmul_mod(t["mds"], sbox(state))
+            round_ctr += 1
+        state = g.add(state, t["partial_first"][:, None])
+        state = g.matmul_mod(t["partial_init"], state)
+        for r in range(N_PARTIAL_ROUNDS):
+            sbox_in = wires[START_PARTIAL + r]
+            constraints.append(g.sub(state[0], sbox_in)[None])
+            s0 = g.add(sbox(sbox_in), t["partial_rcs"][r])
+            d = g.sum_mod(g.mul(t["w_hat"][r][:, None], torch.cat([s0[None], state[1:]])), 0)
+            state = torch.cat([d[None], g.add(state[1:], g.mul(t["vs"][r][:, None], s0[None]))])
+        round_ctr += N_PARTIAL_ROUNDS
+        for r in range(HALF_N_FULL_ROUNDS):
+            state = g.add(state, rc[round_ctr][:, None])
+            sbox_in = wires[START_FULL_1 + W * r:START_FULL_1 + W * (r + 1)]
+            constraints.append(g.sub(state, sbox_in))
+            state = g.matmul_mod(t["mds"], sbox(sbox_in))
+            round_ctr += 1
+        constraints.append(g.sub(state, wires[W:2 * W]))
+        return torch.cat(constraints)
+
+    def num_constraints(self) -> int:
+        return 1 + 4 + W * (HALF_N_FULL_ROUNDS - 1) + N_PARTIAL_ROUNDS + W * HALF_N_FULL_ROUNDS + W

@@ -1,0 +1,98 @@
+"""ReducingGate / ReducingExtensionGate: Horner steps of alpha-reductions
+(reference gates/reducing.rs, gates/reducing_extension.rs).
+
+Wires: output (D), alpha (D), old accumulator (D), the coefficients (1 or
+D each), then the intermediate accumulators (D each); the last step's
+accumulator is the output."""
+
+from __future__ import annotations
+
+import torch
+
+from plonky2_torch.field import goldilocks as g
+from plonky2_torch.gates.gate import Gate, rows
+from plonky2_torch.gates.ops import ealg_add, ealg_from_base, ealg_mul, ealg_sub
+
+D = 2
+WIRES_OUTPUT = range(0, D)
+WIRES_ALPHA = range(D, 2 * D)
+WIRES_OLD_ACC = range(2 * D, 3 * D)
+START_COEFFS = 3 * D
+
+
+class _Reducing(Gate):
+    COEFF_WIDTH = 1  # wires per coefficient
+
+    def __init__(self, num_coeffs: int):
+        self.num_coeffs = num_coeffs
+
+    def wires_coeff(self, i: int) -> range:
+        start = START_COEFFS + i * self.COEFF_WIDTH
+        return range(start, start + self.COEFF_WIDTH)
+
+    def _start_accs(self) -> int:
+        return START_COEFFS + self.num_coeffs * self.COEFF_WIDTH
+
+    def wires_accs(self, i: int) -> range:
+        if i == self.num_coeffs - 1:
+            return WIRES_OUTPUT
+        return range(self._start_accs() + D * i, self._start_accs() + D * (i + 1))
+
+    def _coeff(self, ops, vars, i):
+        raise NotImplementedError
+
+    def eval_unfiltered(self, ops, vars) -> list:
+        alpha = vars.get_local_ext_algebra(WIRES_ALPHA)
+        acc = vars.get_local_ext_algebra(WIRES_OLD_ACC)
+        constraints = []
+        for i in range(self.num_coeffs):
+            computed = ealg_add(ops, ealg_mul(ops, acc, alpha), self._coeff(ops, vars, i))
+            acc_i = vars.get_local_ext_algebra(self.wires_accs(i))
+            constraints.extend(ealg_sub(ops, computed, acc_i))
+            acc = acc_i
+        return constraints
+
+    def eval_unfiltered_device(self, wires, constants, public_inputs_hash):
+        """Each Horner step reads its accumulator from the wires, so the
+        num_coeffs constraints pairs are independent: one batched ext2
+        multiply over the [num_coeffs] axis."""
+        n = self.num_coeffs
+        prev = [WIRES_OLD_ACC] + [self.wires_accs(i) for i in range(n - 1)]
+        outs = [self.wires_accs(i) for i in range(n)]
+        prev0, prev1 = rows(wires, [r[0] for r in prev]), rows(wires, [r[1] for r in prev])
+        out0, out1 = rows(wires, [r[0] for r in outs]), rows(wires, [r[1] for r in outs])
+        c0, c1 = g.ext2_mul((prev0, prev1), (wires[D][None], wires[D + 1][None]))
+        coeffs = [rows(wires, [self.wires_coeff(i)[k] for i in range(n)])
+                  for k in range(self.COEFF_WIDTH)]
+        c0 = g.add(c0, coeffs[0])
+        if self.COEFF_WIDTH == D:
+            c1 = g.add(c1, coeffs[1])
+        return torch.stack([g.sub(c0, out0), g.sub(c1, out1)], dim=1).reshape(
+            D * n, wires.shape[-1])
+
+    def num_constraints(self) -> int:
+        return D * self.num_coeffs
+
+
+class ReducingGate(_Reducing):
+    """acc' = acc * alpha + c for base-field coefficients c."""
+
+    COEFF_WIDTH = 1
+
+    def id(self) -> str:
+        return f"ReducingGate {{ num_coeffs: {self.num_coeffs} }}"
+
+    def _coeff(self, ops, vars, i):
+        return ealg_from_base(ops, vars.local_wires[self.wires_coeff(i)[0]], D)
+
+
+class ReducingExtensionGate(_Reducing):
+    """acc' = acc * alpha + c for extension-field coefficients c."""
+
+    COEFF_WIDTH = D
+
+    def id(self) -> str:
+        return f"ReducingExtensionGate {{ num_coeffs: {self.num_coeffs} }}"
+
+    def _coeff(self, ops, vars, i):
+        return vars.get_local_ext_algebra(self.wires_coeff(i))

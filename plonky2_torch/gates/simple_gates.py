@@ -1,0 +1,48 @@
+"""NoopGate, ConstantGate, PublicInputGate
+(reference gates/noop.rs, gates/constant.rs, gates/public_input.rs)."""
+
+from __future__ import annotations
+
+from plonky2_torch.gates.gate import Gate
+
+
+class NoopGate(Gate):
+    def id(self) -> str:
+        return "NoopGate"
+
+    def eval_unfiltered(self, ops, vars) -> list:
+        return []
+
+    def num_constraints(self) -> int:
+        return 0
+
+
+class ConstantGate(Gate):
+    """Routes `num_consts` gate constants to wires 0..num_consts."""
+
+    def __init__(self, num_consts: int):
+        self.num_consts = num_consts
+
+    def id(self) -> str:
+        return f"ConstantGate {{ num_consts: {self.num_consts} }}"
+
+    def eval_unfiltered(self, ops, vars) -> list:
+        return [ops.sub(vars.local_constants[i], vars.local_wires[i])
+                for i in range(self.num_consts)]
+
+    def num_constraints(self) -> int:
+        return self.num_consts
+
+
+class PublicInputGate(Gate):
+    """Pins the 4 public-input-hash elements to wires 0..4."""
+
+    def id(self) -> str:
+        return "PublicInputGate"
+
+    def eval_unfiltered(self, ops, vars) -> list:
+        return [ops.sub(vars.local_wires[w], h)
+                for w, h in zip(range(4), vars.public_inputs_hash)]
+
+    def num_constraints(self) -> int:
+        return 4

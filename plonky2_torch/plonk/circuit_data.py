@@ -1,0 +1,143 @@
+"""The circuit data a prove reads (reference plonk/circuit_data.rs:161-680):
+`CommonCircuitData` with the polynomial index ranges of each oracle and the
+FRI instance, and `ProverOnlyCircuitData` with the preprocessed polynomials
+and per-device caches of their commitment and of the quotient domain's
+tables."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from plonky2_torch.fri.config import FriParams
+from plonky2_torch.fri.structure import (
+    FriBatchInfo,
+    FriInstanceInfo,
+    FriOracleInfo,
+    FriPolynomialInfo,
+)
+from plonky2_torch.field import scalar as fs
+from plonky2_torch.plonk import config as pcfg
+from plonky2_torch.plonk.config import CircuitConfig
+
+
+@dataclass
+class SelectorsInfo:
+    selector_indices: list[int]
+    groups: list[range]
+
+    @property
+    def num_selectors(self) -> int:
+        return len(self.groups)
+
+
+@dataclass
+class CommonCircuitData:
+    config: CircuitConfig
+    fri_params: FriParams
+    gates: list  # Gate instances, sorted by (degree, id)
+    selectors_info: SelectorsInfo
+    quotient_degree_factor: int
+    num_gate_constraints: int
+    num_constants: int
+    num_public_inputs: int
+    k_is: list[int]
+    num_partial_products: int
+    num_lookup_polys: int = 0
+    num_lookup_selectors: int = 0
+
+    @property
+    def degree_bits(self) -> int:
+        return self.fri_params.degree_bits
+
+    @property
+    def degree(self) -> int:
+        return 1 << self.degree_bits
+
+    # polynomial index ranges within the commitments
+    def constants_range(self) -> range:
+        return range(0, self.num_constants)
+
+    def sigmas_range(self) -> range:
+        return range(self.num_constants, self.num_constants + self.config.num_routed_wires)
+
+    def zs_range(self) -> range:
+        return range(0, self.config.num_challenges)
+
+    def partial_products_range(self) -> range:
+        return range(self.config.num_challenges,
+                     (self.num_partial_products + 1) * self.config.num_challenges)
+
+    def num_preprocessed_polys(self) -> int:
+        return self.sigmas_range().stop
+
+    def num_zs_partial_products_polys(self) -> int:
+        return self.config.num_challenges * (1 + self.num_partial_products)
+
+    def num_quotient_polys(self) -> int:
+        return self.config.num_challenges * self.quotient_degree_factor
+
+    # the FRI instance (lookups are not ported, so they add no polynomials)
+    def fri_all_polys(self) -> list[FriPolynomialInfo]:
+        return (
+            FriPolynomialInfo.from_range(pcfg.CONSTANTS_SIGMAS.index,
+                                         range(self.num_preprocessed_polys()))
+            + FriPolynomialInfo.from_range(pcfg.WIRES.index, range(self.config.num_wires))
+            + FriPolynomialInfo.from_range(pcfg.ZS_PARTIAL_PRODUCTS.index,
+                                           range(self.num_zs_partial_products_polys()))
+            + FriPolynomialInfo.from_range(pcfg.QUOTIENT.index,
+                                           range(self.num_quotient_polys())))
+
+    def fri_next_batch_polys(self) -> list[FriPolynomialInfo]:
+        return FriPolynomialInfo.from_range(pcfg.ZS_PARTIAL_PRODUCTS.index, self.zs_range())
+
+    def fri_oracles(self) -> list[FriOracleInfo]:
+        return [
+            FriOracleInfo(self.num_preprocessed_polys(), pcfg.CONSTANTS_SIGMAS.blinding),
+            FriOracleInfo(self.config.num_wires, pcfg.WIRES.blinding),
+            FriOracleInfo(self.num_zs_partial_products_polys(),
+                          pcfg.ZS_PARTIAL_PRODUCTS.blinding),
+            FriOracleInfo(self.num_quotient_polys(), pcfg.QUOTIENT.blinding),
+        ]
+
+    def get_fri_instance(self, zeta: tuple) -> FriInstanceInfo:
+        zeta_next = fs.ext_scalar_mul(fs.primitive_root_of_unity(self.degree_bits), zeta)
+        return FriInstanceInfo(
+            oracles=self.fri_oracles(),
+            batches=[FriBatchInfo(point=zeta, polynomials=self.fri_all_polys()),
+                     FriBatchInfo(point=zeta_next, polynomials=self.fri_next_batch_polys())])
+
+
+@dataclass
+class ProverOnlyCircuitData:
+    """What a prove needs beyond the common data. The preprocessed
+    polynomials stay on the host as coefficients; `commitment(device)`
+    commits them once per device and `caches` holds each device's tables."""
+
+    constants_sigmas_coeffs: np.ndarray  # [num_constants + num_routed, degree] u64
+    sigmas: np.ndarray  # [num_routed, degree] u64 values
+    subgroup: np.ndarray  # [degree] u64
+    circuit_digest: list[int]
+    caches: dict = field(default_factory=dict, repr=False, compare=False)
+
+    def cache(self, device) -> dict:
+        return self.caches.setdefault(str(device), {})
+
+    def commitment(self, common: CommonCircuitData, device):
+        """The constants-sigmas PolynomialBatch on `device` (built once)."""
+        from plonky2_torch.fri.oracle import PolynomialBatch
+
+        cache = self.cache(device)
+        if "constants_sigmas" not in cache:
+            fri = common.config.fri_config
+            cache["constants_sigmas"] = PolynomialBatch.from_coeffs(
+                self.constants_sigmas_coeffs, fri.rate_bits,
+                pcfg.CONSTANTS_SIGMAS.blinding, fri.cap_height, device=device)
+        return cache["constants_sigmas"]
+
+
+@dataclass
+class VerifierOnlyCircuitData:
+    constants_sigmas_cap: list[list[int]]
+    circuit_digest: list[int]

@@ -1,0 +1,46 @@
+"""Proof containers (reference plonk/proof.rs:34-420). Extension values are
+D = 2 tuples of Python ints; Merkle caps are lists of 4-element digests."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from plonky2_torch.fri.proof import FriProof
+from plonky2_torch.fri.structure import FriOpeningBatch, FriOpenings
+
+
+@dataclass
+class OpeningSet:
+    """The committed polynomials' values at ζ, and the Z polynomials' at
+    g·ζ (reference plonk/proof.rs:301). Lookups are not ported, so their
+    openings are always empty."""
+
+    constants: list[tuple]
+    plonk_sigmas: list[tuple]
+    wires: list[tuple]
+    plonk_zs: list[tuple]
+    plonk_zs_next: list[tuple]
+    partial_products: list[tuple]
+    quotient_polys: list[tuple]
+
+    def to_fri_openings(self) -> FriOpenings:
+        """In the order of CommonCircuitData.fri_all_polys."""
+        return FriOpenings(batches=[
+            FriOpeningBatch(values=self.constants + self.plonk_sigmas + self.wires
+                            + self.plonk_zs + self.partial_products + self.quotient_polys),
+            FriOpeningBatch(values=list(self.plonk_zs_next))])
+
+
+@dataclass
+class Proof:
+    wires_cap: list
+    plonk_zs_partial_products_cap: list
+    quotient_polys_cap: list
+    openings: OpeningSet
+    opening_proof: FriProof
+
+
+@dataclass
+class ProofWithPublicInputs:
+    proof: Proof
+    public_inputs: list[int]

@@ -1,6 +1,10 @@
-"""Host-side utilities: bit math and the α-reducing factor."""
+"""Host-side utilities: bit math, the α-reducing factor and wall-clock
+scopes."""
 
 from __future__ import annotations
+
+import time
+from contextlib import contextmanager
 
 from plonky2_torch.field import scalar as fs
 
@@ -51,3 +55,36 @@ class ReducingFactor:
         if isinstance(v, (tuple, list)):
             return tuple(v)
         return fs.ext_from_base(v, d)
+
+
+class TimingTree:
+    """Wall-clock scopes of a run (reference util/timing.rs:8-193). `sync`,
+    where given, runs at each scope's start and end (for example
+    torch.cuda.synchronize), so that a scope's time holds its device work."""
+
+    def __init__(self, name: str = "root", sync=None):
+        self.name = name
+        self.sync = sync
+        self.duration = 0.0
+        self.children: list[TimingTree] = []
+        self._stack: list[TimingTree] = [self]
+
+    @contextmanager
+    def scope(self, name: str):
+        child = TimingTree(name)
+        self._stack[-1].children.append(child)
+        self._stack.append(child)
+        if self.sync:
+            self.sync()
+        start = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self.sync:
+                self.sync()
+            child.duration = time.perf_counter() - start
+            self._stack.pop()
+
+    def split(self) -> dict[str, float]:
+        """Seconds by top-level scope name, in scope order."""
+        return {c.name: c.duration for c in self.children}

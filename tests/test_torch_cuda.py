@@ -132,3 +132,26 @@ def test_k5_permute_edge_states_match_plain(dev):
             [p - 1 if i % 2 else (1 << 32) - 1 for i in range(12)]]
     states = g.tensor([[c[i] for c in cols] for i in range(12)], dev)
     assert torch.equal(kp.permute(states), kp.permute_plain(states))
+
+
+def test_factorial_prove_on_the_card_equals_the_fixture(dev):
+    """The PLONK prove from the port's committed factorial data, on the
+    card: the bytes of fixtures/factorial.proof.bin, through K2, K4 and K5
+    (every transform of degree 2^6 is small enough for K2)."""
+    import os
+
+    from plonky2_torch import ops
+    from plonky2_torch.plonk import prover as tp
+    from plonky2_torch.plonk.prover_serialization import read_prover_data
+    from plonky2_torch.plonk.serialization import proof_to_bytes
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "plonky2_torch", "data", "factorial.prover.bin"), "rb") as f:
+        prover_only, common = read_prover_data(f.read())
+    w = np.load(os.path.join(root, "plonky2_torch", "data", "factorial.witness.npz"))
+    ops.reset_launches()
+    pwp = tp.prove(prover_only, common, w["witness"], [int(v) for v in w["public_inputs"]],
+                   [int(v) for v in w["public_inputs_hash"]], device=dev)
+    assert ops.K2.launches and ops.K4.launches and ops.K5.launches
+    with open(os.path.join(root, "fixtures", "factorial.proof.bin"), "rb") as f:
+        assert proof_to_bytes(pwp) == f.read()

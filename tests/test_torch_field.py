@@ -69,6 +69,21 @@ def test_inverse_rows_and_powers_and_sum_match_reference():
     np.testing.assert_array_equal(tg.np_powers(z, 19), jg.np_powers(z, 19))
 
 
+@pytest.mark.parametrize("rows", [1, 2, 9, 80])
+def test_prefix_products_and_matmul_match_reference(rows):
+    """g.cumprod against the reference's associative scan of g.mul (the
+    round-2 scans, plonk/prover.py:589,593) down the rows and along them;
+    g.matmul_mod against the reference's."""
+    rng = np.random.default_rng(5 + rows)
+    m = rng.integers(0, fs.P, size=(rows, 37), dtype=np.uint64)
+    for axis in (0, 1):
+        want = jax.jit(lambda x, a=axis: jax.lax.associative_scan(jg.mul, x, axis=a))
+        _same(tg.cumprod(_t(m), axis), want(jnp.asarray(m)))
+    mat = rng.integers(0, fs.P, size=(12, rows), dtype=np.uint64)
+    _same(tg.matmul_mod(_t(mat), _t(m)), jax.jit(jg.matmul_mod)(jnp.asarray(mat),
+                                                                jnp.asarray(m)))
+
+
 def test_ext2_ops_match_reference():
     a0, a1 = _inputs(5, 64)
     b0, b1 = _inputs(6, 64)
