@@ -7,35 +7,43 @@
 
 In order: prints the card's name and power limit; builds the CUDA kernels
 from `plonky2_torch/csrc/` (timed); proves the factorial circuit on the card
-from the port's committed data and requires the bytes of
-`fixtures/factorial.proof.bin`, then proves it on the CPU (plain versions)
-to the same bytes; reads the bench_recursion middle circuit
-(`bench_cache/middle14.circuit.bin`, timed), requires its constants-sigmas
-commitment's cap to equal the file's verifier cap, draws a witness from
-seed 2026 and proves it (the main path): one unrecorded warm-up prove, then
-MIDDLE_PROVES timed proves, each with every launch count set to 0 just
-before and read just after, every kernel launched and the proof's sha256
-the pinned one, the median wall and the phase split (the device
-synchronised at each phase's start and end); profiles one more prove; runs
-`commit_and_open` at the bench_recursion middle-circuit shapes (degree
-2^13, oracles of 85/135/20/16 polynomials) with the counts set to 0 just
-before and read just after each of its runs and its pinned sha256, and
-profiles one more; holds each kernel K2-K5 against its plain PyTorch
-version on the same card input at the main path's full shapes (exact
-equality) and times both with CUDA events; checks K2 at every fan
+from the port's committed data on the fused transcript path (the default)
+and on the host path, each to the bytes of `fixtures/factorial.proof.bin`,
+then on the CPU (plain versions) to the same bytes; reads the
+bench_recursion middle circuit (`bench_cache/middle14.circuit.bin`,
+timed), requires its constants-sigmas commitment's cap to equal the file's
+verifier cap, draws a witness from seed 2026, puts it on the card and
+proves it on the fused path (the main path) and on the host path
+(`force_host_path()`): per path one warm-up, MIDDLE_PROVES proves timed end
+to end with no synchronised phase, each with every launch count set to 0
+just before and read just after and the proof's sha256 the pinned one,
+then MIDDLE_PROVES proves with the device synchronised at each phase's
+start and end for the phase split, and one profiled prove; counts the host
+synchronisations of one warm prove per path under
+`torch.cuda.set_sync_debug_mode("warn")` and requires the fused
+`prove(_defer=True)` to raise nothing under "error"; runs `commit_and_open`
+at the bench_recursion middle-circuit shapes (degree 2^13, oracles of
+85/135/20/16 polynomials; its FRI proof on the fused path) with the counts
+set to 0 just before and read just after each of its runs and its pinned
+sha256, and profiles one more; holds each kernel and mode against its plain
+PyTorch version on the same card input at the main path's full shapes
+(exact equality) and times both with CUDA events; checks K2 at every fan
 (1, 2, 4, 8, 16) and size (2^1..2^13) and the zero-tail form, K3 at every
 size 2^14..2^20 (fans 1, 2, 8, batch 1 and 2, both directions, and batch 16
-at 2^16), K5's grind at thresholds 0, 1 bit and 16 bits, and K4's
-Merkle trees (natural and row-leaf, cap height 0 to the full height, leaves
-of width <= 4) level by level; times K4's whole wires tree and each of its
-launches; times K3 at [2, 2^16], [16, 2^16] and [1, 2^20] and K5 four
-ways (one bare grind launch where no candidate passes and at 16 bits, the
-`grind_chunk` wrapper, and the permute mode on [12, 2^17]); runs `commit_and_open` at
-degree 2^10 on the card and on the CPU (plain versions) and requires
-identical proof bytes. The line before the last is the `kernels` JSON
-object (launches: the middle prove's), the last line the ok JSON object.
-Any failed check exits non-zero and prints no result. Imports nothing of
-JAX.
+at 2^16), K4's Merkle trees (natural and row-leaf, cap height 0 to the full
+height, leaves of width <= 4) level by level, K5's permutation on one state
+(the transcript's duplex), on [12, 2^17] and on edge states, its chunk grind
+at thresholds 0, 1 bit and 16 bits, and its device grind at 0, 1, 8 and 16
+bits on the seed-2026 middle transcript's state and on random states (the
+middle witness also against the chunk-by-chunk grind); times K4's whole
+wires tree and each of its launches, K3 at [2, 2^16], [16, 2^16] and
+[1, 2^20], K5's bare grind launch (no candidate passing, and 16 bits), its
+`grind_chunk` wrapper, its permute mode and its device grind; runs
+`commit_and_open` at degree 2^10 on the card and on the CPU (plain
+versions) and requires identical proof bytes. The line before the last is
+the `kernels` JSON object (launches: the fused middle prove's, the chunk
+grind's from the host-path prove), the last line the ok JSON object. Any
+failed check exits non-zero and prints no result. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 # H100 SXM peaks used for the bounds. HBM: 3.35 TB/s (NVIDIA data sheet).
 # Integer work: 64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost.
@@ -187,12 +196,14 @@ def profile_line(torch, run, wall_s: float, label: str) -> None:
           f"{wall_s * 1e3:.1f} ms "
           f"unprofiled wall ({device_ms / (wall_s * 1e3):.1%}); "
           f"{sum(e.count for e in kernels)} kernel launches; top device time: {tops}")
+    import re
+
     ported = {}
     for e in kernels:
-        for kid in ("k2_", "k3_", "k4_", "k5_"):
-            if kid in e.key:
-                ms, n = ported.get(kid[:2].upper(), (0.0, 0))
-                ported[kid[:2].upper()] = (ms + dev_us(e) / 1e3, n + e.count)
+        m = re.search(r"(k\d_\w+?_kernel)", e.key)
+        if m:
+            ms, n = ported.get(m.group(1), (0.0, 0))
+            ported[m.group(1)] = (ms + dev_us(e) / 1e3, n + e.count)
     print(f"profile {label}: port kernels' device time: " + ", ".join(
         f"{k} {ms:.3f} ms over {n} launches" for k, (ms, n) in sorted(ported.items())))
 
@@ -316,6 +327,7 @@ def main() -> int:
         from plonky2_torch.field import goldilocks as g
         from plonky2_torch.field import ntt
         from plonky2_torch.field import scalar as fs
+        from plonky2_torch.fri import prover as fri_prover
         from plonky2_torch.ops import build
         from plonky2_torch.ops import ntt as kn
         from plonky2_torch.ops import poseidon as kp
@@ -359,18 +371,18 @@ def main() -> int:
             got, want = run_k(), run_p()
             torch.cuda.synchronize()
             m, e = compare(got, want)
-            print(f"{kernel.kid} {label}: {m} mismatches")
+            print(f"{kernel.label} {label}: {m} mismatches")
             mism += m
             err = max(err, e)
         if mism:
-            failures.append(f"{kernel.kid} disagrees with its plain version")
+            failures.append(f"{kernel.label} disagrees with its plain version")
         if ms is None:
             ms = time_ms(torch, timed[0], reps=20, warmup=3)
         plain_ms = time_ms(torch, timed[1], reps=3, warmup=1)
         b_ms, b_by = bound_ms(n_bytes, n_ops)
-        print(f"{kernel.kid} {kernel.name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+        print(f"{kernel.label}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
               f"bound {b_ms:.4f} ms ({b_by})")
-        results[kernel.kid] = dict(mismatches=mism, max_abs_err=err, ms=ms,
+        results[kernel.label] = dict(mismatches=mism, max_abs_err=err, ms=ms,
                                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -390,11 +402,17 @@ def main() -> int:
     t0 = time.perf_counter()
     fact_card = proof_to_bytes(tp.prove(*fact_args, device=dev))
     card_s = time.perf_counter() - t0
+    if tp._LAST_TRANSCRIPT != "fused":
+        failures.append("the factorial prove on the card did not take the fused path")
+    with fri_prover.force_host_path():
+        if proof_to_bytes(tp.prove(*fact_args, device=dev)) != fixture:
+            failures.append("the factorial host-path proof on the card is not the fixture")
     t0 = time.perf_counter()
     with one_cpu_thread(torch):
         fact_cpu = proof_to_bytes(tp.prove(*fact_args, device="cpu"))
     cpu_s = time.perf_counter() - t0
-    print(f"factorial prove (2^6): card {card_s:.2f} s (first call), cpu {cpu_s:.1f} s; "
+    print(f"factorial prove (2^6, fused path; the host path's also checked): card "
+          f"{card_s:.2f} s (first call), cpu {cpu_s:.1f} s; "
           f"card = fixture: {fact_card == fixture}, cpu = fixture: {fact_cpu == fixture} "
           f"(sha256 {hashlib.sha256(fact_card).hexdigest()[:16]})")
     if fact_card != fixture:
@@ -417,42 +435,137 @@ def main() -> int:
     if cap != verifier_only.constants_sigmas_cap:
         failures.append("the middle circuit's constants-sigmas cap is not the file's")
     witness, public_inputs, pi_hash = tp.random_witness(common, SEED)
+    witness_dev = g.tensor(witness, dev)  # the prove's input, already on the card
 
-    def middle_prove(timing=None):
-        return proof_to_bytes(tp.prove(prover_only, common, witness, public_inputs, pi_hash,
-                                       device=dev, timing=timing))
+    def middle_prove(timing=None, defer=False):
+        return tp.prove(prover_only, common, witness_dev, public_inputs, pi_hash, device=dev,
+                        timing=timing, _defer=defer)
 
-    t0 = time.perf_counter()
-    middle_prove()  # warm-up: per-circuit tables, allocator
-    torch.cuda.synchronize()
-    warmup_s = time.perf_counter() - t0
-    prove_walls, splits = [], []
-    for _ in range(MIDDLE_PROVES):
-        timing = TimingTree("prove", sync=torch.cuda.synchronize)
-        ops.reset_launches()
-        t0 = time.perf_counter()
-        proof = middle_prove(timing)
-        torch.cuda.synchronize()
-        prove_walls.append(time.perf_counter() - t0)
-        launches = {k.kid: k.launches for k in ops.KERNELS}
-        splits.append(timing.split())
-        if hashlib.sha256(proof).hexdigest() != MIDDLE_PROVE_SHA256:
-            failures.append(f"a middle proof's sha256 is {hashlib.sha256(proof).hexdigest()}, "
+    def pinned(proof_bytes, what):
+        digest = hashlib.sha256(proof_bytes).hexdigest()
+        if digest != MIDDLE_PROVE_SHA256:
+            failures.append(f"{what}: the middle proof's sha256 is {digest}, "
                             f"not {MIDDLE_PROVE_SHA256}")
-    prove_s = statistics.median(prove_walls)
-    split = {k: statistics.median(sp[k] for sp in splits) for k in splits[0]}
-    print(f"middle prove (2^13, 135 wires, 12 gates, Q = 2^16): {prove_s:.3f} s median wall "
-          f"of {[round(x, 3) for x in prove_walls]} (warm-up {warmup_s:.3f} s), "
-          f"{len(proof)} proof bytes, sha256 {hashlib.sha256(proof).hexdigest()}, "
-          f"launches {launches}")
-    print("middle prove phases, median s, the device synchronised at each phase's start "
-          "and end: " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
-          + f"; outside the phases {prove_s - sum(split.values()):.4f}")
-    for kid, n in launches.items():
-        if n == 0:
-            failures.append(f"{kid} was not launched on the middle prove")
-    profile_line(torch, middle_prove, prove_s, "middle prove")
-    prove_launches = launches
+        return digest
+
+    # the main path: the fused transcript (the default prove); the host path
+    # beside it under force_host_path(). Per path: a warm-up, MIDDLE_PROVES
+    # proves timed end to end with no synchronised phase (launch counts set
+    # to 0 just before each and read just after), then MIDDLE_PROVES proves
+    # with the device synchronised at each phase's start and end for the
+    # phase split. The fused warm-up records K5's device-grind inputs.
+    grind_inputs = []
+    grind_device = kp.grind_device
+
+    def recording_grind(state, pending, pow_bits):
+        grind_inputs.append((state.clone(), pending.clone(), pow_bits))
+        return grind_device(state, pending, pow_bits)
+
+    paths = {}
+    for path in ("fused", "host"):
+        def force(path=path):
+            return fri_prover.force_host_path() if path == "host" else contextlib.nullcontext()
+
+        with force():
+            t0 = time.perf_counter()
+            if path == "fused":
+                kp.grind_device = recording_grind
+            try:
+                pinned(proof_to_bytes(middle_prove()), f"{path} warm-up")
+            finally:
+                kp.grind_device = grind_device
+            torch.cuda.synchronize()
+            warmup_s = time.perf_counter() - t0
+            walls = []
+            for _ in range(MIDDLE_PROVES):
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                proof = proof_to_bytes(middle_prove())
+                walls.append(time.perf_counter() - t0)
+                launches = ops.launch_counts()
+                duplexes = ops.K5.batch1
+                digest = pinned(proof, path)
+                if tp._LAST_TRANSCRIPT != path:
+                    failures.append(f"the {path} prove took the {tp._LAST_TRANSCRIPT} path")
+            splits = []
+            for _ in range(MIDDLE_PROVES):
+                timing = TimingTree("prove", sync=torch.cuda.synchronize)
+                t0 = time.perf_counter()
+                pinned(proof_to_bytes(middle_prove(timing)), f"{path} synchronised")
+                torch.cuda.synchronize()
+                splits.append((time.perf_counter() - t0, timing.split()))
+        wall_s = statistics.median(walls)
+        sync_wall = statistics.median(w for w, _ in splits)
+        split = {k: statistics.median(sp[k] for _, sp in splits) for k in splits[0][1]}
+        paths[path] = dict(wall_s=wall_s, walls=walls, launches=launches, duplexes=duplexes,
+                           split=split, sync_wall_s=sync_wall)
+        print(f"middle prove, {path} path (2^13, 135 wires, 12 gates, Q = 2^16): "
+              f"{wall_s:.4f} s median wall of {[round(x, 4) for x in walls]}, no phase "
+              f"synchronised (warm-up {warmup_s:.3f} s), {len(proof)} proof bytes, sha256 "
+              f"{digest}, launches {launches} (K5 permutes on one state, the transcript's "
+              f"duplexes: {duplexes})")
+        print(f"middle prove phases, {path} path, median s, the device synchronised at each "
+              f"phase's start and end ({sync_wall:.4f} s median wall): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f"; outside the phases {sync_wall - sum(split.values()):.4f}")
+        must = ("K2", "K3", "K4") + (("K5 poseidon_permute", "K5 poseidon_grind_device")
+                                     if path == "fused" else ("K5 poseidon_grind_chunk",))
+        for label, n in launches.items():
+            if n == 0 and (label.split()[0] in must or label in must):
+                failures.append(f"{label} was not launched on the {path} middle prove")
+        if path == "fused" and launches[ops.K5_DEVICE.label] != 1:
+            failures.append("K5's device grind did not launch once on the fused prove")
+        with force():
+            profile_line(torch, lambda: middle_prove(), wall_s, f"middle prove ({path})")
+    prove_s = paths["fused"]["wall_s"]
+
+    # host synchronisations: one warm prove per path under
+    # set_sync_debug_mode("warn"), every warning counted; then the fused
+    # prove(_defer=True) under "error" must raise nothing
+    def count_syncs(run):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = run()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        # the mode's own notice that it is a prototype is not a synchronisation
+        syncs = [w for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message)]
+        where = {}
+        for w in syncs:
+            key = f"{os.path.relpath(w.filename, root)}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+        return out, len(syncs), where
+
+    finish, fused_syncs, fused_where = count_syncs(lambda: middle_prove(defer=True))
+    proof, fetch_syncs, _ = count_syncs(lambda: proof_to_bytes(finish()))
+    pinned(proof, "fused deferred prove")
+    with fri_prover.force_host_path():
+        proof, host_syncs, host_where = count_syncs(lambda: proof_to_bytes(middle_prove()))
+    pinned(proof, "host prove under the sync count")
+    top = sorted(host_where.items(), key=lambda kv: -kv[1])[:6]
+    print(f"host synchronisations (set_sync_debug_mode warn, one warm middle prove): fused "
+          f"path {fused_syncs} before its fetch, {fetch_syncs} in finish(); host path "
+          f"{host_syncs} (most at {top})")
+    if fused_syncs:
+        failures.append(f"the fused prove synchronised {fused_syncs} times: {fused_where}")
+    if not host_syncs or not fetch_syncs:  # the host path reads every cap back
+        failures.append("the sync count saw no synchronisation where one must be")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        finish = middle_prove(defer=True)
+    except RuntimeError as e:
+        finish = None
+        failures.append(f"the fused prove(_defer=True) synchronised under 'error': {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if finish is not None:
+        pinned(proof_to_bytes(finish()), "fused prove under 'error'")
+        print("fused prove(_defer=True) under set_sync_debug_mode('error'): raised nothing")
 
     # commit_and_open at the middle-circuit shapes
     config = co.middle_fri_config()
@@ -470,7 +583,7 @@ def main() -> int:
         proof = co.commit_and_open(inputs, config, device=dev)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        launches = {k.kid: k.launches for k in ops.KERNELS}
+        launches = ops.launch_counts()
         if proof != first:
             failures.append("two middle-shape runs gave different proof bytes")
     wall_s = statistics.median(walls)
@@ -479,9 +592,11 @@ def main() -> int:
           f"bytes, sha256 {hashlib.sha256(proof).hexdigest()}, launches {launches}")
     if not hashlib.sha256(proof).hexdigest().startswith(MIDDLE_SHA256):
         failures.append(f"the middle-shape proof's sha256 is not {MIDDLE_SHA256}...")
-    for kid, n in launches.items():
-        if n == 0:
-            failures.append(f"{kid} was not launched on commit_and_open")
+    if fri_prover._LAST_PATH != "fused":
+        failures.append("commit_and_open's FRI proof did not take the fused path")
+    for label, n in launches.items():
+        if n == 0 and label != ops.K5_CHUNK.label:  # the host path's grind
+            failures.append(f"{label} was not launched on commit_and_open")
     profile_line(torch, lambda: co.commit_and_open(inputs, config, device=dev), wall_s,
                  "commit_and_open")
 
@@ -569,7 +684,7 @@ def main() -> int:
           inv, *k3_bound(2), ms=times["k3_inverse_2x2^16"])
     b16 = bound_ms(*k3_bound(16))
     b20 = bound_ms(*k3_bound(1, 20))
-    results["K3"].update(ms_16x2_16=times["k3_inverse_16x2^16"], bound_ms_16x2_16=b16[0],
+    results[ops.K3.label].update(ms_16x2_16=times["k3_inverse_16x2^16"], bound_ms_16x2_16=b16[0],
                          bound_by_16x2_16=b16[1], device_ms=times["k3_inverse_2x2^16_device"],
                          device_ms_16x2_16=times["k3_inverse_16x2^16_device"],
                          ms_1x2_20=times["k3_inverse_1x2^20"],
@@ -583,7 +698,7 @@ def main() -> int:
           f"{times['k3_inverse_16x2^16_device']} ms at [16, 2^16], "
           f"{times['k3_inverse_1x2^20_device']} ms at [1, 2^20]")
     if k3_mism:
-        results["K3"]["mismatches"] += k3_mism
+        results[ops.K3.label]["mismatches"] += k3_mism
 
     # K4: the 135-wide leaf step over 2^16 leaves (the wires leaves),
     # then whole trees level by level against the plain per-level tree
@@ -619,7 +734,7 @@ def main() -> int:
     print(f"K4 wires tree (135 x 2^16, cap height 4): {tree_ms:.4f} ms kernel, "
           f"{tree_plain_ms:.4f} ms plain, bound {tree_bound[0]:.4f} ms ({tree_bound[1]}), "
           f"{len(kp.tree_launches(16, 12, True))} launches")
-    results["K4"].update(tree_ms=tree_ms, tree_plain_ms=tree_plain_ms,
+    results[ops.K4.label].update(tree_ms=tree_ms, tree_plain_ms=tree_plain_ms,
                          tree_bound_ms=tree_bound[0], tree_bound_by=tree_bound[1])
     # each launch of the wires tree: the leaf launch, then the chain of levels
     lib = build.library("poseidon")
@@ -635,14 +750,29 @@ def main() -> int:
     print(f"K4 wires tree by launch (first level, levels, states a block): "
           f"{[(p, round(t, 4)) for p, t in zip(plan, per_launch)]} ms")
 
-    # K5: grind chunks of 2^17 candidates where none passes, at 1 bit and at
-    # 16 bits (the main path's), and permutations of random and edge states
-    inter = [int(v) for v in rng.integers(0, fs.P, size=12, dtype=np.uint64)]
+    # K5 in its three modes. The permutation: one state (the transcript's
+    # duplex, the main path's shape), [12, 2^17] and edge states.
+    one_state = rand((12, 1))
     states = rand((12, GRIND_CHUNK))
     p = fs.P
     edge = [[0] * 12, [p - 1] * 12, [(1 << 32) - 1] * 12, [1 << 63] * 12,
             [p - 1 if i % 2 else (1 << 32) - 1 for i in range(12)]]
     edge_states = g.tensor([[c[i] for c in edge] for i in range(12)], dev)
+    duplex = (lambda: kp.permute(one_state), lambda: kp.permute_plain(one_state))
+    check(ops.K5, [("permute [12, 1] (a duplex)", *duplex),
+                   ("permute [12, 2^17]", lambda: kp.permute(states),
+                    lambda: kp.permute_plain(states)),
+                   ("permute edge states", lambda: kp.permute(edge_states),
+                    lambda: kp.permute_plain(edge_states))],
+          duplex, n_bytes=8 * 24, n_ops=OPS_PER_PERMUTATION,
+          ms=time_ms(torch, duplex[0], reps=20, warmup=3, per=20))
+    perm_bound = bound_ms(8 * 2 * states.numel(), OPS_PER_PERMUTATION * GRIND_CHUNK)
+    results[ops.K5.label].update(permute_ms_12x2_17=times["k5_permute_12x2^17"],
+                                 permute_bound_ms_12x2_17=perm_bound[0])
+
+    # the host path's grind: chunks of 2^17 candidates where none passes, at
+    # 1 bit and at 16 bits (the main path's)
+    inter = [int(v) for v in rng.integers(0, fs.P, size=12, dtype=np.uint64)]
 
     def grind_pair(threshold):
         return (lambda: kp.grind_chunk(inter, 5, 0, GRIND_CHUNK, threshold, dev),
@@ -651,21 +781,14 @@ def main() -> int:
     if kp.grind_chunk(inter, 5, 0, GRIND_CHUNK, 0, dev) is not None:
         failures.append("K5 found a witness below threshold 0")
     grind = grind_pair(1 << 48)
-    check(ops.K5, [("grind 2^17, no candidate passes", *grind_pair(0)),
-                   ("grind 2^17 at 1 bit", *grind_pair(1 << 63)),
-                   ("grind 2^17 at 16 bits", *grind),
-                   ("permute [12, 2^17]", lambda: kp.permute(states),
-                    lambda: kp.permute_plain(states)),
-                   ("permute edge states", lambda: kp.permute(edge_states),
-                    lambda: kp.permute_plain(edge_states))],
+    check(ops.K5_CHUNK, [("grind 2^17, no candidate passes", *grind_pair(0)),
+                         ("grind 2^17 at 1 bit", *grind_pair(1 << 63)),
+                         ("grind 2^17 at 16 bits", *grind)],
           grind, n_bytes=8 * 13, n_ops=OPS_PER_PERMUTATION * GRIND_CHUNK,
           ms=times["k5_grind_bare_none"])
-    perm_bound = bound_ms(8 * 2 * states.numel(), OPS_PER_PERMUTATION * GRIND_CHUNK)
-    results["K5"].update(ms_16bits=times["k5_grind_bare_16bits"],
-                         device_ms=times["k5_grind_bare_none_device"],
-                         wrapper_ms_16bits=times["k5_grind_wrapper_16bits"],
-                         permute_ms=times["k5_permute_12x2^17"],
-                         permute_bound_ms=perm_bound[0])
+    results[ops.K5_CHUNK.label].update(ms_16bits=times["k5_grind_bare_16bits"],
+                                       device_ms=times["k5_grind_bare_none_device"],
+                                       wrapper_ms_16bits=times["k5_grind_wrapper_16bits"])
     print(f"K5 bare grind launch 2^17: {times['k5_grind_bare_none']:.4f} ms where no candidate "
           f"passes (profiler device time {times['k5_grind_bare_none_device']} ms), "
           f"{times['k5_grind_bare_16bits']:.4f} ms at 16 bits; grind_chunk wrapper "
@@ -673,6 +796,47 @@ def main() -> int:
           f"{times['k5_permute_12x2^17']:.4f} ms (bound {perm_bound[0]:.4f} ms); "
           f"{OPS_PER_PERMUTATION} operations a permutation in the bounds (the frequency-domain "
           f"MDS), {OPS_PER_PERMUTATION_DENSE} in the dense count")
+
+    # the fused path's device grind: the seed-2026 middle transcript's state
+    # and pending inputs (recorded at the fused warm-up) and random states,
+    # at 0, 1, 8 and 16 bits, against the plain version; the middle state's
+    # witness also against the chunk-by-chunk grind_chunk kernel
+    if len(grind_inputs) != 1:
+        failures.append(f"the fused warm-up ran {len(grind_inputs)} device grinds, not 1")
+    mid_state, mid_pending, mid_bits = grind_inputs[0]
+    cases = [("middle transcript", mid_state, mid_pending)]
+    for k in (0, 3, 7):
+        cases.append((f"random, {k} pending", rand((12,)), rand((k,))))
+    pairs = []
+    for label, st, pend in cases:
+        for bits in (0, 1, 8, 16):
+            pairs.append((f"{label}, {bits} bits",
+                          lambda st=st, pend=pend, bits=bits: kp.grind_device(st, pend, bits),
+                          lambda st=st, pend=pend, bits=bits: kp.grind_device_plain(
+                              st, pend, bits, chunk=GRIND_CHUNK)))
+    mid_witness = g.u64(int(kp.grind_device(mid_state, mid_pending, mid_bits)[0]))
+    mid_inter = [int(v) for v in g.to_numpy(mid_state)]
+    mid_inter[:mid_pending.shape[0]] = [int(v) for v in g.to_numpy(mid_pending)]
+    start = 0
+    while (chunked := kp.grind_chunk(mid_inter, int(mid_pending.shape[0]), start,
+                                     GRIND_CHUNK, 1 << (64 - mid_bits), dev)) is None:
+        start += GRIND_CHUNK
+    print(f"K5 device grind on the middle transcript ({mid_bits} bits, "
+          f"{int(mid_pending.shape[0])} pending): witness {mid_witness}, chunk by chunk "
+          f"{chunked}")
+    if chunked != mid_witness:
+        failures.append("K5's device grind and the chunked grind found different witnesses")
+    dev_grind = (lambda: kp.grind_device(mid_state, mid_pending, mid_bits),
+                 lambda: kp.grind_device_plain(mid_state, mid_pending, mid_bits,
+                                               chunk=GRIND_CHUNK))
+    check(ops.K5_DEVICE, pairs, dev_grind, n_bytes=8 * (12 + int(mid_pending.shape[0]) + 1),
+          n_ops=OPS_PER_PERMUTATION * (mid_witness + 1),
+          ms=time_ms(torch, dev_grind[0], reps=10, warmup=2))
+    grind_device_ms = device_ms(torch, dev_grind[0], "k5_grind_device", calls=10)
+    results[ops.K5_DEVICE.label].update(device_ms=grind_device_ms, witness=mid_witness,
+                                        pow_bits=mid_bits)
+    print(f"K5 device grind, middle transcript: profiler device time {grind_device_ms} ms a "
+          f"launch; the bound counts the witness's rank, {mid_witness + 1} permutations")
 
     # kernels vs plain versions end to end at degree 2^10
     small_inputs = co.random_inputs(10, co.MIDDLE_COUNTS, seed=SEED + 1)
@@ -694,12 +858,21 @@ def main() -> int:
 
     kernels = []
     for k in ops.KERNELS:
-        r = results[k.kid]
-        kernels.append({"name": f"{k.kid} {k.name}", "route": "cuda", "source": k.source,
-                        "replaces": k.replaces, "launches": prove_launches[k.kid],
-                        **r, "library_ms": None})
+        # launches: the fused middle prove's (the main path); the host
+        # path's grind mode runs only on the host path, so its prove's
+        path = "host" if k is ops.K5_CHUNK else "fused"
+        kernels.append({"name": k.label, "route": "cuda", "source": k.source,
+                        "replaces": k.replaces,
+                        "launches": paths[path]["launches"][k.label],
+                        "launches_on": f"{path} middle prove", **results[k.label],
+                        "library_ms": None})
     print(json.dumps({"kernels": kernels, "card": card, "middle_prove_s": prove_s,
-                      "middle_prove_phases_s": split, "commit_and_open_middle_s": wall_s}))
+                      "middle_prove": {p: {k: v[k] for k in ("wall_s", "sync_wall_s", "split",
+                                                             "launches", "duplexes")}
+                                       for p, v in paths.items()},
+                      "syncs": {"fused_before_fetch": fused_syncs, "fused_finish": fetch_syncs,
+                                "host": host_syncs},
+                      "commit_and_open_middle_s": wall_s}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -31,6 +31,20 @@
 // poseidon_lane.cuh, whose MDS is computed in the frequency domain (182
 // additions and shifted additions a layer instead of 288 multiply-adds).
 //
+// K5's device grind, k5_grind_device_kernel, is the proof-of-work search of
+// the fused FRI transcript (the while_loop over `_grind_candidates` in
+// plonky2_tpu/fri/prover.py `_fused_commit_pow_fn`): the transcript state
+// [12] and its k pending inputs are read from device memory, the candidate
+// goes to position k, and the lowest valid witness over the whole field lands
+// in a device word preset to all ones, so the host reads nothing. One launch
+// sized to fill the 132 SMs runs a grid-stride loop: thread t tries t, t + T,
+// t + 2T, ... (T threads in all) and stops at its first valid candidate (an
+// atomicMin) or once its next candidate exceeds the current minimum. Every
+// candidate below the final minimum is therefore tried, so the result is the
+// lowest valid witness that a chunk-by-chunk scan finds. What bounds it is the
+// permutations up to the witness: its rank times one permutation's integer
+// work (7,348 operations in the frequency-domain form) at 16.7 T/s.
+//
 // What bounds them on the H100: integer work, ~10.5k 32-bit multiplies and
 // multiply-adds a permutation against 96 bytes of state, so the kernels are
 // compute bound by two orders of magnitude. Two further limits
@@ -307,6 +321,30 @@ __global__ void k5_permute_kernel(const uint64_t* __restrict__ in, uint64_t* __r
   }
 }
 
+// The device grind: candidates c < limit (the field order) in a grid-stride
+// loop; best holds the lowest valid candidate found so far (all ones: none).
+__global__ void k5_grind_device_kernel(const uint64_t* __restrict__ state,
+                                       const uint64_t* __restrict__ pending, int k,
+                                       uint64_t threshold, uint64_t limit,
+                                       unsigned long long* best) {
+  uint64_t inter[kWidth];
+#pragma unroll
+  for (int i = 0; i < kWidth; i++) inter[i] = i < k ? pending[i] : state[i];
+  const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
+  for (uint64_t cand = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x; cand < limit;
+       cand += stride) {
+    if (cand > *(volatile unsigned long long*)best) break;
+    uint64_t s[kWidth];
+#pragma unroll
+    for (int i = 0; i < kWidth; i++) s[i] = i == k ? cand : inter[i];
+    poseidon::permute(s, kRoundConstants);
+    if (gl::canon(s[kRate - 1]) < threshold) {
+      atomicMin(best, (unsigned long long)cand);
+      break;
+    }
+  }
+}
+
 constexpr int kThreads = 128;
 
 unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
@@ -361,4 +399,28 @@ extern "C" int k5_grind(const uint64_t* inter, int pos, uint64_t start, long lon
   g.threshold = threshold;
   g.pos = pos;
   return launch_k5(nullptr, nullptr, count, 1, g, best, (cudaStream_t)stream);
+}
+
+// K5's device grind: one launch filling every SM (blocks a SM from the
+// occupancy calculator), state [12] and pending [k] in device memory
+// (pending may be null when k == 0), witness at position k, threshold
+// 2^(64 - pow_bits). best: one device word preset to all ones.
+extern "C" int k5_grind_device(const uint64_t* state, const uint64_t* pending, int k,
+                               uint64_t threshold, unsigned long long* best, void* stream) {
+  if (k < 0 || k >= poseidon::kRate || (k > 0 && !pending) || !state || !best)
+    return (int)cudaErrorInvalidValue;
+  static int blocks = 0;
+  if (blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k5_grind_device_kernel,
+                                                        kThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    blocks = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  k5_grind_device_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      state, pending, k, threshold, gl::P, best);
+  return (int)cudaGetLastError();
 }

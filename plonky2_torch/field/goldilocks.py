@@ -14,6 +14,8 @@ implement the same algebra per element.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -44,6 +46,20 @@ def tensor(values, device) -> torch.Tensor:
     The values are taken as given; callers pass canonical residues."""
     arr = np.ascontiguousarray(np.asarray(values, dtype=np.uint64))
     return torch.from_numpy(arr.view(np.int64).copy()).to(device)
+
+
+def upload(values, device) -> torch.Tensor:
+    """u64 values -> int64 tensor on `device` without a synchronisation: on
+    CUDA a non-blocking copy from pinned host memory (the transcript state
+    that the host observed, the public-inputs hash), elsewhere `tensor`."""
+    arr = np.ascontiguousarray(np.asarray(values, dtype=np.uint64)).reshape(-1)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return tensor(arr, device)
+    if arr.size == 0:
+        return torch.empty((0,), dtype=torch.int64, device=device)
+    host = torch.from_numpy(arr.view(np.int64).copy()).pin_memory()
+    return host.to(device, non_blocking=True)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -111,18 +127,45 @@ def square(x):
     return mul(x, x)
 
 
-def scalar_tensor(c: int, device) -> torch.Tensor:
-    """A 0-d int64 tensor holding the u64 `c`."""
-    return torch.tensor(i64(c), dtype=torch.int64, device=device)
+@functools.lru_cache(maxsize=1 << 12)
+def _scalar(c: int, device: str) -> torch.Tensor:
+    return torch.full((), c, dtype=torch.int64, device=device)
+
+
+def scalar_tensor(c, device) -> torch.Tensor:
+    """A 0-d int64 tensor holding the u64 `c`. A tensor (a device draw of
+    the transcript) passes through; a host int becomes a cached constant
+    made by a fill on `device`, so no host-to-device copy runs."""
+    if isinstance(c, torch.Tensor):
+        return c
+    return _scalar(i64(c), str(torch.device(device)))
 
 
 def ext_tensor(c, device):
-    """A host extension element (c0, c1) as a pair of 0-d tensors."""
+    """An extension element (c0, c1), host ints or 0-d tensors, as a pair
+    of 0-d tensors."""
     return scalar_tensor(c[0], device), scalar_tensor(c[1], device)
 
 
+_CONSTANTS: dict = {}
+
+
+def constant(values, device) -> torch.Tensor:
+    """`tensor(values, device)` made once per value and device: the
+    per-circuit tables and index lists that a prove reuses, so a warm prove
+    copies nothing from the host. The values are u64 (or nonnegative
+    indices)."""
+    arr = np.ascontiguousarray(np.asarray(values, dtype=np.uint64))
+    key = (arr.tobytes(), arr.shape, str(torch.device(device)))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = tensor(arr, device)
+    return t
+
+
 def mul_scalar(x, c: int):
-    return mul(x, scalar_tensor(c, x.device))
+    """x · c for a host int c (a scalar operand, no tensor made)."""
+    return mul(x, i64(c % scalar.P))
 
 
 def exp_u64(x, e: int):
@@ -169,8 +212,10 @@ def inverse_rows(x):
     return torch.where(is_zero, torch.zeros_like(x), inv)
 
 
-def powers(z, n: int):
-    """[1, z, ..., z^(n-1)] for a 0-d tensor z, by log-doubling."""
+def powers(z, n: int, device=None):
+    """[1, z, ..., z^(n-1)] for z a 0-d tensor (or a host int, made on
+    `device`), by log-doubling."""
+    z = scalar_tensor(z, device)
     out = torch.ones((1,), dtype=torch.int64, device=z.device)
     step = z.reshape(1)  # z^len(out)
     while out.shape[0] < n:
@@ -244,10 +289,11 @@ def ext2_sum_mod(a, dim: int = 0):
     return sum_mod(a[0], dim), sum_mod(a[1], dim)
 
 
-def ext2_powers(z, n: int):
+def ext2_powers(z, n: int, device=None):
     """[1, z, ..., z^(n-1)] for an extension scalar z = (z0, z1) of 0-d
-    tensors, by log-doubling. Returns (p0, p1), each of length n."""
-    z0, z1 = z[0].reshape(1), z[1].reshape(1)
+    tensors (or host ints, made on `device`), by log-doubling. Returns
+    (p0, p1), each of length n."""
+    z0, z1 = (t.reshape(1) for t in ext_tensor(z, device))
     p0 = torch.ones((1,), dtype=torch.int64, device=z0.device)
     p1 = torch.zeros((1,), dtype=torch.int64, device=z0.device)
     s0, s1 = z0, z1  # z^len(p)
@@ -257,6 +303,19 @@ def ext2_powers(z, n: int):
         p1 = torch.cat([p1, q1])[:n]
         s0, s1 = ext2_square((s0, s1))
     return p0, p1
+
+
+def ext2_pow_static(x, e: int):
+    """x^e for an extension scalar x of 0-d tensors and a host exponent e
+    (square-and-multiply over e's bits)."""
+    if e == 0:
+        return torch.ones_like(x[0]), torch.zeros_like(x[1])
+    acc = x
+    for bit in bin(e)[3:]:
+        acc = ext2_square(acc)
+        if bit == "1":
+            acc = ext2_mul(acc, x)
+    return acc
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ from plonky2_torch.ops import ntt as kn
 from plonky2_torch.util import log2_strict
 
 bit_reverse_perm = kn.bit_reverse_perm
+bit_reverse_index = kn.bit_reverse_index
 
 INTERLEAVED_LDE_MIN = 1 << 10
 

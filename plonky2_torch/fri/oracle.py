@@ -94,8 +94,9 @@ class PolynomialBatch:
 
 
 def eval_polys_at(coeffs, z):
-    """[J, n] base coefficients at the extension point z -> (e0, e1) [J]."""
-    zp0, zp1 = g.ext2_powers(g.ext_tensor(z, coeffs.device), coeffs.shape[-1])
+    """[J, n] base coefficients at the extension point z (host ints or 0-d
+    tensors) -> (e0, e1) [J]."""
+    zp0, zp1 = g.ext2_powers(z, coeffs.shape[-1], coeffs.device)
     return (g.sum_mod(g.mul(coeffs, zp0[None, :]), 1),
             g.sum_mod(g.mul(coeffs, zp1[None, :]), 1))
 
@@ -111,13 +112,13 @@ def _coset_domain(lg_n: int, device: str):
 def _batch_quotient(polys, alpha, z, rate_bits):
     """Coefficients of (F(X) - F(z)) / (X - z) for F = sum_j alpha^j f_j.
 
-    polys: [J, n] base coefficients; alpha, z: host extension elements.
-    Returns ext coefficient tensors (q0, q1) of length n."""
+    polys: [J, n] base coefficients; alpha, z: extension elements, host
+    ints or 0-d tensors on the polys' device (the device transcript's
+    draws). Returns ext coefficient tensors (q0, q1) of length n."""
     J, n = polys.shape
     device = polys.device
-    a = g.ext_tensor(alpha, device)
     zz = g.ext_tensor(z, device)
-    ap0, ap1 = g.ext2_powers(a, J)
+    ap0, ap1 = g.ext2_powers(alpha, J, device)
     comp0 = g.sum_mod(g.mul(polys, ap0[:, None]), 0)
     comp1 = g.sum_mod(g.mul(polys, ap1[:, None]), 0)
     zp = g.ext2_powers(zz, n)

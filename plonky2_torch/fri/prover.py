@@ -1,12 +1,24 @@
-"""FRI prover: commit-phase folding, proof-of-work grind, query rounds.
+"""FRI prover: commit-phase folding, proof-of-work grind, query rounds
+(reference fri/prover.py). Two paths give the same proof bytes:
 
-The transcript stays on the host (`iop.challenger.Challenger`); folding,
-re-LDEs and Merkle builds run on the device, one cap and one β crossing
-per fold step. Coefficient tensors are kept trimmed to their nonzero prefix
-(folding the zero tail yields zeros, so results are identical).
+- fused (the default under Poseidon with at least one fold step): the
+  transcript stays on the device (`iop.challenger.DeviceChallenger`) through
+  each fold step's cap and β, the final polynomial, the proof-of-work grind
+  (K5's device grind), the PoW response and the query indices; the openings
+  are gathered at the device indices and the whole argument leaves the
+  device in one fetch (`_fri_fused_finish`);
+- host (`force_host_path()`, or no fold step): the host challenger, one cap
+  and one β crossing per fold step, the grind chunk by chunk, the indices
+  drawn on the host.
+
+Folding, re-LDEs and Merkle builds run on the device on both. Coefficient
+tensors are kept trimmed to their nonzero prefix (folding the zero tail
+yields zeros, so results are identical).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -19,15 +31,49 @@ from plonky2_torch.fri.proof import (
     FriQueryRound,
     FriQueryStep,
 )
-from plonky2_torch.hash.merkle import make_merkle_tree, open_many_packed
+from plonky2_torch.hash.merkle import MerkleProof, make_merkle_tree, open_many_packed
+from plonky2_torch.hash.poseidon_constants import SPONGE_RATE, SPONGE_WIDTH
+from plonky2_torch.iop.challenger import DeviceChallenger
 from plonky2_torch.ops import poseidon as kp
 
 GRIND_CHUNK_CUDA = 1 << 17
 GRIND_CHUNK_CPU = 1 << 12
 
+# _FORCE_HOST puts every prove on the host transcript (set it through
+# force_host_path()); _LAST_PATH records which path the last FRI proof took,
+# "fused" or "host".
+_FORCE_HOST = False
+_LAST_PATH = None
+
+
+@contextlib.contextmanager
+def force_host_path():
+    """Scope in which proves take the host-transcript path; the previous
+    setting comes back on exit, exceptions included."""
+    global _FORCE_HOST
+    prev = _FORCE_HOST
+    _FORCE_HOST = True
+    try:
+        yield
+    finally:
+        _FORCE_HOST = prev
+
+
+def _scope(timing, name: str):
+    return timing.scope(name) if timing is not None else contextlib.nullcontext()
+
 
 def fri_proof(initial_merkle_trees, final_coeffs, challenger, fri_params) -> FriProof:
-    """final_coeffs: ext coefficient tensors (c0, c1) of length 2^degree_bits."""
+    """final_coeffs: ext coefficient tensors (c0, c1) of length 2^degree_bits.
+    With a fold step and outside force_host_path() the fused path runs and
+    leaves the host challenger in the state the host path would."""
+    global _LAST_PATH
+    from plonky2_torch.hash.hashers import PoseidonHasher
+
+    if (not _FORCE_HOST and fri_params.reduction_arity_bits
+            and challenger.hasher is PoseidonHasher):
+        return _fri_proof_fused(initial_merkle_trees, final_coeffs, challenger, fri_params)[0]
+    _LAST_PATH = "host"
     n = fri_params.lde_size
     trees, final_poly = _fri_committed_trees(final_coeffs, challenger, fri_params)
     pow_witness = fri_proof_of_work(challenger, fri_params.config, final_coeffs[0].device)
@@ -46,7 +92,7 @@ def _fold_step_leaves(values, arity_bits: int):
     coset's extension elements into one leaf [e0.0, e0.1, e1.0, ...]."""
     v0, v1 = values
     L = v0.shape[0]
-    perm = torch.from_numpy(ntt.bit_reverse_perm(L.bit_length() - 1)).to(v0.device)
+    perm = ntt.bit_reverse_index(L.bit_length() - 1, v0.device)
     return torch.stack([v0[perm], v1[perm]], dim=-1).reshape(L >> arity_bits,
                                                              2 << arity_bits)
 
@@ -146,3 +192,178 @@ def _fri_prover_query_rounds(initial_merkle_trees, trees, challenger, n, fri_par
 
 def _unflatten(flat: list[int]) -> list[tuple]:
     return [(flat[i], flat[i + 1]) for i in range(0, len(flat), 2)]
+
+
+# -- the fused path --------------------------------------------------------------
+
+def _fused_commit_pow(coeffs, dc, fri_params):
+    """The FRI transcript on the device (reference `_fused_commit_pow_fn`):
+    the initial LDE; per fold step the leaves, the K4 tree, its cap observed
+    into `dc`, β, the fold and re-LDE; then the final polynomial observed,
+    K5's device grind, the PoW response and the query indices drawn (masked
+    to the LDE size). Returns (step trees, packed payload [caps, final
+    polynomial c0 then c1, witness, response, indices, sponge state],
+    device indices)."""
+    config = fri_params.config
+    rate_bits, cap_height = config.rate_bits, config.cap_height
+    values = _initial_lde(coeffs, rate_bits)
+    shift = fs.MULTIPLICATIVE_GROUP_GENERATOR
+    trees = []
+    for arity_bits in fri_params.reduction_arity_bits:
+        tree = make_merkle_tree(_fold_step_leaves(values, arity_bits), cap_height)
+        trees.append(tree)
+        dc.observe_cap_rows(tree.cap_dev)
+        beta = (dc.get_challenge(), dc.get_challenge())
+        shift = fs.exp(shift, 1 << arity_bits)
+        coeffs, values = _fold_coeffs_and_relde(coeffs, beta, arity_bits, rate_bits, shift)
+    dc.observe_elements(torch.stack(coeffs, dim=-1))  # (c0, c1) per coefficient
+    witness = kp.grind_device(dc.state, dc.pending(), config.proof_of_work_bits)
+    dc.observe_elements(witness)
+    pow_response = dc.get_challenge()
+    idx = torch.stack(dc.get_n_challenges(config.num_query_rounds)) & (fri_params.lde_size - 1)
+    packed = torch.cat([t.cap_dev.reshape(-1) for t in trees]
+                       + [coeffs[0], coeffs[1], witness, pow_response.reshape(1), idx,
+                          dc.state])
+    return trees, packed, idx
+
+
+def _sim_remaining_outputs(k_pending: int, arities, cap_rows: int, n_final: int,
+                           num_queries: int) -> int:
+    """How many squeezed outputs the host challenger would still hold after
+    the fused transcript: its observe / draw sequence run on counts alone."""
+    state = {"inp": k_pending, "out": 0}
+
+    def observe(times):
+        for _ in range(times):
+            state["out"] = 0
+            state["inp"] += 1
+            if state["inp"] == SPONGE_RATE:
+                state["inp"] = 0
+                state["out"] = SPONGE_RATE
+
+    def get(times=1):
+        for _ in range(times):
+            if state["inp"] or not state["out"]:
+                state["inp"] = 0
+                state["out"] = SPONGE_RATE
+            state["out"] -= 1
+
+    for _ in arities:
+        observe(cap_rows * 4)
+        get(2)
+    observe(2 * n_final)
+    observe(1)  # the PoW witness
+    get(1)  # the PoW response
+    get(num_queries)  # the query indices
+    return state["out"]
+
+
+def _gather_all(initial_trees, step_trees, arities, idx, head):
+    """Every tree's openings at the device query indices (each fold step's
+    tree at idx >> the arity bits folded so far), packed after `head` into
+    one flat tensor. Returns it and each tree's (queries, leaf width,
+    levels)."""
+    parts, shapes = list(head), []
+    gathers = [t.gather(idx) for t in initial_trees]
+    shift_bits = 0
+    for tree, arity_bits in zip(step_trees, arities):
+        shift_bits += arity_bits
+        gathers.append(tree.gather(idx, shift_bits))
+    for leaves, sibs in gathers:
+        parts += [leaves.reshape(-1), sibs.reshape(-1)]
+        shapes.append((int(leaves.shape[0]), int(leaves.shape[1]), int(sibs.shape[1])))
+    return torch.cat(parts), shapes
+
+
+def _fri_proof_fused(initial_trees, coeffs, challenger, fri_params, device_state=None,
+                     extra_payload=None, timing=None, defer: bool = False):
+    """The fused FRI proof (reference `_fri_proof_fused_impl`). Returns
+    (FriProof, the fetched `extra_payload` or None).
+
+    device_state = (sponge [12], pending [k]) continues a transcript that is
+    already on the device (the fused prove) and `challenger` may be None;
+    otherwise the host challenger's state goes up and comes back synced.
+    extra_payload: a flat device tensor fetched in front of the FRI payload.
+    defer=True returns `finish()` unrun: every launch is queued and the one
+    fetch and the parse wait for the call."""
+    global _LAST_PATH
+    _LAST_PATH = "fused"
+    config = fri_params.config
+    arities = tuple(fri_params.reduction_arity_bits)
+    device = coeffs[0].device
+    lg_n = int(coeffs[0].shape[0]).bit_length() - 1
+    n_final = 1 << (lg_n - sum(arities))
+    if device_state is not None:
+        sponge, pending = device_state
+    else:
+        sponge = g.upload(challenger.sponge_state, device)
+        pending = g.upload(challenger.input_buffer, device)
+    k_pending = int(pending.shape[0])
+    with _scope(timing, "dispatch commit+pow+query program"):
+        trees, packed, idx = _fused_commit_pow(coeffs, DeviceChallenger(sponge, pending),
+                                               fri_params)
+    extra = extra_payload if extra_payload is not None else packed.new_empty((0,))
+    with _scope(timing, "dispatch gather program"):
+        out_dev, shapes = _gather_all(initial_trees, trees, arities, idx, [extra, packed])
+
+    def finish():
+        return _fri_fused_finish(out_dev, len(initial_trees), challenger, fri_params,
+                                 device_state is None, timing, int(extra.shape[0]),
+                                 extra_payload is not None, n_final, k_pending, shapes)
+
+    return finish if defer else finish()
+
+
+def _fri_fused_finish(out_dev, n_init, challenger, fri_params, sync_challenger, timing,
+                      n_extra, has_extra, n_final, k_pending, shapes):
+    """The one device-to-host fetch of the fused FRI proof and its parse;
+    the PoW response is checked here, after the fetch."""
+    config = fri_params.config
+    arities = tuple(fri_params.reduction_arity_bits)
+    rows = 1 << config.cap_height
+    num_queries = config.num_query_rounds
+    with _scope(timing, "block on device + fetch"):
+        flat = g.to_numpy(out_dev)
+    with _scope(timing, "parse payload"):
+        extra_host = flat[:n_extra] if has_extra else None
+        pos = n_extra
+        caps = []
+        for _ in arities:
+            caps.append([[int(v) for v in flat[pos + 4 * r:pos + 4 * (r + 1)]]
+                         for r in range(rows)])
+            pos += 4 * rows
+        final_poly = [(int(a), int(b)) for a, b in zip(flat[pos:pos + n_final],
+                                                       flat[pos + n_final:pos + 2 * n_final])]
+        pos += 2 * n_final
+        pow_witness, pow_response = int(flat[pos]), int(flat[pos + 1])
+        pos += 2
+        if pow_response >= 1 << (64 - config.proof_of_work_bits):
+            raise RuntimeError("proof-of-work witness does not meet the threshold")
+        pos += num_queries  # the indices, already applied on the device
+        sponge_out = flat[pos:pos + SPONGE_WIDTH]
+        pos += SPONGE_WIDTH
+        opens = []
+        for q, w, levels in shapes:
+            leaves = flat[pos:pos + q * w].reshape(q, w)
+            pos += q * w
+            sibs = flat[pos:pos + q * levels * 4].reshape(q, levels, 4)
+            pos += q * levels * 4
+            opens.append((leaves, sibs, levels))
+        if sync_challenger:
+            m = _sim_remaining_outputs(k_pending, arities, rows, n_final, num_queries)
+            challenger.sponge_state = [int(x) for x in sponge_out]
+            challenger.input_buffer = []
+            challenger.output_buffer = [int(x) for x in sponge_out[:m]]
+
+        def proof(leaves, sibs, levels, qi):
+            return MerkleProof([[int(v) for v in sibs[qi, k]] for k in range(levels)])
+
+        rounds = []
+        for qi in range(num_queries):
+            rounds.append(FriQueryRound(
+                initial_trees_proof=FriInitialTreeProof(evals_proofs=[
+                    ([int(v) for v in o[0][qi]], proof(*o, qi)) for o in opens[:n_init]]),
+                steps=[FriQueryStep(evals=_unflatten([int(v) for v in o[0][qi]]),
+                                    merkle_proof=proof(*o, qi)) for o in opens[n_init:]]))
+    return FriProof(commit_phase_merkle_caps=caps, query_round_proofs=rounds,
+                    final_poly=final_poly, pow_witness=pow_witness), extra_host

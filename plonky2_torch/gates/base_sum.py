@@ -39,7 +39,7 @@ class BaseSumGate(Gate):
         """The weighted sum as one modular dot product, the range checks
         batched over the [num_limbs] axis."""
         limbs = wires[START_LIMBS:START_LIMBS + self.num_limbs]
-        pows = g.tensor(g.np_powers(self.base % fs.P, self.num_limbs), wires.device)
+        pows = g.constant(g.np_powers(self.base % fs.P, self.num_limbs), wires.device)
         computed = g.sum_mod(g.mul(pows[:, None], limbs), 0)
         acc = limbs
         for i in range(1, self.base):

@@ -172,14 +172,14 @@ class CosetInterpolationGate(Gate):
         ip1 = rows(wires, [self.wires_intermediate_prod(i)[1] for i in range(nI)])
         ev = (torch.cat([zero, ie0]), torch.cat([zero, ie1]))
         prod = (torch.cat([one, ip0]), torch.cat([zero, ip1]))
-        xi_t, wt_t = g.tensor(xi, dev), g.tensor(wt, dev)
+        xi_t, wt_t = g.constant(xi, dev), g.constant(wt, dev)
         for t in range(L):
             term0 = g.sub(x0.expand(C, Q), xi_t[t][:, None])
             term1 = x1.expand(C, Q)
             wv0 = g.mul(wt_t[t][:, None], v0[t])
             wv1 = g.mul(wt_t[t][:, None], v1[t])
             if not valid[t].all():  # identity steps in the ragged tail
-                m = torch.as_tensor(valid[t], device=dev)[:, None]
+                m = (g.constant(valid[t], dev) != 0)[:, None]
                 term0 = torch.where(m, term0, 1)
                 term1 = torch.where(m, term1, 0)
                 wv0 = torch.where(m, wv0, 0)

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from plonky2_torch.field import goldilocks as g
 from plonky2_torch.gates.ops import EvaluationVars, TorchBaseOps
 
 
@@ -47,5 +48,6 @@ UNUSED_SELECTOR = (1 << 32) - 1  # u32::MAX (reference gates/selectors.rs:14)
 
 
 def rows(wires, idx) -> torch.Tensor:
-    """wires[idx] for a host list of row indices."""
-    return wires[torch.as_tensor(idx, dtype=torch.int64, device=wires.device)]
+    """wires[idx] for a host list of row indices (their index tensor made
+    once per list and device)."""
+    return wires[g.constant(idx, wires.device)]

@@ -9,8 +9,8 @@ unhashed (`hash_or_noop`).
 (same commitment as the reference's bit-reversed row leaves) and pairs
 contiguous halves per level; `MerkleTree` hashes row leaves [n, width]
 and pairs adjacent rows (the FRI fold trees). Layers stay on the device as
-views of the tree's buffer; query openings leave it in one packed copy
-(`open_many_packed`).
+views of the tree's buffer; query openings are gathered on the device at
+device indices (`gather`) and leave it in one packed copy.
 """
 
 from __future__ import annotations
@@ -40,6 +40,32 @@ def _proofs(leaves, sibs, levels):
     ]
 
 
+def gather_openings_rows(leaves, layers, idx, shift_bits: int = 0):
+    """Openings of a row-leaf tree at device indices (reference
+    hash/merkle.py `_gather_openings_rows_ref`): leaf i = idx >> shift_bits
+    of leaves [n, width], and at each level k the sibling (i >> k) ^ 1 of
+    layers[k] [n >> k, 4]. Returns (leaves [q, width], siblings
+    [q, levels, 4]); the indices never leave the device."""
+    i = idx >> shift_bits
+    sibs = [layer[(i >> k) ^ 1] for k, layer in enumerate(layers)]
+    return leaves[i], _stack_sibs(sibs, i.shape[0], leaves.device)
+
+
+def gather_openings_cols(cols, layers, idx, lg_n: int, shift_bits: int = 0):
+    """Openings of a natural-order tree at device reference indices
+    (reference `_gather_openings_cols_ref`): cols [width, 2^lg_n], layers[k]
+    [4, 2^lg_n >> k]. Reference leaf i is natural column r = rev_lg_n(i)
+    (one lookup in a cached bit-reversal table), and its level-k sibling
+    rev_{lg_n-k}((i >> k) ^ 1) is r's low lg_n - k bits with the top one
+    flipped."""
+    from plonky2_torch.ops.ntt import bit_reverse_index
+
+    r = bit_reverse_index(lg_n, cols.device)[idx >> shift_bits]
+    sibs = [layer[:, (r & ((1 << (lg_n - k)) - 1)) ^ (1 << (lg_n - k - 1))].T
+            for k, layer in enumerate(layers)]
+    return cols[:, r].T, _stack_sibs(sibs, r.shape[0], cols.device)
+
+
 class MerkleTree:
     """Tree over row leaves [n, width]; layers[k] is [n >> k, 4]."""
 
@@ -50,18 +76,24 @@ class MerkleTree:
         self._cap = None
 
     @property
+    def cap_dev(self):
+        """The cap on the device, [2^cap_height, 4] in digest order."""
+        return self._layers[-1]
+
+    @property
     def cap(self) -> list[list[int]]:
         if self._cap is None:
             cap = g.to_numpy(self._layers[-1])
             self._cap = [[int(v) for v in row] for row in cap]
         return self._cap
 
+    def gather(self, idx, shift_bits: int = 0):
+        """(leaves [q, width], siblings [q, levels, 4]) at device indices."""
+        return gather_openings_rows(self.leaves, self._layers[:-1], idx, shift_bits)
+
     def open_many_dev(self, indices: list[int]):
         """(leaves [q, width], siblings [q, levels, 4]) gathered on the device."""
-        dev = self.leaves.device
-        idx = torch.tensor(indices, dtype=torch.int64, device=dev)
-        sibs = [layer[(idx >> k) ^ 1] for k, layer in enumerate(self._layers[:-1])]
-        return self.leaves[idx], _stack_sibs(sibs, len(indices), dev)
+        return self.gather(torch.tensor(indices, dtype=torch.int64, device=self.leaves.device))
 
     def open_many(self, indices: list[int]):
         return open_many_packed([self], [indices])[0]
@@ -71,8 +103,7 @@ class NaturalMerkleTree:
     """Tree over natural-order columns [width, n]; layers[k] is [4, n >> k].
 
     Level-k invariant: ref_digest_k[i] == layers[k][:, rev_{lg_n-k}(i)], so
-    cap and openings remap indices on the host and present the reference's
-    interface."""
+    cap and openings remap indices and present the reference's interface."""
 
     def __init__(self, cols, cap_height: int = 0):
         self.cap_height = cap_height
@@ -82,6 +113,12 @@ class NaturalMerkleTree:
         self._cap = None
 
     @property
+    def cap_dev(self):
+        """The cap layer on the device, [4, 2^cap_height]: the reference's
+        digest c is column rev(c)."""
+        return self._layers[-1]
+
+    @property
     def cap(self) -> list[list[int]]:
         if self._cap is None:
             cap = g.to_numpy(self._layers[-1])
@@ -89,20 +126,15 @@ class NaturalMerkleTree:
                          for c in range(1 << self.cap_height)]
         return self._cap
 
+    def gather(self, idx, shift_bits: int = 0):
+        """(leaves [q, width], siblings [q, levels, 4]) at device reference
+        indices."""
+        return gather_openings_cols(self._cols, self._layers[:-1], idx, self._lg_n, shift_bits)
+
     def open_many_dev(self, indices: list[int]):
         """(leaves [q, width], siblings [q, levels, 4]) gathered on the
-        device; reference indices map to natural columns on the host."""
-        dev = self._cols.device
-        levels = self._lg_n - self.cap_height
-        leaf_idx = torch.tensor([reverse_bits(i, self._lg_n) for i in indices],
-                                dtype=torch.int64, device=dev)
-        sibs = []
-        for k in range(levels):
-            sib = torch.tensor(
-                [reverse_bits((i >> k) ^ 1, self._lg_n - k) for i in indices],
-                dtype=torch.int64, device=dev)
-            sibs.append(self._layers[k][:, sib].T)
-        return self._cols[:, leaf_idx].T, _stack_sibs(sibs, len(indices), dev)
+        device at host reference indices."""
+        return self.gather(torch.tensor(indices, dtype=torch.int64, device=self._cols.device))
 
     def open_many(self, indices: list[int]):
         return open_many_packed([self], [indices])[0]

@@ -1,6 +1,7 @@
-"""Fiat-Shamir challenger: duplex sponge in overwrite mode, on the host.
+"""Fiat-Shamir challenger: duplex sponge in overwrite mode, on the host
+(`Challenger`) and on the device (`DeviceChallenger`, `cap_boundary`).
 
-Behaviour is consensus critical and matches the reference package's host
+Behaviour is consensus critical and matches the reference package's
 `Challenger`: observing clears the output buffer; absorbing duplexes when
 the input buffer reaches RATE; `get_challenge` duplexes if inputs are
 pending or outputs are exhausted, then pops from the END of the squeezed
@@ -9,6 +10,8 @@ and exposes the raw sponge state.
 """
 
 from __future__ import annotations
+
+import torch
 
 from plonky2_torch.field import scalar as fs
 from plonky2_torch.hash.poseidon_constants import SPONGE_RATE, SPONGE_WIDTH
@@ -85,3 +88,85 @@ class Challenger:
             self._duplexing()
         self.output_buffer.clear()
         return list(self.sponge_state)
+
+
+class DeviceChallenger:
+    """The transcript on the device (reference iop/challenger.py
+    `DeviceChallenger`): the sponge state is a [12] int64 tensor and the
+    pending inputs are device values, but their count is a Python int, so
+    the duplex schedule is the host challenger's exactly and nothing is read
+    back. Each duplex is one K5 permutation of [12, 1]; a draw is a 0-d view
+    of the squeezed state, popped from the end of the rate."""
+
+    def __init__(self, state, pending=None):
+        self.state = state  # [12] int64
+        self.inputs = [] if pending is None or pending.shape[0] == 0 else [pending]
+        self.k = 0 if pending is None else int(pending.shape[0])  # pending count
+        self.remaining = 0  # squeezed outputs not yet drawn
+
+    def observe_elements(self, xs) -> None:
+        """Observe a 1-d tensor of field elements, in order: the host
+        challenger's observe_element on each, a duplex whenever RATE inputs
+        are pending."""
+        xs = xs.reshape(-1)
+        pos, n = 0, int(xs.shape[0])
+        while pos < n:
+            self.remaining = 0
+            take = min(SPONGE_RATE - self.k, n - pos)
+            self.inputs.append(xs[pos:pos + take])
+            self.k += take
+            pos += take
+            if self.k == SPONGE_RATE:
+                self._duplexing()
+
+    def observe_cap_rows(self, cap) -> None:
+        """cap: [rows, 4] digests, observed row-major (observe_cap's order)."""
+        self.observe_elements(cap)
+
+    def get_challenge(self):
+        if self.k or not self.remaining:
+            self._duplexing()
+        self.remaining -= 1
+        return self.state[self.remaining]
+
+    def get_n_challenges(self, n: int) -> list:
+        return [self.get_challenge() for _ in range(n)]
+
+    def pending(self):
+        """The pending inputs as one [k] tensor."""
+        if not self.inputs:
+            return self.state.new_empty((0,))
+        return self.inputs[0] if len(self.inputs) == 1 else torch.cat(self.inputs)
+
+    def _duplexing(self) -> None:
+        from plonky2_torch.ops import poseidon as kp
+
+        st = self.state
+        if self.k:
+            st = torch.cat([self.pending(), st[self.k:]])
+        self.state = kp.permute(st.reshape(SPONGE_WIDTH, 1)).reshape(SPONGE_WIDTH)
+        self.inputs = []
+        self.k = 0
+        self.remaining = SPONGE_RATE
+
+
+def cap_boundary(sponge, pending, k_pending: int, cap, cap_height: int, natural: bool,
+                 n_draws: int):
+    """A phase boundary of the prove on the device transcript (reference
+    iop/challenger.py `cap_boundary_fn`): observe one Merkle cap, then draw
+    `n_draws` challenges. cap: natural=True takes a natural-order tree's
+    [4, 2^cap_height] cap layer (the reference's digest c is column
+    rev(c)); natural=False row-major [2^cap_height, 4] digests. Returns
+    (state [12], pending [k_out], draws [n_draws], cap rows
+    [2^cap_height, 4] in the reference's digest order); k_out is 0 after a
+    draw and (k_pending + 4 · 2^cap_height) mod RATE without one."""
+    from plonky2_torch.ops.ntt import bit_reverse_index
+
+    if int(pending.shape[0]) != k_pending:
+        raise ValueError(f"{int(pending.shape[0])} pending inputs, {k_pending} expected")
+    rows = cap[:, bit_reverse_index(cap_height, cap.device)].T if natural else cap
+    dc = DeviceChallenger(sponge, pending)
+    dc.observe_cap_rows(rows)
+    draws = dc.get_n_challenges(n_draws)
+    out = torch.stack(draws) if draws else sponge.new_empty((0,))
+    return dc.state, dc.pending(), out, rows

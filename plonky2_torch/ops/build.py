@@ -104,6 +104,7 @@ _SIGNATURES = {
         "k4_tree": (_P, _P, _LL, _I, _I, _I, _I, _I, _P),
         "k5_permute": (_P, _P, _LL, _P),
         "k5_grind": (ctypes.POINTER(_U64), _I, _U64, _LL, _U64, _P, _P),
+        "k5_grind_device": (_P, _P, _I, _U64, _P, _P),
     },
 }
 

@@ -40,6 +40,17 @@ def bit_reverse_perm(lg_n: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def _bit_reverse_index(lg_n: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(bit_reverse_perm(lg_n)).to(device)
+
+
+def bit_reverse_index(lg_n: int, device) -> torch.Tensor:
+    """`bit_reverse_perm(lg_n)` as an int64 index tensor on `device`, made
+    once per size and device."""
+    return _bit_reverse_index(lg_n, str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=None)
 def _stage_twiddles_np(inverse: bool) -> np.ndarray:
     """Stage s (1..MAX_SMEM_LG) at offset 2^(s-1) - 1: [w_{2^s}^j, j < 2^(s-1)],
     w inverted for the inverse transform. A stage's row does not depend on
@@ -119,8 +130,7 @@ def _dit_last(v, lg: int, start: int, inverse: bool):
 
 def _ntt_last(v, lg: int, inverse: bool):
     """Unscaled NTT over the last axis (natural order in and out)."""
-    perm = torch.from_numpy(bit_reverse_perm(lg)).to(v.device)
-    return _dit_last(v[..., perm], lg, 0, inverse)
+    return _dit_last(v[..., bit_reverse_index(lg, v.device)], lg, 0, inverse)
 
 
 def _fan_out(x, scale, fan):
@@ -175,8 +185,7 @@ def ntt_rows_plain(x, inverse: bool = False, scale=None, fan: int = 1,
     lg_m = log2_strict(m)
     lg = lg_m + repeat_bits
     L = 1 << lg
-    perm = torch.from_numpy(bit_reverse_perm(lg_m)).to(x.device)
-    v = _fan_out(x, scale, fan)[..., perm]
+    v = _fan_out(x, scale, fan)[..., bit_reverse_index(lg_m, x.device)]
     if repeat_bits:
         v = v.repeat_interleave(1 << repeat_bits, dim=-1)
     v = _dit_last(v, lg, repeat_bits, inverse)

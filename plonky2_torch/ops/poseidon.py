@@ -1,5 +1,6 @@
 """Poseidon kernels K4 (`merkle_tree`, and `sponge` as its leaf step) and
-K5 (`permute`, `grind_chunk`) with their plain PyTorch versions.
+K5 (`permute`, `grind_chunk`, `grind_device`) with their plain PyTorch
+versions.
 
 States are state-major: [12, N] int64, one column per state, so the batch
 runs along the contiguous axis. A Merkle tree lives in one flat buffer:
@@ -16,6 +17,7 @@ import functools
 import torch
 
 from plonky2_torch.field import goldilocks as g
+from plonky2_torch.field import scalar
 from plonky2_torch.hash.poseidon_constants import (
     ALL_ROUND_CONSTANTS,
     HALF_N_FULL_ROUNDS,
@@ -26,7 +28,7 @@ from plonky2_torch.hash.poseidon_constants import (
     SPONGE_RATE,
     SPONGE_WIDTH,
 )
-from plonky2_torch.ops import K4, K5, stream_ptr
+from plonky2_torch.ops import K4, K5, K5_CHUNK, K5_DEVICE, stream_ptr
 from plonky2_torch.ops.build import check, library
 
 W = SPONGE_WIDTH
@@ -121,6 +123,41 @@ def grind_chunk_plain(inter, pos: int, start: int, count: int, threshold: int,
     resp = permute_plain(states)[SPONGE_RATE - 1]
     ok = torch.nonzero(g.lt(resp, g.i64(threshold)))
     return None if ok.numel() == 0 else start + int(ok[0, 0])
+
+
+def _check_grind_state(state, pending, pow_bits: int) -> int:
+    if state.dtype != torch.int64 or state.shape != (W,) or not state.is_contiguous():
+        raise ValueError("state must be a contiguous [12] int64 tensor")
+    if (pending.dtype != torch.int64 or pending.dim() != 1 or not pending.is_contiguous()
+            or pending.device != state.device):
+        raise ValueError("pending must be a contiguous [k] int64 tensor on the state's device")
+    k = int(pending.shape[0])
+    if not 0 <= k < SPONGE_RATE:
+        raise ValueError(f"{k} pending inputs: a transcript holds fewer than {SPONGE_RATE}")
+    if not 0 <= pow_bits <= 64:
+        raise ValueError("pow_bits must lie in [0, 64]")
+    return k
+
+
+def grind_device_plain(state, pending, pow_bits: int, chunk: int = 1 << 12):
+    """Plain PyTorch version of K5's device grind: the state and pending
+    inputs read from their tensors, then `grind_chunk_plain` over the chunks
+    [0, chunk), [chunk, 2 chunk), ... in order, so the first chunk holding a
+    valid candidate gives the lowest valid witness. Returns it as an int64
+    [1] on the state's device (0 for pow_bits = 0)."""
+    k = _check_grind_state(state, pending, pow_bits)
+    if pow_bits == 0:
+        return torch.zeros((1,), dtype=torch.int64, device=state.device)
+    inter = [int(v) for v in g.to_numpy(state)]
+    inter[:k] = [int(v) for v in g.to_numpy(pending)]
+    threshold = 1 << (64 - pow_bits)
+    start = 0
+    while start < scalar.P:
+        witness = grind_chunk_plain(inter, k, start, chunk, threshold, state.device)
+        if witness is not None:
+            return torch.full((1,), g.i64(witness), dtype=torch.int64, device=state.device)
+        start += chunk
+    return torch.full((1,), _NONE, dtype=torch.int64, device=state.device)
 
 
 # -- Merkle trees: layout, launch plan, plain version ------------------------
@@ -254,6 +291,7 @@ def permute(states):
     err = library("poseidon").k5_permute(states.data_ptr(), out.data_ptr(), n, stream_ptr(states))
     check(err, "k5_permute")
     K5.launches += 1
+    K5.batch1 += n == 1
     return out
 
 
@@ -271,6 +309,27 @@ def grind_chunk(inter, pos: int, start: int, count: int, threshold: int, device=
     err = library("poseidon").k5_grind(host, pos, start, count, threshold, best.data_ptr(),
                                        stream_ptr(best))
     check(err, "k5_grind")
-    K5.launches += 1
+    K5_CHUNK.launches += 1
     found = int(best.item())
     return None if found == _NONE else g.u64(found)
+
+
+def grind_device(state, pending, pow_bits: int):
+    """K5's device grind: the lowest witness w (over the whole field) for
+    which permuting the transcript state [12] with its k pending inputs
+    [k] written in and w at position k gives state[7] below
+    2^(64 - pow_bits). Returns an int64 [1] on the state's device and reads
+    nothing back (all ones where no field element passes). At pow_bits = 0
+    every witness passes and 0 is returned without a launch."""
+    k = _check_grind_state(state, pending, pow_bits)
+    if pow_bits == 0:
+        return torch.zeros((1,), dtype=torch.int64, device=state.device)
+    if not state.is_cuda:
+        return grind_device_plain(state, pending, pow_bits)
+    best = torch.full((1,), _NONE, dtype=torch.int64, device=state.device)
+    err = library("poseidon").k5_grind_device(
+        state.data_ptr(), pending.data_ptr() if k else None, k, 1 << (64 - pow_bits),
+        best.data_ptr(), stream_ptr(state))
+    check(err, "k5_grind_device")
+    K5_DEVICE.launches += 1
+    return best

@@ -1,9 +1,8 @@
-"""PLONK prover on the host-transcript path (reference plonk/prover.py:405-556,
+"""PLONK prover (reference plonk/prover.py:405-556 and :976-1242,
 plonk/prover.rs:113-815), for non-zk circuits without lookups under
 `PoseidonGoldilocksConfig`.
 
-The Fiat-Shamir transcript runs on the host; every round runs on tensors of
-one device:
+Every round runs on tensors of one device:
 
   wires commitment        iFFT, coset LDE, Merkle tree   (fri/oracle.py: K2, K4)
   partial products, Zs    batch inverses and modular prefix-product scans
@@ -13,7 +12,16 @@ one device:
                           challenge
   openings, FRI           fri/oracle.py, fri/prover.py (K2, K3, K4, K5)
 
-The field work between the kernels is plain PyTorch on the same device.
+The Fiat-Shamir transcript takes one of two paths, which give the same
+proof bytes. The fused path (the default, as in the reference, whenever
+`_can_fuse_transcript` holds) moves the host-observed prefix (FRI
+parameters, circuit digest, public-inputs hash) to the device before the
+wires commitment and keeps the transcript there (`DeviceChallenger`): the
+caps, the draws, the openings and the whole FRI argument return in one
+device-to-host fetch, and a warm prove synchronises with the host nowhere
+before it. The host path (inside `fri.prover.force_host_path()`) reads each
+cap and draw back to the host between the rounds. The field work between
+the kernels is plain PyTorch on the same device.
 """
 
 from __future__ import annotations
@@ -25,12 +33,17 @@ from plonky2_torch import resolve_device
 from plonky2_torch.field import goldilocks as g
 from plonky2_torch.field import ntt
 from plonky2_torch.field import scalar as fs
-from plonky2_torch.fri.oracle import PolynomialBatch, eval_polys_at
+from plonky2_torch.fri import prover as fri_prover
+from plonky2_torch.fri.oracle import PolynomialBatch, _batch_quotient, eval_polys_at
 from plonky2_torch.gates.gate import UNUSED_SELECTOR
 from plonky2_torch.hash import poseidon as ps
-from plonky2_torch.iop.challenger import Challenger
+from plonky2_torch.hash.merkle import NaturalMerkleTree
+from plonky2_torch.iop.challenger import Challenger, DeviceChallenger, cap_boundary
 from plonky2_torch.plonk.proof import OpeningSet, Proof, ProofWithPublicInputs
 from plonky2_torch.util import TimingTree, log2_strict
+
+# which transcript path the last prove took: "fused" or "host"
+_LAST_TRANSCRIPT = None
 
 
 def random_witness(common, seed: int):
@@ -45,11 +58,27 @@ def random_witness(common, seed: int):
     return witness, public_inputs, ps.hash_no_pad(public_inputs)
 
 
+def _can_fuse_transcript(common, challenger, constants_sigmas) -> bool:
+    """The reference's conditions for the fused path: a Poseidon
+    transcript, at least one FRI fold step, natural-order trees; and not
+    inside force_host_path()."""
+    from plonky2_torch.hash.hashers import PoseidonHasher
+
+    return (not fri_prover._FORCE_HOST
+            and challenger.hasher is PoseidonHasher
+            and bool(tuple(common.fri_params.reduction_arity_bits))
+            and isinstance(constants_sigmas.merkle_tree, NaturalMerkleTree))
+
+
 def prove(prover_data, common, witness, public_inputs, public_inputs_hash, device=None,
-          timing: TimingTree | None = None) -> ProofWithPublicInputs:
+          timing: TimingTree | None = None, _defer: bool = False):
     """Prove `common`'s circuit on `witness` ([num_wires, degree] u64 values,
-    as the reference's `prepare_witness` returns it) on `device` (CUDA
-    unless the caller asks for another)."""
+    as the reference's `prepare_witness` returns it, or that matrix as an
+    int64 tensor already on the device) on `device` (CUDA unless the caller
+    asks for another). _defer=True returns `finish()` unrun: on the fused
+    path every launch is queued and the one fetch and the parse wait for the
+    call; a host-path prove completes and returns a closure over its proof."""
+    global _LAST_TRANSCRIPT
     device = resolve_device(device)
     if common.config.zero_knowledge:
         raise NotImplementedError("zero-knowledge circuits are not ported (ROADMAP item 10)")
@@ -65,14 +94,25 @@ def prove(prover_data, common, witness, public_inputs, public_inputs_hash, devic
         return PolynomialBatch.from_values(values, rate_bits, False, cap_height)
 
     constants_sigmas = prover_data.commitment(common, device)
-    with timing.scope("wires commitment"):
-        witness_dev = g.tensor(witness, device)
-        wires = commit_values(witness_dev)
-
     challenger = Challenger()
     common.fri_params.observe(challenger)
     challenger.observe_hash(prover_data.circuit_digest)
     challenger.observe_hash(public_inputs_hash)
+    fused = _can_fuse_transcript(common, challenger, constants_sigmas)
+    if fused:  # the host-observed prefix goes up ahead of the wires commitment
+        transcript = (g.upload(challenger.sponge_state, device),
+                      g.upload(challenger.input_buffer, device))
+        pi_hash_dev = g.upload(public_inputs_hash, device)
+    with timing.scope("wires commitment"):
+        witness_dev = (witness.to(device) if isinstance(witness, torch.Tensor)
+                       else g.tensor(witness, device))
+        wires = commit_values(witness_dev)
+
+    if fused:
+        _LAST_TRANSCRIPT = "fused"
+        return _prove_fused(prover_data, common, constants_sigmas, wires, witness_dev,
+                            transcript, public_inputs, pi_hash_dev, timing, _defer)
+    _LAST_TRANSCRIPT = "host"
     challenger.observe_cap(wires.merkle_tree.cap)
     betas = challenger.get_n_challenges(nc)
     gammas = challenger.get_n_challenges(nc)
@@ -111,7 +151,8 @@ def prove(prover_data, common, witness, public_inputs, public_inputs_hash, devic
                   plonk_zs_partial_products_cap=zs_pp.merkle_tree.cap,
                   quotient_polys_cap=quotient.merkle_tree.cap,
                   openings=openings, opening_proof=opening_proof)
-    return ProofWithPublicInputs(proof=proof, public_inputs=list(public_inputs))
+    done = ProofWithPublicInputs(proof=proof, public_inputs=list(public_inputs))
+    return (lambda: done) if _defer else done
 
 
 # -- round 2: the permutation argument's partial products and Zs ---------------
@@ -206,7 +247,8 @@ def _quotient_tables(prover_data, common, device) -> dict:
 
 
 def _gate_constraints(common, wires_q, constants_q, public_inputs_hash):
-    """Σ over gates of filter · constraints, [num_gate_constraints, Q]: each
+    """public_inputs_hash: 4 host ints or a [4] tensor on the device.
+    Σ over gates of filter · constraints, [num_gate_constraints, Q]: each
     gate's constraints times the product of (k - s) over the other gates
     k of its selector group s, and times (UNUSED_SELECTOR - s) where the
     circuit has several groups."""
@@ -214,7 +256,8 @@ def _gate_constraints(common, wires_q, constants_q, public_inputs_hash):
     si = common.selectors_info
     gate_constants = constants_q[si.num_selectors + common.num_lookup_selectors:
                                  common.num_constants]
-    pi = g.tensor(public_inputs_hash, device)
+    pi = (public_inputs_hash if isinstance(public_inputs_hash, torch.Tensor)
+          else g.tensor(public_inputs_hash, device))
     acc = torch.zeros((common.num_gate_constraints, wires_q.shape[-1]), dtype=torch.int64,
                       device=device)
     for i, gate in enumerate(common.gates):
@@ -276,7 +319,7 @@ def compute_quotient_polys(prover_data, common, constants_sigmas, wires, zs_pp,
     del z1_terms, pp_terms
 
     vanishing = torch.stack([
-        g.sum_mod(g.mul(g.powers(g.scalar_tensor(a, device), all_terms.shape[0])[:, None],
+        g.sum_mod(g.mul(g.powers(a, all_terms.shape[0], device)[:, None],
                         all_terms), 0)
         for a in alphas])
     quotient_values = g.mul(vanishing, t["z_h_inv"][None, :])
@@ -309,3 +352,126 @@ def opening_set(zeta, g_root, constants_sigmas, wires, zs_pp, quotient, common) 
         partial_products=[zs_pp_eval[i] for i in common.partial_products_range()],
         quotient_polys=quotient_eval,
     )
+
+
+# -- the fused path: the transcript on the device -------------------------------
+
+def _openings_final(sponge, zdraw, cs, wires, zs_pp, quot, num_challenges: int,
+                    degree_bits: int, rate_bits: int):
+    """The opening argument's transcript segment on the device (reference
+    `_openings_final_fn`): every committed polynomial (coefficients [rows,
+    n] of the four oracles) at ζ = zdraw and the Zs-partial-products oracle
+    at g·ζ; the openings observed in the FRI-openings order (batch 0: every
+    polynomial at ζ; batch 1: the Zs at g·ζ; c0 then c1 of each); the FRI α
+    drawn; and the FRI final polynomial, Σ over the two batches of α^(batch
+    size)-shifted batch quotients. Returns (openings [2, cs + wires + 2 zs +
+    quot] laid out [cs@ζ | wires@ζ | zs@ζ | zs@gζ | quot@ζ], [ζ0, ζ1, gζ0,
+    gζ1], final c0, final c1, sponge state)."""
+    z = (zdraw[0], zdraw[1])
+    g_root = fs.primitive_root_of_unity(degree_bits)
+    gz = (g.mul_scalar(z[0], g_root), g.mul_scalar(z[1], g_root))
+    all_polys = torch.cat([cs, wires, zs_pp, quot])
+    at_z = eval_polys_at(all_polys, z)
+    at_gz = eval_polys_at(zs_pp, gz)
+    o = cs.shape[0] + wires.shape[0] + zs_pp.shape[0]
+    packed = torch.stack([torch.cat([at_z[i][:o], at_gz[i], at_z[i][o:]]) for i in (0, 1)])
+
+    dc = DeviceChallenger(sponge)
+    dc.observe_elements(torch.stack(at_z, dim=-1))
+    dc.observe_elements(torch.stack([at_gz[0][:num_challenges], at_gz[1][:num_challenges]],
+                                    dim=-1))
+    alpha = (dc.get_challenge(), dc.get_challenge())
+
+    n = cs.shape[-1]
+    final = (torch.zeros(n, dtype=torch.int64, device=cs.device),
+             torch.zeros(n, dtype=torch.int64, device=cs.device))
+    for point, polys in ((z, all_polys), (gz, zs_pp[:num_challenges])):
+        q = _batch_quotient(polys, alpha, point, rate_bits)
+        shift = g.ext2_pow_static(alpha, polys.shape[0])
+        final = g.ext2_add(g.ext2_mul(shift, final), q)
+    zz = torch.stack([z[0], z[1], gz[0], gz[1]])
+    return packed, zz, final[0], final[1], dc.state
+
+
+def _prove_fused(prover_data, common, constants_sigmas, wires, witness_dev, transcript,
+                 public_inputs, pi_hash_dev, timing, defer: bool):
+    """The prove on the device transcript (reference `_prove_fused`): after
+    the host-observed prefix, each cap is absorbed and its challenges drawn
+    on the device (`cap_boundary`), the openings and the FRI argument follow
+    (`_openings_final`, `fri.prover._fri_proof_fused`), and the caps,
+    openings, ζ and the FRI proof come back in one fetch in `finish()`."""
+    config = common.config
+    rate_bits = config.fri_config.rate_bits
+    cap_height = config.fri_config.cap_height
+    nc = config.num_challenges
+    C = 1 << cap_height
+    sponge, pending = transcript
+    no_pending = sponge.new_empty((0,))
+
+    sponge, _, draws, cap_w = cap_boundary(sponge, pending, int(pending.shape[0]),
+                                           wires.merkle_tree.cap_dev, cap_height, True, 2 * nc)
+    betas, gammas = draws[:nc], draws[nc:]
+    with timing.scope("partial products and Zs"):
+        zs_pp_values = all_partial_products_and_zs(
+            witness_dev[:config.num_routed_wires], prover_data, common, betas, gammas)
+    with timing.scope("zs_partial_products commitment"):
+        zs_pp = PolynomialBatch.from_values(zs_pp_values, rate_bits, False, cap_height)
+    sponge, _, alphas, cap_z = cap_boundary(sponge, no_pending, 0, zs_pp.merkle_tree.cap_dev,
+                                            cap_height, True, nc)
+    with timing.scope("quotient polys"):
+        quotient_chunks = compute_quotient_polys(
+            prover_data, common, constants_sigmas, wires, zs_pp, pi_hash_dev,
+            betas, gammas, alphas)
+    with timing.scope("quotient commitment"):
+        quotient = PolynomialBatch.from_coeffs(quotient_chunks, rate_bits, False, cap_height)
+    sponge, _, zdraw, cap_q = cap_boundary(sponge, no_pending, 0,
+                                           quotient.merkle_tree.cap_dev, cap_height, True, 2)
+
+    oracles = (constants_sigmas, wires, zs_pp, quotient)
+    n_cs, n_w, n_z, n_q = (int(o.polynomials.shape[0]) for o in oracles)
+    total = n_cs + n_w + 2 * n_z + n_q
+    with timing.scope("openings + final poly"):
+        packed, zz, f0, f1, sponge = _openings_final(
+            sponge, zdraw, *(o.polynomials for o in oracles), nc, common.degree_bits,
+            rate_bits)
+    extra = torch.cat([cap_w.reshape(-1), cap_z.reshape(-1), cap_q.reshape(-1),
+                       packed.reshape(-1), zz])
+    with timing.scope("FRI dispatch" if defer else "FRI opening proof"):
+        fri_out = fri_prover._fri_proof_fused(
+            [o.merkle_tree for o in oracles], (f0, f1), None, common.fri_params,
+            device_state=(sponge, no_pending), extra_payload=extra, timing=timing,
+            defer=defer)
+
+    def finish() -> ProofWithPublicInputs:
+        opening_proof, flat = fri_out() if defer else fri_out
+        caps, pos = [], 0
+        for _ in range(3):
+            caps.append([[int(v) for v in flat[pos + 4 * r:pos + 4 * (r + 1)]]
+                         for r in range(C)])
+            pos += 4 * C
+        packed_h = flat[pos:pos + 2 * total].reshape(2, total)
+        pos += 2 * total
+        zeta = (int(flat[pos]), int(flat[pos + 1]))
+        # the reference checks ζ before the openings; ζ is fixed by the
+        # transcript, so checking it after the fetch refuses the same proofs
+        if fs.ext_exp(zeta, common.degree) == fs.ext_one(2):
+            raise ValueError("Opening point is in the subgroup.")
+        off = np.cumsum([0, n_cs, n_w, n_z, n_z, n_q])
+        cs_eval, wires_eval, zs_pp_eval, zs_pp_next_eval, quotient_eval = (
+            [(int(a), int(b)) for a, b in zip(packed_h[0, s:e], packed_h[1, s:e])]
+            for s, e in zip(off[:-1], off[1:]))
+        openings = OpeningSet(
+            constants=[cs_eval[i] for i in common.constants_range()],
+            plonk_sigmas=[cs_eval[i] for i in common.sigmas_range()],
+            wires=wires_eval,
+            plonk_zs=[zs_pp_eval[i] for i in common.zs_range()],
+            plonk_zs_next=[zs_pp_next_eval[i] for i in common.zs_range()],
+            partial_products=[zs_pp_eval[i] for i in common.partial_products_range()],
+            quotient_polys=quotient_eval,
+        )
+        proof = Proof(wires_cap=caps[0], plonk_zs_partial_products_cap=caps[1],
+                      quotient_polys_cap=caps[2], openings=openings,
+                      opening_proof=opening_proof)
+        return ProofWithPublicInputs(proof=proof, public_inputs=list(public_inputs))
+
+    return finish if defer else finish()

@@ -134,24 +134,82 @@ def test_k5_permute_edge_states_match_plain(dev):
     assert torch.equal(kp.permute(states), kp.permute_plain(states))
 
 
-def test_factorial_prove_on_the_card_equals_the_fixture(dev):
-    """The PLONK prove from the port's committed factorial data, on the
-    card: the bytes of fixtures/factorial.proof.bin, through K2, K4 and K5
-    (every transform of degree 2^6 is small enough for K2)."""
+def _factorial(dev):
     import os
 
-    from plonky2_torch import ops
-    from plonky2_torch.plonk import prover as tp
     from plonky2_torch.plonk.prover_serialization import read_prover_data
-    from plonky2_torch.plonk.serialization import proof_to_bytes
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(os.path.join(root, "plonky2_torch", "data", "factorial.prover.bin"), "rb") as f:
         prover_only, common = read_prover_data(f.read())
     w = np.load(os.path.join(root, "plonky2_torch", "data", "factorial.witness.npz"))
-    ops.reset_launches()
-    pwp = tp.prove(prover_only, common, w["witness"], [int(v) for v in w["public_inputs"]],
-                   [int(v) for v in w["public_inputs_hash"]], device=dev)
-    assert ops.K2.launches and ops.K4.launches and ops.K5.launches
     with open(os.path.join(root, "fixtures", "factorial.proof.bin"), "rb") as f:
-        assert proof_to_bytes(pwp) == f.read()
+        fixture = f.read()
+    return (prover_only, common, w["witness"], [int(v) for v in w["public_inputs"]],
+            [int(v) for v in w["public_inputs_hash"]]), fixture
+
+
+def test_factorial_prove_on_the_card_equals_the_fixture(dev):
+    """The PLONK prove from the port's committed factorial data, on the
+    card, on the fused transcript path (the default): the bytes of
+    fixtures/factorial.proof.bin, through K2, K4, K5's duplexes and one K5
+    device grind (every transform of degree 2^6 is small enough for K2)."""
+    from plonky2_torch import ops
+    from plonky2_torch.plonk import prover as tp
+    from plonky2_torch.plonk.serialization import proof_to_bytes
+
+    args, fixture = _factorial(dev)
+    ops.reset_launches()
+    pwp = tp.prove(*args, device=dev)
+    assert tp._LAST_TRANSCRIPT == "fused"
+    assert ops.K2.launches and ops.K4.launches and ops.K5.batch1
+    assert ops.K5_DEVICE.launches == 1 and ops.K5_CHUNK.launches == 0
+    assert proof_to_bytes(pwp) == fixture
+
+
+def test_factorial_host_path_prove_on_the_card_equals_the_fixture(dev):
+    from plonky2_torch import ops
+    from plonky2_torch.fri.prover import force_host_path
+    from plonky2_torch.plonk import prover as tp
+    from plonky2_torch.plonk.serialization import proof_to_bytes
+
+    args, fixture = _factorial(dev)
+    ops.reset_launches()
+    with force_host_path():
+        pwp = tp.prove(*args, device=dev)
+    assert tp._LAST_TRANSCRIPT == "host"
+    assert ops.K5_CHUNK.launches and ops.K5_DEVICE.launches == 0
+    assert proof_to_bytes(pwp) == fixture
+
+
+@pytest.mark.parametrize("pow_bits", [0, 1, 8, 12])
+def test_k5_grind_device_matches_plain(dev, pow_bits):
+    from plonky2_torch import ops
+
+    for k in (0, 3, 7):
+        state = _rand(dev, (12,), 10 * pow_bits + k)
+        pending = _rand(dev, (k,), 10 * pow_bits + k + 1)
+        before = ops.K5_DEVICE.launches
+        got = kp.grind_device(state, pending, pow_bits)
+        assert ops.K5_DEVICE.launches == before + (pow_bits > 0)
+        assert torch.equal(got, kp.grind_device_plain(state, pending, pow_bits))
+
+
+def test_warm_fused_defer_prove_makes_no_synchronisation(dev):
+    """A warm prove(_defer=True) of a witness already on the card runs under
+    torch.cuda.set_sync_debug_mode("error") without raising; finish() then
+    fetches the fixture's bytes."""
+    from plonky2_torch.field import goldilocks as g
+    from plonky2_torch.plonk import prover as tp
+    from plonky2_torch.plonk.serialization import proof_to_bytes
+
+    args, fixture = _factorial(dev)
+    witness = g.tensor(args[2], dev)
+    tp.prove(args[0], args[1], witness, *args[3:], device=dev)  # per-circuit tables
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        finish = tp.prove(args[0], args[1], witness, *args[3:], device=dev, _defer=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert proof_to_bytes(finish()) == fixture

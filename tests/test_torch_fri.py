@@ -1,9 +1,13 @@
 """The port's transcript and its whole commit-and-open FRI proof against the
 reference package: the same numpy-seeded inputs must give byte-identical
-proof bytes to the reference sequence run on its host-transcript path.
-Also: the port imports neither jax nor the reference package, and its entry
-points refuse to run without CUDA unless asked for the CPU."""
+proof bytes to the reference sequence run on its host-transcript path, on
+the port's fused path (the default) and on its host path; the port's fused
+`fri_proof` equals the reference's fused one and leaves the host challenger
+where the host path does. Also: the port imports neither jax nor the
+reference package, and its entry points refuse to run without CUDA unless
+asked for the CPU."""
 
+import contextlib
 import subprocess
 import sys
 
@@ -26,6 +30,10 @@ from plonky2_tpu.plonk.serialization import Writer as JWriter
 from plonky2_tpu.util import export_cache
 from plonky2_torch import convert
 from plonky2_torch.examples import commit_and_open as co
+from plonky2_torch.field import goldilocks as tg
+from plonky2_torch.fri import prover as tfp
+from plonky2_torch.fri.oracle import PolynomialBatch as TBatch
+from plonky2_torch.fri.serialization import Writer as TWriter
 from plonky2_torch.iop.challenger import Challenger as TChallenger
 
 
@@ -121,7 +129,56 @@ def test_commit_and_open_is_byte_identical_to_reference(monkeypatch):
     assert convert.fri_params(config.fri_params(7, False)) == \
         convert.fri_config(config).fri_params(7, False)
     port = co.commit_and_open(inputs, convert.fri_config(config), device="cpu")
+    assert tfp._LAST_PATH == "fused"
     assert port == _reference_commit_and_open(inputs, config)
+    with tfp.force_host_path():
+        assert co.commit_and_open(inputs, convert.fri_config(config), device="cpu") == port
+        assert tfp._LAST_PATH == "host"
+
+
+def test_fused_fri_proof_equals_the_reference_fused_and_the_host_path(monkeypatch):
+    """Degree 2^5 at rate 3, two fold steps of arity 4, 6 PoW bits, three
+    pending inputs in the challenger: the port's fused fri_proof gives the
+    reference's fused bytes and the port's host-path bytes, and the host
+    challenger ends where the host path leaves it."""
+    monkeypatch.setattr(export_cache, "_ENABLED", False)
+    config = FriConfig(rate_bits=3, cap_height=1, proof_of_work_bits=6,
+                       reduction_strategy=FriReductionStrategy.ConstantArityBits(2, 1),
+                       num_query_rounds=5)
+    rng = np.random.default_rng(11)
+    values = [rng.integers(0, fs.P, size=(c, 32), dtype=np.uint64) for c in (3, 5)]
+    final = rng.integers(0, fs.P, size=(2, 32), dtype=np.uint64)
+    prefix = [int(v) for v in rng.integers(0, fs.P, size=11, dtype=np.uint64)]
+
+    params = config.fri_params(5, False)
+    assert tuple(params.reduction_arity_bits) == (2, 2)
+    ch = JChallenger()
+    ch.observe_elements(prefix)
+    proof = jfp.fri_proof([JBatch.from_values(v, 3, False, 1).merkle_tree for v in values],
+                          (final[0], final[1]), ch, params)
+    assert jfp._LAST_PATH == "fused"
+    w = JWriter()
+    w.write_fri_proof(proof)
+
+    trees = [TBatch.from_values(v, 3, False, 1, device="cpu").merkle_tree for v in values]
+    coeffs = (tg.tensor(final[0], "cpu"), tg.tensor(final[1], "cpu"))
+    fused, host = TChallenger(), TChallenger()
+    fused.observe_elements(prefix)
+    host.observe_elements(prefix)
+    tparams = convert.fri_config(config).fri_params(5, False)
+    out = []
+    for challenger, force in ((fused, False), (host, True)):
+        with tfp.force_host_path() if force else contextlib.nullcontext():
+            proof = tfp.fri_proof(trees, coeffs, challenger, tparams)
+        assert tfp._LAST_PATH == ("host" if force else "fused")
+        tw = TWriter()
+        tw.write_fri_proof(proof)
+        out.append(bytes(tw.buf))
+    assert out[0] == out[1] == bytes(w.buf)
+    assert (fused.sponge_state, fused.input_buffer, fused.output_buffer) == \
+        (host.sponge_state, host.input_buffer, host.output_buffer) == \
+        (ch.sponge_state, ch.input_buffer, ch.output_buffer)
+    assert fused.get_n_challenges(9) == host.get_n_challenges(9)
 
 
 def test_port_imports_neither_jax_nor_the_reference_package():

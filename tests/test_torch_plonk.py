@@ -2,30 +2,37 @@
 
 At the factorial circuit (degree 2^6, from the port's committed data): the
 committed data is what the reference makes now; the port's reader equals
-`convert.circuit_from_reference` of the reference's objects; the prove's
-Zs and partial products, quotient chunks and opening set each equal the
-reference's `_all_partial_products_and_zs`, `_compute_quotient_polys` and
-`_opening_set` on the same inputs; and the whole proof equals
-`fixtures/factorial.proof.bin` byte for byte. At the bench_recursion middle
-circuit: the port's reader equals the reference's (without building the
-commitment). And the entry point refuses what it does not do.
+`convert.circuit_from_reference` of the reference's objects; on the host
+transcript path the prove's Zs and partial products, quotient chunks and
+opening set each equal the reference's `_all_partial_products_and_zs`,
+`_compute_quotient_polys` and `_opening_set` on the same inputs; on the
+fused path (the default) the rounds take device draws and `_openings_final`
+equals the reference's `_openings_final_fn`; both paths give
+`fixtures/factorial.proof.bin` byte for byte, and a warm fused prove reads
+nothing back to the host before its one fetch. At the bench_recursion
+middle circuit: the port's reader equals the reference's (without building
+the commitment). And the entry point refuses what it does not do.
 """
 
 import os
 import struct
 import sys
+import traceback
 import types
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from plonky2_tpu.field import scalar as fs
 from plonky2_tpu.plonk import prover as jp
 from plonky2_tpu.plonk import prover_serialization as jps
 from plonky2_torch import convert
 from plonky2_torch.field import goldilocks as tg
+from plonky2_torch.fri import prover as tfp
+from plonky2_torch.ops import poseidon as tkp
 from plonky2_torch.plonk import prover as tp
 from plonky2_torch.plonk.prover_serialization import Reader, read_circuit_data, read_prover_data
 from plonky2_torch.plonk.serialization import proof_to_bytes
@@ -67,10 +74,10 @@ def port_data():
             [int(v) for v in w["public_inputs_hash"]])
 
 
-@pytest.fixture(scope="module")
-def port_prove(port_data):
-    """The port's plain-path prove of factorial, with the inputs and
-    outputs of its three rounds recorded."""
+def _recorded_prove(port_data, names, host: bool):
+    """The port's plain-path prove of factorial on the host (host=True) or
+    the fused transcript path, with the inputs and outputs of the named
+    rounds recorded. Returns (proof bytes, calls, transcript path)."""
     prover_only, common, witness, pis, pi_hash = port_data
     calls = {}
 
@@ -83,10 +90,26 @@ def port_prove(port_data):
         return run
 
     with pytest.MonkeyPatch.context() as mp:
-        for name in ("all_partial_products_and_zs", "compute_quotient_polys", "opening_set"):
+        for name in names:
             mp.setattr(tp, name, spy(name))
+        if host:
+            mp.setattr(tfp, "_FORCE_HOST", True)
         pwp = tp.prove(prover_only, common, witness, pis, pi_hash, device="cpu")
-    return proof_to_bytes(pwp), calls
+    return proof_to_bytes(pwp), calls, tp._LAST_TRANSCRIPT
+
+
+@pytest.fixture(scope="module")
+def port_prove(port_data):
+    """The host-transcript prove, its three rounds recorded."""
+    return _recorded_prove(port_data, ("all_partial_products_and_zs", "compute_quotient_polys",
+                                       "opening_set"), host=True)
+
+
+@pytest.fixture(scope="module")
+def port_prove_fused(port_data):
+    """The fused prove (the default path), its rounds recorded."""
+    return _recorded_prove(port_data, ("all_partial_products_and_zs", "compute_quotient_polys",
+                                       "_openings_final"), host=False)
 
 
 def test_committed_factorial_data_is_what_the_reference_makes(reference, port_data):
@@ -108,7 +131,108 @@ def test_reader_equals_converted_reference_objects(reference, port_data):
 
 
 def test_factorial_prove_on_cpu_equals_the_fixture(port_prove):
+    assert port_prove[2] == "host"
     assert port_prove[0] == _read("fixtures", "factorial.proof.bin")
+
+
+def test_factorial_fused_prove_on_cpu_equals_the_fixture(port_prove_fused):
+    assert port_prove_fused[2] == "fused"
+    assert port_prove_fused[0] == _read("fixtures", "factorial.proof.bin")
+
+
+def test_fused_rounds_take_device_draws_and_equal_reference(reference, port_prove_fused):
+    data = reference[1]
+    calls = port_prove_fused[1]
+    (wires_routed, _, _, betas, gammas), got = calls["all_partial_products_and_zs"]
+    assert isinstance(betas, torch.Tensor) and betas.shape == (data.common.config.num_challenges,)
+    draws = lambda t: jnp.asarray(tg.to_numpy(t))  # noqa: E731
+    want = jp._all_partial_products_and_zs(jnp.asarray(tg.to_numpy(wires_routed)),
+                                           data.prover_only, data.common, draws(betas),
+                                           draws(gammas))
+    assert np.array_equal(tg.to_numpy(got), np.asarray(want))
+    (_, _, cs, wires, zs_pp, pi_hash, betas, gammas, alphas), got = \
+        calls["compute_quotient_polys"]
+    assert isinstance(pi_hash, torch.Tensor) and isinstance(alphas, torch.Tensor)
+    lde = lambda b: types.SimpleNamespace(lde=jnp.asarray(tg.to_numpy(b.lde)))  # noqa: E731
+    want = jp._compute_quotient_polys(
+        data.prover_only, data.common, data.prover_only.constants_sigmas_commitment,
+        lde(wires), lde(zs_pp), [int(v) for v in tg.to_numpy(pi_hash)], draws(betas),
+        draws(gammas), draws(alphas))
+    assert np.array_equal(tg.to_numpy(got), np.asarray(want))
+
+
+def test_openings_final_equals_reference(reference, port_prove_fused):
+    args, got = port_prove_fused[1]["_openings_final"]
+    sponge, zdraw, cs, wires, zs_pp, quot, nc, degree_bits, rate_bits = args
+    rows = [int(t.shape[0]) for t in (cs, wires, zs_pp, quot)]
+    fn = jp._openings_final_fn(*rows, nc, degree_bits, rate_bits)
+    want = fn(*(jnp.asarray(tg.to_numpy(t)) for t in (sponge, zdraw, cs, wires, zs_pp, quot)))
+    assert len(got) == len(want) == 5
+    for a, b in zip(got, want):
+        assert np.array_equal(tg.to_numpy(a), np.asarray(b))
+
+
+class _HostReadAudit(TorchDispatchMode):
+    """Records every operation that reads a tensor back to the host or makes
+    one from host data (on a card each synchronises): `.item()`, `int()`,
+    `bool()` and a Python `if` on a tensor, `nonzero`, boolean-mask
+    indexing, `torch.tensor` / `as_tensor` / `from_numpy`, and (patched in
+    by the test) `Tensor.numpy` / `tolist`. `paused` exempts the kernels'
+    plain versions that read on the CPU where the card runs a kernel, and
+    the pinned upload of the host-observed transcript prefix."""
+
+    READS = {"aten._local_scalar_dense.default", "aten.nonzero.default",
+             "aten.lift_fresh.default", "aten.masked_select.default"}
+
+    def __init__(self):
+        super().__init__()
+        self.paused = 0
+        self.hits = []
+
+    def hit(self, what):
+        if not self.paused:
+            where = [f"{os.path.basename(f.filename)}:{f.lineno}" for f in
+                     traceback.extract_stack() if "plonky2_torch" in f.filename][-2:]
+            self.hits.append((what, where))
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func)
+        if name in self.READS or (name.startswith("aten.index") and any(
+                isinstance(t, torch.Tensor) and t.dtype == torch.bool
+                for a in args if isinstance(a, (list, tuple)) for t in a)):
+            self.hit(name)
+        return func(*args, **(kwargs or {}))
+
+    def exempt(self, fn):
+        def run(*a, **k):
+            self.paused += 1
+            try:
+                return fn(*a, **k)
+            finally:
+                self.paused -= 1
+        return run
+
+
+def test_warm_fused_prove_reads_nothing_back_before_its_fetch(port_data, port_prove_fused):
+    """The CPU form of the card's `set_sync_debug_mode("error")` check: a
+    warm `prove(_defer=True)` on a witness tensor reads nothing back and
+    uploads nothing; `finish()` then gives the fixture's bytes."""
+    prover_only, common, witness, pis, pi_hash = port_data
+    witness_t = torch.from_numpy(np.ascontiguousarray(witness).view(np.int64).copy())
+    audit = _HostReadAudit()
+    numpy_, tolist_ = torch.Tensor.numpy, torch.Tensor.tolist
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tkp, "grind_device", audit.exempt(tkp.grind_device))
+        mp.setattr(tg, "upload", audit.exempt(tg.upload))
+        mp.setattr(torch.Tensor, "numpy", lambda t, *a, **k: (audit.hit("numpy"),
+                                                              numpy_(t, *a, **k))[1])
+        mp.setattr(torch.Tensor, "tolist", lambda t: (audit.hit("tolist"), tolist_(t))[1])
+        with audit:
+            finish = tp.prove(prover_only, common, witness_t, pis, pi_hash, device="cpu",
+                              _defer=True)
+    assert audit.hits == []
+    assert tp._LAST_TRANSCRIPT == "fused"
+    assert proof_to_bytes(finish()) == _read("fixtures", "factorial.proof.bin")
 
 
 def test_zs_and_partial_products_equal_reference(reference, port_prove):
