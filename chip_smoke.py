@@ -21,7 +21,21 @@ then MIDDLE_PROVES proves with the device synchronised at each phase's
 start and end for the phase split, and one profiled prove; counts the host
 synchronisations of one warm prove per path under
 `torch.cuda.set_sync_debug_mode("warn")` and requires the fused
-`prove(_defer=True)` to raise nothing under "error"; runs `commit_and_open`
+`prove(_defer=True)` to raise nothing under "error"; then the headline
+(bench.py's warm-start work): reads the inner proof and its verifier data
+(`bench_cache/inner14.*.bin`, timed), rebuilds the proof and verifier-data
+targets on a fresh builder and fills a PartialWitness from them, requires
+the seed-2026 full witness of `prepare_witness` (the native plan; the time
+of its first call, the plan's compilation included) to be the pinned one,
+then one warm-up and HEADLINE_PROVES timed `prove(prover_data, common, pw)`
+calls (witness + prove, the rng re-seeded before each, the counts set to 0
+just before each and read just after, each proof the pinned one), as many
+with every phase synchronised for the split (the two witness scopes beside
+the device phases), and a `prove(_defer=True)` from the prepared host
+witness under "error"; then prove_many at K = BATCH_K, window BATCH_WINDOW,
+threads 1, 2 and 3, each batch's proofs equal to K sequential proves under
+the same seed sequence, the K witnesses pairwise distinct, at most the
+window in flight, with proofs/s; runs `commit_and_open`
 at the bench_recursion middle-circuit shapes (degree 2^13, oracles of
 85/135/20/16 polynomials; its FRI proof on the fused path) with the counts
 set to 0 just before and read just after each of its runs and its pinned
@@ -41,9 +55,12 @@ wires tree and each of its launches, K3 at [2, 2^16], [16, 2^16] and
 `grind_chunk` wrapper, its permute mode and its device grind; runs
 `commit_and_open` at degree 2^10 on the card and on the CPU (plain
 versions) and requires identical proof bytes. The line before the last is
-the `kernels` JSON object (launches: the fused middle prove's, the chunk
-grind's from the host-path prove), the last line the ok JSON object. Any
-failed check exits non-zero and prints no result. Imports nothing of JAX.
+the `kernels` JSON object (launches: the headline prove's, the chunk
+grind's from the host-path prove; the headline's and prove_many's numbers
+beside them), the last line the ok JSON object. Every timing line names the
+card and its power limit. Any failed check exits non-zero and prints no
+result; so does a run without CUDA, and a run of the script alone, without
+the `plonky2_torch/` package beside it. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -82,6 +99,15 @@ MIDDLE_RUNS = 5
 # (tests/reference_prove_middle.py)
 MIDDLE_PROVE_SHA256 = "0759dc2ebfa4f3097d596d1633f22fa013534b750fe1ba265a2fee16038a23ea"
 MIDDLE_PROVES = 5
+# the headline: bench_cache/inner14.proof.bin in the middle circuit's proof
+# targets, the rng seeded to 2026; the full witness and the proof that the
+# port's plain path, both witness engines and the reference give on the CPU
+# (tests/reference_prove_middle.py)
+HEADLINE_WITNESS_SHA256 = "078753bd98bdd5a12f0b0e27d62eaa1639b66a6c532cb152cb51ff663b98ca1d"
+HEADLINE_PROOF_SHA256 = "9871be1789d5a82569612f725440a7345b8109716330ade7f73f336fa64fde28"
+HEADLINE_PROVES = 5
+BATCH_K = 16  # bench.py's prove_many batch
+BATCH_WINDOW = 3
 
 
 def fail(msg: str) -> int:
@@ -318,11 +344,16 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "plonky2_torch")):
+        # the script alone, out of its checkout: nothing to drive
+        return fail(f"no plonky2_torch/ beside {__file__}: run it from a checkout of the "
+                    "repository")
+    sys.path.insert(0, here)
     try:
         import numpy as np
 
-        from plonky2_torch import ops
+        from plonky2_torch import native, ops
         from plonky2_torch.examples import commit_and_open as co
         from plonky2_torch.field import goldilocks as g
         from plonky2_torch.field import ntt
@@ -331,10 +362,15 @@ def main() -> int:
         from plonky2_torch.ops import build
         from plonky2_torch.ops import ntt as kn
         from plonky2_torch.ops import poseidon as kp
+        from plonky2_torch.iop.witness import PartialWitness
         from plonky2_torch.plonk import prover as tp
+        from plonky2_torch.plonk.circuit_builder import CircuitBuilder
+        from plonky2_torch.plonk.circuit_serialization import verifier_data_from_bytes
         from plonky2_torch.plonk.prover_serialization import read_circuit_data, read_prover_data
-        from plonky2_torch.plonk.serialization import proof_to_bytes
+        from plonky2_torch.plonk.serialization import proof_from_bytes, proof_to_bytes
+        from plonky2_torch.recursion import recursive_verifier as rv
         from plonky2_torch.util import TimingTree
+        from plonky2_torch.util import rng as prover_rng
     except ImportError as e:
         return fail(f"the port cannot be imported here ({e})")
 
@@ -396,20 +432,25 @@ def main() -> int:
     fact_prover, fact_common = read_prover_data(read("plonky2_torch", "data",
                                                      "factorial.prover.bin"))
     w = np.load(os.path.join(root, "plonky2_torch", "data", "factorial.witness.npz"))
-    fact_args = (fact_prover, fact_common, w["witness"], [int(v) for v in w["public_inputs"]],
-                 [int(v) for v in w["public_inputs_hash"]])
+    fact_prepared = (w["witness"], [int(v) for v in w["public_inputs"]],
+                     [int(v) for v in w["public_inputs_hash"]])
     fixture = read("fixtures", "factorial.proof.bin")
+
+    def fact_prove(device):
+        return proof_to_bytes(tp.prove(fact_prover, fact_common, None, device=device,
+                                       _prepared=fact_prepared))
+
     t0 = time.perf_counter()
-    fact_card = proof_to_bytes(tp.prove(*fact_args, device=dev))
+    fact_card = fact_prove(dev)
     card_s = time.perf_counter() - t0
     if tp._LAST_TRANSCRIPT != "fused":
         failures.append("the factorial prove on the card did not take the fused path")
     with fri_prover.force_host_path():
-        if proof_to_bytes(tp.prove(*fact_args, device=dev)) != fixture:
+        if fact_prove(dev) != fixture:
             failures.append("the factorial host-path proof on the card is not the fixture")
     t0 = time.perf_counter()
     with one_cpu_thread(torch):
-        fact_cpu = proof_to_bytes(tp.prove(*fact_args, device="cpu"))
+        fact_cpu = fact_prove("cpu")
     cpu_s = time.perf_counter() - t0
     print(f"factorial prove (2^6, fused path; the host path's also checked): card "
           f"{card_s:.2f} s (first call), cpu {cpu_s:.1f} s; "
@@ -428,9 +469,10 @@ def main() -> int:
     t0 = time.perf_counter()
     cap = prover_only.commitment(common, dev).merkle_tree.cap
     commit_s = time.perf_counter() - t0
-    print(f"middle circuit: read {len(blob)} bytes in {read_s:.3f} s (generators stepped "
-          f"over); constants-sigmas commitment {commit_s:.3f} s (first call, the build-time "
-          f"work); its cap equals the file's verifier cap: "
+    print(f"middle circuit: read {len(blob)} bytes in {read_s:.3f} s (its "
+          f"{len(prover_only.generators)} generators, watch lists and representative map "
+          f"included); constants-sigmas commitment {commit_s:.3f} s (first call, the "
+          f"build-time work); its cap equals the file's verifier cap: "
           f"{cap == verifier_only.constants_sigmas_cap}")
     if cap != verifier_only.constants_sigmas_cap:
         failures.append("the middle circuit's constants-sigmas cap is not the file's")
@@ -438,8 +480,8 @@ def main() -> int:
     witness_dev = g.tensor(witness, dev)  # the prove's input, already on the card
 
     def middle_prove(timing=None, defer=False):
-        return tp.prove(prover_only, common, witness_dev, public_inputs, pi_hash, device=dev,
-                        timing=timing, _defer=defer)
+        return tp.prove(prover_only, common, None, device=dev, timing=timing, _defer=defer,
+                        _prepared=(witness_dev, public_inputs, pi_hash))
 
     def pinned(proof_bytes, what):
         digest = hashlib.sha256(proof_bytes).hexdigest()
@@ -566,6 +608,175 @@ def main() -> int:
     if finish is not None:
         pinned(proof_to_bytes(finish()), "fused prove under 'error'")
         print("fused prove(_defer=True) under set_sync_debug_mode('error'): raised nothing")
+
+    # the headline: bench.py's warm-start work, from the inner proof to the
+    # middle proof. The inner proof and its verifier data fill the proof
+    # and verifier-data targets rebuilt on a fresh builder; each prove runs
+    # the witness phase (the native plan) and the device chain, the rng
+    # seeded to 2026 before it, so every witness and proof is the pinned one.
+    t0 = time.perf_counter()
+    inner_vo, inner_common = verifier_data_from_bytes(read("bench_cache", "inner14.verifier.bin"))
+    read_vd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inner_proof = proof_from_bytes(read("bench_cache", "inner14.proof.bin"), inner_common)
+    read_proof_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    builder = CircuitBuilder()
+    proof_t = rv.add_virtual_proof_with_pis(builder, inner_common)
+    vd_t = rv.add_virtual_verifier_data(builder, inner_common.config.fri_config.cap_height)
+    pw = PartialWitness()
+    rv.set_proof_with_pis_target(pw, proof_t, inner_proof)
+    rv.set_verifier_data_target(pw, vd_t, inner_vo)
+    targets_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.library()
+    native_s = time.perf_counter() - t0
+    print(f"headline inputs ({card}): inner verifier data read in {read_vd_s:.4f} s, inner "
+          f"proof in {read_proof_s:.4f} s, {len(pw.target_values)} targets rebuilt and filled "
+          f"in {targets_s:.4f} s; the native witness executor built and loaded in "
+          f"{native_s:.1f} s")
+
+    def seeded(run):
+        prover_rng.seed(SEED)
+        try:
+            return run()
+        finally:
+            prover_rng.seed(None)
+
+    def headline_pinned(proof_bytes, what):
+        digest = hashlib.sha256(proof_bytes).hexdigest()
+        if digest != HEADLINE_PROOF_SHA256:
+            failures.append(f"{what}: the headline proof's sha256 is {digest}, "
+                            f"not {HEADLINE_PROOF_SHA256}")
+        return digest
+
+    def witness_sha(w):
+        return hashlib.sha256(np.ascontiguousarray(w, dtype=np.uint64).tobytes()).hexdigest()
+
+    timing = TimingTree("prepare")
+    t0 = time.perf_counter()
+    prepared = seeded(lambda: tp.prepare_witness(prover_only, common, pw, timing))
+    first_prepare_s = time.perf_counter() - t0
+    if witness_sha(prepared[0]) != HEADLINE_WITNESS_SHA256:
+        failures.append(f"the headline's full witness sha256 is {witness_sha(prepared[0])}, "
+                        f"not {HEADLINE_WITNESS_SHA256}")
+    plan = prover_only.cache("host")["witness_plan"]
+    print(f"headline witness phase, first call ({card}): {first_prepare_s:.3f} s (the level "
+          f"schedule and the plan's compilation, once a circuit, included), "
+          f"{len(plan.opcodes)} native ops in {len(plan.segments)} segments; generators run "
+          f"in Python: {plan.fallbacks or 'none'}; full witness sha256 "
+          f"{witness_sha(prepared[0])}")
+    if plan.fallbacks:
+        failures.append(f"generators without a native opcode: {plan.fallbacks}")
+
+    def headline_prove(timing=None):
+        return proof_to_bytes(seeded(lambda: tp.prove(prover_only, common, pw, device=dev,
+                                                      timing=timing)))
+
+    headline_pinned(headline_prove(), "headline warm-up")
+    # each timed headline prove is paired with the random-witness fused
+    # prove, from its witness on the card and from the host matrix (its
+    # pinned upload), so that a drift of the shared host's load shows in
+    # all three
+    walls, prepare_walls, paired = [], [], {"card witness": [], "host witness": []}
+    host_prepared = (witness, public_inputs, pi_hash)
+    for _ in range(HEADLINE_PROVES):
+        timing = TimingTree("prove")
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        proof = headline_prove(timing)
+        walls.append(time.perf_counter() - t0)
+        headline_launches = ops.launch_counts()
+        headline_duplexes = ops.K5.batch1
+        headline_digest = headline_pinned(proof, "headline")
+        prepare_walls.append(sum(timing.split()[k] for k in ("generate partial witness",
+                                                              "compute full witness")))
+        if tp._LAST_TRANSCRIPT != "fused":
+            failures.append(f"the headline prove took the {tp._LAST_TRANSCRIPT} path")
+        for key, prep in (("card witness", None), ("host witness", host_prepared)):
+            t0 = time.perf_counter()
+            proof = proof_to_bytes(middle_prove() if prep is None else tp.prove(
+                prover_only, common, None, device=dev, _prepared=prep))
+            paired[key].append(time.perf_counter() - t0)
+            pinned(proof, f"random-witness prove paired with the headline ({key})")
+    splits = []
+    for _ in range(HEADLINE_PROVES):
+        timing = TimingTree("prove", sync=torch.cuda.synchronize)
+        t0 = time.perf_counter()
+        headline_pinned(headline_prove(timing), "headline synchronised")
+        torch.cuda.synchronize()
+        splits.append((time.perf_counter() - t0, timing.split()))
+    headline_split = {k: statistics.median(sp[k] for _, sp in splits) for k in splits[0][1]}
+    headline_sync_wall = statistics.median(w for w, _ in splits)
+    headline = dict(wall_s=statistics.median(walls), min_s=min(walls), walls=walls,
+                    witness_s=statistics.median(prepare_walls), split=headline_split,
+                    sync_wall_s=headline_sync_wall, launches=headline_launches,
+                    duplexes=headline_duplexes,
+                    paired_random_witness_s={k: statistics.median(v) for k, v in paired.items()})
+    print(f"headline prove, witness + prove from the inner proof ({card}; 2^13, fused path): "
+          f"{headline['wall_s']:.4f} s median, {headline['min_s']:.4f} s min of "
+          f"{[round(x, 4) for x in walls]}, no phase synchronised; the witness phase "
+          f"{headline['witness_s']:.4f} s median of {[round(x, 4) for x in prepare_walls]}; "
+          f"sha256 {headline_digest}; launches {headline_launches} (K5 permutes on one state: "
+          f"{headline_duplexes}); paired with each, the random-witness fused prove "
+          + ", ".join(f"from the {k} {statistics.median(v):.4f} s median of "
+                      f"{[round(x, 4) for x in v]}" for k, v in paired.items()))
+    print(f"headline prove phases ({card}), median s, the device synchronised at each phase's "
+          f"start and end ({headline_sync_wall:.4f} s median wall): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in headline_split.items())
+          + f"; outside the phases {headline_sync_wall - sum(headline_split.values()):.4f}")
+    for label, n in headline_launches.items():
+        if n == 0 and label != ops.K5_CHUNK.label:  # the host path's grind
+            failures.append(f"{label} was not launched on the headline prove")
+    # the fused prove(_defer=True) from a host witness (its pinned upload)
+    # under "error": nothing synchronises before the one fetch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        finish = tp.prove(prover_only, common, None, device=dev, _defer=True,
+                          _prepared=prepared)
+    except RuntimeError as e:
+        finish = None
+        failures.append(f"the headline prove(_defer=True) synchronised under 'error': {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if finish is not None:
+        headline_pinned(proof_to_bytes(finish()), "headline prove under 'error'")
+        print("headline prove(_defer=True) from the prepared host witness under "
+              "set_sync_debug_mode('error'): raised nothing")
+
+    # the second headline: prove_many, K proofs of the same inputs, against
+    # K sequential proves under the same seed sequence
+    witnesses = seeded(lambda: [witness_sha(tp.prepare_witness(prover_only, common, pw)[0])
+                                for _ in range(BATCH_K)])
+    if len(set(witnesses)) != BATCH_K:
+        failures.append("the batch's witnesses are not pairwise distinct")
+    t0 = time.perf_counter()
+    sequential = seeded(lambda: [proof_to_bytes(tp.prove(prover_only, common, pw, device=dev))
+                                 for _ in range(BATCH_K)])
+    sequential_s = time.perf_counter() - t0
+    if hashlib.sha256(sequential[0]).hexdigest() != HEADLINE_PROOF_SHA256:
+        failures.append("the first sequential proof is not the pinned headline proof")
+    batched = {}
+    for threads in (1, 2, 3):
+        t0 = time.perf_counter()
+        got = seeded(lambda: tp.prove_many(prover_only, common, [pw] * BATCH_K, device=dev,
+                                           window=BATCH_WINDOW, threads=threads))
+        dt = time.perf_counter() - t0
+        same = [proof_to_bytes(p) for p in got] == sequential
+        batched[threads] = dict(proofs_per_s=BATCH_K / dt, seconds=dt,
+                                max_in_flight=tp._LAST_MAX_IN_FLIGHT, equal=same)
+        if not same:
+            failures.append(f"prove_many (threads {threads}) differs from the sequential proofs")
+        if tp._LAST_MAX_IN_FLIGHT > BATCH_WINDOW:
+            failures.append(f"prove_many (threads {threads}) had {tp._LAST_MAX_IN_FLIGHT} "
+                            f"proofs in flight, more than the window {BATCH_WINDOW}")
+    print(f"prove_many K={BATCH_K}, window {BATCH_WINDOW} ({card}): "
+          + "; ".join(f"threads {t}: {v['proofs_per_s']:.3f} proofs/s ({v['seconds']:.2f} s), "
+                      f"at most {v['max_in_flight']} in flight, proofs equal to the sequential: "
+                      f"{v['equal']}" for t, v in batched.items())
+          + f"; sequential prove calls {BATCH_K / sequential_s:.3f} proofs/s "
+          f"({sequential_s:.2f} s); {len(set(witnesses))} distinct witnesses of {BATCH_K}")
 
     # commit_and_open at the middle-circuit shapes
     config = co.middle_fri_config()
@@ -858,15 +1069,21 @@ def main() -> int:
 
     kernels = []
     for k in ops.KERNELS:
-        # launches: the fused middle prove's (the main path); the host
-        # path's grind mode runs only on the host path, so its prove's
-        path = "host" if k is ops.K5_CHUNK else "fused"
+        # launches: the headline prove's (the main path: witness + fused
+        # prove from the inner proof); the host path's grind mode runs only
+        # on the host path, so the host-path middle prove's
+        host = k is ops.K5_CHUNK
         kernels.append({"name": k.label, "route": "cuda", "source": k.source,
                         "replaces": k.replaces,
-                        "launches": paths[path]["launches"][k.label],
-                        "launches_on": f"{path} middle prove", **results[k.label],
-                        "library_ms": None})
-    print(json.dumps({"kernels": kernels, "card": card, "middle_prove_s": prove_s,
+                        "launches": (paths["host"]["launches"] if host
+                                     else headline["launches"])[k.label],
+                        "launches_on": "host-path middle prove" if host else "headline prove",
+                        "launches_fused_middle_prove": paths["fused"]["launches"][k.label],
+                        **results[k.label], "library_ms": None})
+    print(json.dumps({"kernels": kernels, "card": card, "headline": headline,
+                      "prove_many": {"K": BATCH_K, "window": BATCH_WINDOW, "threads": batched,
+                                     "sequential_proofs_per_s": BATCH_K / sequential_s},
+                      "middle_prove_s": prove_s,
                       "middle_prove": {p: {k: v[k] for k in ("wall_s", "sync_wall_s", "split",
                                                              "launches", "duplexes")}
                                        for p, v in paths.items()},

@@ -68,17 +68,10 @@ def gate_from_reference(gate):
     return make()
 
 
-def circuit_from_reference(prover_only, common):
-    """(ProverOnlyCircuitData, CommonCircuitData) of the port for the
-    reference's circuit objects: its commitment's coefficients, sigmas,
-    subgroup and digest, and every common field the prover reads."""
-    import numpy as np
-
-    from plonky2_torch.plonk.circuit_data import (
-        CommonCircuitData,
-        ProverOnlyCircuitData,
-        SelectorsInfo,
-    )
+def common_from_reference(common):
+    """The port's CommonCircuitData for the reference's: every common field
+    the prover reads."""
+    from plonky2_torch.plonk.circuit_data import CommonCircuitData, SelectorsInfo
     from plonky2_torch.plonk.config import CircuitConfig
 
     c = common.config
@@ -88,7 +81,7 @@ def circuit_from_reference(prover_only, common):
         security_bits=c.security_bits, num_challenges=c.num_challenges,
         zero_knowledge=c.zero_knowledge, max_quotient_degree_factor=c.max_quotient_degree_factor,
         fri_config=fri_config(c.fri_config))
-    port_common = CommonCircuitData(
+    return CommonCircuitData(
         config=config, fri_params=fri_params(common.fri_params),
         gates=[gate_from_reference(gt) for gt in common.gates],
         selectors_info=SelectorsInfo(list(common.selectors_info.selector_indices),
@@ -100,9 +93,19 @@ def circuit_from_reference(prover_only, common):
         k_is=[int(k) for k in common.k_is], num_partial_products=common.num_partial_products,
         num_lookup_polys=common.num_lookup_polys,
         num_lookup_selectors=common.num_lookup_selectors)
+
+
+def circuit_from_reference(prover_only, common):
+    """(ProverOnlyCircuitData, CommonCircuitData) of the port for the
+    reference's circuit objects: its commitment's coefficients, sigmas,
+    subgroup and digest, and every common field the prover reads."""
+    import numpy as np
+
+    from plonky2_torch.plonk.circuit_data import ProverOnlyCircuitData
+
     u64 = lambda a: np.ascontiguousarray(np.asarray(a, dtype=np.uint64))  # noqa: E731
     port_prover = ProverOnlyCircuitData(
         constants_sigmas_coeffs=u64(prover_only.constants_sigmas_commitment.polynomials),
         sigmas=u64(prover_only.sigmas), subgroup=u64(prover_only.subgroup),
         circuit_digest=[int(v) for v in prover_only.circuit_digest])
-    return port_prover, port_common
+    return port_prover, common_from_reference(common)

@@ -49,10 +49,13 @@ def tensor(values, device) -> torch.Tensor:
 
 
 def upload(values, device) -> torch.Tensor:
-    """u64 values -> int64 tensor on `device` without a synchronisation: on
-    CUDA a non-blocking copy from pinned host memory (the transcript state
-    that the host observed, the public-inputs hash), elsewhere `tensor`."""
-    arr = np.ascontiguousarray(np.asarray(values, dtype=np.uint64)).reshape(-1)
+    """u64 values -> int64 tensor of their shape (a scalar as [1]) on
+    `device` without a synchronisation: on CUDA a non-blocking copy from
+    pinned host memory (the transcript state that the host observed, the
+    public-inputs hash, a prove's witness), elsewhere `tensor`."""
+    arr = np.ascontiguousarray(np.asarray(values, dtype=np.uint64))
+    if arr.ndim == 0:
+        arr = arr.reshape(1)
     device = torch.device(device)
     if device.type != "cuda":
         return tensor(arr, device)

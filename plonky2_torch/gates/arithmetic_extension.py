@@ -6,11 +6,16 @@ base constraints."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from plonky2_torch.field import goldilocks as g
+from plonky2_torch.field import np_field as npf
+from plonky2_torch.field import scalar as fs
 from plonky2_torch.gates.gate import Gate
 from plonky2_torch.gates.ops import ealg_add, ealg_mul, ealg_scalar_mul, ealg_sub
+from plonky2_torch.iop.generator import SimpleGenerator
+from plonky2_torch.iop.target import Wire
 
 D = 2
 
@@ -88,3 +93,82 @@ class MulExtensionGate(Gate):
 
     def num_constraints(self) -> int:
         return self.num_ops * D
+
+
+# -- witness generators (reference gates/arithmetic_extension.rs:107,
+#    multiplication_extension.rs) ------------------------------------------
+
+class _ExtOpGenerator(SimpleGenerator):
+    """One op slot: the ext2 inputs in wire order, then the output pair."""
+
+    WIDTH = 4 * D  # wires an op slot takes
+    N_IN = 3  # extension inputs: m0, m1 (and the addend where WIDTH is 4D)
+
+    def _base(self) -> int:
+        return self.WIDTH * self.i
+
+    def dependencies(self):
+        return [Wire(self.row, self._base() + k) for k in range(self.N_IN * D)]
+
+    def outputs(self):
+        return [Wire(self.row, self._base() + self.N_IN * D + k) for k in range(D)]
+
+    def run_once(self, witness, out):
+        v = witness.get_targets(self.dependencies())
+        out.set_wires(self.row, [t.column for t in self.outputs()],
+                      self._compute(fs.ext_mul((v[0], v[1]), (v[2], v[3])), v[4:]))
+
+    @classmethod
+    def run_batch(cls, gens, witness):
+        """Every (row, op slot) of the batch in one numpy pass."""
+        n = len(gens)
+        rows = np.fromiter((g.row for g in gens), np.int64, n)
+        base = np.fromiter((g._base() for g in gens), np.int64, n)
+        v = [witness.get_reps(witness.wire_reps(rows, base + k)) for k in range(cls.N_IN * D)]
+        p0, p1 = npf.ext2_mul(v[0], v[1], v[2], v[3])
+        r0, r1 = cls._compute_np(gens, (p0, p1), v[4:])
+        witness.set_reps(np.concatenate([witness.wire_reps(rows, base + cls.N_IN * D),
+                                         witness.wire_reps(rows, base + cls.N_IN * D + 1)]),
+                         np.concatenate([r0, r1]))
+
+
+class ArithmeticExtensionGenerator(_ExtOpGenerator):
+    """output = c0 · m0 · m1 + c1 · addend over F_{p^2}."""
+
+    WIDTH, N_IN = 4 * D, 3
+
+    def __init__(self, row: int, const_0: int, const_1: int, i: int):
+        self.row = row
+        self.const_0 = const_0
+        self.const_1 = const_1
+        self.i = i
+
+    def _compute(self, prod, addend):
+        return fs.ext_add(fs.ext_scalar_mul(self.const_0, prod),
+                          fs.ext_scalar_mul(self.const_1, tuple(addend)))
+
+    @staticmethod
+    def _compute_np(gens, prod, addend):
+        n = len(gens)
+        c0 = np.fromiter((g.const_0 for g in gens), np.uint64, n)
+        c1 = np.fromiter((g.const_1 for g in gens), np.uint64, n)
+        return tuple(npf.add(npf.mul(c0, p), npf.mul(c1, a)) for p, a in zip(prod, addend))
+
+
+class MulExtensionGenerator(_ExtOpGenerator):
+    """output = c0 · m0 · m1 over F_{p^2}."""
+
+    WIDTH, N_IN = 3 * D, 2
+
+    def __init__(self, row: int, const_0: int, i: int):
+        self.row = row
+        self.const_0 = const_0
+        self.i = i
+
+    def _compute(self, prod, _):
+        return fs.ext_scalar_mul(self.const_0, prod)
+
+    @staticmethod
+    def _compute_np(gens, prod, _):
+        c0 = np.fromiter((g.const_0 for g in gens), np.uint64, len(gens))
+        return tuple(npf.mul(c0, p) for p in prod)

@@ -3,11 +3,14 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from plonky2_torch.field import goldilocks as g
 from plonky2_torch.field import scalar as fs
 from plonky2_torch.gates.gate import Gate
+from plonky2_torch.iop.generator import SimpleGenerator
+from plonky2_torch.iop.target import Wire
 
 WIRE_SUM = 0
 START_LIMBS = 1
@@ -48,3 +51,51 @@ class BaseSumGate(Gate):
 
     def num_constraints(self) -> int:
         return 1 + self.num_limbs
+
+
+class BaseSplitGenerator(SimpleGenerator):
+    """The sum wire's base-B limbs (reference gates/base_sum.rs:86)."""
+
+    def __init__(self, row: int, num_limbs: int, base: int):
+        self.row = row
+        self.num_limbs = num_limbs
+        self.base = base
+
+    def dependencies(self):
+        return [Wire(self.row, WIRE_SUM)]
+
+    def outputs(self):
+        return [Wire(self.row, START_LIMBS + i) for i in range(self.num_limbs)]
+
+    def run_once(self, witness, out):
+        sum_value = witness.get_target(Wire(self.row, WIRE_SUM))
+        limbs, v = [], sum_value
+        for _ in range(self.num_limbs):
+            limbs.append(v % self.base)
+            v //= self.base
+        if v != 0:
+            raise ValueError(f"Integer {sum_value} too large for {self.num_limbs} limbs "
+                             f"of base {self.base}")
+        out.set_wires(self.row, range(START_LIMBS, START_LIMBS + self.num_limbs), limbs)
+
+    @classmethod
+    def run_batch(cls, gens, witness):
+        by_shape: dict[tuple, list] = {}
+        for g_ in gens:
+            by_shape.setdefault((g_.num_limbs, g_.base), []).append(g_)
+        for (num_limbs, base), gs in by_shape.items():
+            rows = np.fromiter((g_.row for g_ in gs), np.int64, len(gs))
+            sums = witness.get_reps(witness.wire_reps(rows, WIRE_SUM))
+            v = sums.copy()
+            limbs = np.empty((len(gs), num_limbs), np.uint64)
+            b = np.uint64(base)
+            for i in range(num_limbs):
+                limbs[:, i] = v % b
+                v //= b
+            if (v != 0).any():
+                k = int(np.nonzero(v)[0][0])
+                raise ValueError(f"Integer {int(sums[k])} too large for {num_limbs} limbs "
+                                 f"of base {base}")
+            cols = np.arange(START_LIMBS, START_LIMBS + num_limbs, dtype=np.int64)
+            reps = witness.wire_reps(rows[:, None], cols[None, :])
+            witness.set_reps(reps.reshape(-1), limbs.reshape(-1))

@@ -13,12 +13,17 @@ w_i are computed on the host.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from plonky2_torch.field import goldilocks as g
+from plonky2_torch.field import np_field as npf
 from plonky2_torch.field import scalar as fs
 from plonky2_torch.gates.gate import Gate, rows
+from plonky2_torch.iop.generator import SimpleGenerator
+from plonky2_torch.iop.target import Wire
 from plonky2_torch.gates.ops import ealg_add, ealg_from_base, ealg_mul, ealg_sub, ealg_zero
 
 D = 2
@@ -201,3 +206,90 @@ class CosetInterpolationGate(Gate):
 
     def num_constraints(self) -> int:
         return D * (2 + 2 * self.num_intermediates())
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_gate(subgroup_bits: int, degree: int) -> CosetInterpolationGate:
+    return CosetInterpolationGate(subgroup_bits, degree)
+
+
+class InterpolationGenerator(SimpleGenerator):
+    """The shifted point, the intermediates and the value of one row
+    (reference gates/coset_interpolation.rs:287): the running first-form
+    barycentric numerator over the subgroup, chunk by chunk."""
+
+    def __init__(self, row: int, subgroup_bits: int, degree: int):
+        self.row = row
+        self.subgroup_bits = subgroup_bits
+        self.degree = degree
+
+    def _gate(self) -> CosetInterpolationGate:
+        return _cached_gate(self.subgroup_bits, self.degree)
+
+    def dependencies(self):
+        gate = self._gate()
+        cols = [0] + list(gate.wires_evaluation_point())
+        cols += [c for i in range(gate.num_points()) for c in gate.wires_value(i)]
+        return [Wire(self.row, c) for c in cols]
+
+    def _out_cols(self) -> list[int]:
+        gate = self._gate()
+        cols = list(gate.wires_shifted_evaluation_point())
+        for i in range(gate.num_intermediates()):
+            cols += list(gate.wires_intermediate_eval(i)) + list(gate.wires_intermediate_prod(i))
+        return cols + list(gate.wires_evaluation_value())
+
+    def outputs(self):
+        return [Wire(self.row, c) for c in self._out_cols()]
+
+    @staticmethod
+    def _interpolate(gate, x, values, ops):
+        """(x, intermediates..., value) as ext2 pairs; `ops` holds the field
+        ops of scalars or numpy rows: (sub, mul, ext_mul, ext_add, zero, one)."""
+        sub, mul, ext_mul, ext_add, zero, one = ops
+        domain = fs.two_adic_subgroup(gate.subgroup_bits)
+        weights = gate.barycentric_weights
+        ev, prod = (zero, zero), (one, zero)
+        outs = [x]
+        for i, chunk in enumerate(gate._chunks()):
+            if i:
+                outs += [ev, prod]
+            for j in chunk:
+                term = (sub(x[0], domain[j]), x[1])
+                wv = (mul(weights[j], values[j][0]), mul(weights[j], values[j][1]))
+                ev = ext_add(ext_mul(ev, term), ext_mul(wv, prod))
+                prod = ext_mul(prod, term)
+        return outs + [ev]
+
+    def run_once(self, witness, out):
+        gate = self._gate()
+        v = witness.get_targets(self.dependencies())
+        inv_shift = fs.inverse(v[0])
+        x = (fs.mul(inv_shift, v[1]), fs.mul(inv_shift, v[2]))
+        values = [(v[3 + 2 * i], v[4 + 2 * i]) for i in range(gate.num_points())]
+        outs = self._interpolate(gate, x, values, (fs.sub, fs.mul, fs.ext_mul, fs.ext_add, 0, 1))
+        out.set_wires(self.row, self._out_cols(), [c for e in outs for c in e])
+
+    @classmethod
+    def run_batch(cls, gens, witness):
+        """Every row of the batch at once, numpy over the rows."""
+        by: dict = {}
+        for g_ in gens:
+            by.setdefault((g_.subgroup_bits, g_.degree), []).append(g_)
+        ops = (lambda a, c: npf.sub(a, np.uint64(c)),
+               lambda c, a: npf.mul(np.uint64(c), a),
+               lambda a, b: npf.ext2_mul(*a, *b), lambda a, b: npf.ext2_add(*a, *b),
+               np.uint64(0), np.uint64(1))
+        for key, group in by.items():
+            gate = _cached_gate(*key)
+            rows_ = np.fromiter((g_.row for g_ in group), np.int64, len(group))
+            cols = [t.column for t in group[0].dependencies()]
+            v = [witness.get_reps(witness.wire_reps(rows_, c)) for c in cols]
+            inv_shift = np.asarray(fs.batch_inverse([int(s) for s in v[0]]), np.uint64)
+            x = (npf.mul(inv_shift, v[1]), npf.mul(inv_shift, v[2]))
+            values = [(v[3 + 2 * i], v[4 + 2 * i]) for i in range(gate.num_points())]
+            outs = cls._interpolate(gate, x, values, ops)
+            vals = [np.broadcast_to(c, rows_.shape) for e in outs for c in e]
+            witness.set_reps(np.concatenate([witness.wire_reps(rows_, c)
+                                             for c in group[0]._out_cols()]),
+                             np.concatenate(vals))

@@ -15,8 +15,11 @@ import numpy as np
 import torch
 
 from plonky2_torch.field import goldilocks as g
+from plonky2_torch.field import np_field as npf
 from plonky2_torch.field import scalar as fs
 from plonky2_torch.gates.gate import Gate
+from plonky2_torch.iop.generator import SimpleGenerator
+from plonky2_torch.iop.target import Wire
 from plonky2_torch.hash.poseidon_constants import (
     ALL_ROUND_CONSTANTS,
     HALF_N_FULL_ROUNDS,
@@ -198,3 +201,88 @@ class PoseidonGate(Gate):
 
     def num_constraints(self) -> int:
         return 1 + 4 + W * (HALF_N_FULL_ROUNDS - 1) + N_PARTIAL_ROUNDS + W * HALF_N_FULL_ROUNDS + W
+
+
+# -- the witness generator (reference gates/poseidon.rs PoseidonGenerator;
+#    the reference package's gates/poseidon_gate.py:352) -------------------
+
+# the columns PoseidonGenerator writes, in its output order: the swap
+# deltas, the S-box inputs of full rounds 1..3, of the partial rounds and
+# of the last four full rounds, then the outputs
+OUT_COLS = ([START_DELTA + i for i in range(4)]
+            + list(range(START_FULL_0, START_PARTIAL)) + list(range(START_PARTIAL, START_FULL_1))
+            + list(range(START_FULL_1, START_FULL_1 + W * HALF_N_FULL_ROUNDS))
+            + [W + i for i in range(W)])
+IN_COLS = list(range(W)) + [WIRE_SWAP]
+
+
+def witness_rows(inputs: np.ndarray, swap: np.ndarray) -> np.ndarray:
+    """[n, 12] inputs and [n] swaps (0 or 1) -> [n, 122] values of OUT_COLS,
+    the gate's layers run on numpy rows (the fast partial-round form, which
+    the constraints are written against)."""
+    ops = npf.NumpyBaseOps()
+    state = [inputs[:, i] for i in range(W)]
+    out = [npf.mul(swap, npf.sub(state[i + 4], state[i])) for i in range(4)]
+    do_swap = swap == 1
+    for i in range(4):
+        a, b = state[i], state[i + 4]
+        state[i], state[i + 4] = np.where(do_swap, b, a), np.where(do_swap, a, b)
+    round_ctr = 0
+    for r in range(HALF_N_FULL_ROUNDS):
+        state = [ops.add_const(x, ALL_ROUND_CONSTANTS[i + W * round_ctr])
+                 for i, x in enumerate(state)]
+        if r != 0:
+            out += state
+        state = _mds_layer(ops, [_sbox(ops, x) for x in state])
+        round_ctr += 1
+    state = [ops.add_const(x, FAST_PARTIAL_FIRST_ROUND_CONSTANT[i]) for i, x in enumerate(state)]
+    state = _mds_partial_layer_init(ops, state)
+    for r in range(N_PARTIAL_ROUNDS):
+        out.append(state[0])
+        s0 = _sbox(ops, state[0])
+        if r < N_PARTIAL_ROUNDS - 1:
+            s0 = ops.add_const(s0, FAST_PARTIAL_ROUND_CONSTANTS[r])
+        state = _mds_partial_layer_fast(ops, [s0] + state[1:], r)
+    round_ctr += N_PARTIAL_ROUNDS
+    for r in range(HALF_N_FULL_ROUNDS):
+        state = [ops.add_const(x, ALL_ROUND_CONSTANTS[i + W * round_ctr])
+                 for i, x in enumerate(state)]
+        out += state
+        state = _mds_layer(ops, [_sbox(ops, x) for x in state])
+        round_ctr += 1
+    out += state
+    n = inputs.shape[0]
+    return np.stack([np.broadcast_to(np.asarray(v, np.uint64), (n,)) for v in out], axis=1)
+
+
+class PoseidonGenerator(SimpleGenerator):
+    """Fills the swap deltas, every S-box input and the outputs of one
+    PoseidonGate row."""
+
+    BATCH_MIN = 1  # the numpy rows beat a scalar permutation even for one row
+
+    def __init__(self, row: int):
+        self.row = row
+
+    def dependencies(self):
+        return [Wire(self.row, c) for c in IN_COLS]
+
+    def outputs(self):
+        return [Wire(self.row, c) for c in OUT_COLS]
+
+    def run_once(self, witness, out):
+        v = np.asarray(witness.get_targets(self.dependencies()), np.uint64)
+        if v[W] > 1:
+            raise ValueError("swap must be 0 or 1")
+        out.set_wires(self.row, OUT_COLS, [int(x) for x in witness_rows(v[None, :W], v[W:])[0]])
+
+    @classmethod
+    def run_batch(cls, gens, witness):
+        rows_ = np.fromiter((g_.row for g_ in gens), np.int64, len(gens))
+        in_cols = np.asarray(IN_COLS, np.int64)
+        v = witness.get_reps(witness.wire_reps(rows_[:, None], in_cols[None, :]))
+        if (v[:, W] > 1).any():
+            raise ValueError("swap must be 0 or 1")
+        vals = witness_rows(v[:, :W], v[:, W])
+        reps = witness.wire_reps(rows_[:, None], np.asarray(OUT_COLS, np.int64)[None, :])
+        witness.set_reps(reps.T.reshape(-1), vals.T.reshape(-1))

@@ -7,10 +7,13 @@ copy's index bits."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from plonky2_torch.field import goldilocks as g
 from plonky2_torch.gates.gate import Gate, rows
+from plonky2_torch.iop.generator import SimpleGenerator
+from plonky2_torch.iop.target import Wire
 
 
 class RandomAccessGate(Gate):
@@ -93,3 +96,67 @@ class RandomAccessGate(Gate):
 
     def num_constraints(self) -> int:
         return self.num_copies * (self.bits + 2) + self.num_extra_constants
+
+
+class RandomAccessGenerator(SimpleGenerator):
+    """One copy's claimed element and index bits (reference
+    gates/random_access.rs:162)."""
+
+    def __init__(self, row, bits, num_copies, num_extra_constants, copy):
+        self.row = row
+        self.bits = bits
+        self.num_copies = num_copies
+        self.num_extra_constants = num_extra_constants
+        self.copy = copy
+
+    def _gate(self) -> RandomAccessGate:
+        return RandomAccessGate(self.bits, self.num_copies, self.num_extra_constants)
+
+    def dependencies(self):
+        gate = self._gate()
+        return [Wire(self.row, gate.wire_access_index(self.copy))] + [
+            Wire(self.row, gate.wire_list_item(i, self.copy)) for i in range(gate.vec_size())]
+
+    def outputs(self):
+        gate = self._gate()
+        return [Wire(self.row, gate.wire_claimed_element(self.copy))] + [
+            Wire(self.row, gate.wire_bit(i, self.copy)) for i in range(gate.bits)]
+
+    def run_once(self, witness, out):
+        gate = self._gate()
+        row, copy = self.row, self.copy
+        access_index = witness.get_target(Wire(row, gate.wire_access_index(copy)))
+        if access_index >= gate.vec_size():
+            raise ValueError(f"Access index {access_index} is larger than the vector size "
+                             f"{gate.vec_size()}")
+        out.set_target(Wire(row, gate.wire_claimed_element(copy)),
+                       witness.get_target(Wire(row, gate.wire_list_item(access_index, copy))))
+        out.set_wires(row, [gate.wire_bit(i, copy) for i in range(gate.bits)],
+                      [(access_index >> i) & 1 for i in range(gate.bits)])
+
+    @classmethod
+    def run_batch(cls, gens, witness):
+        by_shape: dict[tuple, list] = {}
+        for g_ in gens:
+            by_shape.setdefault((g_.bits, g_.num_copies, g_.num_extra_constants), []).append(g_)
+        for shape, gs in by_shape.items():
+            gate = RandomAccessGate(*shape)
+            n = len(gs)
+            rows_ = np.fromiter((g_.row for g_ in gs), np.int64, n)
+            idx_cols = np.fromiter((gate.wire_access_index(g_.copy) for g_ in gs), np.int64, n)
+            aidx = witness.get_reps(witness.wire_reps(rows_, idx_cols)).astype(np.int64)
+            if (aidx >= gate.vec_size()).any():
+                raise ValueError(f"Access index larger than the vector size {gate.vec_size()}")
+            item_cols = np.fromiter((gate.wire_list_item(int(a), g_.copy)
+                                     for a, g_ in zip(aidx, gs)), np.int64, n)
+            out_cols = np.empty((n, 1 + gate.bits), np.int64)
+            out_vals = np.empty((n, 1 + gate.bits), np.uint64)
+            out_cols[:, 0] = np.fromiter((gate.wire_claimed_element(g_.copy) for g_ in gs),
+                                         np.int64, n)
+            out_vals[:, 0] = witness.get_reps(witness.wire_reps(rows_, item_cols))
+            for i in range(gate.bits):
+                out_cols[:, 1 + i] = np.fromiter((gate.wire_bit(i, g_.copy) for g_ in gs),
+                                                 np.int64, n)
+                out_vals[:, 1 + i] = (aidx >> i) & 1
+            reps = witness.wire_reps(rows_[:, None], out_cols)
+            witness.set_reps(reps.reshape(-1), out_vals.reshape(-1))

@@ -7,10 +7,15 @@ accumulator is the output."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from plonky2_torch.field import goldilocks as g
+from plonky2_torch.field import np_field as npf
+from plonky2_torch.field import scalar as fs
 from plonky2_torch.gates.gate import Gate, rows
+from plonky2_torch.iop.generator import SimpleGenerator
+from plonky2_torch.iop.target import Wire
 from plonky2_torch.gates.ops import ealg_add, ealg_from_base, ealg_mul, ealg_sub
 
 D = 2
@@ -96,3 +101,75 @@ class ReducingExtensionGate(_Reducing):
 
     def _coeff(self, ops, vars, i):
         return vars.get_local_ext_algebra(self.wires_coeff(i))
+
+
+# -- witness generators (reference gates/reducing.rs:112,
+#    reducing_extension.rs) ------------------------------------------------
+
+class _ReducingGenerator(SimpleGenerator):
+    """The Horner chain acc_i = acc_(i-1) · α + c_i; outputs each
+    accumulator, then the output (the last accumulator again)."""
+
+    GATE = None
+    BATCH_MIN = 2
+
+    def __init__(self, row: int, num_coeffs: int):
+        self.row = row
+        self.num_coeffs = num_coeffs
+
+    def _out_cols(self) -> list[int]:
+        gate = self.GATE(self.num_coeffs)
+        return [c for i in range(self.num_coeffs) for c in gate.wires_accs(i)] + list(WIRES_OUTPUT)
+
+    def dependencies(self):
+        gate = self.GATE(self.num_coeffs)
+        cols = list(WIRES_ALPHA) + list(WIRES_OLD_ACC) + [
+            c for i in range(self.num_coeffs) for c in gate.wires_coeff(i)]
+        return [Wire(self.row, c) for c in cols]
+
+    def outputs(self):
+        return [Wire(self.row, c) for c in self._out_cols()]
+
+    def run_once(self, witness, out):
+        v = witness.get_targets(self.dependencies())
+        alpha, acc, width = (v[0], v[1]), (v[2], v[3]), self.GATE.COEFF_WIDTH
+        vals = []
+        for i in range(self.num_coeffs):
+            c = v[4 + width * i:4 + width * (i + 1)]
+            acc = fs.ext_add(fs.ext_mul(acc, alpha), (c[0], c[1] if width == D else 0))
+            vals += list(acc)
+        out.set_wires(self.row, self._out_cols(), vals + list(acc))
+
+    @classmethod
+    def run_batch(cls, gens, witness):
+        """Rows grouped by num_coeffs: one numpy Horner chain a group."""
+        by_n: dict[int, list] = {}
+        for g_ in gens:
+            by_n.setdefault(g_.num_coeffs, []).append(g_)
+        width = cls.GATE.COEFF_WIDTH
+        for num_coeffs, group in by_n.items():
+            gate = cls.GATE(num_coeffs)
+            rows_ = np.fromiter((g_.row for g_ in group), np.int64, len(group))
+            get = lambda col: witness.get_reps(witness.wire_reps(rows_, col))  # noqa: E731
+            a0, a1 = get(WIRES_ALPHA[0]), get(WIRES_ALPHA[1])
+            acc0, acc1 = get(WIRES_OLD_ACC[0]), get(WIRES_OLD_ACC[1])
+            vals = []
+            for i in range(num_coeffs):
+                wc = gate.wires_coeff(i)
+                acc0, acc1 = npf.ext2_mul(acc0, acc1, a0, a1)
+                acc0 = npf.add(acc0, get(wc[0]))
+                if width == D:
+                    acc1 = npf.add(acc1, get(wc[1]))
+                vals += [acc0, acc1]
+            vals += [acc0, acc1]
+            cols = group[0]._out_cols()
+            witness.set_reps(np.concatenate([witness.wire_reps(rows_, c) for c in cols]),
+                             np.concatenate(vals))
+
+
+class ReducingGenerator(_ReducingGenerator):
+    GATE = ReducingGate
+
+
+class ReducingExtensionGenerator(_ReducingGenerator):
+    GATE = ReducingExtensionGate

@@ -1,8 +1,9 @@
 """The circuit data a prove reads (reference plonk/circuit_data.rs:161-680):
 `CommonCircuitData` with the polynomial index ranges of each oracle and the
-FRI instance, and `ProverOnlyCircuitData` with the preprocessed polynomials
-and per-device caches of their commitment and of the quotient domain's
-tables."""
+FRI instance; `ProverOnlyCircuitData` with the witness generators, the
+preprocessed polynomials and per-device caches of their commitment and of
+the quotient domain's tables; `ProverCircuitData`, the two together with the
+prove entry points."""
 
 from __future__ import annotations
 
@@ -113,12 +114,19 @@ class CommonCircuitData:
 class ProverOnlyCircuitData:
     """What a prove needs beyond the common data. The preprocessed
     polynomials stay on the host as coefficients; `commitment(device)`
-    commits them once per device and `caches` holds each device's tables."""
+    commits them once per device and `caches` holds each device's tables
+    (and, under "host", the witness engines' schedule and plan)."""
 
     constants_sigmas_coeffs: np.ndarray  # [num_constants + num_routed, degree] u64
     sigmas: np.ndarray  # [num_routed, degree] u64 values
     subgroup: np.ndarray  # [degree] u64
     circuit_digest: list[int]
+    generators: list = field(default_factory=list, repr=False)
+    # partition representative -> indices of the generators that read it
+    generator_indices_by_watches: dict = field(default_factory=dict, repr=False)
+    public_inputs: list = field(default_factory=list)  # targets
+    # flat target index (iop/target.py target_index) -> partition representative
+    representative_map: np.ndarray | None = field(default=None, repr=False)
     caches: dict = field(default_factory=dict, repr=False, compare=False)
 
     def cache(self, device) -> dict:
@@ -141,3 +149,23 @@ class ProverOnlyCircuitData:
 class VerifierOnlyCircuitData:
     constants_sigmas_cap: list[list[int]]
     circuit_digest: list[int]
+
+
+@dataclass
+class ProverCircuitData:
+    """Proving-only circuit data (reference plonk/circuit_data.rs:256-297)."""
+
+    prover_only: ProverOnlyCircuitData
+    common: CommonCircuitData
+
+    def prove(self, inputs, device=None, timing=None):
+        from plonky2_torch.plonk.prover import prove
+
+        return prove(self.prover_only, self.common, inputs, device=device, timing=timing)
+
+    def prove_many(self, inputs_list, device=None, timing=None, window: int = 3,
+                   threads: int = 1):
+        from plonky2_torch.plonk.prover import prove_many
+
+        return prove_many(self.prover_only, self.common, inputs_list, device=device,
+                          timing=timing, window=window, threads=threads)

@@ -1,8 +1,15 @@
-"""PLONK prover (reference plonk/prover.py:405-556 and :976-1242,
+"""PLONK prover (reference plonk/prover.py:384-556, :976-1304,
 plonk/prover.rs:113-815), for non-zk circuits without lookups under
 `PoseidonGoldilocksConfig`.
 
-Every round runs on tensors of one device:
+`prepare_witness` is the host witness phase: the circuit's generators run
+from the caller's PartialWitness (`iop/generator.py`, the native witness
+plan by default), then the public inputs, their hash and the full witness
+matrix. Every rng draw of a non-zk prove happens there. `prove` runs it and
+then the device chain; `prove_many` runs the witness phases on the caller's
+thread in proof order and overlaps them with earlier proofs' device chains.
+
+The device chain runs every round on tensors of one device:
 
   wires commitment        iFFT, coset LDE, Merkle tree   (fri/oracle.py: K2, K4)
   partial products, Zs    batch inverses and modular prefix-product scans
@@ -26,6 +33,10 @@ the kernels is plain PyTorch on the same device.
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import threading
+
 import numpy as np
 import torch
 
@@ -39,11 +50,14 @@ from plonky2_torch.gates.gate import UNUSED_SELECTOR
 from plonky2_torch.hash import poseidon as ps
 from plonky2_torch.hash.merkle import NaturalMerkleTree
 from plonky2_torch.iop.challenger import Challenger, DeviceChallenger, cap_boundary
+from plonky2_torch.iop.generator import generate_partial_witness
 from plonky2_torch.plonk.proof import OpeningSet, Proof, ProofWithPublicInputs
 from plonky2_torch.util import TimingTree, log2_strict
 
 # which transcript path the last prove took: "fused" or "host"
 _LAST_TRANSCRIPT = None
+# the most proofs the last prove_many had in flight at once
+_LAST_MAX_IN_FLIGHT = 0
 
 
 def random_witness(common, seed: int):
@@ -70,14 +84,35 @@ def _can_fuse_transcript(common, challenger, constants_sigmas) -> bool:
             and isinstance(constants_sigmas.merkle_tree, NaturalMerkleTree))
 
 
-def prove(prover_data, common, witness, public_inputs, public_inputs_hash, device=None,
-          timing: TimingTree | None = None, _defer: bool = False):
-    """Prove `common`'s circuit on `witness` ([num_wires, degree] u64 values,
-    as the reference's `prepare_witness` returns it, or that matrix as an
-    int64 tensor already on the device) on `device` (CUDA unless the caller
-    asks for another). _defer=True returns `finish()` unrun: on the fused
-    path every launch is queued and the one fetch and the parse wait for the
-    call; a host-path prove completes and returns a closure over its proof."""
+def prepare_witness(prover_data, common, inputs, timing: TimingTree | None = None,
+                    engine: str | None = None):
+    """The host witness phase of a prove (reference plonk/prover.py:384):
+    the generators run from `inputs` (a PartialWitness) on `engine` (the
+    native witness plan unless the caller or `generator.ENGINE` says
+    "python"), then the public inputs, their Poseidon hash and the full
+    witness [num_wires, degree] u64. Returns (witness, public inputs,
+    public-inputs hash)."""
+    timing = timing or TimingTree("prepare")
+    with timing.scope("generate partial witness"):
+        partition_witness = generate_partial_witness(inputs, prover_data, common, engine)
+    public_inputs = partition_witness.get_targets(prover_data.public_inputs)
+    public_inputs_hash = ps.hash_no_pad(public_inputs)
+    with timing.scope("compute full witness"):
+        witness = partition_witness.full_witness()
+    return witness, public_inputs, public_inputs_hash
+
+
+def prove(prover_data, common, inputs, device=None, timing: TimingTree | None = None,
+          _defer: bool = False, _prepared=None):
+    """Prove `common`'s circuit from `inputs` (a PartialWitness) on `device`
+    (CUDA unless the caller asks for another). _prepared: what
+    `prepare_witness` returns, (witness, public inputs, public-inputs hash),
+    in place of running it; the witness is [num_wires, degree] u64 values or
+    that matrix as an int64 tensor already on the device, and `inputs` is
+    then unused. _defer=True returns `finish()` unrun: on the fused path
+    every launch is queued and the one fetch and the parse wait for the
+    call; a host-path prove completes and returns a closure over its
+    proof."""
     global _LAST_TRANSCRIPT
     device = resolve_device(device)
     if common.config.zero_knowledge:
@@ -85,6 +120,9 @@ def prove(prover_data, common, witness, public_inputs, public_inputs_hash, devic
     if common.num_lookup_polys:
         raise NotImplementedError("circuits with lookups are not ported (ROADMAP item 9)")
     timing = timing or TimingTree("prove")
+    if _prepared is None:
+        _prepared = prepare_witness(prover_data, common, inputs, timing)
+    witness, public_inputs, public_inputs_hash = _prepared
     config = common.config
     rate_bits = config.fri_config.rate_bits
     cap_height = config.fri_config.cap_height
@@ -105,13 +143,16 @@ def prove(prover_data, common, witness, public_inputs, public_inputs_hash, devic
         pi_hash_dev = g.upload(public_inputs_hash, device)
     with timing.scope("wires commitment"):
         witness_dev = (witness.to(device) if isinstance(witness, torch.Tensor)
-                       else g.tensor(witness, device))
+                       else g.upload(witness, device))
         wires = commit_values(witness_dev)
 
     if fused:
         _LAST_TRANSCRIPT = "fused"
-        return _prove_fused(prover_data, common, constants_sigmas, wires, witness_dev,
-                            transcript, public_inputs, pi_hash_dev, timing, _defer)
+        out = _prove_fused(prover_data, common, constants_sigmas, wires, witness_dev,
+                           transcript, public_inputs, pi_hash_dev, timing, _defer)
+        if not _defer:  # every per-circuit table of this device now exists
+            prover_data.cache(device)["warm"] = True
+        return out
     _LAST_TRANSCRIPT = "host"
     challenger.observe_cap(wires.merkle_tree.cap)
     betas = challenger.get_n_challenges(nc)
@@ -152,6 +193,7 @@ def prove(prover_data, common, witness, public_inputs, public_inputs_hash, devic
                   quotient_polys_cap=quotient.merkle_tree.cap,
                   openings=openings, opening_proof=opening_proof)
     done = ProofWithPublicInputs(proof=proof, public_inputs=list(public_inputs))
+    prover_data.cache(device)["warm"] = True
     return (lambda: done) if _defer else done
 
 
@@ -475,3 +517,121 @@ def _prove_fused(prover_data, common, constants_sigmas, wires, witness_dev, tran
         return ProofWithPublicInputs(proof=proof, public_inputs=list(public_inputs))
 
     return finish if defer else finish()
+
+
+# -- batched proving -------------------------------------------------------------
+
+class _InFlight:
+    """Counts the proofs whose device chain is queued and not yet fetched."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.now = 0
+        self.most = 0
+
+    def enter(self):
+        with self.lock:
+            self.now += 1
+            self.most = max(self.most, self.now)
+
+    def leave(self):
+        with self.lock:
+            self.now -= 1
+
+    def __enter__(self):
+        self.enter()
+
+    def __exit__(self, *exc):
+        self.leave()
+
+
+def prove_many(prover_data, common, inputs_list, device=None,
+               timing: TimingTree | None = None, window: int = 3,
+               threads: int = 1) -> list[ProofWithPublicInputs]:
+    """Prove many PartialWitnesses of one circuit (reference
+    plonk/prover.py:1245), the proofs byte-identical to sequential `prove`
+    calls: every witness phase (all of a non-zk proof's rng draws) runs on
+    the caller's thread in proof order, and at most `window` proofs are in
+    flight, each holding its oracles on the device.
+
+    threads == 1 (the default): each proof's chain is queued as
+    `prove(_defer=True)` on a CUDA stream of a pool of `window`, and the
+    oldest proof is fetched once `window` are queued, so the next witness
+    phase overlaps the device work. threads >= 2: the chains run whole on
+    `threads` dispatch threads, each on its own stream; the threads contend
+    for the GIL over ~10^5 launches a proof, and on one H100 two and three
+    gave fewer proofs/s than one (chip_smoke's prove_many line, PERF.md).
+    Until a prove of the circuit has completed on the device (its
+    per-device cache's "warm"), the first proof runs alone on the caller's
+    stream, so the per-circuit tables exist before other streams read
+    them. `_LAST_MAX_IN_FLIGHT` holds the most proofs in flight."""
+    global _LAST_MAX_IN_FLIGHT
+    device = resolve_device(device)
+    if common.config.zero_knowledge:
+        raise NotImplementedError("zero-knowledge circuits are not ported (ROADMAP item 10)")
+    if window < 1 or threads < 1:
+        raise ValueError("window and threads must be at least 1")
+    timing = timing or TimingTree("prove_many")
+    cuda = device.type == "cuda"
+    cache = prover_data.cache(device)
+    in_flight = _InFlight()
+    out: list = []
+    todo = list(enumerate(inputs_list))
+
+    def prepare(i, inputs):
+        with timing.scope(f"witness {i}"):
+            return prepare_witness(prover_data, common, inputs)
+
+    def on(stream):
+        return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+
+    if cuda and not cache.get("warm") and todo:
+        i, inputs = todo.pop(0)
+        prepared = prepare(i, inputs)
+        with timing.scope(f"dispatch proof {i}"), in_flight:
+            out.append(prove(prover_data, common, None, device, _prepared=prepared))
+
+    if threads == 1:
+        streams = [torch.cuda.Stream(device) for _ in range(window)] if cuda else [None] * window
+        pending = collections.deque()
+
+        def finish_oldest():
+            stream, finish = pending.popleft()
+            with timing.scope(f"finish proof {len(out)}"), on(stream):
+                out.append(finish())
+            in_flight.leave()
+
+        for i, inputs in todo:
+            prepared = prepare(i, inputs)
+            stream = streams[i % window]
+            with timing.scope(f"dispatch proof {i}"), on(stream):
+                in_flight.enter()
+                pending.append((stream, prove(prover_data, common, None, device,
+                                              _defer=True, _prepared=prepared)))
+            while len(pending) >= window:
+                finish_oldest()
+        while pending:
+            finish_oldest()
+    else:
+        from concurrent.futures import ThreadPoolExecutor
+
+        local = threading.local()
+
+        def dispatch(prepared):
+            if cuda and not hasattr(local, "stream"):
+                local.stream = torch.cuda.Stream(device)
+            with on(getattr(local, "stream", None)), in_flight:
+                return prove(prover_data, common, None, device, _prepared=prepared)
+
+        with ThreadPoolExecutor(max_workers=threads) as pool:
+            futures = collections.deque()
+            for i, inputs in todo:
+                futures.append(pool.submit(dispatch, prepare(i, inputs)))
+                while len(futures) >= window:
+                    with timing.scope(f"finish proof {len(out)}"):
+                        out.append(futures.popleft().result())
+            while futures:
+                with timing.scope(f"finish proof {len(out)}"):
+                    out.append(futures.popleft().result())
+    _LAST_MAX_IN_FLIGHT = in_flight.most
+    return out

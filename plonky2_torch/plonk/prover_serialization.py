@@ -5,14 +5,14 @@ prover-only data); `read_circuit_data` reads `circuit_data_to_bytes`
 (common, prover-only, verifier-only), the layout of
 `bench_cache/middle14.circuit.bin`. Layouts: the reference's
 `plonk/circuit_serialization.py:192-323` (common data, gate tags) and
-`plonk/prover_serialization.py:250-345, 498-617` (generator payloads,
+`plonk/prover_serialization.py:250-345, 476-617` (generator payloads,
 prover-only fields), all integers little-endian.
 
-The prover needs no witness generators, so their section is stepped over
-by each tag's payload layout; so are the watch lists, the public-input
-targets, the representative map and the lookup rows. A gate or generator
-tag the port does not know raises ValueError. Only Poseidon digests are
-read (`PoseidonGoldilocksConfig`).
+The witness generators are read into the port's generator objects, with
+the watch lists, the public-input targets and the representative map; the
+lookup rows are stepped over. A gate or generator tag the port has no class
+for raises ValueError. Only Poseidon digests are read
+(`PoseidonGoldilocksConfig`).
 """
 
 from __future__ import annotations
@@ -22,14 +22,34 @@ import struct
 import numpy as np
 
 from plonky2_torch.fri.config import FriConfig, FriParams, FriReductionStrategy
+from plonky2_torch.gadgets.extension_arithmetic import QuotientGeneratorExtension
+from plonky2_torch.gadgets.split_join import WireSplitGenerator
 from plonky2_torch.gates.arithmetic_base import ArithmeticGate
-from plonky2_torch.gates.arithmetic_extension import ArithmeticExtensionGate, MulExtensionGate
-from plonky2_torch.gates.base_sum import BaseSumGate
-from plonky2_torch.gates.coset_interpolation import CosetInterpolationGate
-from plonky2_torch.gates.poseidon_gate import PoseidonGate
-from plonky2_torch.gates.random_access import RandomAccessGate
-from plonky2_torch.gates.reducing import ReducingExtensionGate, ReducingGate
+from plonky2_torch.gates.arithmetic_extension import (
+    ArithmeticExtensionGate,
+    ArithmeticExtensionGenerator,
+    MulExtensionGate,
+    MulExtensionGenerator,
+)
+from plonky2_torch.gates.base_sum import BaseSplitGenerator, BaseSumGate
+from plonky2_torch.gates.coset_interpolation import CosetInterpolationGate, InterpolationGenerator
+from plonky2_torch.gates.poseidon_gate import PoseidonGate, PoseidonGenerator
+from plonky2_torch.gates.random_access import RandomAccessGate, RandomAccessGenerator
+from plonky2_torch.gates.reducing import (
+    ReducingExtensionGate,
+    ReducingExtensionGenerator,
+    ReducingGate,
+    ReducingGenerator,
+)
 from plonky2_torch.gates.simple_gates import ConstantGate, NoopGate, PublicInputGate
+from plonky2_torch.iop.generator import (
+    ArithmeticBaseGenerator,
+    ConstantGenerator,
+    CopyGenerator,
+    NonzeroTestGenerator,
+    RandomValueGenerator,
+)
+from plonky2_torch.iop.target import ExtensionTarget, VirtualTarget, Wire
 from plonky2_torch.plonk.circuit_data import (
     CommonCircuitData,
     ProverOnlyCircuitData,
@@ -58,35 +78,39 @@ GATE_TAGS = [
     ("ReducingGate", lambda r: ReducingGate(r.usize())),
 ]
 
-# each generator tag's payload: u = usize, f = field, t = target,
-# e = extension target (two targets), U = usize vec, F = field vec (both
-# length-prefixed); None: the tag has no generator in the reference either
-GENERATOR_PAYLOADS = [
-    ("ArithmeticBaseGenerator", "uffu"),
-    ("ArithmeticExtensionGenerator", "uffu"),
-    ("BaseSplitGenerator", "uu"),
+# the reference's generator registry order (generator_serialization.rs:155-182)
+# and each tag's reader; None: the tag has no class in the port
+GENERATOR_TAGS = [
+    ("ArithmeticBaseGenerator", lambda r: ArithmeticBaseGenerator(
+        r.usize(), r.field(), r.field(), r.usize())),
+    ("ArithmeticExtensionGenerator", lambda r: ArithmeticExtensionGenerator(
+        r.usize(), r.field(), r.field(), r.usize())),
+    ("BaseSplitGenerator", lambda r: BaseSplitGenerator(r.usize(), r.usize(), 2)),
     ("BaseSumGenerator", None),
-    ("ConstantGenerator", "uuuf"),
-    ("CopyGenerator", "tt"),
-    ("DummyProofGenerator", "dummy"),
-    ("EqualityGenerator", "tttt"),
-    ("ExponentiationGenerator", "uu"),
-    ("InterpolationGenerator", "uuuF"),
-    ("LookupGenerator", "uuu"),
-    ("LookupTableGenerator", "uuuuu"),
-    ("LowHighGenerator", "tutt"),
-    ("MulExtensionGenerator", "ufu"),
-    ("NonzeroTestGenerator", "tt"),
-    ("PoseidonGenerator", "u"),
-    ("PoseidonMdsGenerator", "u"),
-    ("QuotientGeneratorExtension", "eee"),
-    ("RandomAccessGenerator", "uuuuu"),
-    ("RandomValueGenerator", "t"),
-    ("ReducingGenerator", "uu"),
-    ("ReducingExtensionGenerator", "uu"),
+    ("ConstantGenerator", lambda r: ConstantGenerator(r.usize(), r.usize(), r.usize(),
+                                                      r.field())),
+    ("CopyGenerator", lambda r: CopyGenerator(r.target(), r.target())),
+    ("DummyProofGenerator", None),
+    ("EqualityGenerator", None),
+    ("ExponentiationGenerator", None),
+    ("InterpolationGenerator", lambda r: _interpolation_generator(r)),
+    ("LookupGenerator", None),
+    ("LookupTableGenerator", None),
+    ("LowHighGenerator", None),
+    ("MulExtensionGenerator", lambda r: MulExtensionGenerator(r.usize(), r.field(), r.usize())),
+    ("NonzeroTestGenerator", lambda r: NonzeroTestGenerator(r.target(), r.target())),
+    ("PoseidonGenerator", lambda r: PoseidonGenerator(r.usize())),
+    ("PoseidonMdsGenerator", None),
+    ("QuotientGeneratorExtension", lambda r: QuotientGeneratorExtension(
+        r.ext_target(), r.ext_target(), r.ext_target())),
+    ("RandomAccessGenerator", lambda r: _random_access_generator(r)),
+    ("RandomValueGenerator", lambda r: RandomValueGenerator(r.target())),
+    ("ReducingGenerator", lambda r: ReducingGenerator(r.usize(), r.usize())),
+    ("ReducingExtensionGenerator", lambda r: ReducingExtensionGenerator(r.usize(), r.usize())),
     ("SplitGenerator", None),
-    ("WireSplitGenerator", "tUu"),
-    ("InverseGenerator", "tt"),
+    ("WireSplitGenerator", lambda r: WireSplitGenerator(
+        r.target(), [int(v) for v in r.usize_vec()], r.usize())),
+    ("InverseGenerator", None),
 ]
 
 
@@ -135,13 +159,23 @@ class Reader:
     def merkle_cap(self, cap_height: int) -> list[list[int]]:
         return [self.hash() for _ in range(1 << cap_height)]
 
+    def field(self) -> int:
+        return self.usize()
+
+    def target(self):
+        if self.bool():
+            return Wire(self.usize(), self.usize())
+        return VirtualTarget(self.usize())
+
+    def target_vec(self) -> list:
+        return [self.target() for _ in range(self.usize())]
+
+    def ext_target(self) -> ExtensionTarget:
+        return ExtensionTarget((self.target(), self.target()))
+
     def skip_target(self) -> None:
         is_wire = self.bool()
         self.pos += 16 if is_wire else 8
-
-    def skip_target_vec(self) -> None:
-        for _ in range(self.usize()):
-            self.skip_target()
 
     def skip_vec(self, item_bytes: int) -> None:
         """Step over a length-prefixed vector of fixed-size items."""
@@ -217,43 +251,25 @@ class Reader:
 
     # -- prover-only circuit data ---------------------------------------------
 
-    def skip_generator(self) -> None:
+    def generator(self):
         tag = self.u32()
-        if tag >= len(GENERATOR_PAYLOADS):
+        if tag >= len(GENERATOR_TAGS):
             raise ValueError(f"unknown generator tag {tag}")
-        name, layout = GENERATOR_PAYLOADS[tag]
-        if layout is None:
-            raise ValueError(f"generator tag {tag} ({name}) has no known payload")
-        if layout == "dummy":
-            # cap length, verifier-data targets, verifier-data bytes, proof
-            # targets, proof bytes (reference prover_serialization.py:386-405)
-            self.usize()
-            self.skip_target_vec()
-            self.skip_vec(1)
-            self.skip_target_vec()
-            self.skip_vec(1)
-            return
-        for kind in layout:
-            if kind in "uf":
-                self.pos += 8
-            elif kind == "t":
-                self.skip_target()
-            elif kind == "e":
-                self.skip_target()
-                self.skip_target()
-            else:  # "U", "F": length-prefixed
-                self.skip_vec(8)
+        name, read = GENERATOR_TAGS[tag]
+        if read is None:
+            raise ValueError(f"generator tag {tag} ({name}) is not ported")
+        return read(self)
 
     def matrix(self) -> np.ndarray:
         rows, cols = self.usize(), self.usize()
         return self.u64_array(rows * cols).reshape(rows, cols)
 
     def prover_only_circuit_data(self, common: CommonCircuitData) -> ProverOnlyCircuitData:
+        generators = [self.generator() for _ in range(self.usize())]
+        watches = {}  # representative -> the generators watching it
         for _ in range(self.usize()):
-            self.skip_generator()
-        for _ in range(self.usize()):  # generator indices by watch
-            self.usize()
-            self.skip_vec(8)
+            k = self.usize()
+            watches[k] = self.usize_vec().astype(np.int64)
         coeffs = self.matrix()  # the constants-sigmas batch's coefficients
         degree_log, rate_bits, blinding = self.usize(), self.usize(), self.bool()
         if (1 << degree_log != coeffs.shape[1] or blinding
@@ -261,8 +277,8 @@ class Reader:
             raise ValueError("constants-sigmas batch does not match the common data")
         sigmas = self.matrix()
         subgroup = self.u64_array(self.usize())
-        self.skip_target_vec()  # public-input targets
-        self.skip_vec(8)  # representative map
+        public_inputs = self.target_vec()
+        representative_map = self.usize_vec().astype(np.int64)
         if self.bool():
             raise ValueError("an FFT root table is not expected")
         circuit_digest = self.hash()
@@ -271,7 +287,11 @@ class Reader:
             for _ in range(2 * self.usize()):
                 self.skip_target()
         return ProverOnlyCircuitData(constants_sigmas_coeffs=coeffs, sigmas=sigmas,
-                                     subgroup=subgroup, circuit_digest=circuit_digest)
+                                     subgroup=subgroup, circuit_digest=circuit_digest,
+                                     generators=generators,
+                                     generator_indices_by_watches=watches,
+                                     public_inputs=public_inputs,
+                                     representative_map=representative_map)
 
     def verifier_only_circuit_data(self) -> VerifierOnlyCircuitData:
         cap = self.merkle_cap(self.usize())
@@ -289,6 +309,18 @@ def _coset_interpolation_gate(r: Reader) -> CosetInterpolationGate:
     if gate.degree() != degree or gate.barycentric_weights != weights:
         raise ValueError("CosetInterpolationGate payload disagrees with its parameters")
     return gate
+
+
+def _interpolation_generator(r: Reader) -> InterpolationGenerator:
+    gen = InterpolationGenerator(r.usize(), r.usize(), r.usize())
+    if r.field_vec(r.usize()) != gen._gate().barycentric_weights:
+        raise ValueError("InterpolationGenerator payload disagrees with its parameters")
+    return gen
+
+
+def _random_access_generator(r: Reader) -> RandomAccessGenerator:
+    row, copy, bits, num_copies, num_extra = (r.usize() for _ in range(5))
+    return RandomAccessGenerator(row, bits, num_copies, num_extra, copy)
 
 
 def read_prover_data(data: bytes):

@@ -160,7 +160,7 @@ def test_factorial_prove_on_the_card_equals_the_fixture(dev):
 
     args, fixture = _factorial(dev)
     ops.reset_launches()
-    pwp = tp.prove(*args, device=dev)
+    pwp = tp.prove(args[0], args[1], None, device=dev, _prepared=args[2:])
     assert tp._LAST_TRANSCRIPT == "fused"
     assert ops.K2.launches and ops.K4.launches and ops.K5.batch1
     assert ops.K5_DEVICE.launches == 1 and ops.K5_CHUNK.launches == 0
@@ -176,7 +176,7 @@ def test_factorial_host_path_prove_on_the_card_equals_the_fixture(dev):
     args, fixture = _factorial(dev)
     ops.reset_launches()
     with force_host_path():
-        pwp = tp.prove(*args, device=dev)
+        pwp = tp.prove(args[0], args[1], None, device=dev, _prepared=args[2:])
     assert tp._LAST_TRANSCRIPT == "host"
     assert ops.K5_CHUNK.launches and ops.K5_DEVICE.launches == 0
     assert proof_to_bytes(pwp) == fixture
@@ -205,11 +205,71 @@ def test_warm_fused_defer_prove_makes_no_synchronisation(dev):
 
     args, fixture = _factorial(dev)
     witness = g.tensor(args[2], dev)
-    tp.prove(args[0], args[1], witness, *args[3:], device=dev)  # per-circuit tables
+    prepared = (witness, *args[3:])
+    tp.prove(args[0], args[1], None, device=dev, _prepared=prepared)  # per-circuit tables
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        finish = tp.prove(args[0], args[1], witness, *args[3:], device=dev, _defer=True)
+        finish = tp.prove(args[0], args[1], None, device=dev, _defer=True, _prepared=prepared)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert proof_to_bytes(finish()) == fixture
+
+
+def _circuit(name):
+    import os
+
+    from plonky2_torch.iop.witness import read_partial_witness
+    from plonky2_torch.plonk.prover_serialization import read_prover_data
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    data = os.path.join(root, "plonky2_torch", "data")
+    with open(os.path.join(data, f"{name}.prover.bin"), "rb") as f:
+        prover_only, common = read_prover_data(f.read())
+    with open(os.path.join(root, "fixtures", f"{name}.proof.bin"), "rb") as f:
+        fixture = f.read()
+    return prover_only, common, read_partial_witness(os.path.join(data, f"{name}.inputs.npz")), \
+        fixture
+
+
+@pytest.mark.parametrize("name", ["factorial", "fibonacci", "range_check"])
+def test_prove_from_inputs_on_the_card_equals_the_fixture(dev, name):
+    """The witness phase (the native plan) from the committed inputs under
+    seed 2026, then the prove on the card: the fixture's bytes (fibonacci
+    and range_check have no FRI fold step: the host transcript's branch)."""
+    from plonky2_torch.plonk import prover as tp
+    from plonky2_torch.plonk.serialization import proof_to_bytes
+    from plonky2_torch.util import rng
+
+    prover_only, common, inputs, fixture = _circuit(name)
+    rng.seed(2026)
+    try:
+        pwp = tp.prove(prover_only, common, inputs, device=dev)
+    finally:
+        rng.seed(None)
+    assert tp._LAST_TRANSCRIPT == ("fused" if name == "factorial" else "host")
+    assert proof_to_bytes(pwp) == fixture
+
+
+@pytest.mark.parametrize("window,threads", [(1, 1), (2, 1), (1, 2), (2, 2)])
+def test_prove_many_on_the_card_equals_sequential_proves(dev, window, threads):
+    """prove_many of factorial's inputs, K = 3, under seed 2026, on the card
+    (each proof's device chain on its own stream): the bytes of three
+    sequential proves under the same seed, at most `window` in flight."""
+    from plonky2_torch.plonk import prover as tp
+    from plonky2_torch.plonk.serialization import proof_to_bytes
+    from plonky2_torch.util import rng
+
+    prover_only, common, inputs, fixture = _circuit("factorial")
+    rng.seed(2026)
+    try:
+        seq = [proof_to_bytes(tp.prove(prover_only, common, inputs, device=dev))
+               for _ in range(3)]
+        rng.seed(2026)
+        got = tp.prove_many(prover_only, common, [inputs] * 3, device=dev, window=window,
+                            threads=threads)
+    finally:
+        rng.seed(None)
+    assert seq[0] == fixture and len(set(seq)) == 3
+    assert [proof_to_bytes(p) for p in got] == seq
+    assert 1 <= tp._LAST_MAX_IN_FLIGHT <= window

@@ -32,16 +32,19 @@ from plonky2_tpu.plonk import prover_serialization as jps
 from plonky2_torch import convert
 from plonky2_torch.field import goldilocks as tg
 from plonky2_torch.fri import prover as tfp
+from plonky2_torch.iop.witness import read_partial_witness
 from plonky2_torch.ops import poseidon as tkp
 from plonky2_torch.plonk import prover as tp
 from plonky2_torch.plonk.prover_serialization import Reader, read_circuit_data, read_prover_data
-from plonky2_torch.plonk.serialization import proof_to_bytes
+from plonky2_torch.plonk.serialization import proof_from_bytes, proof_to_bytes
+from plonky2_torch.util import rng as trng
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_make_data  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "plonky2_torch", "data")
+SEED = torch_make_data.SEED
 
 
 def _read(*parts) -> bytes:
@@ -94,7 +97,8 @@ def _recorded_prove(port_data, names, host: bool):
             mp.setattr(tp, name, spy(name))
         if host:
             mp.setattr(tfp, "_FORCE_HOST", True)
-        pwp = tp.prove(prover_only, common, witness, pis, pi_hash, device="cpu")
+        pwp = tp.prove(prover_only, common, None, device="cpu",
+                       _prepared=(witness, pis, pi_hash))
     return proof_to_bytes(pwp), calls, tp._LAST_TRANSCRIPT
 
 
@@ -113,10 +117,13 @@ def port_prove_fused(port_data):
 
 
 def test_committed_factorial_data_is_what_the_reference_makes(reference, port_data):
-    prover_bytes, _, witness, pis, pi_hash = reference
+    prover_bytes, _, witness, pis, pi_hash, inputs = reference
     assert _read("plonky2_torch", "data", "factorial.prover.bin") == prover_bytes
     assert np.array_equal(port_data[2], witness) and port_data[2].dtype == np.uint64
     assert port_data[3:] == (pis, pi_hash)
+    committed = np.load(os.path.join(DATA, "factorial.inputs.npz"))
+    for name, want in torch_make_data.inputs_arrays(inputs).items():
+        assert np.array_equal(committed[name], want), name
 
 
 def test_reader_equals_converted_reference_objects(reference, port_data):
@@ -228,8 +235,8 @@ def test_warm_fused_prove_reads_nothing_back_before_its_fetch(port_data, port_pr
                                                               numpy_(t, *a, **k))[1])
         mp.setattr(torch.Tensor, "tolist", lambda t: (audit.hit("tolist"), tolist_(t))[1])
         with audit:
-            finish = tp.prove(prover_only, common, witness_t, pis, pi_hash, device="cpu",
-                              _defer=True)
+            finish = tp.prove(prover_only, common, None, device="cpu", _defer=True,
+                              _prepared=(witness_t, pis, pi_hash))
     assert audit.hits == []
     assert tp._LAST_TRANSCRIPT == "fused"
     assert proof_to_bytes(finish()) == _read("fixtures", "factorial.proof.bin")
@@ -270,6 +277,23 @@ def test_opening_set_equals_reference(reference, port_prove):
     assert want.lookup_zs == want.lookup_zs_next == []
 
 
+def _norm(x):
+    """A package-neutral form of targets, generators and their fields, to
+    hold the port's objects to the reference's."""
+    name = type(x).__name__
+    if name == "Wire":
+        return ("Wire", x.row, x.column)
+    if name == "VirtualTarget":
+        return ("VirtualTarget", x.index)
+    if name == "ExtensionTarget":
+        return ("ExtensionTarget", _norm(x.parts))
+    if isinstance(x, (list, tuple, np.ndarray)):
+        return tuple(_norm(v) for v in x)
+    if isinstance(x, (int, np.integer)):
+        return int(x)
+    return (name, {k: _norm(v) for k, v in sorted(vars(x).items())})
+
+
 def test_middle_reader_equals_reference(monkeypatch):
     def coefficients_only(r, common):  # the reference reader, minus the commitment
         num_polys, n = r.read_usize(), r.read_usize()
@@ -296,6 +320,18 @@ def test_middle_reader_equals_reference(monkeypatch):
     assert got_prover.circuit_digest == want_prover.circuit_digest
     assert got_verifier.constants_sigmas_cap == want.verifier_only.constants_sigmas_cap
     assert got_verifier.circuit_digest == want.verifier_only.circuit_digest
+    # the witness generators, their watch lists, the public-input targets
+    # and the representative map
+    assert len(got_prover.generators) == len(want.prover_only.generators) == 8261
+    for a, b in zip(got_prover.generators, want.prover_only.generators):
+        assert _norm(a) == _norm(b)
+    got_w, want_w = got_prover.generator_indices_by_watches, \
+        want.prover_only.generator_indices_by_watches
+    assert sorted(got_w) == sorted(want_w)
+    assert all(np.array_equal(got_w[k], np.asarray(want_w[k], dtype=np.int64)) for k in got_w)
+    assert _norm(got_prover.public_inputs) == _norm(want.prover_only.public_inputs)
+    assert np.array_equal(got_prover.representative_map,
+                          np.asarray(want.prover_only.representative_map, dtype=np.int64))
 
 
 @pytest.mark.parametrize("tag,read,what", [
@@ -306,23 +342,25 @@ def test_middle_reader_equals_reference(monkeypatch):
 ])
 def test_reader_rejects_tags_it_does_not_know(tag, read, what):
     with pytest.raises(ValueError, match=what):
+        # a generator is read, no longer stepped over
+        read = {"skip_generator": "generator"}.get(read, read)
         getattr(Reader(struct.pack("<I", tag) + bytes(64)), read)()
 
 
 def test_prove_refuses_what_is_not_ported(port_data):
     import dataclasses
 
-    prover_only, common, witness, pis, pi_hash = port_data
+    prover_only, common, *prepared = port_data
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            tp.prove(prover_only, common, witness, pis, pi_hash)
+            tp.prove(prover_only, common, None, _prepared=prepared)
     zk = dataclasses.replace(common, config=dataclasses.replace(common.config,
                                                                 zero_knowledge=True))
     with pytest.raises(NotImplementedError, match="zero-knowledge"):
-        tp.prove(prover_only, zk, witness, pis, pi_hash, device="cpu")
+        tp.prove(prover_only, zk, None, device="cpu", _prepared=prepared)
     with pytest.raises(NotImplementedError, match="lookups"):
-        tp.prove(prover_only, dataclasses.replace(common, num_lookup_polys=1), witness, pis,
-                 pi_hash, device="cpu")
+        tp.prove(prover_only, dataclasses.replace(common, num_lookup_polys=1), None,
+                 device="cpu", _prepared=prepared)
 
 
 def test_random_witness_is_seeded_and_hashes_its_public_inputs(port_data):
@@ -334,3 +372,97 @@ def test_random_witness_is_seeded_and_hashes_its_public_inputs(port_data):
     assert w1.shape == (135, 64) and w1.dtype == np.uint64 and np.array_equal(w1, w2)
     assert (w1 < fs.P).all() and len(pis) == common.num_public_inputs == 2
     assert pi_hash == jps_hash.hash_no_pad(pis)
+
+
+# -- proving from the circuit's inputs: the witness phase, prove_many ------------
+
+@pytest.fixture(scope="module")
+def sequential_proofs(port_data):
+    """Three sequential proofs of factorial's committed inputs under seed
+    2026: (inputs, [(prepared witness, proof)]). The first witness is the
+    committed one, whose proof the fixture tests above hold to
+    fixtures/factorial.proof.bin, so its proof is read from the fixture;
+    the other two draw other values for the circuit's random wires and are
+    proved here."""
+    prover_only, common = port_data[:2]
+    inputs = read_partial_witness(os.path.join(DATA, "factorial.inputs.npz"))
+    trng.seed(SEED)
+    try:
+        prepared = [tp.prepare_witness(prover_only, common, inputs) for _ in range(3)]
+    finally:
+        trng.seed(None)
+    proofs = [proof_from_bytes(_read("fixtures", "factorial.proof.bin"), common)]
+    proofs += [tp.prove(prover_only, common, None, device="cpu", _prepared=p)
+               for p in prepared[1:]]
+    return inputs, list(zip(prepared, proofs))
+
+
+def test_prepare_witness_from_inputs_gives_the_committed_witness(port_data, sequential_proofs):
+    """prepare_witness of the committed inputs under seed 2026 (the native
+    plan) gives the committed witness, public inputs and hash; the next two
+    witnesses differ from it in their random wires only."""
+    _, seq = sequential_proofs
+    (witness, pis, pi_hash), _ = seq[0]
+    assert np.array_equal(witness, port_data[2]) and (pis, pi_hash) == tuple(port_data[3:])
+    assert len({prepared[0].tobytes() for prepared, _ in seq}) == 3
+    assert all(p[1:] == (pis, pi_hash) for p, _ in seq)
+
+
+@pytest.mark.parametrize("window,threads", [(1, 1), (2, 1), (1, 2), (2, 2)])
+def test_prove_many_equals_sequential_proves(port_data, sequential_proofs, window, threads):
+    """prove_many of factorial's inputs, K = 3, under seed 2026: its proofs,
+    in order, are the three sequential proofs, and at most `window` are in
+    flight. On the CPU the device chain is the plain path that the fixture
+    tests above already hold; here each witness the sequential proofs were
+    made from is proved once (its proof reused), so what runs is
+    prove_many's own logic: the witness phases in proof order on the
+    caller's thread (the rng draws), the deferred or threaded dispatch, the
+    window and the order of the results. A witness no sequential proof was
+    made from is proved for real, and its bytes then differ. The card's
+    test (tests/test_torch_cuda.py) proves every proof for real."""
+    prover_only, common = port_data[:2]
+    inputs, seq = sequential_proofs
+    done = {prepared[0].tobytes(): proof for prepared, proof in seq}
+    real_prove = tp.prove
+    defers = []
+
+    def prove_once(prover_data, common_, inputs_, device=None, timing=None, _defer=False,
+                   _prepared=None):
+        defers.append(_defer)
+        proof = done.get(_prepared[0].tobytes())
+        if proof is None:
+            return real_prove(prover_data, common_, inputs_, device, timing, _defer, _prepared)
+        return (lambda: proof) if _defer else proof
+
+    trng.seed(SEED)
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tp, "prove", prove_once)
+            got = tp.prove_many(prover_only, common, [inputs] * 3, device="cpu",
+                                window=window, threads=threads)
+    finally:
+        trng.seed(None)
+    assert [proof_to_bytes(p) for p in got] == [proof_to_bytes(p) for _, p in seq]
+    assert 1 <= tp._LAST_MAX_IN_FLIGHT <= window
+    assert defers == [threads == 1] * 3
+
+
+@pytest.mark.parametrize("name", ["fibonacci", "range_check"])
+def test_example_prove_from_inputs_equals_the_fixture(name):
+    """The committed prover data and inputs of a circuit with no FRI fold
+    step (the host transcript's branch), proved on the CPU under seed 2026
+    from the port's own witness generation, through
+    `ProverCircuitData.prove`: fixtures/<name>.proof.bin."""
+    from plonky2_torch.plonk.circuit_data import ProverCircuitData
+
+    data = ProverCircuitData(*read_prover_data(_read("plonky2_torch", "data",
+                                                     f"{name}.prover.bin")))
+    assert tuple(data.common.fri_params.reduction_arity_bits) == ()
+    inputs = read_partial_witness(os.path.join(DATA, f"{name}.inputs.npz"))
+    trng.seed(SEED)
+    try:
+        proof = data.prove(inputs, device="cpu")
+    finally:
+        trng.seed(None)
+    assert tp._LAST_TRANSCRIPT == "host"
+    assert proof_to_bytes(proof) == _read("fixtures", f"{name}.proof.bin")

@@ -1,4 +1,4 @@
-"""Write the port's committed factorial data from the reference package.
+"""Write the port's committed circuit data from the reference package.
 
     JAX_PLATFORMS=cpu python tests/torch_make_data.py
 
@@ -8,9 +8,14 @@ was made, and writes
   plonky2_torch/data/factorial.prover.bin   the reference's prover_data_to_bytes
   plonky2_torch/data/factorial.witness.npz  witness [num_wires, degree] u64,
                                             public inputs, public-inputs hash
-so that the port proves factorial without the reference. Not collected by
-pytest; `tests/test_torch_plonk.py` holds both files equal to what this
-makes.
+  plonky2_torch/data/factorial.inputs.npz   the PartialWitness it is made from
+and builds the fibonacci and range_check examples, as
+`tools/generate_fixtures.py` does, to
+  plonky2_torch/data/{fibonacci,range_check}.prover.bin, .inputs.npz
+so that the port proves these circuits from their inputs without the
+reference (inputs: `plonky2_torch.iop.witness.read_partial_witness`). Not
+collected by pytest; `tests/test_torch_plonk.py` and
+`tests/test_torch_witness.py` hold the files equal to what this makes.
 """
 
 import os
@@ -23,9 +28,48 @@ DATA = os.path.join(ROOT, "plonky2_torch", "data")
 SEED = 2026  # tools/generate_fixtures.py
 
 
+def inputs_arrays(pw) -> dict:
+    """A reference PartialWitness as the arrays `read_partial_witness` reads."""
+    from plonky2_tpu.iop.target import Wire
+
+    items = list(pw.target_values.items())
+    return {"is_wire": np.array([isinstance(t, Wire) for t, _ in items], dtype=bool),
+            "a": np.array([t.row if isinstance(t, Wire) else t.index for t, _ in items],
+                          dtype=np.int64),
+            "b": np.array([t.column if isinstance(t, Wire) else 0 for t, _ in items],
+                          dtype=np.int64),
+            "value": np.array([v for _, v in items], dtype=np.uint64)}
+
+
+def example_data(name: str):
+    """(prover bytes, CircuitData, inputs PartialWitness) of a reference
+    example circuit, its inputs as its `build_and_prove` sets them."""
+    import importlib
+
+    from plonky2_tpu.iop import witness as jw
+    from plonky2_tpu.plonk.circuit_data import CircuitData
+    from plonky2_tpu.plonk.prover_serialization import prover_data_to_bytes
+
+    captured = {}
+    real_prove = CircuitData.prove
+
+    def capture(data, pw, *a, **k):  # the example builds, then proves its inputs
+        captured["data"], captured["pw"] = data, pw
+
+    module = importlib.import_module(f"plonky2_tpu.examples.{name}")
+    CircuitData.prove = capture
+    try:
+        module.build_and_prove()
+    finally:
+        CircuitData.prove = real_prove
+    data, pw = captured["data"], captured["pw"]
+    assert isinstance(pw, jw.PartialWitness)
+    return prover_data_to_bytes(data.prover_only, data.common), data, pw
+
+
 def factorial_data():
-    """(prover bytes, witness, public inputs, public-inputs hash) of the
-    factorial circuit, made by the reference under the pinned seed."""
+    """(prover bytes, witness, public inputs, public-inputs hash, inputs) of
+    the factorial circuit, made by the reference under the pinned seed."""
     from plonky2_tpu.iop.witness import PartialWitness
     from plonky2_tpu.plonk.circuit_builder import CircuitBuilder
     from plonky2_tpu.plonk.config import CircuitConfig
@@ -49,7 +93,7 @@ def factorial_data():
     finally:
         rng.seed(None)
     return (prover_data_to_bytes(data.prover_only, data.common), data,
-            np.asarray(witness, dtype=np.uint64), list(public_inputs), list(pi_hash))
+            np.asarray(witness, dtype=np.uint64), list(public_inputs), list(pi_hash), pw)
 
 
 def main() -> int:
@@ -57,14 +101,23 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import conftest  # noqa: F401  (JAX on the CPU, x64)
 
-    prover_bytes, _, witness, public_inputs, pi_hash = factorial_data()
+    prover_bytes, _, witness, public_inputs, pi_hash, pw = factorial_data()
     os.makedirs(DATA, exist_ok=True)
     with open(os.path.join(DATA, "factorial.prover.bin"), "wb") as f:
         f.write(prover_bytes)
     np.savez(os.path.join(DATA, "factorial.witness.npz"), witness=witness,
              public_inputs=np.asarray(public_inputs, dtype=np.uint64),
              public_inputs_hash=np.asarray(pi_hash, dtype=np.uint64))
-    print(f"wrote {DATA}: prover data {len(prover_bytes)} bytes, witness {witness.shape}")
+    np.savez(os.path.join(DATA, "factorial.inputs.npz"), **inputs_arrays(pw))
+    print(f"wrote {DATA}: factorial prover data {len(prover_bytes)} bytes, "
+          f"witness {witness.shape}, {len(pw.target_values)} inputs")
+    for name in ("fibonacci", "range_check"):
+        prover_bytes, _, pw = example_data(name)
+        with open(os.path.join(DATA, f"{name}.prover.bin"), "wb") as f:
+            f.write(prover_bytes)
+        np.savez(os.path.join(DATA, f"{name}.inputs.npz"), **inputs_arrays(pw))
+        print(f"wrote {name}: prover data {len(prover_bytes)} bytes, "
+              f"{len(pw.target_values)} inputs")
     return 0
 
 
