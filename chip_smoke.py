@@ -35,7 +35,19 @@ the device phases), and a `prove(_defer=True)` from the prepared host
 witness under "error"; then prove_many at K = BATCH_K, window BATCH_WINDOW,
 threads 1, 2 and 3, each batch's proofs equal to K sequential proves under
 the same seed sequence, the K witnesses pairwise distinct, at most the
-window in flight, with proofs/s; runs `commit_and_open`
+window in flight, with proofs/s; then the build phase: builds the
+bench_recursion inner circuit at 2^14 with the port's builder
+(`examples/bench_recursion.py` `dummy_circuit`, once cold and
+BUILD_REPEATS times timed, the counts set to 0 just before each build and
+read just after, the split by scope on lines of its own), requires its
+verifier bytes to be `bench_cache/inner14.verifier.bin`'s, proves it under
+seed 2026 (a first call and INNER_PROVES timed proves, each proof the
+reference's, INNER14_PROOF_SHA256, and one profiled) and verifies it with
+the port's verifier, proves the middle circuit from that proof (seed 2026; the
+reference's MIDDLE_OVER_INNER14_SHA256) and verifies the middle proof
+against the circuit file's verifier data, then builds, proves and
+verifies factorial, fibonacci, range_check and square_root on the card to
+their fixtures' bytes; runs `commit_and_open`
 at the bench_recursion middle-circuit shapes (degree 2^13, oracles of
 85/135/20/16 polynomials; its FRI proof on the fused path) with the counts
 set to 0 just before and read just after each of its runs and its pinned
@@ -49,7 +61,9 @@ height, leaves of width <= 4) level by level, K5's permutation on one state
 (the transcript's duplex), on [12, 2^17] and on edge states, its chunk grind
 at thresholds 0, 1 bit and 16 bits, and its device grind at 0, 1, 8 and 16
 bits on the seed-2026 middle transcript's state and on random states (the
-middle witness also against the chunk-by-chunk grind); times K4's whole
+middle witness also against the chunk-by-chunk grind); at the build
+path's shapes, K3's iFFT and LDE x8 of [83, 2^14] and K4's tree of width
+83 over 2^17 leaves, against their plain versions and timed; times K4's whole
 wires tree and each of its launches, K3 at [2, 2^16], [16, 2^16] and
 [1, 2^20], K5's bare grind launch (no candidate passing, and 16 bits), its
 `grind_chunk` wrapper, its permute mode and its device grind; runs
@@ -108,6 +122,15 @@ HEADLINE_PROOF_SHA256 = "9871be1789d5a82569612f725440a7345b8109716330ade7f73f336
 HEADLINE_PROVES = 5
 BATCH_K = 16  # bench.py's prove_many batch
 BATCH_WINDOW = 3
+# the build phase: the bench_recursion inner circuit at 2^14 built by the
+# port (its verifier bytes must be bench_cache/inner14.verifier.bin), its
+# proof under seed 2026, and the middle circuit's proof over that proof
+# (seed 2026 again), as the reference gives them on the CPU
+# (tests/reference_prove_middle.py --inner14)
+INNER14_PROOF_SHA256 = "1b219186eb45a666f057473503c83d65ed05c7bb8e507c767d156508bf457bf4"
+MIDDLE_OVER_INNER14_SHA256 = "e83fe3c3a9c0665b09f7095f9d48b12d8a6d62e32fa60001f5b42e9a9d0bbc67"
+BUILD_REPEATS = 3
+INNER_PROVES = 3
 
 
 def fail(msg: str) -> int:
@@ -354,7 +377,9 @@ def main() -> int:
         import numpy as np
 
         from plonky2_torch import native, ops
+        from plonky2_torch.examples import bench_recursion as br
         from plonky2_torch.examples import commit_and_open as co
+        from plonky2_torch.examples import factorial, fibonacci, range_check, square_root
         from plonky2_torch.field import goldilocks as g
         from plonky2_torch.field import ntt
         from plonky2_torch.field import scalar as fs
@@ -365,9 +390,14 @@ def main() -> int:
         from plonky2_torch.iop.witness import PartialWitness
         from plonky2_torch.plonk import prover as tp
         from plonky2_torch.plonk.circuit_builder import CircuitBuilder
-        from plonky2_torch.plonk.circuit_serialization import verifier_data_from_bytes
+        from plonky2_torch.plonk.circuit_serialization import (
+            verifier_data_from_bytes,
+            verifier_data_to_bytes,
+        )
+        from plonky2_torch.plonk.config import CircuitConfig
         from plonky2_torch.plonk.prover_serialization import read_circuit_data, read_prover_data
         from plonky2_torch.plonk.serialization import proof_from_bytes, proof_to_bytes
+        from plonky2_torch.plonk.verifier import verify
         from plonky2_torch.recursion import recursive_verifier as rv
         from plonky2_torch.util import TimingTree
         from plonky2_torch.util import rng as prover_rng
@@ -778,6 +808,166 @@ def main() -> int:
           + f"; sequential prove calls {BATCH_K / sequential_s:.3f} proofs/s "
           f"({sequential_s:.2f} s); {len(set(witnesses))} distinct witnesses of {BATCH_K}")
 
+    # the build phase: the port builds the bench_recursion inner circuit at
+    # 2^14 itself (to the bytes of bench_cache/inner14.verifier.bin), proves
+    # it under seed 2026 and verifies it, proves the middle circuit from
+    # that proof and verifies the middle proof against the circuit file's
+    # verifier data; each run with the counts set to 0 just before it and
+    # read just after. Then the four examples, built, proved and verified
+    # on the card to their fixtures' bytes.
+    inner_vd_file = read("bench_cache", "inner14.verifier.bin")
+    config14 = CircuitConfig.standard_recursion_config()
+    builds = []
+    for _ in range(1 + BUILD_REPEATS):  # the first build is cold
+        timing = TimingTree("build", sync=torch.cuda.synchronize)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        inner_data = br.dummy_circuit(config14, 14, device=dev, timing=timing)
+        torch.cuda.synchronize()
+        builds.append((time.perf_counter() - t0, timing.split()))
+        build_launches = ops.launch_counts()
+        inner_vd = verifier_data_to_bytes(inner_data.verifier_only, inner_data.common)
+        if inner_vd != inner_vd_file:
+            failures.append("the port-built inner circuit's verifier bytes are not "
+                            "bench_cache/inner14.verifier.bin")
+    build_wall = statistics.median(w for w, _ in builds[1:])
+    build_split = {k: statistics.median(sp[k] for _, sp in builds[1:]) for k in builds[0][1]}
+    print(f"inner circuit build (2^14, 8,193 noop gates; {card}): {build_wall:.4f} s median of "
+          f"{[round(w, 4) for w, _ in builds[1:]]} (cold {builds[0][0]:.4f} s); verifier bytes "
+          f"sha256 {hashlib.sha256(inner_vd).hexdigest()}, bench_cache/inner14.verifier.bin "
+          f"sha256 {hashlib.sha256(inner_vd_file).hexdigest()}; the iFFT by the dispatch rule: "
+          f"{inner_data.build_info['constants_sigmas_ifft']}; launches {build_launches}")
+    for k, v in build_split.items():
+        print(f"inner circuit build split ({card}): {k} {v:.4f} s")
+    print(f"inner circuit build split ({card}): outside the scopes "
+          f"{build_wall - sum(build_split.values()):.4f} s")
+    for label in (ops.K3.label, ops.K4.label):
+        if build_launches[label] == 0:
+            failures.append(f"{label} was not launched in the inner circuit's build")
+
+    def inner_prove(timing=None):
+        return seeded(lambda: inner_data.prove(PartialWitness(), device=dev, timing=timing))
+
+    def inner_pinned(proof_bytes, what):
+        digest = hashlib.sha256(proof_bytes).hexdigest()
+        if digest != INNER14_PROOF_SHA256:
+            failures.append(f"{what}: the inner proof's sha256 is {digest}, not "
+                            f"{INNER14_PROOF_SHA256}")
+        return digest
+
+    t0 = time.perf_counter()
+    inner_proof_port = inner_prove()
+    inner_first_s = time.perf_counter() - t0
+    inner_bytes = proof_to_bytes(inner_proof_port)
+    inner_digest = inner_pinned(inner_bytes, "inner prove, first call")
+    inner_walls = []
+    for _ in range(INNER_PROVES):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        proof = proof_to_bytes(inner_prove())
+        inner_walls.append(time.perf_counter() - t0)
+        inner_launches = ops.launch_counts()
+        inner_duplexes = ops.K5.batch1
+        inner_pinned(proof, "inner prove")
+        if tp._LAST_TRANSCRIPT != "fused":
+            failures.append(f"the inner prove took the {tp._LAST_TRANSCRIPT} path")
+    timing = TimingTree("prove", sync=torch.cuda.synchronize)
+    inner_pinned(proof_to_bytes(inner_prove(timing)), "inner prove, synchronised")
+    inner_split = timing.split()
+    for label, n in inner_launches.items():
+        if n == 0 and label != ops.K5_CHUNK.label:  # the host path's grind
+            failures.append(f"{label} was not launched on the inner prove")
+    t0 = time.perf_counter()
+    try:
+        inner_data.verify(inner_proof_port)
+        inner_ok = True
+    except ValueError as e:
+        inner_ok = False
+        failures.append(f"the port's verifier rejects the port's inner proof: {e}")
+    inner_verify_s = time.perf_counter() - t0
+    print(f"inner prove (2^14, fused path; {card}): {statistics.median(inner_walls):.4f} s median "
+          f"of {[round(w, 4) for w in inner_walls]} (first call {inner_first_s:.3f} s), "
+          f"{len(inner_bytes)} proof bytes, sha256 {inner_digest} (the reference's: "
+          f"{INNER14_PROOF_SHA256}); launches {inner_launches} (K5 permutes on one state: "
+          f"{inner_duplexes}); phases, synchronised: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in inner_split.items()))
+    print(f"inner verify (the port's verifier, host; {card}): {inner_verify_s:.3f} s, "
+          f"accepted: {inner_ok}")
+    profile_line(torch, inner_prove, statistics.median(inner_walls), "inner prove")
+
+    # the middle circuit's proof over the port's own inner proof
+    builder = CircuitBuilder()
+    proof_t = rv.add_virtual_proof_with_pis(builder, inner_data.common)
+    vd_t = rv.add_virtual_verifier_data(builder, inner_data.common.config.fri_config.cap_height)
+    pw_own = PartialWitness()
+    rv.set_proof_with_pis_target(pw_own, proof_t, inner_proof_port)
+    rv.set_verifier_data_target(pw_own, vd_t, inner_data.verifier_only)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    middle_own = seeded(lambda: tp.prove(prover_only, common, pw_own, device=dev))
+    middle_own_s = time.perf_counter() - t0
+    middle_own_launches = ops.launch_counts()
+    middle_own_bytes = proof_to_bytes(middle_own)
+    middle_own_digest = hashlib.sha256(middle_own_bytes).hexdigest()
+    if middle_own_digest != MIDDLE_OVER_INNER14_SHA256:
+        failures.append(f"the middle proof over the port's inner proof is {middle_own_digest}, "
+                        f"not {MIDDLE_OVER_INNER14_SHA256}")
+    t0 = time.perf_counter()
+    try:
+        verify(proof_from_bytes(middle_own_bytes, common), verifier_only, common)
+        middle_ok = True
+    except ValueError as e:
+        middle_ok = False
+        failures.append(f"the port's verifier rejects the middle proof: {e}")
+    middle_verify_s = time.perf_counter() - t0
+    for label, n in middle_own_launches.items():
+        if n == 0 and label != ops.K5_CHUNK.label:
+            failures.append(f"{label} was not launched on the middle prove over the inner proof")
+    print(f"middle prove over the port's inner proof (witness + fused prove; {card}): "
+          f"{middle_own_s:.4f} s, sha256 {middle_own_digest} (the reference's: "
+          f"{MIDDLE_OVER_INNER14_SHA256}); launches {middle_own_launches}; the port's verifier "
+          f"against the circuit file's verifier data: {middle_verify_s:.3f} s, accepted: "
+          f"{middle_ok}")
+
+    # the four examples: build, prove (seed 2026) and verify on the card
+    examples = {}
+    for name, module in (("factorial", factorial), ("fibonacci", fibonacci),
+                         ("range_check", range_check), ("square_root", square_root)):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        data, proof = seeded(lambda: module.build_and_prove(device=dev))[:2]
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        same_vd = verifier_data_to_bytes(data.verifier_only, data.common) == read(
+            "fixtures", f"{name}.verifier.bin")
+        same_proof = proof_to_bytes(proof) == read("fixtures", f"{name}.proof.bin")
+        try:
+            data.verify(proof)
+            accepted = True
+        except ValueError:
+            accepted = False
+        host_cache = data.prover_only.cache("host")
+        engine = ("the worklist (the level schedule has a cycle that the input breaks)"
+                  if host_cache["levels"] is None else
+                  f"the native plan, generators run in Python: "
+                  f"{host_cache['witness_plan'].fallbacks or 'none'}")
+        examples[name] = dict(wall_s=wall, verifier_bytes=same_vd, proof=same_proof,
+                              accepted=accepted, launches=launches)
+        print(f"example {name} ({card}): built and proved in {wall:.3f} s (first calls), "
+              f"verifier bytes = fixture: {same_vd}, proof = fixture: {same_proof}, verified: "
+              f"{accepted}; the witness on {engine}; launches {launches}")
+        if not (same_vd and same_proof and accepted):
+            failures.append(f"the example {name} did not build, prove and verify to its "
+                            "fixture")
+    build_phase = dict(build_wall_s=build_wall, build_cold_s=builds[0][0],
+                       build_split=build_split, build_launches=build_launches,
+                       inner_prove_s=statistics.median(inner_walls),
+                       inner_prove_walls=inner_walls, inner_split=inner_split,
+                       inner_launches=inner_launches, inner_verify_s=inner_verify_s,
+                       inner_sha256=inner_digest, middle_over_inner_s=middle_own_s,
+                       middle_over_inner_sha256=middle_own_digest,
+                       middle_verify_s=middle_verify_s, examples=examples)
+
     # commit_and_open at the middle-circuit shapes
     config = co.middle_fri_config()
     inputs = co.random_inputs(co.MIDDLE_DEGREE_BITS, co.MIDDLE_COUNTS, seed=SEED)
@@ -1049,6 +1239,43 @@ def main() -> int:
     print(f"K5 device grind, middle transcript: profiler device time {grind_device_ms} ms a "
           f"launch; the bound counts the witness's rank, {mid_witness + 1} permutations")
 
+    # the build path's shapes: the constants-sigmas batch's iFFT and LDE x8
+    # at [83, 2^14] (K3 by the dispatch rule: 2^14 points) and its Merkle
+    # tree, width 83 over 2^17 leaves (K4), each against its plain version
+    cs = rand((83, 1 << 14))
+    table14 = ntt._lde_coset_scale_table(gen, 14, 3, str(dev))
+    cs_lde = kn.ntt_four_step(cs, scale=table14, fan=8)
+    n17 = 1 << 17
+    shapes = [
+        (ops.K3, "build_ifft_83x2_14", lambda: kn.ntt_four_step(cs, inverse=True),
+         lambda: kn.ntt_four_step_plain(cs, inverse=True), *k3_bound(83, 14)),
+        (ops.K3, "build_lde_83x2_14_x8", lambda: kn.ntt_four_step(cs, scale=table14, fan=8),
+         lambda: kn.ntt_four_step_plain(cs, False, table14, 8),
+         8 * (cs.numel() + table14.numel() + 8 * cs.numel()),
+         OPS_PER_MODMUL * 83 * 8 * ((1 << 13) * 14 + (1 << 14))),
+        (ops.K4, "build_tree_83x2_17", lambda: kp.merkle_tree(cs_lde, 4, True),
+         lambda: kp.merkle_tree_plain(cs_lde, 4, True),
+         8 * (cs_lde.numel() + kp.tree_words(n17, 13)),
+         OPS_PER_PERMUTATION * (-(-83 // 8) * n17 + (n17 - (n17 >> 13)))),
+    ]
+    for kernel, key, run_k, run_p, n_bytes, n_ops in shapes:
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        if isinstance(got, (list, tuple)):  # a tree's levels
+            mism = int(len(got) != len(want)) + sum(compare(a, b)[0] for a, b in zip(got, want))
+        else:
+            mism = compare(got, want)[0]
+        ms = time_ms(torch, run_k, reps=10, warmup=2)
+        plain_ms = time_ms(torch, run_p, reps=2, warmup=1)
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        print(f"{kernel.label} {key}: {mism} mismatches; {ms:.4f} ms kernel, {plain_ms:.4f} ms "
+              f"plain, bound {b_ms:.4f} ms ({b_by})")
+        results[kernel.label][key] = dict(mismatches=mism, ms=ms, plain_ms=plain_ms,
+                                          bound_ms=b_ms, bound_by=b_by)
+        results[kernel.label]["mismatches"] += mism
+        if mism:
+            failures.append(f"{kernel.label} disagrees with its plain version at {key}")
+
     # kernels vs plain versions end to end at degree 2^10
     small_inputs = co.random_inputs(10, co.MIDDLE_COUNTS, seed=SEED + 1)
     on_card = co.commit_and_open(small_inputs, config, device=dev)
@@ -1079,6 +1306,8 @@ def main() -> int:
                                      else headline["launches"])[k.label],
                         "launches_on": "host-path middle prove" if host else "headline prove",
                         "launches_fused_middle_prove": paths["fused"]["launches"][k.label],
+                        "launches_build_inner14": build_phase["build_launches"][k.label],
+                        "launches_prove_inner14": build_phase["inner_launches"][k.label],
                         **results[k.label], "library_ms": None})
     print(json.dumps({"kernels": kernels, "card": card, "headline": headline,
                       "prove_many": {"K": BATCH_K, "window": BATCH_WINDOW, "threads": batched,
@@ -1089,7 +1318,8 @@ def main() -> int:
                                        for p, v in paths.items()},
                       "syncs": {"fused_before_fetch": fused_syncs, "fused_finish": fetch_syncs,
                                 "host": host_syncs},
-                      "commit_and_open_middle_s": wall_s}))
+                      "commit_and_open_middle_s": wall_s,
+                      "build_phase": build_phase}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

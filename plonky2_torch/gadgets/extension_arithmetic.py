@@ -1,7 +1,7 @@
 """The extension-field division generator (reference
 gadgets/arithmetic_extension.rs; the reference package's
-gadgets/extension_arithmetic.py:28). The builder's gadgets are not
-ported: the port reads circuits, it does not build them."""
+gadgets/extension_arithmetic.py:28). The builder's extension gadgets
+are not ported yet (ROADMAP item 28)."""
 
 from __future__ import annotations
 

@@ -1,11 +1,12 @@
-"""The bit-split generator (reference gadgets/split_join.rs; the reference
-package's gadgets/split_join.py:11)."""
+"""Bit splits and range checks: the builder side and the bit-split
+generator (reference gadgets/split_join.rs, gadgets/range_check.rs; the
+reference package's gadgets/split_join.py)."""
 
 from __future__ import annotations
 
-from plonky2_torch.gates.base_sum import WIRE_SUM
+from plonky2_torch.gates.base_sum import START_LIMBS, WIRE_SUM, BaseSumGate
 from plonky2_torch.iop.generator import SimpleGenerator
-from plonky2_torch.iop.target import Target, Wire
+from plonky2_torch.iop.target import BoolTarget, Target, Wire
 
 
 class WireSplitGenerator(SimpleGenerator):
@@ -30,3 +31,29 @@ class WireSplitGenerator(SimpleGenerator):
             v >>= self.num_limbs
         if v != 0:
             raise ValueError(f"Integer too large to fit in {len(self.gates)} limb gates")
+
+
+def split_le(builder, integer: Target, num_bits: int) -> list[BoolTarget]:
+    """Little-endian bits of `integer` on BaseSum<2> gates (reference
+    gadgets/split_join.rs:25-59; the reference package's
+    gadgets/split_join.py:52)."""
+    if num_bits == 0:
+        return []
+    num_limbs = BaseSumGate.new_from_config(builder.config, 2).num_limbs
+    k = -(-num_bits // num_limbs)
+    gates = [builder.add_gate(BaseSumGate(num_limbs, 2), []) for _ in range(k)]
+    bits = [BoolTarget(Wire(row, column)) for row in gates
+            for column in range(START_LIMBS, START_LIMBS + num_limbs)]
+    for b in bits[num_bits:]:
+        builder.assert_zero(b.target)
+    acc = builder.zero()
+    for row in reversed(gates):
+        acc = builder.mul_const_add(1 << num_limbs, acc, Wire(row, WIRE_SUM))
+    builder.connect(acc, integer)
+    builder.add_simple_generator(WireSplitGenerator(integer, gates, num_limbs))
+    return bits[:num_bits]
+
+
+def range_check(builder, x: Target, n_log: int) -> None:
+    """x < 2^n_log (reference gadgets/range_check.rs)."""
+    split_le(builder, x, n_log)

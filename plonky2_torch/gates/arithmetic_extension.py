@@ -58,6 +58,23 @@ class ArithmeticExtensionGate(Gate):
         r1 = g.add(g.mul(c0, p[1]), g.mul(c1, w[5]))
         return _interleave(g.sub(w[6], r0), g.sub(w[7], r1))
 
+    @staticmethod
+    def new_from_config(config) -> "ArithmeticExtensionGate":
+        return ArithmeticExtensionGate(config.num_routed_wires // (4 * D))
+
+    def generators(self, row: int, local_constants: list[int]) -> list:
+        return [ArithmeticExtensionGenerator(row, local_constants[0], local_constants[1], i)
+                for i in range(self.num_ops)]
+
+    def num_wires(self) -> int:
+        return 4 * D * self.num_ops
+
+    def num_constants(self) -> int:
+        return 2
+
+    def degree(self) -> int:
+        return 3
+
     def num_constraints(self) -> int:
         return self.num_ops * D
 
@@ -90,6 +107,22 @@ class MulExtensionGate(Gate):
         p = g.ext2_mul((w[0], w[1]), (w[2], w[3]))
         c0 = constants[0][None]
         return _interleave(g.sub(w[4], g.mul(c0, p[0])), g.sub(w[5], g.mul(c0, p[1])))
+
+    @staticmethod
+    def new_from_config(config) -> "MulExtensionGate":
+        return MulExtensionGate(config.num_routed_wires // (3 * D))
+
+    def generators(self, row: int, local_constants: list[int]) -> list:
+        return [MulExtensionGenerator(row, local_constants[0], i) for i in range(self.num_ops)]
+
+    def num_wires(self) -> int:
+        return 3 * D * self.num_ops
+
+    def num_constants(self) -> int:
+        return 1
+
+    def degree(self) -> int:
+        return 3
 
     def num_constraints(self) -> int:
         return self.num_ops * D

@@ -17,9 +17,25 @@ START_LIMBS = 1
 
 
 class BaseSumGate(Gate):
+    WIRE_SUM = WIRE_SUM
+    START_LIMBS = START_LIMBS
+
     def __init__(self, num_limbs: int, base: int):
         self.num_limbs = num_limbs
         self.base = base
+
+    @staticmethod
+    def new_from_config(config, base: int) -> "BaseSumGate":
+        """As many limbs as an element of the field needs (floor of
+        log_base(p - 1)), at most the routed wires after the sum."""
+        num_limbs, v = 0, fs.P - 1
+        while v >= base:
+            v //= base
+            num_limbs += 1
+        return BaseSumGate(min(num_limbs, config.num_routed_wires - START_LIMBS), base)
+
+    def limbs(self) -> range:
+        return range(START_LIMBS, START_LIMBS + self.num_limbs)
 
     def id(self) -> str:
         return f"BaseSumGate {{ num_limbs: {self.num_limbs} }} + Base: {self.base}"
@@ -48,6 +64,18 @@ class BaseSumGate(Gate):
         for i in range(1, self.base):
             acc = g.mul(acc, g.sub(limbs, g.scalar_tensor(i, wires.device)))
         return torch.cat([g.sub(computed, wires[WIRE_SUM])[None], acc])
+
+    def generators(self, row: int, local_constants: list[int]) -> list:
+        return [BaseSplitGenerator(row, self.num_limbs, self.base)]
+
+    def num_wires(self) -> int:
+        return 1 + self.num_limbs
+
+    def num_constants(self) -> int:
+        return 0
+
+    def degree(self) -> int:
+        return self.base
 
     def num_constraints(self) -> int:
         return 1 + self.num_limbs

@@ -204,6 +204,15 @@ class CosetInterpolationGate(Gate):
         out += [g.sub(wires[evv[0]], ev[0][nI])[None], g.sub(wires[evv[1]], ev[1][nI])[None]]
         return torch.cat(out)
 
+    def generators(self, row: int, local_constants: list[int]) -> list:
+        return [InterpolationGenerator(row, self.subgroup_bits, self._degree)]
+
+    def num_wires(self) -> int:
+        return self._start_intermediates() + D * (2 * self.num_intermediates() + 1)
+
+    def num_constants(self) -> int:
+        return 0
+
     def num_constraints(self) -> int:
         return D * (2 + 2 * self.num_intermediates())
 

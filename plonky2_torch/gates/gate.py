@@ -1,9 +1,12 @@
 """Gate base class (reference gates/gate.rs:53-254).
 
 A gate defines its constraint polynomials once over the ops protocol
-(`gates/ops.py`); `eval_unfiltered_device` evaluates them over the whole
-quotient domain. Gates with many constraints override it with a tensorized
+(`gates/ops.py`): `eval_unfiltered` on `HostExtOps` is the verifier's form
+at ζ, and `eval_unfiltered_device` evaluates them over the whole quotient
+domain. Gates with many constraints override the latter with a tensorized
 form: the same values in the same order, in far fewer tensor operations.
+The builder reads `generators`, `num_wires`, `num_constants`, `degree`
+and `extra_constant_wires`.
 """
 
 from __future__ import annotations
@@ -34,8 +37,25 @@ class Gate:
             return torch.zeros((0, q), dtype=torch.int64, device=wires.device)
         return torch.stack([c.expand(q) for c in cs])
 
+    def generators(self, row: int, local_constants: list[int]) -> list:
+        """The witness generators of the gate instance at `row`."""
+        return []
+
+    def num_wires(self) -> int:
+        raise NotImplementedError
+
+    def num_constants(self) -> int:
+        raise NotImplementedError
+
+    def degree(self) -> int:
+        raise NotImplementedError
+
     def num_constraints(self) -> int:
         raise NotImplementedError
+
+    def extra_constant_wires(self) -> list[tuple[int, int]]:
+        """(constant index, wire index) pairs routed as extra constants."""
+        return []
 
     def __eq__(self, other):
         return isinstance(other, Gate) and self.id() == other.id()

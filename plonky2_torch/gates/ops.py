@@ -1,16 +1,53 @@
-"""Field-operation backend and extension algebra for gate constraints.
+"""Field-operation backends and extension algebra for gate constraints.
 
 Each gate writes its constraints once against the ops protocol (constant,
 zero, one, add, sub, mul, square, neg, add_const, mul_const), as in the
-reference package's `gates/ops.py`; `TorchBaseOps` instantiates it on int64
-tensors batched over the quotient domain. Constants are 0-d tensors on the
-ops' device, holding the int64 bit pattern of the canonical residue.
+reference package's `gates/ops.py`. Two backends instantiate it:
+`HostExtOps` on D = 2 extension tuples of Python ints (the verifier's
+evaluation at ζ, reference `eval_unfiltered`), and `TorchBaseOps` on int64
+tensors batched over the quotient domain (constants are 0-d tensors on the
+ops' device, holding the int64 bit pattern of the canonical residue).
 """
 
 from __future__ import annotations
 
 from plonky2_torch.field import goldilocks as g
 from plonky2_torch.field import scalar as fs
+
+
+class HostExtOps:
+    """Values are D = 2 extension tuples of Python ints (reference package
+    gates/ops.py:24)."""
+
+    def constant(self, c: int):
+        return (c % fs.P, 0)
+
+    def zero(self):
+        return (0, 0)
+
+    def one(self):
+        return (1, 0)
+
+    def add(self, a, b):
+        return fs.ext_add(a, b)
+
+    def sub(self, a, b):
+        return fs.ext_sub(a, b)
+
+    def mul(self, a, b):
+        return fs.ext_mul(a, b)
+
+    def square(self, a):
+        return fs.ext_mul(a, a)
+
+    def neg(self, a):
+        return fs.ext_neg(a)
+
+    def add_const(self, a, c: int):
+        return (fs.add(a[0], c % fs.P), a[1])
+
+    def mul_const(self, c: int, a):
+        return fs.ext_scalar_mul(c % fs.P, a)
 
 
 class TorchBaseOps:

@@ -42,6 +42,7 @@ START_DELTA = 2 * W + 1
 START_FULL_0 = START_DELTA + 4
 START_PARTIAL = START_FULL_0 + W * (HALF_N_FULL_ROUNDS - 1)
 START_FULL_1 = START_PARTIAL + N_PARTIAL_ROUNDS
+END = START_FULL_1 + W * HALF_N_FULL_ROUNDS
 MDS0TO0 = MDS_MATRIX_CIRC[0] + MDS_MATRIX_DIAG[0]
 
 
@@ -112,6 +113,16 @@ def _mds_partial_layer_fast(ops, state, r):
 
 
 class PoseidonGate(Gate):
+    WIRE_SWAP = WIRE_SWAP
+
+    @staticmethod
+    def wire_input(i: int) -> int:
+        return i
+
+    @staticmethod
+    def wire_output(i: int) -> int:
+        return W + i
+
     def id(self) -> str:
         return ("PoseidonGate(PhantomData<plonky2_field::goldilocks_field::GoldilocksField>)"
                 f"<WIDTH={W}>")
@@ -198,6 +209,18 @@ class PoseidonGate(Gate):
             round_ctr += 1
         constraints.append(g.sub(state, wires[W:2 * W]))
         return torch.cat(constraints)
+
+    def generators(self, row: int, local_constants: list[int]) -> list:
+        return [PoseidonGenerator(row)]
+
+    def num_wires(self) -> int:
+        return END
+
+    def num_constants(self) -> int:
+        return 0
+
+    def degree(self) -> int:
+        return 7
 
     def num_constraints(self) -> int:
         return 1 + 4 + W * (HALF_N_FULL_ROUNDS - 1) + N_PARTIAL_ROUNDS + W * HALF_N_FULL_ROUNDS + W

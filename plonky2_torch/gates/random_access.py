@@ -94,6 +94,31 @@ class RandomAccessGate(Gate):
             out.append(g.sub(constants[:self.num_extra_constants], extras))
         return torch.cat(out)
 
+    @staticmethod
+    def new_from_config(config, bits: int) -> "RandomAccessGate":
+        vec_size = 1 << bits
+        max_copies = min(config.num_routed_wires // (2 + vec_size),
+                         config.num_wires // (2 + vec_size + bits))
+        max_extra_constants = config.num_routed_wires - (2 + vec_size) * max_copies
+        return RandomAccessGate(bits, max_copies, min(max_extra_constants, config.num_constants))
+
+    def generators(self, row: int, local_constants: list[int]) -> list:
+        return [RandomAccessGenerator(row, self.bits, self.num_copies,
+                                      self.num_extra_constants, copy)
+                for copy in range(self.num_copies)]
+
+    def extra_constant_wires(self) -> list[tuple[int, int]]:
+        return [(i, self.wire_extra_constant(i)) for i in range(self.num_extra_constants)]
+
+    def num_wires(self) -> int:
+        return self.wire_bit(self.bits - 1, self.num_copies - 1) + 1
+
+    def num_constants(self) -> int:
+        return self.num_extra_constants
+
+    def degree(self) -> int:
+        return self.bits + 1
+
     def num_constraints(self) -> int:
         return self.num_copies * (self.bits + 2) + self.num_extra_constants
 

@@ -75,6 +75,15 @@ class _Reducing(Gate):
         return torch.stack([g.sub(c0, out0), g.sub(c1, out1)], dim=1).reshape(
             D * n, wires.shape[-1])
 
+    def num_wires(self) -> int:
+        return 2 * D + self.num_coeffs * (self.COEFF_WIDTH + D)
+
+    def num_constants(self) -> int:
+        return 0
+
+    def degree(self) -> int:
+        return 2
+
     def num_constraints(self) -> int:
         return D * self.num_coeffs
 
@@ -90,6 +99,9 @@ class ReducingGate(_Reducing):
     def _coeff(self, ops, vars, i):
         return ealg_from_base(ops, vars.local_wires[self.wires_coeff(i)[0]], D)
 
+    def generators(self, row: int, local_constants: list[int]) -> list:
+        return [ReducingGenerator(row, self.num_coeffs)]
+
 
 class ReducingExtensionGate(_Reducing):
     """acc' = acc * alpha + c for extension-field coefficients c."""
@@ -101,6 +113,9 @@ class ReducingExtensionGate(_Reducing):
 
     def _coeff(self, ops, vars, i):
         return vars.get_local_ext_algebra(self.wires_coeff(i))
+
+    def generators(self, row: int, local_constants: list[int]) -> list:
+        return [ReducingExtensionGenerator(row, self.num_coeffs)]
 
 
 # -- witness generators (reference gates/reducing.rs:112,
@@ -173,3 +188,4 @@ class ReducingGenerator(_ReducingGenerator):
 
 class ReducingExtensionGenerator(_ReducingGenerator):
     GATE = ReducingExtensionGate
+

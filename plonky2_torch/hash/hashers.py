@@ -14,6 +14,15 @@ class PoseidonHasher:
         return ps.hash_no_pad(inputs)
 
     @staticmethod
+    def hash_pad(inputs: list[int]) -> list[int]:
+        """The digest of `inputs` under pad10*1 at rate 8 (reference
+        plonk/config.rs:50-59)."""
+        padded = list(inputs) + [1]
+        while (len(padded) + 1) % ps.SPONGE_RATE:
+            padded.append(0)
+        return ps.hash_no_pad(padded + [1])
+
+    @staticmethod
     def hash_or_noop(inputs: list[int]) -> list[int]:
         return ps.hash_or_noop(inputs)
 

@@ -1,9 +1,11 @@
-"""The circuit data a prove reads (reference plonk/circuit_data.rs:161-680):
+"""Circuit data (reference plonk/circuit_data.rs:161-680):
 `CommonCircuitData` with the polynomial index ranges of each oracle and the
 FRI instance; `ProverOnlyCircuitData` with the witness generators, the
 preprocessed polynomials and per-device caches of their commitment and of
-the quotient domain's tables; `ProverCircuitData`, the two together with the
-prove entry points."""
+the quotient domain's tables; `VerifierOnlyCircuitData`, the
+constants-sigmas cap and the circuit digest; and the entry points over
+them: `ProverCircuitData` proves, `VerifierCircuitData` verifies, and
+`CircuitData` (what `CircuitBuilder.build` returns) does both."""
 
 from __future__ import annotations
 
@@ -169,3 +171,42 @@ class ProverCircuitData:
 
         return prove_many(self.prover_only, self.common, inputs_list, device=device,
                           timing=timing, window=window, threads=threads)
+
+
+@dataclass
+class VerifierCircuitData:
+    """Verification-only circuit data (reference plonk/circuit_data.rs:299-337)."""
+
+    verifier_only: VerifierOnlyCircuitData
+    common: CommonCircuitData
+
+    def verify(self, proof_with_pis) -> None:
+        from plonky2_torch.plonk.verifier import verify
+
+        verify(proof_with_pis, self.verifier_only, self.common)
+
+
+@dataclass
+class CircuitData:
+    """A built circuit (reference plonk/circuit_data.rs:161-254).
+    `build_info`: what the build ran where (its device, the kernel of the
+    constants-sigmas iFFT)."""
+
+    prover_only: ProverOnlyCircuitData
+    verifier_only: VerifierOnlyCircuitData
+    common: CommonCircuitData
+    build_info: dict = field(default_factory=dict, compare=False)
+
+    def prover_data(self) -> ProverCircuitData:
+        return ProverCircuitData(self.prover_only, self.common)
+
+    def verifier_data(self) -> VerifierCircuitData:
+        return VerifierCircuitData(self.verifier_only, self.common)
+
+    def prove(self, inputs, device=None, timing=None):
+        """Prove from `inputs` (a PartialWitness) on `device` (CUDA unless
+        the caller asks for another)."""
+        return self.prover_data().prove(inputs, device=device, timing=timing)
+
+    def verify(self, proof_with_pis) -> None:
+        self.verifier_data().verify(proof_with_pis)

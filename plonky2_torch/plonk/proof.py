@@ -44,3 +44,14 @@ class Proof:
 class ProofWithPublicInputs:
     proof: Proof
     public_inputs: list[int]
+
+
+@dataclass
+class ProofChallenges:
+    """The verifier's replay of the transcript (reference plonk/proof.rs:259)."""
+
+    plonk_betas: list[int]
+    plonk_gammas: list[int]
+    plonk_alphas: list[int]
+    plonk_zeta: tuple
+    fri_challenges: object

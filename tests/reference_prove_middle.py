@@ -23,6 +23,16 @@ port's headline proof. Takes several minutes and a few GB of memory; not
 collected by pytest.
 
     JAX_PLATFORMS=cpu python tests/reference_prove_middle.py
+    JAX_PLATFORMS=cpu python tests/reference_prove_middle.py --inner14
+
+`--inner14` runs the reference alone on the chain that chip_smoke's build
+phase runs on the card: it builds the bench_recursion inner circuit at
+2^14 (`dummy_proof(config, 14)`, the rng seeded to 2026 before it), prints
+its verifier bytes' sha256 (which must be `bench_cache/inner14.verifier.bin`'s)
+and its proof's, has the port's verifier check that proof, then proves the
+middle circuit from it (the rng seeded to 2026 again) and prints that
+proof's sha256: chip_smoke's INNER14_PROOF_SHA256 and
+MIDDLE_OVER_INNER14_SHA256.
 """
 
 import contextlib
@@ -202,5 +212,55 @@ def main() -> int:
     return 0 if ok and same and same_witness and run.returncode == 0 else 1
 
 
+def inner14() -> int:
+    from plonky2_tpu.examples.bench_recursion import dummy_proof
+    from plonky2_torch.plonk.verifier import verify as port_verify
+
+    export_cache._ENABLED = False
+    t = time.perf_counter()
+    jrng.seed(SEED)
+    try:
+        jproof, jvd, jic = dummy_proof(CircuitConfig.standard_recursion_config(), 14)
+    finally:
+        jrng.seed(None)
+    vd_bytes = j_verifier_data_to_bytes(jvd, jic)
+    proof_bytes = j_proof_to_bytes(jproof)
+    same_vd = vd_bytes == _read("inner14.verifier.bin")
+    print(f"inner14: reference dummy_proof(config, 14) (build, prove, verify; cpu): "
+          f"{time.perf_counter() - t:.1f} s; verifier data sha256 {sha(vd_bytes)} "
+          f"(= bench_cache/inner14.verifier.bin: {same_vd}); proof {len(proof_bytes)} bytes, "
+          f"sha256 {sha(proof_bytes)}; peak RSS "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB", flush=True)
+    t = time.perf_counter()
+    inner_vo, inner_common = verifier_data_from_bytes(vd_bytes)
+    port_verify(proof_from_bytes(proof_bytes, inner_common), inner_vo, inner_common)
+    print(f"inner14: the port's verifier accepts it ({time.perf_counter() - t:.1f} s)",
+          flush=True)
+
+    data = circuit_data_from_bytes(_read("middle14.circuit.bin"))
+    jb = JBuilder(CircuitConfig.standard_recursion_config())
+    jpw = JPartialWitness()
+    jrv.set_proof_with_pis_target(jpw, jrv.add_virtual_proof_with_pis(jb, jic), jproof)
+    jrv.set_verifier_data_target(jpw, jrv.add_virtual_verifier_data(
+        jb, jic.config.fri_config.cap_height), jvd)
+    t = time.perf_counter()
+    jrng.seed(SEED)
+    try:
+        with jfp.force_host_path():
+            middle = data.prove(jpw)
+    finally:
+        jrng.seed(None)
+    data.verify(middle)
+    middle_bytes = j_proof_to_bytes(middle)
+    print(f"middle over inner14: reference data.prove(pw) (host path, cpu) and verify: "
+          f"{time.perf_counter() - t:.1f} s, {len(middle_bytes)} bytes, sha256 "
+          f"{sha(middle_bytes)}", flush=True)
+    return 0 if same_vd else 1
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--inner14"]:
+        sys.exit(inner14())
+    if len(sys.argv) != 1:
+        sys.exit("usage: reference_prove_middle.py [--inner14]")
     sys.exit(main())

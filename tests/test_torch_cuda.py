@@ -273,3 +273,30 @@ def test_prove_many_on_the_card_equals_sequential_proves(dev, window, threads):
     assert seq[0] == fixture and len(set(seq)) == 3
     assert [proof_to_bytes(p) for p in got] == seq
     assert 1 <= tp._LAST_MAX_IN_FLIGHT <= window
+
+
+@pytest.mark.parametrize("name", ["factorial", "fibonacci", "range_check", "square_root"])
+def test_example_builds_proves_and_verifies_on_the_card(dev, name):
+    """The example built and proved on the card, with the device left to
+    its default, gives its fixture's verifier and proof bytes, and the
+    port's verifier accepts the proof."""
+    import importlib
+    import os
+
+    from plonky2_torch.plonk.circuit_serialization import verifier_data_to_bytes
+    from plonky2_torch.plonk.serialization import proof_to_bytes
+    from plonky2_torch.util import rng
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    module = importlib.import_module(f"plonky2_torch.examples.{name}")
+    rng.seed(2026)
+    try:
+        data, proof = module.build_and_prove()[:2]
+    finally:
+        rng.seed(None)
+    assert data.build_info["device"] == "cuda"
+    for suffix, got in (("verifier", verifier_data_to_bytes(data.verifier_only, data.common)),
+                        ("proof", proof_to_bytes(proof))):
+        with open(os.path.join(root, "fixtures", f"{name}.{suffix}.bin"), "rb") as f:
+            assert got == f.read(), suffix
+    data.verify(proof)

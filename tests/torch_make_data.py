@@ -13,9 +13,16 @@ and builds the fibonacci and range_check examples, as
 `tools/generate_fixtures.py` does, to
   plonky2_torch/data/{fibonacci,range_check}.prover.bin, .inputs.npz
 so that the port proves these circuits from their inputs without the
-reference (inputs: `plonky2_torch.iop.witness.read_partial_witness`). Not
-collected by pytest; `tests/test_torch_plonk.py` and
-`tests/test_torch_witness.py` hold the files equal to what this makes.
+reference (inputs: `plonky2_torch.iop.witness.read_partial_witness`), and
+builds and proves the bench_recursion fixture chain's inner circuit
+(`dummy_proof(config, 4)` under seed 2026, as `tools/generate_fixtures.py`
+does) to
+  plonky2_torch/data/inner4.verifier.bin    verifier_data_to_bytes
+  plonky2_torch/data/inner4.proof.bin       proof_to_bytes
+so that a test holds the port's build and prove of it to the reference's
+without a reference build (~25 s). Not collected by pytest;
+`tests/test_torch_plonk.py`, `tests/test_torch_witness.py` and
+`tests/test_torch_builder.py` hold the files equal to what this makes.
 """
 
 import os
@@ -96,6 +103,24 @@ def factorial_data():
             np.asarray(witness, dtype=np.uint64), list(public_inputs), list(pi_hash), pw)
 
 
+def inner_data(log2_size: int = 4) -> tuple[bytes, bytes]:
+    """(verifier bytes, proof bytes) of the reference's bench_recursion
+    inner circuit at 2^log2_size, proved under the pinned seed."""
+    from plonky2_tpu.examples.bench_recursion import dummy_proof
+    from plonky2_tpu.plonk.circuit_serialization import verifier_data_to_bytes
+    from plonky2_tpu.plonk.config import CircuitConfig
+    from plonky2_tpu.plonk.serialization import proof_to_bytes
+    from plonky2_tpu.util import rng
+
+    rng.seed(SEED)
+    try:
+        proof, verifier_only, common = dummy_proof(CircuitConfig.standard_recursion_config(),
+                                                   log2_size)
+    finally:
+        rng.seed(None)
+    return verifier_data_to_bytes(verifier_only, common), proof_to_bytes(proof)
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, ROOT)
@@ -118,6 +143,12 @@ def main() -> int:
         np.savez(os.path.join(DATA, f"{name}.inputs.npz"), **inputs_arrays(pw))
         print(f"wrote {name}: prover data {len(prover_bytes)} bytes, "
               f"{len(pw.target_values)} inputs")
+    verifier_bytes, proof_bytes = inner_data(4)
+    for suffix, blob in (("verifier", verifier_bytes), ("proof", proof_bytes)):
+        with open(os.path.join(DATA, f"inner4.{suffix}.bin"), "wb") as f:
+            f.write(blob)
+    print(f"wrote inner4: verifier data {len(verifier_bytes)} bytes, proof "
+          f"{len(proof_bytes)} bytes")
     return 0
 
 
