@@ -39,15 +39,31 @@ window in flight, with proofs/s; then the build phase: builds the
 bench_recursion inner circuit at 2^14 with the port's builder
 (`examples/bench_recursion.py` `dummy_circuit`, once cold and
 BUILD_REPEATS times timed, the counts set to 0 just before each build and
-read just after, the split by scope on lines of its own), requires its
+read just after, the split by scope of the median run on lines of its
+own), requires its
 verifier bytes to be `bench_cache/inner14.verifier.bin`'s, proves it under
 seed 2026 (a first call and INNER_PROVES timed proves, each proof the
 reference's, INNER14_PROOF_SHA256, and one profiled) and verifies it with
 the port's verifier, proves the middle circuit from that proof (seed 2026; the
 reference's MIDDLE_OVER_INNER14_SHA256) and verifies the middle proof
-against the circuit file's verifier data, then builds, proves and
-verifies factorial, fibonacci, range_check and square_root on the card to
-their fixtures' bytes; runs `commit_and_open`
+against the circuit file's verifier data; builds the middle circuit with
+the port's in-circuit verifier over its inner circuit
+(`examples/bench_recursion.py` `recursion_circuit`, once cold and
+BUILD_REPEATS times timed, counts and split as above) and requires it to
+be the headline's `bench_cache/middle14.circuit.bin` (common data,
+constants-sigmas coefficients, sigmas, generators, watch lists, public
+inputs, representative map, cap and digest), proves it from the port's
+inner proof (a first call and INNER_PROVES timed proves, each
+MIDDLE_OVER_INNER14_SHA256) and verifies it; builds the outer
+circuit over it (timed, its verifier bytes the reference's
+OUTER_VERIFIER_SHA256) and proves it from that middle proof (seed 2026; a
+first call, INNER_PROVES timed proves, each the reference's
+OUTER_OVER_INNER14_SHA256, one synchronised for the split and one
+profiled) and verifies it; runs the fixture chain (`chain(4)` under seed
+2026: inner 2^4, middle and outer built, proved and verified on the card)
+to `fixtures/bench_recursion.proof.bin` and `.verifier.bin`; then builds,
+proves and verifies factorial, fibonacci, range_check and square_root on
+the card to their fixtures' bytes; runs `commit_and_open`
 at the bench_recursion middle-circuit shapes (degree 2^13, oracles of
 85/135/20/16 polynomials; its FRI proof on the fused path) with the counts
 set to 0 just before and read just after each of its runs and its pinned
@@ -63,15 +79,18 @@ at thresholds 0, 1 bit and 16 bits, and its device grind at 0, 1, 8 and 16
 bits on the seed-2026 middle transcript's state and on random states (the
 middle witness also against the chunk-by-chunk grind); at the build
 path's shapes, K3's iFFT and LDE x8 of [83, 2^14] and K4's tree of width
-83 over 2^17 leaves, against their plain versions and timed; times K4's whole
+83 over 2^17 leaves, and at the recursion layers' build shapes K2's iFFT
+and LDE x8 of [85, 2^13] and K4's tree of width 85 over 2^16 leaves,
+against their plain versions and timed; times K4's whole
 wires tree and each of its launches, K3 at [2, 2^16], [16, 2^16] and
 [1, 2^20], K5's bare grind launch (no candidate passing, and 16 bits), its
 `grind_chunk` wrapper, its permute mode and its device grind; runs
 `commit_and_open` at degree 2^10 on the card and on the CPU (plain
 versions) and requires identical proof bytes. The line before the last is
 the `kernels` JSON object (launches: the headline prove's, the chunk
-grind's from the host-path prove; the headline's and prove_many's numbers
-beside them), the last line the ok JSON object. Every timing line names the
+grind's from the host-path prove; beside them the inner build's and
+prove's, the middle and outer builds' and the outer prove's, and the
+headline's and prove_many's numbers), the last line the ok JSON object. Every timing line names the
 card and its power limit. Any failed check exits non-zero and prints no
 result; so does a run without CUDA, and a run of the script alone, without
 the `plonky2_torch/` package beside it. Imports nothing of JAX.
@@ -129,8 +148,63 @@ BATCH_WINDOW = 3
 # (tests/reference_prove_middle.py --inner14)
 INNER14_PROOF_SHA256 = "1b219186eb45a666f057473503c83d65ed05c7bb8e507c767d156508bf457bf4"
 MIDDLE_OVER_INNER14_SHA256 = "e83fe3c3a9c0665b09f7095f9d48b12d8a6d62e32fa60001f5b42e9a9d0bbc67"
+# the outer circuit the reference builds over the middle circuit: its
+# verifier data and its proof from the middle proof above (seed 2026 again)
+# (tests/reference_prove_middle.py --inner14)
+OUTER_VERIFIER_SHA256 = "47c500d46e351b01f17042d874a343163ed27c6345503aa74847f4f8666f43cc"
+OUTER_OVER_INNER14_SHA256 = "e54f11fa117f1111f5c1fa26dde2dfea77210e4ad97378cb2595ad5a1b01ad15"
 BUILD_REPEATS = 3
 INNER_PROVES = 3
+
+
+def same_generators(a: list, b: list) -> bool:
+    """The same generator classes with equal fields, in order."""
+    import numpy as np
+
+    def same(x, y):
+        if type(x) is not type(y) or vars(x).keys() != vars(y).keys():
+            return False
+        return all(np.array_equal(u, v) if isinstance(u, np.ndarray) else u == v
+                   for u, v in zip(vars(x).values(), vars(y).values()))
+
+    return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+
+
+def circuit_differences(built, prover_only, common, verifier_only) -> list[str]:
+    """What of a built CircuitData differs from a circuit read from its
+    file: the common data, the preprocessed polynomials, the generators,
+    their watch lists, the public inputs, the representative map and the
+    verifier data (cap and digest)."""
+    import numpy as np
+
+    got = built.prover_only
+    out = [name for name in ("constants_sigmas_coeffs", "sigmas", "subgroup",
+                             "representative_map")
+           if not np.array_equal(np.asarray(getattr(got, name)),
+                                 np.asarray(getattr(prover_only, name)))]
+    if built.common != common:
+        out.append("common data")
+    if not same_generators(got.generators, prover_only.generators):
+        out.append("generators")
+    w, want = got.generator_indices_by_watches, prover_only.generator_indices_by_watches
+    if w.keys() != want.keys() or not all(np.array_equal(w[k], want[k]) for k in want):
+        out.append("watch lists")
+    if got.public_inputs != prover_only.public_inputs:
+        out.append("public inputs")
+    if built.verifier_only.constants_sigmas_cap != verifier_only.constants_sigmas_cap:
+        out.append("constants-sigmas cap")
+    if got.circuit_digest != prover_only.circuit_digest or \
+            built.verifier_only.circuit_digest != verifier_only.circuit_digest:
+        out.append("circuit digest")
+    return out
+
+
+def median_run(runs: list) -> tuple[float, dict, float]:
+    """Of timed runs [(wall, split by scope)], the one whose wall is the
+    median (the lower of two): its wall, its split and its time outside
+    the scopes, so that the split adds up to the wall."""
+    wall, split = sorted(runs, key=lambda r: r[0])[(len(runs) - 1) // 2]
+    return wall, split, wall - sum(split.values())
 
 
 def fail(msg: str) -> int:
@@ -830,17 +904,16 @@ def main() -> int:
         if inner_vd != inner_vd_file:
             failures.append("the port-built inner circuit's verifier bytes are not "
                             "bench_cache/inner14.verifier.bin")
-    build_wall = statistics.median(w for w, _ in builds[1:])
-    build_split = {k: statistics.median(sp[k] for _, sp in builds[1:]) for k in builds[0][1]}
+    build_wall, build_split, build_outside = median_run(builds[1:])
     print(f"inner circuit build (2^14, 8,193 noop gates; {card}): {build_wall:.4f} s median of "
           f"{[round(w, 4) for w, _ in builds[1:]]} (cold {builds[0][0]:.4f} s); verifier bytes "
           f"sha256 {hashlib.sha256(inner_vd).hexdigest()}, bench_cache/inner14.verifier.bin "
           f"sha256 {hashlib.sha256(inner_vd_file).hexdigest()}; the iFFT by the dispatch rule: "
           f"{inner_data.build_info['constants_sigmas_ifft']}; launches {build_launches}")
     for k, v in build_split.items():
-        print(f"inner circuit build split ({card}): {k} {v:.4f} s")
-    print(f"inner circuit build split ({card}): outside the scopes "
-          f"{build_wall - sum(build_split.values()):.4f} s")
+        print(f"inner circuit build split, the median run ({card}): {k} {v:.4f} s")
+    print(f"inner circuit build split, the median run ({card}): outside the scopes "
+          f"{build_outside:.4f} s")
     for label in (ops.K3.label, ops.K4.label):
         if build_launches[label] == 0:
             failures.append(f"{label} was not launched in the inner circuit's build")
@@ -929,6 +1002,173 @@ def main() -> int:
           f"against the circuit file's verifier data: {middle_verify_s:.3f} s, accepted: "
           f"{middle_ok}")
 
+    # the recursion layers built by the port. The middle circuit over the
+    # port's inner circuit (once cold, BUILD_REPEATS times timed) must be
+    # bench_cache/middle14.circuit.bin, the headline's input, cap and digest
+    # included; proved from the port's inner proof and verified. The outer
+    # circuit over it (built once, timed), proved from that middle proof (a
+    # first call, INNER_PROVES timed proves and one profiled, each the
+    # reference's outer proof) and verified. Each build and prove with the
+    # counts set to 0 just before it and read just after.
+    def accepted(data, proof, name) -> bool:
+        try:
+            data.verify(proof)
+        except ValueError as e:
+            failures.append(f"the port's verifier rejects the {name} proof: {e}")
+            return False
+        print(f"{name} proof: the port's verifier accepts it")
+        return True
+
+    def timed_build(build):
+        timing = TimingTree("build", sync=torch.cuda.synchronize)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = build(timing)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, timing.split(), ops.launch_counts()
+
+    def layer_print(name, runs, cold_s, launches, data) -> dict:
+        """Prints the median wall of the timed builds `runs` [(wall,
+        split)] and that run's split; returns the split."""
+        wall, split, outside = median_run(runs)
+        print(f"{name} circuit build (degree 2^{data.common.degree_bits}, "
+              f"{len(data.prover_only.generators)} generators; {card}): {wall:.4f} s the median "
+              f"run of "
+              f"{[round(w, 4) for w, _ in runs]} (cold {cold_s:.4f} s); the iFFT by the "
+              f"dispatch rule: {data.build_info['constants_sigmas_ifft']}; launches {launches}")
+        for k, v in split.items():
+            print(f"{name} circuit build split, the median run ({card}): {k} {v:.4f} s")
+        print(f"{name} circuit build split, the median run ({card}): outside the scopes "
+              f"{outside:.4f} s")
+        for label in (ops.K2.label, ops.K4.label):
+            if launches[label] == 0:
+                failures.append(f"{label} was not launched in the {name} circuit's build")
+        return split
+
+    middle_builds = []
+    for _ in range(1 + BUILD_REPEATS):  # the first build is cold
+        (mid_data, mid_pt, mid_vdt), wall, split, middle_build_launches = timed_build(
+            lambda timing: br.recursion_circuit(inner_data.common, config14, device=dev,
+                                                timing=timing))
+        middle_builds.append((wall, split))
+        differ = circuit_differences(mid_data, prover_only, common, verifier_only)
+        if differ:
+            failures.append(f"the port-built middle circuit differs from "
+                            f"bench_cache/middle14.circuit.bin in: {differ}")
+    middle_build_split = layer_print("middle", middle_builds[1:], middle_builds[0][0],
+                                     middle_build_launches, mid_data)
+    print(f"middle circuit built by the port = bench_cache/middle14.circuit.bin (common data, "
+          f"constants-sigmas coefficients, sigmas, generators, watch lists, public inputs, "
+          f"representative map, cap and digest): {not differ}")
+    middle_inner = (inner_proof_port, inner_data.verifier_only, inner_data.common)
+    middle_pw = br.recursion_inputs(mid_pt, mid_vdt, middle_inner)
+
+    def middle_built_pinned(proof, what):
+        digest = hashlib.sha256(proof_to_bytes(proof)).hexdigest()
+        if digest != MIDDLE_OVER_INNER14_SHA256:
+            failures.append(f"{what}: the port-built middle circuit's proof is {digest}, not "
+                            f"{MIDDLE_OVER_INNER14_SHA256}")
+        return digest
+
+    t0 = time.perf_counter()
+    middle_built_proof = seeded(lambda: mid_data.prove(middle_pw, device=dev))
+    middle_built_first_s = time.perf_counter() - t0
+    middle_built_pinned(middle_built_proof, "middle prove on the built circuit, first call")
+    middle_built_walls = []
+    for _ in range(INNER_PROVES):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        proof = seeded(lambda: mid_data.prove(middle_pw, device=dev))
+        middle_built_walls.append(time.perf_counter() - t0)
+        middle_built_launches = ops.launch_counts()
+        middle_built_digest = middle_built_pinned(proof, "middle prove on the built circuit")
+    middle_built_s = statistics.median(middle_built_walls)
+    accepted(mid_data, middle_built_proof, "middle")
+    print(f"middle prove on the port-built circuit (witness + fused prove from the port's inner "
+          f"proof; {card}): {middle_built_s:.4f} s median of "
+          f"{[round(w, 4) for w in middle_built_walls]} (first call {middle_built_first_s:.3f} s: "
+          f"the witness plan's compilation included), sha256 {middle_built_digest}; launches "
+          f"{middle_built_launches}")
+
+    (outer_data, outer_pt, outer_vdt), outer_build_s, outer_build_split, \
+        outer_build_launches = timed_build(
+            lambda timing: br.recursion_circuit(mid_data.common, config14, device=dev,
+                                                timing=timing))
+    layer_print("outer", [(outer_build_s, outer_build_split)], outer_build_s,
+                outer_build_launches, outer_data)
+    outer_vd = verifier_data_to_bytes(outer_data.verifier_only, outer_data.common)
+    if hashlib.sha256(outer_vd).hexdigest() != OUTER_VERIFIER_SHA256:
+        failures.append("the outer circuit's verifier bytes are not the reference's")
+    outer_pw = br.recursion_inputs(outer_pt, outer_vdt, (middle_built_proof,
+                                                         mid_data.verifier_only,
+                                                         mid_data.common))
+
+    def outer_prove(timing=None):
+        return seeded(lambda: outer_data.prove(outer_pw, device=dev, timing=timing))
+
+    def outer_pinned(proof, what):
+        digest = hashlib.sha256(proof_to_bytes(proof)).hexdigest()
+        if digest != OUTER_OVER_INNER14_SHA256:
+            failures.append(f"{what}: the outer proof's sha256 is {digest}, not "
+                            f"{OUTER_OVER_INNER14_SHA256}")
+        return digest
+
+    t0 = time.perf_counter()
+    outer_proof = outer_prove()
+    outer_first_s = time.perf_counter() - t0
+    outer_pinned(outer_proof, "outer prove, first call")
+    outer_walls = []
+    for _ in range(INNER_PROVES):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        proof = outer_prove()
+        outer_walls.append(time.perf_counter() - t0)
+        outer_launches = ops.launch_counts()
+        outer_duplexes = ops.K5.batch1
+        outer_digest = outer_pinned(proof, "outer prove")
+        if tp._LAST_TRANSCRIPT != "fused":
+            failures.append(f"the outer prove took the {tp._LAST_TRANSCRIPT} path")
+    timing = TimingTree("prove", sync=torch.cuda.synchronize)
+    outer_pinned(outer_prove(timing), "outer prove, synchronised")
+    outer_split = timing.split()
+    for label, n in outer_launches.items():
+        if n == 0 and label != ops.K5_CHUNK.label:  # the host path's grind
+            failures.append(f"{label} was not launched on the outer prove")
+    outer_plan = outer_data.prover_only.cache("host").get("witness_plan")
+    outer_fallbacks = "all (the worklist ran)" if outer_plan is None else outer_plan.fallbacks
+    if outer_fallbacks:
+        failures.append(f"the outer circuit's generators without a native opcode: "
+                        f"{outer_fallbacks}")
+    t0 = time.perf_counter()
+    outer_ok = accepted(outer_data, outer_proof, "outer")
+    outer_verify_s = time.perf_counter() - t0
+    print(f"outer prove (witness + fused prove from the middle proof; {card}): "
+          f"{statistics.median(outer_walls):.4f} s median of "
+          f"{[round(w, 4) for w in outer_walls]} (first call {outer_first_s:.3f} s), sha256 "
+          f"{outer_digest} (the reference's: {OUTER_OVER_INNER14_SHA256}); launches "
+          f"{outer_launches} (K5 permutes on one state: {outer_duplexes}); generators run in "
+          f"Python: {outer_fallbacks or 'none'}; phases, "
+          f"synchronised: " + ", ".join(f"{k} {v:.4f}" for k, v in outer_split.items()))
+    print(f"outer verify (the port's verifier, host; {card}): {outer_verify_s:.3f} s, "
+          f"accepted: {outer_ok}")
+    profile_line(torch, outer_prove, statistics.median(outer_walls), "outer prove")
+
+    # the fixture chain: inner 2^4, middle and outer, all built by the port
+    t0 = time.perf_counter()
+    chain4 = seeded(lambda: br.chain(4, dev))
+    chain4_s = time.perf_counter() - t0
+    chain4_proof, chain4_data = chain4[-1].proof, chain4[-1].data
+    chain4_same = (proof_to_bytes(chain4_proof) == read("fixtures", "bench_recursion.proof.bin"),
+                   verifier_data_to_bytes(chain4_data.verifier_only, chain4_data.common)
+                   == read("fixtures", "bench_recursion.verifier.bin"))
+    print(f"fixture chain (inner 2^4 -> middle -> outer, built, proved and verified; {card}): "
+          f"{chain4_s:.3f} s (first calls), degrees "
+          f"{[layer.data.common.degree_bits for layer in chain4]}; outer proof = "
+          f"fixtures/bench_recursion.proof.bin: {chain4_same[0]}, verifier bytes = "
+          f"fixtures/bench_recursion.verifier.bin: {chain4_same[1]}")
+    if not all(chain4_same):
+        failures.append("the fixture chain's outer proof or verifier bytes are not the fixture's")
+
     # the four examples: build, prove (seed 2026) and verify on the card
     examples = {}
     for name, module in (("factorial", factorial), ("fibonacci", fibonacci),
@@ -960,13 +1200,27 @@ def main() -> int:
             failures.append(f"the example {name} did not build, prove and verify to its "
                             "fixture")
     build_phase = dict(build_wall_s=build_wall, build_cold_s=builds[0][0],
+                       build_outside_s=build_outside,
                        build_split=build_split, build_launches=build_launches,
                        inner_prove_s=statistics.median(inner_walls),
                        inner_prove_walls=inner_walls, inner_split=inner_split,
                        inner_launches=inner_launches, inner_verify_s=inner_verify_s,
                        inner_sha256=inner_digest, middle_over_inner_s=middle_own_s,
                        middle_over_inner_sha256=middle_own_digest,
-                       middle_verify_s=middle_verify_s, examples=examples)
+                       middle_verify_s=middle_verify_s, examples=examples,
+                       middle_build_s=statistics.median(w for w, _ in middle_builds[1:]),
+                       middle_build_cold_s=middle_builds[0][0],
+                       middle_build_split=middle_build_split,
+                       middle_build_launches=middle_build_launches,
+                       middle_built_prove_s=middle_built_s,
+                       middle_built_prove_walls=middle_built_walls,
+                       middle_built_first_s=middle_built_first_s, outer_build_s=outer_build_s,
+                       outer_build_split=outer_build_split,
+                       outer_build_launches=outer_build_launches,
+                       outer_prove_s=statistics.median(outer_walls),
+                       outer_prove_walls=outer_walls, outer_split=outer_split,
+                       outer_launches=outer_launches, outer_sha256=outer_digest,
+                       outer_verify_s=outer_verify_s, chain4_s=chain4_s)
 
     # commit_and_open at the middle-circuit shapes
     config = co.middle_fri_config()
@@ -1246,6 +1500,10 @@ def main() -> int:
     table14 = ntt._lde_coset_scale_table(gen, 14, 3, str(dev))
     cs_lde = kn.ntt_four_step(cs, scale=table14, fan=8)
     n17 = 1 << 17
+    cm = rand((85, 1 << 13))
+    table13 = ntt._lde_coset_scale_table(gen, 13, 3, str(dev))
+    cm_lde = kn.ntt_rows(cm, scale=table13, fan=8)
+    n16 = 1 << 16
     shapes = [
         (ops.K3, "build_ifft_83x2_14", lambda: kn.ntt_four_step(cs, inverse=True),
          lambda: kn.ntt_four_step_plain(cs, inverse=True), *k3_bound(83, 14)),
@@ -1257,6 +1515,18 @@ def main() -> int:
          lambda: kp.merkle_tree_plain(cs_lde, 4, True),
          8 * (cs_lde.numel() + kp.tree_words(n17, 13)),
          OPS_PER_PERMUTATION * (-(-83 // 8) * n17 + (n17 - (n17 >> 13)))),
+        # the recursion layers' builds: [85, 2^13] (K2 by the dispatch rule)
+        (ops.K2, "build_ifft_85x2_13", lambda: kn.ntt_rows(cm, True),
+         lambda: kn.ntt_rows_plain(cm, True), 8 * 2 * cm.numel(),
+         OPS_PER_MODMUL * 85 * ((1 << 12) * 13 + (1 << 13))),
+        (ops.K2, "build_lde_85x2_13_x8", lambda: kn.ntt_rows(cm, scale=table13, fan=8),
+         lambda: kn.ntt_rows_plain(cm, False, table13, 8),
+         8 * (cm.numel() + table13.numel() + 8 * cm.numel()),
+         OPS_PER_MODMUL * 85 * 8 * ((1 << 12) * 13 + (1 << 13))),
+        (ops.K4, "build_tree_85x2_16", lambda: kp.merkle_tree(cm_lde, 4, True),
+         lambda: kp.merkle_tree_plain(cm_lde, 4, True),
+         8 * (cm_lde.numel() + kp.tree_words(n16, 12)),
+         OPS_PER_PERMUTATION * (-(-85 // 8) * n16 + (n16 - (n16 >> 12)))),
     ]
     for kernel, key, run_k, run_p, n_bytes, n_ops in shapes:
         got, want = run_k(), run_p()
@@ -1308,6 +1578,9 @@ def main() -> int:
                         "launches_fused_middle_prove": paths["fused"]["launches"][k.label],
                         "launches_build_inner14": build_phase["build_launches"][k.label],
                         "launches_prove_inner14": build_phase["inner_launches"][k.label],
+                        "launches_build_middle": build_phase["middle_build_launches"][k.label],
+                        "launches_build_outer": build_phase["outer_build_launches"][k.label],
+                        "launches_prove_outer": build_phase["outer_launches"][k.label],
                         **results[k.label], "library_ms": None})
     print(json.dumps({"kernels": kernels, "card": card, "headline": headline,
                       "prove_many": {"K": BATCH_K, "window": BATCH_WINDOW, "threads": batched,

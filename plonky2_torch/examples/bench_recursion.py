@@ -1,24 +1,35 @@
-"""The recursion benchmark's inner circuit: 2^(size - 1) + 1 noop gates,
-built to degree 2^size, proved and verified (reference
-plonky2/examples/bench_recursion.rs:202-230; the reference package's
-examples/bench_recursion.py:22-37).
-
-The recursion layers (`recursive_proof`) need the in-circuit verifier,
-which the port does not have yet (ROADMAP); the middle circuit is read
-from `bench_cache/middle14.circuit.bin` until then.
+"""The recursion benchmark: an inner circuit of 2^(size - 1) + 1 noop gates,
+built to degree 2^size, then two recursion layers, each a circuit that
+verifies the proof of the layer below (reference
+plonky2/examples/bench_recursion.rs:202-349; the reference package's
+examples/bench_recursion.py:22-113).
 
     python -m plonky2_torch.examples.bench_recursion --size 14   # on the card
+
+builds and proves the inner circuit, the middle circuit over it and the
+outer circuit over the middle one, verifies the three proofs, and prints
+each layer's build and prove times.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+from typing import NamedTuple
 
+from plonky2_torch import resolve_device
 from plonky2_torch.gates.simple_gates import NoopGate
 from plonky2_torch.iop.witness import PartialWitness
 from plonky2_torch.plonk.circuit_builder import CircuitBuilder
 from plonky2_torch.plonk.config import CircuitConfig
+from plonky2_torch.recursion.recursive_verifier import (
+    add_virtual_proof_with_pis,
+    add_virtual_verifier_data,
+    set_proof_with_pis_target,
+    set_verifier_data_target,
+    verify_proof,
+)
+from plonky2_torch.util import TimingTree
 
 
 def _num_dummy_gates(log2_size: int) -> int:
@@ -35,14 +46,88 @@ def dummy_circuit(config: CircuitConfig, log2_size: int, device=None, timing=Non
     return builder.build(device=device, timing=timing)
 
 
-def dummy_proof(config: CircuitConfig, log2_size: int, device=None):
-    """(proof, verifier-only data, common data) of the inner circuit, built
-    and proved on `device` (CUDA unless the caller asks for another) and
-    verified."""
-    data = dummy_circuit(config, log2_size, device)
-    proof = data.prove(PartialWitness(), device=device)
+class Layer(NamedTuple):
+    """A proof of one layer of the chain, its circuit and the seconds its
+    build and its prove took."""
+    proof: object
+    data: object
+    build_s: float
+    prove_s: float
+
+    @property
+    def inner(self) -> tuple:
+        """(proof, verifier-only data, common data): what the next layer
+        verifies."""
+        return self.proof, self.data.verifier_only, self.data.common
+
+
+def _prove_layer(data, build_s: float, pw: PartialWitness, device) -> Layer:
+    """`data` proved from `pw` on `device` and verified."""
+    t = time.perf_counter()
+    proof = data.prove(pw, device=device)
+    prove_s = time.perf_counter() - t
     data.verify(proof)
-    return proof, data.verifier_only, data.common
+    return Layer(proof, data, build_s, prove_s)
+
+
+def dummy_proof(config: CircuitConfig, log2_size: int, device=None) -> Layer:
+    """The inner circuit, built and proved on `device` (CUDA unless the
+    caller asks for another) and verified."""
+    device = resolve_device(device)
+    t = time.perf_counter()
+    data = dummy_circuit(config, log2_size, device)
+    return _prove_layer(data, time.perf_counter() - t, PartialWitness(), device)
+
+
+def recursion_circuit(inner_common, config: CircuitConfig, min_degree_bits=None,
+                      device=None, timing: TimingTree | None = None):
+    """(CircuitData, proof targets, verifier-data targets) of a circuit that
+    verifies a proof of `inner_common`'s circuit and exposes its public
+    inputs, padded with noops to at least 2^min_degree_bits rows where
+    given. `timing` gets the scope "in-circuit verifier" and the build's."""
+    timing = timing or TimingTree("build")
+    builder = CircuitBuilder(config)
+    with timing.scope("in-circuit verifier"):
+        pt = add_virtual_proof_with_pis(builder, inner_common)
+        vdt = add_virtual_verifier_data(builder, inner_common.config.fri_config.cap_height)
+        verify_proof(builder, pt, vdt, inner_common)
+        builder.register_public_inputs(pt.public_inputs)
+        if min_degree_bits is not None:
+            while builder.num_gates() < (1 << (min_degree_bits - 1)) + 1:
+                builder.add_gate(NoopGate(), [])
+    return builder.build(device=device, timing=timing), pt, vdt
+
+
+def recursion_inputs(pt, vdt, inner) -> PartialWitness:
+    """The inner proof and verifier data in the targets of a recursion
+    circuit."""
+    inner_proof, inner_verifier_only, _ = inner
+    pw = PartialWitness()
+    set_proof_with_pis_target(pw, pt, inner_proof)
+    set_verifier_data_target(pw, vdt, inner_verifier_only)
+    return pw
+
+
+def recursive_proof(inner, config: CircuitConfig, min_degree_bits=None, device=None) -> Layer:
+    """One recursion layer over `inner` = (proof, verifier-only data, common
+    data), built and proved on `device` (CUDA unless the caller asks for
+    another) and verified."""
+    device = resolve_device(device)
+    t = time.perf_counter()
+    data, pt, vdt = recursion_circuit(inner[2], config, min_degree_bits, device)
+    return _prove_layer(data, time.perf_counter() - t, recursion_inputs(pt, vdt, inner), device)
+
+
+def chain(size: int, device=None) -> list[Layer]:
+    """The inner proof at 2^size, the middle proof over it and the outer
+    proof over that, on `device` (CUDA unless the caller asks for another),
+    each verified; inner first."""
+    device = resolve_device(device)
+    config = CircuitConfig.standard_recursion_config()
+    layers = [dummy_proof(config, size, device)]
+    for _ in ("middle", "outer"):
+        layers.append(recursive_proof(layers[-1].inner, config, device=device))
+    return layers
 
 
 def main(argv=None) -> None:
@@ -51,9 +136,11 @@ def main(argv=None) -> None:
     p.add_argument("--device", default=None, help="default: the CUDA card")
     args = p.parse_args(argv)
     t0 = time.perf_counter()
-    proof, _, common = dummy_proof(CircuitConfig.standard_recursion_config(), args.size,
-                                   args.device)
-    print(f"inner proof (2^{common.degree_bits}): built, proved and verified in "
+    layers = chain(args.size, args.device)
+    for name, layer in zip(("inner", "middle", "outer"), layers):
+        print(f"{name}: degree 2^{layer.data.common.degree_bits}, build "
+              f"{layer.build_s:.3f} s, prove {layer.prove_s:.3f} s")
+    print(f"bench_recursion chain built, proved and verified in "
           f"{time.perf_counter() - t0:.2f} s")
 
 

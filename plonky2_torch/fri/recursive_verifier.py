@@ -1,14 +1,23 @@
-"""The FRI proof's targets and their witness setters (reference
-fri/recursive_verifier.rs:661-744 and fri/witness_util.rs; the reference
-package's fri/recursive_verifier.py:21-126, 358-400). The in-circuit
-verifier itself is not ported: the port fills the targets of a recursion
-circuit the reference built."""
+"""The FRI verifier in a circuit, the FRI proof's targets and their witness
+setters (reference fri/recursive_verifier.rs and fri/witness_util.rs; the
+reference package's fri/recursive_verifier.py).
+
+The verification follows the host's `fri/verifier.py` step by step: a
+Merkle path becomes swapped Poseidon rows, a coset fold a
+CosetInterpolationGate row, an α-reduction Reducing(Extension)Gate rows.
+The verifier of proofs of several degrees (batch FRI, ROADMAP item 12) is
+not ported.
+"""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from plonky2_torch.iop.target import Target
+from plonky2_torch.field import scalar as fs
+from plonky2_torch.gadgets.reducing import ReducingFactorTarget
+from plonky2_torch.gates.coset_interpolation import CosetInterpolationGate
+from plonky2_torch.iop.target import ExtensionTarget, Target
+from plonky2_torch.util import reverse_bits
 
 
 @dataclass
@@ -19,6 +28,10 @@ class MerkleProofTarget:
 @dataclass
 class FriInitialTreeProofTarget:
     evals_proofs: list  # per oracle: (list[Target], MerkleProofTarget)
+
+    def unsalted_eval(self, oracle_index: int, poly_index: int, salted: bool) -> Target:
+        evals = self.evals_proofs[oracle_index][0]
+        return evals[:len(evals) - (4 if salted else 0)][poly_index]
 
 
 @dataclass
@@ -39,6 +52,23 @@ class FriProofTarget:
     query_round_proofs: list
     final_poly: list  # list[ExtensionTarget]
     pow_witness: Target
+
+
+@dataclass
+class FriChallengesTarget:
+    fri_alpha: ExtensionTarget
+    fri_betas: list  # ExtensionTargets
+    fri_pow_response: Target
+    fri_query_indices: list  # Targets
+
+
+class PrecomputedReducedOpeningsTarget:
+    """Each opening batch α-reduced once, for every query round."""
+
+    def __init__(self, openings_target, alpha: ExtensionTarget, builder):
+        self.reduced_openings_at_point = [
+            ReducingFactorTarget(alpha).reduce(batch.values, builder)
+            for batch in openings_target.batches]
 
 
 # -- allocation, in the reference's order --------------------------------------
@@ -76,6 +106,110 @@ def _add_virtual_fri_query(builder, num_leaves_per_oracle, params) -> FriQueryRo
             evals=builder.add_virtual_extension_targets(1 << arity_bits),
             merkle_proof=add_virtual_merkle_proof(builder, codeword_bits - cap_height)))
     return FriQueryRoundTarget(initial_trees_proof=initial, steps=steps)
+
+
+# -- verification (reference fri/recursive_verifier.rs:29-478) ---------------------
+
+def fri_verify_proof_of_work(builder, fri_pow_response: Target, config) -> None:
+    builder.assert_leading_zeros(fri_pow_response, config.proof_of_work_bits)
+
+
+def compute_evaluation(builder, x: Target, x_index_within_coset_bits, arity_bits: int, evals,
+                       beta: ExtensionTarget) -> ExtensionTarget:
+    """The folded value at β: the coset's evaluations, in natural order,
+    interpolated on the coset x · g^(-index) <ω>."""
+    arity = 1 << arity_bits
+    if len(evals) != arity:
+        raise ValueError("one evaluation for each point of the coset")
+    g_inv = fs.exp(fs.primitive_root_of_unity(arity_bits), arity - 1)
+    evals = [evals[reverse_bits(i, arity_bits)] for i in range(arity)]
+    start = builder.exp_from_bits_const_base(g_inv, list(x_index_within_coset_bits)[::-1])
+    coset_start = builder.mul(start, x)
+    gate = CosetInterpolationGate(arity_bits, builder.config.max_quotient_degree_factor)
+    return builder.interpolate_coset(gate, coset_start, evals, beta)
+
+
+def fri_combine_initial(builder, instance, proof_t: FriInitialTreeProofTarget,
+                        alpha: ExtensionTarget, subgroup_x: Target, precomputed,
+                        params) -> ExtensionTarget:
+    """Σ over the batches, shifted by α^(terms so far), of
+    (reduced evaluations - reduced openings) / (x - the batch's point)."""
+    subgroup_x_ext = builder.convert_to_ext(subgroup_x)
+    alpha_rf = ReducingFactorTarget(alpha)
+    total = builder.zero_extension()
+    for batch, reduced_openings in zip(instance.batches,
+                                       precomputed.reduced_openings_at_point):
+        evals = [proof_t.unsalted_eval(
+                     p.oracle_index, p.polynomial_index,
+                     params.hiding and instance.oracles[p.oracle_index].blinding)
+                 for p in batch.polynomials]
+        reduced_evals = alpha_rf.reduce_base(evals, builder)
+        numerator = builder.sub_extension(reduced_evals, reduced_openings)
+        denominator = builder.sub_extension(subgroup_x_ext, batch.point)
+        total = alpha_rf.shift(total, builder)
+        quotient = builder.div_extension(numerator, denominator)
+        total = builder.add_extension(quotient, total)
+    return total
+
+
+def verify_fri_proof(builder, instance, openings_t, challenges_t: FriChallengesTarget,
+                     initial_merkle_caps_t, proof_t: FriProofTarget, params) -> None:
+    """The proof of work, then every query round."""
+    if params.final_poly_len() != len(proof_t.final_poly):
+        raise ValueError("the final polynomial's length does not match the FRI params")
+    if params.config.num_query_rounds != len(proof_t.query_round_proofs):
+        raise ValueError("the number of query rounds does not match the FRI params")
+    fri_verify_proof_of_work(builder, challenges_t.fri_pow_response, params.config)
+    precomputed = PrecomputedReducedOpeningsTarget(openings_t, challenges_t.fri_alpha, builder)
+    for i, round_proof in enumerate(proof_t.query_round_proofs):
+        _fri_verifier_query_round(builder, instance, challenges_t, precomputed,
+                                  initial_merkle_caps_t, proof_t,
+                                  challenges_t.fri_query_indices[i], params.lde_size,
+                                  round_proof, params)
+
+
+def _fri_verifier_query_round(builder, instance, challenges_t, precomputed,
+                              initial_merkle_caps_t, proof_t, x_index: Target, n: int,
+                              round_proof, params) -> None:
+    n_log = n.bit_length() - 1
+    # all 64 bits of the index are split; a non-canonical encoding has a
+    # negligible effect on soundness (reference assert_noncanonical_indices_ok)
+    x_index_bits = builder.low_bits(x_index, n_log, 64)
+    cap_index = builder.le_sum(x_index_bits[len(x_index_bits) - params.config.cap_height:])
+    for (evals, merkle_proof), cap in zip(round_proof.initial_trees_proof.evals_proofs,
+                                          initial_merkle_caps_t):
+        builder.verify_merkle_proof_to_cap_with_cap_index(list(evals), x_index_bits, cap_index,
+                                                          cap, merkle_proof)
+
+    # subgroup_x = g · φ^reverse(x_index)
+    g_const = builder.constant(fs.MULTIPLICATIVE_GROUP_GENERATOR)
+    phi = fs.primitive_root_of_unity(n_log)
+    phi_pow = builder.exp_from_bits_const_base(phi, x_index_bits[::-1])
+    subgroup_x = builder.mul(g_const, phi_pow)
+
+    old_eval = fri_combine_initial(builder, instance, round_proof.initial_trees_proof,
+                                   challenges_t.fri_alpha, subgroup_x, precomputed, params)
+    for i, arity_bits in enumerate(params.reduction_arity_bits):
+        evals = round_proof.steps[i].evals
+        coset_index_bits = x_index_bits[arity_bits:]
+        x_index_within_coset_bits = x_index_bits[:arity_bits]
+        x_index_within_coset = builder.le_sum(x_index_within_coset_bits)
+        # the folded value of the last step is this step's evaluation there
+        new_eval = builder.random_access_extension(x_index_within_coset, list(evals))
+        builder.connect_extension(new_eval, old_eval)
+        old_eval = compute_evaluation(builder, subgroup_x, x_index_within_coset_bits,
+                                      arity_bits, evals, challenges_t.fri_betas[i])
+        builder.verify_merkle_proof_to_cap_with_cap_index(
+            [c for e in evals for c in e.parts], coset_index_bits, cap_index,
+            proof_t.commit_phase_merkle_caps[i], round_proof.steps[i].merkle_proof)
+        subgroup_x = builder.exp_power_of_2(subgroup_x, arity_bits)
+        x_index_bits = coset_index_bits
+
+    # the final polynomial at subgroup_x, by Horner
+    acc = builder.zero_extension()
+    for coeff in reversed(proof_t.final_poly):
+        acc = builder.scalar_mul_add_extension(subgroup_x, acc, coeff)
+    builder.connect_extension(acc, old_eval)
 
 
 # -- witness setters -----------------------------------------------------------

@@ -1,6 +1,6 @@
-"""Bit splits and range checks: the builder side and the bit-split
-generator (reference gadgets/split_join.rs, gadgets/range_check.rs; the
-reference package's gadgets/split_join.py)."""
+"""Bit splits and range checks: the builder side and their generators
+(reference gadgets/split_join.rs, gadgets/range_check.rs; the reference
+package's gadgets/split_join.py)."""
 
 from __future__ import annotations
 
@@ -57,3 +57,9 @@ def split_le(builder, integer: Target, num_bits: int) -> list[BoolTarget]:
 def range_check(builder, x: Target, n_log: int) -> None:
     """x < 2^n_log (reference gadgets/range_check.rs)."""
     split_le(builder, x, n_log)
+
+
+def low_bits(builder, x: Target, num_low_bits: int, num_bits: int) -> list[BoolTarget]:
+    """The low `num_low_bits` of the `num_bits`-bit split of x (all
+    `num_bits` are allocated and checked)."""
+    return split_le(builder, x, num_bits)[:num_low_bits]

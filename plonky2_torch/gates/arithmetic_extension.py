@@ -34,6 +34,23 @@ class ArithmeticExtensionGate(Gate):
     def id(self) -> str:
         return f"ArithmeticExtensionGate {{ num_ops: {self.num_ops} }}"
 
+    # the wires of op i, D each: m0, m1, the addend, the output
+    @staticmethod
+    def wires_ith_multiplicand_0(i: int) -> range:
+        return range(4 * D * i, 4 * D * i + D)
+
+    @staticmethod
+    def wires_ith_multiplicand_1(i: int) -> range:
+        return range(4 * D * i + D, 4 * D * i + 2 * D)
+
+    @staticmethod
+    def wires_ith_addend(i: int) -> range:
+        return range(4 * D * i + 2 * D, 4 * D * i + 3 * D)
+
+    @staticmethod
+    def wires_ith_output(i: int) -> range:
+        return range(4 * D * i + 3 * D, 4 * D * i + 4 * D)
+
     def eval_unfiltered(self, ops, vars) -> list:
         const_0 = vars.local_constants[0]
         const_1 = vars.local_constants[1]
@@ -87,6 +104,19 @@ class MulExtensionGate(Gate):
 
     def id(self) -> str:
         return f"MulExtensionGate {{ num_ops: {self.num_ops} }}"
+
+    # the wires of op i, D each: m0, m1, the output
+    @staticmethod
+    def wires_ith_multiplicand_0(i: int) -> range:
+        return range(3 * D * i, 3 * D * i + D)
+
+    @staticmethod
+    def wires_ith_multiplicand_1(i: int) -> range:
+        return range(3 * D * i + D, 3 * D * i + 2 * D)
+
+    @staticmethod
+    def wires_ith_output(i: int) -> range:
+        return range(3 * D * i + 2 * D, 3 * D * i + 3 * D)
 
     def eval_unfiltered(self, ops, vars) -> list:
         const_0 = vars.local_constants[0]

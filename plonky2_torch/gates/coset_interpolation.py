@@ -73,6 +73,10 @@ class CosetInterpolationGate(Gate):
 
     # wires: shift, the values (D each), the evaluation point, its value,
     # the intermediate evals, the intermediate products, the shifted point
+    @staticmethod
+    def wire_shift() -> int:
+        return 0
+
     def wires_value(self, i: int) -> range:
         return range(1 + i * D, 1 + (i + 1) * D)
 

@@ -2,11 +2,14 @@
 
 Each gate writes its constraints once against the ops protocol (constant,
 zero, one, add, sub, mul, square, neg, add_const, mul_const), as in the
-reference package's `gates/ops.py`. Two backends instantiate it:
+reference package's `gates/ops.py`. Three backends instantiate it:
 `HostExtOps` on D = 2 extension tuples of Python ints (the verifier's
-evaluation at ζ, reference `eval_unfiltered`), and `TorchBaseOps` on int64
+evaluation at ζ, reference `eval_unfiltered`), `TorchBaseOps` on int64
 tensors batched over the quotient domain (constants are 0-d tensors on the
-ops' device, holding the int64 bit pattern of the canonical residue).
+ops' device, holding the int64 bit pattern of the canonical residue), and
+`CircuitOps` on a builder's `ExtensionTarget`s (the in-circuit dual,
+reference `eval_unfiltered_circuit`), which gives the recursive verifier
+every gate's constraints in the order of the other two.
 """
 
 from __future__ import annotations
@@ -85,6 +88,46 @@ class TorchBaseOps:
 
     def mul_const(self, c: int, a):
         return g.mul(self.constant(c), a)
+
+
+class CircuitOps:
+    """Values are ExtensionTargets: each op emits circuit operations on
+    `builder` (reference package gates/ops.py:185-236)."""
+
+    def __init__(self, builder):
+        self.builder = builder
+
+    def constant(self, c):
+        if isinstance(c, int):
+            return self.builder.constant_extension(c % fs.P)
+        return self.builder.constant_extension(c)
+
+    def zero(self):
+        return self.builder.zero_extension()
+
+    def one(self):
+        return self.builder.one_extension()
+
+    def add(self, a, b):
+        return self.builder.add_extension(a, b)
+
+    def sub(self, a, b):
+        return self.builder.sub_extension(a, b)
+
+    def mul(self, a, b):
+        return self.builder.mul_extension(a, b)
+
+    def square(self, a):
+        return self.builder.square_extension(a)
+
+    def neg(self, a):
+        return self.builder.mul_const_extension(-1, a)
+
+    def add_const(self, a, c: int):
+        return self.builder.add_const_extension(a, c)
+
+    def mul_const(self, c: int, a):
+        return self.builder.mul_const_extension(c, a)
 
 
 class EvaluationVars:

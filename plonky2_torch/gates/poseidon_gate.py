@@ -134,9 +134,10 @@ class PoseidonGate(Gate):
         for i in range(4):
             constraints.append(ops.sub(ops.mul(swap, ops.sub(w[i + 4], w[i])),
                                        w[START_DELTA + i]))
-        state = ([ops.add(w[i], w[START_DELTA + i]) for i in range(4)]
-                 + [ops.sub(w[i + 4], w[START_DELTA + i]) for i in range(4)]
-                 + [w[i] for i in range(8, W)])
+        state = list(w[:W])
+        for i in range(4):  # the swapped inputs, in the reference's op order
+            state[i] = ops.add(w[i], w[START_DELTA + i])
+            state[i + 4] = ops.sub(w[i + 4], w[START_DELTA + i])
         round_ctr = 0
         for r in range(HALF_N_FULL_ROUNDS):
             state = [ops.add_const(x, ALL_ROUND_CONSTANTS[i + W * round_ctr])

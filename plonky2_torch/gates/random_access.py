@@ -22,6 +22,11 @@ class RandomAccessGate(Gate):
         self.num_copies = num_copies
         self.num_extra_constants = num_extra_constants
 
+    @property
+    def num_ops(self) -> int:
+        """The op slots `find_slot` hands out: one a copy."""
+        return self.num_copies
+
     def vec_size(self) -> int:
         return 1 << self.bits
 

@@ -31,6 +31,25 @@ class _Reducing(Gate):
     def __init__(self, num_coeffs: int):
         self.num_coeffs = num_coeffs
 
+    @classmethod
+    def max_coeffs_len(cls, num_wires: int, num_routed_wires: int) -> int:
+        """The most coefficients a row takes: its routed wires hold the
+        output, alpha, the old accumulator and the coefficients."""
+        return min((num_routed_wires - 3 * D) // cls.COEFF_WIDTH,
+                   (num_wires - 2 * D) // (cls.COEFF_WIDTH + D))
+
+    @staticmethod
+    def wires_output() -> range:
+        return WIRES_OUTPUT
+
+    @staticmethod
+    def wires_alpha() -> range:
+        return WIRES_ALPHA
+
+    @staticmethod
+    def wires_old_acc() -> range:
+        return WIRES_OLD_ACC
+
     def wires_coeff(self, i: int) -> range:
         start = START_COEFFS + i * self.COEFF_WIDTH
         return range(start, start + self.COEFF_WIDTH)
@@ -95,6 +114,9 @@ class ReducingGate(_Reducing):
 
     def id(self) -> str:
         return f"ReducingGate {{ num_coeffs: {self.num_coeffs} }}"
+
+    def wires_coeffs(self) -> range:
+        return range(START_COEFFS, START_COEFFS + self.num_coeffs)
 
     def _coeff(self, ops, vars, i):
         return ealg_from_base(ops, vars.local_wires[self.wires_coeff(i)[0]], D)

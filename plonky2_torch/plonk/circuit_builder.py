@@ -8,7 +8,9 @@ the rng draws of `RandomValueGenerator`), the constants sorted by value,
 the gates sorted by (degree, id), the selector groups, the sigma cycles and
 the circuit digest. `build` commits the constants and sigmas on the build's
 device (CUDA unless the caller asks for another) and keeps that commitment
-for the proves there. Zero-knowledge configs (ROADMAP item 10) and lookups
+for the proves there. The gadgets of the in-circuit verifier are mixed in
+from `gadgets/`: the extension arithmetic, the extension algebra and the
+recursion gadgets. Zero-knowledge configs (ROADMAP item 10) and lookups
 (item 9) are not ported.
 """
 
@@ -20,6 +22,8 @@ from plonky2_torch import resolve_device
 from plonky2_torch.field import goldilocks as g
 from plonky2_torch.field import scalar as fs
 from plonky2_torch.fri.oracle import PolynomialBatch
+from plonky2_torch.gadgets.extension_arithmetic import ExtensionArithmeticMixin
+from plonky2_torch.gadgets.recursion_gadgets import RecursionGadgetsMixin
 from plonky2_torch.gates.arithmetic_base import ArithmeticGate
 from plonky2_torch.gates.gate import UNUSED_SELECTOR
 from plonky2_torch.gates.poseidon_gate import PoseidonGate
@@ -58,7 +62,7 @@ class GateInstance:
         self.constants = constants
 
 
-class CircuitBuilder:
+class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin):
     def __init__(self, config: CircuitConfig | None = None, gc=None):
         pcfg.check_generic_config(gc)
         self.config = config or CircuitConfig.standard_recursion_config()
@@ -172,6 +176,9 @@ class CircuitBuilder:
     def one(self) -> Target:
         return self.constant(1)
 
+    def two(self) -> Target:
+        return self.constant(2)
+
     def neg_one(self) -> Target:
         return self.constant(fs.P - 1)
 
@@ -200,14 +207,19 @@ class CircuitBuilder:
             return special
         key = (const_0, const_1, m0, m1, addend)
         if key not in self.base_arithmetic_results:
-            gate = ArithmeticGate.new_from_config(self.config)
-            constants = [const_0, const_1]
-            row, i = self.find_slot(gate, constants, constants)
-            self.connect(m0, Wire(row, ArithmeticGate.wire_ith_multiplicand_0(i)))
-            self.connect(m1, Wire(row, ArithmeticGate.wire_ith_multiplicand_1(i)))
-            self.connect(addend, Wire(row, ArithmeticGate.wire_ith_addend(i)))
-            self.base_arithmetic_results[key] = Wire(row, ArithmeticGate.wire_ith_output(i))
+            self.base_arithmetic_results[key] = self._add_base_arithmetic_operation(
+                const_0, const_1, m0, m1, addend)
         return self.base_arithmetic_results[key]
+
+    def _add_base_arithmetic_operation(self, const_0, const_1, m0, m1, addend) -> Target:
+        """One op slot of an ArithmeticGate with these constants."""
+        gate = ArithmeticGate.new_from_config(self.config)
+        constants = [const_0, const_1]
+        row, i = self.find_slot(gate, constants, constants)
+        self.connect(m0, Wire(row, ArithmeticGate.wire_ith_multiplicand_0(i)))
+        self.connect(m1, Wire(row, ArithmeticGate.wire_ith_multiplicand_1(i)))
+        self.connect(addend, Wire(row, ArithmeticGate.wire_ith_addend(i)))
+        return Wire(row, ArithmeticGate.wire_ith_output(i))
 
     def _arithmetic_special_cases(self, const_0, const_1, m0, m1, addend):
         zero = self.zero()
@@ -290,6 +302,11 @@ class CircuitBuilder:
 
         range_check(self, x, n_log)
 
+    def low_bits(self, x: Target, num_low_bits: int, num_bits: int) -> list[BoolTarget]:
+        from plonky2_torch.gadgets.split_join import low_bits
+
+        return low_bits(self, x, num_low_bits, num_bits)
+
     # -- in-circuit hashing ---------------------------------------------------------
 
     def permute_swapped(self, inputs: list[Target], swap: BoolTarget) -> list[Target]:
@@ -318,6 +335,12 @@ class CircuitBuilder:
 
     def hash_n_to_hash_no_pad(self, inputs: list[Target]) -> list[Target]:
         return self.hash_n_to_m_no_pad(inputs, 4)
+
+    def hash_or_noop(self, inputs: list[Target]) -> list[Target]:
+        """At most four inputs are their own digest, zero-padded."""
+        if len(inputs) <= 4:
+            return list(inputs) + [self.zero()] * (4 - len(inputs))
+        return self.hash_n_to_hash_no_pad(inputs)
 
     # -- build ------------------------------------------------------------------------
 

@@ -1,20 +1,36 @@
-"""A proof's and a verifier's targets in a recursion circuit, and their
-witness setters (reference recursion/recursive_verifier.rs and
+"""The verifier of a proof in a circuit: the proof's and the verifier
+data's targets, the transcript replayed on builder targets, the vanishing
+polynomial at ζ and the FRI check, and the witness setters (reference
+recursion/recursive_verifier.rs, plonk/get_challenges.rs and
 iop/witness.rs `set_proof_with_pis_target`; the reference package's
-recursion/recursive_verifier.py:39-142, 327-360). The in-circuit verifier
-is not ported: these rebuild the targets of a recursion circuit the
-reference built, in its allocation order, and fill them from a proof."""
+recursion/recursive_verifier.py).
+
+The vanishing polynomial is the host verifier's ops-generic
+`eval_vanishing_poly` on `CircuitOps`, so the circuit checks the gate
+constraints in the order the prover and the verifier compute them.
+Proofs with lookups (ROADMAP item 9) or zero knowledge (item 10) are not
+ported.
+"""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+from plonky2_torch.field import scalar as fs
 from plonky2_torch.fri.recursive_verifier import (
+    FriChallengesTarget,
     add_virtual_cap,
     add_virtual_fri_proof,
     set_cap_target,
     set_fri_proof_target,
+    verify_fri_proof,
 )
+from plonky2_torch.fri.structure import FriBatchInfo, FriInstanceInfo, FriOpeningBatch, FriOpenings
+from plonky2_torch.gadgets.reducing import ReducingFactorTarget
+from plonky2_torch.gates.ops import CircuitOps, EvaluationVars
+from plonky2_torch.iop.target import ExtensionTarget
+from plonky2_torch.plonk.vanishing_poly import eval_vanishing_poly
+from plonky2_torch.recursion.recursive_challenger import RecursiveChallenger
 
 
 @dataclass
@@ -35,6 +51,14 @@ class OpeningSetTarget:
     partial_products: list
     quotient_polys: list
 
+    def to_fri_openings(self) -> FriOpenings:
+        """The openings at ζ, then at g · ζ (reference plonk/proof.rs)."""
+        return FriOpenings(batches=[
+            FriOpeningBatch(values=(self.constants + self.plonk_sigmas + self.wires
+                                    + self.plonk_zs + self.partial_products
+                                    + self.quotient_polys + self.lookup_zs)),
+            FriOpeningBatch(values=self.plonk_zs_next + self.next_lookup_zs)])
+
 
 @dataclass
 class ProofTarget:
@@ -49,6 +73,16 @@ class ProofTarget:
 class ProofWithPublicInputsTarget:
     proof: ProofTarget
     public_inputs: list
+
+
+@dataclass
+class ProofChallengesTarget:
+    plonk_betas: list
+    plonk_gammas: list
+    plonk_alphas: list
+    plonk_deltas: list
+    plonk_zeta: ExtensionTarget
+    fri_challenges: FriChallengesTarget
 
 
 def add_virtual_proof_with_pis(builder, common) -> ProofWithPublicInputsTarget:
@@ -95,6 +129,124 @@ def add_virtual_verifier_data(builder, cap_height: int) -> VerifierCircuitTarget
     return VerifierCircuitTarget(constants_sigmas_cap=add_virtual_cap(builder, cap_height),
                                  circuit_digest=builder.add_virtual_hash())
 
+
+# -- the transcript in the circuit (reference plonk/get_challenges.rs) -------------
+
+def _observe_fri_params(builder, challenger, fri_params) -> None:
+    """The FRI parameters as constants, in the order of the host's
+    `FriParams.observe`."""
+    c = builder.constant
+    cfg = fri_params.config
+    challenger.observe_element(c(cfg.rate_bits))
+    challenger.observe_element(c(cfg.cap_height))
+    challenger.observe_element(c(cfg.proof_of_work_bits))
+    challenger.observe_elements([c(v) for v in cfg.reduction_strategy.serialize_felts()])
+    challenger.observe_element(c(cfg.num_query_rounds))
+    challenger.observe_element(c(1 if fri_params.hiding else 0))
+    challenger.observe_element(c(fri_params.degree_bits))
+    challenger.observe_elements([c(v) for v in fri_params.reduction_arity_bits])
+
+
+def get_challenges_target(builder, proof_t: ProofTarget, public_inputs_hash, circuit_digest,
+                          common) -> ProofChallengesTarget:
+    nc = common.config.num_challenges
+    challenger = RecursiveChallenger(builder)
+    _observe_fri_params(builder, challenger, common.fri_params)
+    challenger.observe_hash(circuit_digest)
+    challenger.observe_hash(public_inputs_hash)
+
+    challenger.observe_cap(proof_t.wires_cap)
+    plonk_betas = challenger.get_n_challenges(nc)
+    plonk_gammas = challenger.get_n_challenges(nc)
+    challenger.observe_cap(proof_t.plonk_zs_partial_products_cap)
+    plonk_alphas = challenger.get_n_challenges(nc)
+    challenger.observe_cap(proof_t.quotient_polys_cap)
+    plonk_zeta = challenger.get_extension_challenge()
+    for batch in proof_t.openings.to_fri_openings().batches:
+        challenger.observe_extension_elements(batch.values)
+
+    # the FRI challenges (reference fri/challenges.rs)
+    fri_alpha = challenger.get_extension_challenge()
+    fri_betas = []
+    for cap in proof_t.opening_proof.commit_phase_merkle_caps:
+        challenger.observe_cap(cap)
+        fri_betas.append(challenger.get_extension_challenge())
+    challenger.observe_extension_elements(proof_t.opening_proof.final_poly)
+    challenger.observe_element(proof_t.opening_proof.pow_witness)
+    fri_pow_response = challenger.get_challenge()
+    fri_query_indices = challenger.get_n_challenges(common.config.fri_config.num_query_rounds)
+    return ProofChallengesTarget(
+        plonk_betas=plonk_betas, plonk_gammas=plonk_gammas, plonk_alphas=plonk_alphas,
+        plonk_deltas=[], plonk_zeta=plonk_zeta,
+        fri_challenges=FriChallengesTarget(fri_alpha=fri_alpha, fri_betas=fri_betas,
+                                           fri_pow_response=fri_pow_response,
+                                           fri_query_indices=fri_query_indices))
+
+
+def _get_fri_instance_target(builder, common, zeta: ExtensionTarget) -> FriInstanceInfo:
+    """`common.get_fri_instance` with the points as targets."""
+    zeta_next = builder.mul_const_extension(fs.primitive_root_of_unity(common.degree_bits),
+                                            zeta)
+    return FriInstanceInfo(oracles=common.fri_oracles(), batches=[
+        FriBatchInfo(point=zeta, polynomials=common.fri_all_polys()),
+        FriBatchInfo(point=zeta_next, polynomials=common.fri_next_batch_polys())])
+
+
+# -- verification ------------------------------------------------------------------
+
+def verify_proof(builder, proof_with_pis: ProofWithPublicInputsTarget,
+                 inner_verifier_data: VerifierCircuitTarget, inner_common) -> None:
+    """Constrain the circuit to accept `proof_with_pis` as a proof of the
+    inner circuit (reference recursion/recursive_verifier.rs:18-39)."""
+    if len(proof_with_pis.public_inputs) != inner_common.num_public_inputs:
+        raise ValueError("the public inputs do not match the inner circuit")
+    if inner_common.num_lookup_polys:
+        raise NotImplementedError("circuits with lookups are not ported (ROADMAP item 9)")
+    public_inputs_hash = builder.hash_n_to_hash_no_pad(list(proof_with_pis.public_inputs))
+    challenges = get_challenges_target(builder, proof_with_pis.proof, public_inputs_hash,
+                                       inner_verifier_data.circuit_digest, inner_common)
+    _verify_proof_with_challenges(builder, proof_with_pis.proof, public_inputs_hash,
+                                  challenges, inner_verifier_data, inner_common)
+
+
+def _verify_proof_with_challenges(builder, proof_t: ProofTarget, public_inputs_hash,
+                                  challenges: ProofChallengesTarget, inner_verifier_data,
+                                  common) -> None:
+    one = builder.one_extension()
+    openings = proof_t.openings
+    zeta = challenges.plonk_zeta
+    lift = builder.convert_to_ext
+    vars = EvaluationVars(openings.constants, openings.wires,
+                          [lift(h) for h in public_inputs_hash])
+
+    zeta_pow_deg = builder.exp_power_of_2_extension(zeta, common.degree_bits)
+    z_h_zeta = builder.sub_extension(zeta_pow_deg, one)
+    # L_0(ζ) = Z_H(ζ) / (n (ζ - 1))
+    denom = builder.mul_const_extension(common.degree % fs.P, builder.sub_extension(zeta, one))
+    l_0_zeta = builder.div_extension(z_h_zeta, denom)
+    vanishing_polys_zeta = eval_vanishing_poly(
+        CircuitOps(builder), common, zeta, vars, openings.plonk_zs, openings.plonk_zs_next,
+        openings.partial_products, openings.plonk_sigmas,
+        [lift(b) for b in challenges.plonk_betas], [lift(g) for g in challenges.plonk_gammas],
+        [lift(a) for a in challenges.plonk_alphas], l_0_zeta)
+
+    # each challenge's vanishing value = Z_H(ζ) · t(ζ), t's chunks
+    # recombined with powers of ζ^n
+    qdf = common.quotient_degree_factor
+    scale = ReducingFactorTarget(zeta_pow_deg)
+    for i in range(common.config.num_challenges):
+        recombined = scale.reduce(openings.quotient_polys[i * qdf:(i + 1) * qdf], builder)
+        builder.connect_extension(vanishing_polys_zeta[i],
+                                  builder.mul_extension(z_h_zeta, recombined))
+
+    merkle_caps = [inner_verifier_data.constants_sigmas_cap, proof_t.wires_cap,
+                   proof_t.plonk_zs_partial_products_cap, proof_t.quotient_polys_cap]
+    verify_fri_proof(builder, _get_fri_instance_target(builder, common, zeta),
+                     openings.to_fri_openings(), challenges.fri_challenges, merkle_caps,
+                     proof_t.opening_proof, common.fri_params)
+
+
+# -- witness setters ---------------------------------------------------------------
 
 def set_proof_with_pis_target(pw, proof_t: ProofWithPublicInputsTarget, proof_with_pis) -> None:
     proof = proof_with_pis.proof

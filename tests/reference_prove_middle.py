@@ -32,7 +32,19 @@ its verifier bytes' sha256 (which must be `bench_cache/inner14.verifier.bin`'s)
 and its proof's, has the port's verifier check that proof, then proves the
 middle circuit from it (the rng seeded to 2026 again) and prints that
 proof's sha256: chip_smoke's INNER14_PROOF_SHA256 and
-MIDDLE_OVER_INNER14_SHA256.
+MIDDLE_OVER_INNER14_SHA256. It then builds the reference's outer circuit
+over the middle circuit, proves it from that middle proof (the rng seeded
+to 2026 again) and prints its sha256: chip_smoke's
+OUTER_OVER_INNER14_SHA256.
+
+`--chain4` runs the port alone, on the CPU, on the chain of
+`tools/generate_fixtures.py`: `bench_recursion.chain(4, "cpu")` under the
+seed 2026, the middle and outer circuits built by the port's in-circuit
+verifier, and holds the outer proof and verifier data to
+`fixtures/bench_recursion.proof.bin` and `.verifier.bin` (several minutes,
+most of it the plain constants-sigmas commitments).
+
+    JAX_PLATFORMS=cpu python tests/reference_prove_middle.py --chain4
 """
 
 import contextlib
@@ -255,12 +267,71 @@ def inner14() -> int:
     print(f"middle over inner14: reference data.prove(pw) (host path, cpu) and verify: "
           f"{time.perf_counter() - t:.1f} s, {len(middle_bytes)} bytes, sha256 "
           f"{sha(middle_bytes)}", flush=True)
+
+    # the outer circuit, built by the reference over the middle circuit and
+    # proved from that middle proof
+    t = time.perf_counter()
+    ob = JBuilder(CircuitConfig.standard_recursion_config())
+    opt = jrv.add_virtual_proof_with_pis(ob, data.common)
+    ovdt = jrv.add_virtual_verifier_data(ob, data.common.config.fri_config.cap_height)
+    jrv.verify_proof(ob, opt, ovdt, data.common)
+    ob.register_public_inputs(opt.public_inputs)
+    outer_data = ob.build()
+    outer_vd = j_verifier_data_to_bytes(outer_data.verifier_only, outer_data.common)
+    print(f"outer over middle: reference build (cpu): {time.perf_counter() - t:.1f} s, "
+          f"degree 2^{outer_data.common.degree_bits}, {ob.num_gates()} rows, verifier data "
+          f"sha256 {sha(outer_vd)}", flush=True)
+    opw = JPartialWitness()
+    jrv.set_proof_with_pis_target(opw, opt, middle)
+    jrv.set_verifier_data_target(opw, ovdt, data.verifier_only)
+    t = time.perf_counter()
+    jrng.seed(SEED)
+    try:
+        with jfp.force_host_path():
+            outer = outer_data.prove(opw)
+    finally:
+        jrng.seed(None)
+    outer_data.verify(outer)
+    outer_bytes = j_proof_to_bytes(outer)
+    print(f"outer over middle: reference data.prove(pw) (host path, cpu) and verify: "
+          f"{time.perf_counter() - t:.1f} s, {len(outer_bytes)} bytes, sha256 "
+          f"{sha(outer_bytes)}", flush=True)
     return 0 if same_vd else 1
+
+
+def chain4() -> int:
+    from plonky2_torch.examples.bench_recursion import chain
+    from plonky2_torch.plonk.circuit_serialization import verifier_data_to_bytes
+
+    t = time.perf_counter()
+    trng.seed(SEED)
+    try:
+        layers = chain(4, "cpu")
+    finally:
+        trng.seed(None)
+    proof, data = layers[-1].proof, layers[-1].data
+    proof_bytes = proof_to_bytes(proof)
+    vd_bytes = verifier_data_to_bytes(data.verifier_only, data.common)
+    with open(os.path.join(ROOT, "fixtures", "bench_recursion.proof.bin"), "rb") as f:
+        same_proof = proof_bytes == f.read()
+    with open(os.path.join(ROOT, "fixtures", "bench_recursion.verifier.bin"), "rb") as f:
+        same_vd = vd_bytes == f.read()
+    print(f"chain4: the port's bench_recursion.chain(4, 'cpu') under seed {SEED}: "
+          f"{time.perf_counter() - t:.1f} s, "
+          f"{[(round(x.build_s, 2), round(x.prove_s, 2)) for x in layers]} (each layer's "
+          f"build and prove s); degrees {[x.data.common.degree_bits for x in layers]}; outer "
+          f"proof sha256 "
+          f"{sha(proof_bytes)} (= fixtures/bench_recursion.proof.bin: {same_proof}); verifier "
+          f"data sha256 {sha(vd_bytes)} (= fixtures/bench_recursion.verifier.bin: {same_vd})",
+          flush=True)
+    return 0 if same_proof and same_vd else 1
 
 
 if __name__ == "__main__":
     if sys.argv[1:] == ["--inner14"]:
         sys.exit(inner14())
+    if sys.argv[1:] == ["--chain4"]:
+        sys.exit(chain4())
     if len(sys.argv) != 1:
-        sys.exit("usage: reference_prove_middle.py [--inner14]")
+        sys.exit("usage: reference_prove_middle.py [--inner14 | --chain4]")
     sys.exit(main())

@@ -300,3 +300,30 @@ def test_example_builds_proves_and_verifies_on_the_card(dev, name):
         with open(os.path.join(root, "fixtures", f"{name}.{suffix}.bin"), "rb") as f:
             assert got == f.read(), suffix
     data.verify(proof)
+
+
+def test_bench_recursion_chain_on_the_card_gives_the_fixture(dev):
+    """The fixture chain, inner 2^4, middle and outer, built by the port's
+    in-circuit verifier and proved on the card with the device left to its
+    default, under seed 2026: the outer proof and verifier bytes of
+    `fixtures/bench_recursion.*.bin`; each layer verifies."""
+    import os
+
+    from plonky2_torch.examples import bench_recursion
+    from plonky2_torch.plonk.circuit_serialization import verifier_data_to_bytes
+    from plonky2_torch.plonk.serialization import proof_to_bytes
+    from plonky2_torch.util import rng
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rng.seed(2026)
+    try:
+        layers = bench_recursion.chain(4)
+    finally:
+        rng.seed(None)
+    proof, data = layers[-1].proof, layers[-1].data
+    assert [layer.data.build_info["device"] for layer in layers] == ["cuda"] * 3
+    assert [layer.data.common.degree_bits for layer in layers] == [4, 11, 13]
+    for suffix, got in (("verifier", verifier_data_to_bytes(data.verifier_only, data.common)),
+                        ("proof", proof_to_bytes(proof))):
+        with open(os.path.join(root, "fixtures", f"bench_recursion.{suffix}.bin"), "rb") as f:
+            assert got == f.read(), suffix
