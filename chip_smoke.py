@@ -63,7 +63,16 @@ profiled) and verifies it; runs the fixture chain (`chain(4)` under seed
 2026: inner 2^4, middle and outer built, proved and verified on the card)
 to `fixtures/bench_recursion.proof.bin` and `.verifier.bin`; then builds,
 proves and verifies factorial, fibonacci, range_check and square_root on
-the card to their fixtures' bytes; runs `commit_and_open`
+the card to their fixtures' bytes; runs the Starky phase
+(`starky_phase`: FibonacciStark and PermutationStark at 2^5 to their
+fixtures' bytes, then
+FibonacciStark and LookupTestStark at 2^STARKY_LOG_ROWS rows, a first
+call, STARKY_PROVES timed proves with the counts set to 0 just before each
+and read just after, each the reference's sha256, one synchronised for the
+split by the reference's scope names and (Fibonacci's) one profiled, each
+proof verified; then K3's x2 LDE, iFFTs and rate-0 coset FFT, K4's width-2 and
+width-4 trees over 2^21 leaves and K5's device grind at the Starky
+transcript's state against their plain versions, timed); runs `commit_and_open`
 at the bench_recursion middle-circuit shapes (degree 2^13, oracles of
 85/135/20/16 polynomials; its FRI proof on the fused path) with the counts
 set to 0 just before and read just after each of its runs and its pinned
@@ -89,7 +98,8 @@ wires tree and each of its launches, K3 at [2, 2^16], [16, 2^16] and
 versions) and requires identical proof bytes. The line before the last is
 the `kernels` JSON object (launches: the headline prove's, the chunk
 grind's from the host-path prove; beside them the inner build's and
-prove's, the middle and outer builds' and the outer prove's, and the
+prove's, the middle and outer builds', the outer prove's and the two 2^20
+Starky proves', and the
 headline's and prove_many's numbers), the last line the ok JSON object. Every timing line names the
 card and its power limit. Any failed check exits non-zero and prints no
 result; so does a run without CUDA, and a run of the script alone, without
@@ -155,6 +165,14 @@ OUTER_VERIFIER_SHA256 = "47c500d46e351b01f17042d874a343163ed27c6345503aa74847f4f
 OUTER_OVER_INNER14_SHA256 = "e54f11fa117f1111f5c1fa26dde2dfea77210e4ad97378cb2595ad5a1b01ad15"
 BUILD_REPEATS = 3
 INNER_PROVES = 3
+# the Starky phase: FibonacciStark(2^20) (public inputs [0, 1,
+# fibonacci(2^20 - 1, 0, 1)]) and LookupTestStark(2^20) (its own trace,
+# numpy seed 0) under standard_fast_config, as the reference proves them on
+# the CPU (tests/reference_prove_stark.py)
+STARKY_LOG_ROWS = 20
+FIB20_PROOF_SHA256 = "d0a5c168846f3ac76182eb10e06a66332b41fe3333db9d3e8757a68b103d47c2"
+LOOKUP20_PROOF_SHA256 = "165cc9881eed695f44a9a3fd7a4e89bc2c5c56d7f2a6ac87bb342726b9df588d"
+STARKY_PROVES = 3
 
 
 def same_generators(a: list, b: list) -> bool:
@@ -434,6 +452,240 @@ def times_only(root: str) -> int:
     print(json.dumps({"times": t, "root": os.path.abspath(root),
                       "card": torch.cuda.get_device_name(0)}))
     return 0
+
+
+def starky_phase(torch, dev, card, failures, root) -> dict:
+    """The Starky prover on the card: the two fixtures at 2^5 to their
+    bytes (the committed reference proofs at 2^5 and 2^7 are
+    tests/test_torch_cuda.py's);
+    FibonacciStark and LookupTestStark at 2^STARKY_LOG_ROWS rows, each a
+    first call, STARKY_PROVES timed proves (the counts set to 0 just before
+    each and read just after, each proof the reference's sha256), one
+    synchronised for the phase split, Fibonacci's one profiled, and each
+    verified by the port's verifier; then each new kernel shape of the path against its
+    plain version, timed. Returns what the kernels line and the summary
+    take; appends to `failures`."""
+    import numpy as np
+
+    from plonky2_torch import ops
+    from plonky2_torch.field import goldilocks as g
+    from plonky2_torch.field import ntt
+    from plonky2_torch.field import scalar as fs
+    from plonky2_torch.fri import prover as fri_prover
+    from plonky2_torch.ops import ntt as kn
+    from plonky2_torch.ops import poseidon as kp
+    from plonky2_torch.starky import prover as sp
+    from plonky2_torch.starky.config import StarkConfig
+    from plonky2_torch.starky.fibonacci_stark import FibonacciStark, fibonacci
+    from plonky2_torch.starky.serialization import stark_proof_to_bytes
+    from plonky2_torch.starky.test_starks import LookupTestStark, PermutationStark
+    from plonky2_torch.starky.verifier import verify_stark_proof
+    from plonky2_torch.util import TimingTree
+
+    config = StarkConfig.standard_fast_config()
+
+    def read(*parts) -> bytes:
+        with open(os.path.join(root, *parts), "rb") as f:
+            return f.read()
+
+    def fib_case(n):
+        stark = FibonacciStark(n)
+        pis = [0, 1, fibonacci(n - 1, 0, 1)]
+        return stark, stark.generate_trace(pis[0], pis[1]), pis
+
+    def lookup_case(n):
+        stark = LookupTestStark(n)
+        return stark, stark.generate_trace(), []
+
+    def verified(stark, proof, what) -> tuple[bool, float]:
+        """(accepted, seconds) of the port's verifier on `proof`."""
+        t0 = time.perf_counter()
+        try:
+            verify_stark_proof(stark, proof, config)
+            ok = True
+        except ValueError as e:
+            ok = False
+            failures.append(f"the port's verifier rejects the {what} proof: {e}")
+        return ok, time.perf_counter() - t0
+
+    t_phase = time.perf_counter()
+    perm = PermutationStark(1 << 5)
+    fixtures = [("fibonacci 2^5", *fib_case(1 << 5), ("fixtures", "starky_fibonacci.proof.bin")),
+                ("permutation 2^5", perm, perm.generate_trace(3, 9), [3, 9],
+                 ("fixtures", "starky_permutation.proof.bin"))]
+    for what, stark, trace, pis, ref in fixtures:
+        proof = sp.prove(stark, config, trace, pis, device=dev)
+        same = stark_proof_to_bytes(proof, config) == read(*ref)
+        ok, _ = verified(stark, proof, what)
+        print(f"starky {what} ({card}): proof = {'/'.join(ref)}: {same} (FRI transcript "
+              f"{fri_prover._LAST_PATH}); the port's verifier accepts it: {ok}")
+        if not same:
+            failures.append(f"the starky {what} proof on the card is not {'/'.join(ref)}")
+
+    print(f"starky phase: the fixtures' proves and verifies took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    grind_inputs = []
+    grind_device = kp.grind_device
+
+    def recording_grind(state, pending, pow_bits):
+        grind_inputs.append((state.clone(), pending.clone(), pow_bits))
+        return grind_device(state, pending, pow_bits)
+
+    n = 1 << STARKY_LOG_ROWS
+    out = {}
+    for name, make, want in (("fibonacci", fib_case, FIB20_PROOF_SHA256),
+                             ("lookup", lookup_case, LOOKUP20_PROOF_SHA256)):
+        t0 = time.perf_counter()
+        stark, trace, pis = make(n)
+        trace_s = time.perf_counter() - t0
+        trace_dev = g.tensor(trace, dev)  # the prove's input, already on the card
+
+        def prove(timing=None, stark=stark, trace_dev=trace_dev, pis=pis):
+            return sp.prove(stark, config, trace_dev, pis, device=dev, timing=timing)
+
+        def pinned(proof, what, name=name, want=want):
+            digest = hashlib.sha256(stark_proof_to_bytes(proof, config)).hexdigest()
+            if digest != want:
+                failures.append(f"{what}: the starky {name} 2^{STARKY_LOG_ROWS} proof's sha256 "
+                                f"is {digest}, not {want}")
+            return digest
+
+        t0 = time.perf_counter()
+        if name == "fibonacci":
+            kp.grind_device = recording_grind
+        try:
+            proof = prove()
+        finally:
+            kp.grind_device = grind_device
+        first_s = time.perf_counter() - t0
+        pinned(proof, "first call")
+        accepted, verify_s = verified(stark, proof, f"{name} 2^{STARKY_LOG_ROWS}")
+        walls = []
+        for _ in range(STARKY_PROVES):
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            proof = prove()
+            walls.append(time.perf_counter() - t0)
+            launches = ops.launch_counts()
+            duplexes = ops.K5.batch1
+            digest = pinned(proof, "timed prove")
+            if fri_prover._LAST_PATH != "fused":
+                failures.append(f"the starky {name} prove's FRI took the "
+                                f"{fri_prover._LAST_PATH} path")
+        timing = TimingTree("starky prove", sync=torch.cuda.synchronize)
+        t0 = time.perf_counter()
+        pinned(prove(timing), "synchronised prove")
+        sync_wall = time.perf_counter() - t0
+        split = timing.split()
+        wall = statistics.median(walls)
+        size = len(stark_proof_to_bytes(proof, config))
+        print(f"starky {name} prove (2^{STARKY_LOG_ROWS} rows, {stark.COLUMNS} columns, "
+              f"constraint degree {stark.constraint_degree()}; {card}): {wall:.4f} s median of "
+              f"{[round(w, 4) for w in walls]} (first call {first_s:.3f} s; the trace made in "
+              f"{trace_s:.3f} s on the host), {size} proof bytes, sha256 {digest} (the "
+              f"reference's: {want}); launches {launches} (K5 permutes on one state: "
+              f"{duplexes}); the port's verifier: {verify_s:.3f} s, accepted: {accepted}")
+        print(f"starky {name} prove phases ({card}), s, the device synchronised at each "
+              f"phase's start and end ({sync_wall:.4f} s wall): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f"; outside the phases {sync_wall - sum(split.values()):.4f}")
+        for label, count in launches.items():
+            if count == 0 and label != ops.K5_CHUNK.label:  # the host path's grind
+                failures.append(f"{label} was not launched on the starky {name} prove")
+        if name == "fibonacci":  # the driver's configuration; a profiled run takes ~15 s
+            t0 = time.perf_counter()
+            profile_line(torch, prove, wall, f"starky {name} prove")
+            print(f"starky {name}: the profiled runs took {time.perf_counter() - t0:.1f} s")
+        print(f"starky phase so far: {time.perf_counter() - t_phase:.1f} s")
+        out[name] = dict(wall_s=wall, walls=walls, first_s=first_s, sync_wall_s=sync_wall,
+                         split=split, launches=launches, duplexes=duplexes,
+                         verify_s=verify_s, sha256=digest, proof_bytes=size)
+        del trace_dev
+
+    # each new kernel shape of the path against its plain version: K3's
+    # x2 LDE [2, 2^20] -> [2, 2^21] (the trace commitment), its iFFTs at
+    # [2, 2^20] (the trace's, and Fibonacci's quotient coset iFFT) and
+    # [2, 2^21] (the lookup STARK's quotient), the selectors' coset FFT at
+    # rate 0 [2, 2^20]; K4's natural trees of width 2 and 4 over 2^21
+    # leaves (the hash_or_noop leaves); K5's device grind on the Fibonacci
+    # prove's transcript
+    rng = np.random.default_rng(SEED + 20)
+
+    def rand(shape):
+        return g.tensor(rng.integers(0, fs.P, size=shape, dtype=np.uint64), dev)
+
+    lg = STARKY_LOG_ROWS
+    gen = fs.MULTIPLICATIVE_GROUP_GENERATOR
+    x = rand((2, n))
+    x21 = rand((2, 2 * n))
+    tab = ntt._lde_coset_scale_table(gen, lg, 1, str(dev))
+    shift = ntt.shift_powers(gen, n, dev).reshape(1, n)
+    lde2, lde4 = kn.ntt_four_step(x, scale=tab, fan=2), rand((4, 2 * n))
+
+    def k3_bound(batch, lg_n):
+        m = 1 << lg_n
+        return 8 * 2 * batch * m, OPS_PER_MODMUL * batch * (m // 2 * lg_n + m)
+
+    def tree_bound(width, lg_n):
+        m = 1 << lg_n
+        return (8 * (width * m + kp.tree_words(m, lg_n - 4)),
+                OPS_PER_PERMUTATION * (m - (m >> (lg_n - 4))))  # no leaf hashing: width <= 4
+
+    shapes = [
+        (ops.K3, f"starky_lde_2x2_{lg}_x2", lambda: kn.ntt_four_step(x, scale=tab, fan=2),
+         lambda: kn.ntt_four_step_plain(x, False, tab, 2),
+         8 * (x.numel() + tab.numel() + 2 * x.numel()),
+         OPS_PER_MODMUL * 2 * 2 * ((n // 2) * lg + n)),
+        (ops.K3, f"starky_ifft_2x2_{lg}", lambda: kn.ntt_four_step(x, inverse=True),
+         lambda: kn.ntt_four_step_plain(x, inverse=True), *k3_bound(2, lg)),
+        (ops.K3, f"starky_ifft_2x2_{lg + 1}", lambda: kn.ntt_four_step(x21, inverse=True),
+         lambda: kn.ntt_four_step_plain(x21, inverse=True), *k3_bound(2, lg + 1)),
+        (ops.K3, f"starky_coset_fft_2x2_{lg}", lambda: kn.ntt_four_step(x, scale=shift),
+         lambda: kn.ntt_four_step_plain(x, scale=shift),
+         8 * (2 * x.numel() + n), OPS_PER_MODMUL * 2 * ((n // 2) * lg + 2 * n)),
+        (ops.K4, f"starky_tree_2x2_{lg + 1}", lambda: kp.merkle_tree(lde2, 4, True),
+         lambda: kp.merkle_tree_plain(lde2, 4, True), *tree_bound(2, lg + 1)),
+        (ops.K4, f"starky_tree_4x2_{lg + 1}", lambda: kp.merkle_tree(lde4, 4, True),
+         lambda: kp.merkle_tree_plain(lde4, 4, True), *tree_bound(4, lg + 1)),
+    ]
+    if len(grind_inputs) != 1:
+        failures.append(f"the starky Fibonacci first call ran {len(grind_inputs)} device "
+                        f"grinds, not 1")
+    else:
+        state, pending, bits = grind_inputs[0]
+        witness = g.u64(int(kp.grind_device(state, pending, bits)[0]))
+        shapes.append((ops.K5_DEVICE, "starky_grind_device",
+                       lambda: kp.grind_device(state, pending, bits),
+                       lambda: kp.grind_device_plain(state, pending, bits, chunk=GRIND_CHUNK),
+                       8 * (12 + int(pending.shape[0]) + 1),
+                       OPS_PER_PERMUTATION * (witness + 1)))
+        print(f"K5 device grind on the starky Fibonacci 2^{lg} transcript ({bits} bits, "
+              f"{int(pending.shape[0])} pending): witness {witness}")
+    shape_results = {}
+    for kernel, key, run_k, run_p, n_bytes, n_ops in shapes:
+        got = run_k()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = run_p()  # one run, timed: the plain tree over 2^21 leaves takes seconds
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if isinstance(got, (list, tuple)):  # a tree's levels
+            mism = int(len(got) != len(want)) + sum(compare(a, b)[0] for a, b in zip(got, want))
+        else:
+            mism = compare(got, want)[0]
+        del got, want
+        ms = time_ms(torch, run_k, reps=10, warmup=2)
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        print(f"{kernel.label} {key}: {mism} mismatches; {ms:.4f} ms kernel, {plain_ms:.4f} ms "
+              f"plain, bound {b_ms:.4f} ms ({b_by}, share {b_ms / ms:.1%})")
+        shape_results.setdefault(kernel.label, {})[key] = dict(
+            mismatches=mism, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        if mism:
+            failures.append(f"{kernel.label} disagrees with its plain version at {key}")
+    out["shapes"] = shape_results
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"starky phase ({card}): {out['phase_s']:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -1199,6 +1451,10 @@ def main() -> int:
         if not (same_vd and same_proof and accepted):
             failures.append(f"the example {name} did not build, prove and verify to its "
                             "fixture")
+    # the Starky prover: the fixtures, FibonacciStark and LookupTestStark at
+    # 2^STARKY_LOG_ROWS rows, and the new kernel shapes of its path
+    starky = starky_phase(torch, dev, card, failures, root)
+
     build_phase = dict(build_wall_s=build_wall, build_cold_s=builds[0][0],
                        build_outside_s=build_outside,
                        build_split=build_split, build_launches=build_launches,
@@ -1289,8 +1545,11 @@ def main() -> int:
               f"{n_fan} mismatches")
         k2_mism += n_fan
     n_tail = 0
-    for lg_m, rb in ((1, 3), (5, 3), (6, 3), (9, 4), (3, 1)):
-        xt = rand((3, 1 << lg_m))
+    # (points, rate bits, rows); [2, 2^8] and [2, 2^4] at rate 1 are the
+    # re-LDEs of FRI's folds on a 2^20-row Starky prove
+    for lg_m, rb, n_rows in ((1, 3, 3), (5, 3, 3), (6, 3, 3), (9, 4, 3), (3, 1, 3),
+                             (8, 1, 2), (4, 1, 2)):
+        xt = rand((n_rows, 1 << lg_m))
         sc = ntt.shift_powers(gen, 1 << lg_m, dev).reshape(1, -1)
         for inverse in (False, True):
             n_tail += compare(kn.ntt_rows(xt, inverse, sc, 1, rb),
@@ -1559,6 +1818,10 @@ def main() -> int:
     if on_card != on_cpu:
         failures.append("degree-2^10 proof bytes differ between the card and the CPU")
 
+    for label, shape_results in starky["shapes"].items():
+        results[label].update(shape_results)
+        results[label]["mismatches"] += sum(r["mismatches"] for r in shape_results.values())
+
     if failures:
         for f in failures:
             print(f"chip_smoke: {f}", file=sys.stderr)
@@ -1581,6 +1844,8 @@ def main() -> int:
                         "launches_build_middle": build_phase["middle_build_launches"][k.label],
                         "launches_build_outer": build_phase["outer_build_launches"][k.label],
                         "launches_prove_outer": build_phase["outer_launches"][k.label],
+                        "launches_prove_starky": starky["fibonacci"]["launches"][k.label],
+                        "launches_prove_starky_lookup": starky["lookup"]["launches"][k.label],
                         **results[k.label], "library_ms": None})
     print(json.dumps({"kernels": kernels, "card": card, "headline": headline,
                       "prove_many": {"K": BATCH_K, "window": BATCH_WINDOW, "threads": batched,
@@ -1592,7 +1857,8 @@ def main() -> int:
                       "syncs": {"fused_before_fetch": fused_syncs, "fused_finish": fetch_syncs,
                                 "host": host_syncs},
                       "commit_and_open_middle_s": wall_s,
-                      "build_phase": build_phase}))
+                      "build_phase": build_phase,
+                      "starky": {k: v for k, v in starky.items() if k != "shapes"}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,8 +1,8 @@
 """Carry state into the port: numpy uint64 arrays <-> the port's int64
 tensors, and FRI parameters given by any object with the reference's field
 names (for example the reference package's FriConfig/FriParams) -> the
-port's dataclasses, and the reference's gates and circuit data -> the
-port's. Reads attributes only; imports nothing outside the port."""
+port's dataclasses, the reference's StarkConfig and logUp lookups -> the
+port's, and the reference's gates and circuit data -> the port's. Reads attributes only; imports nothing outside the port."""
 
 from __future__ import annotations
 
@@ -24,6 +24,35 @@ def fri_config(c) -> FriConfig:
                      proof_of_work_bits=c.proof_of_work_bits,
                      reduction_strategy=fri_reduction_strategy(c.reduction_strategy),
                      num_query_rounds=c.num_query_rounds)
+
+
+def stark_config(c):
+    """The port's StarkConfig for a reference StarkConfig."""
+    from plonky2_torch.starky.config import StarkConfig
+
+    return StarkConfig(security_bits=c.security_bits, num_challenges=c.num_challenges,
+                       fri_config=fri_config(c.fri_config))
+
+
+def column(c):
+    """The port's starky Column for a reference Column."""
+    from plonky2_torch.starky.lookup import Column
+
+    return Column(linear_combination=[tuple(p) for p in c.linear_combination],
+                  next_row_linear_combination=[tuple(p) for p in c.next_row_linear_combination],
+                  constant=c.constant)
+
+
+def lookup(lk):
+    """The port's starky Lookup for a reference Lookup."""
+    from plonky2_torch.starky.lookup import Filter, Lookup
+
+    return Lookup(columns=[column(c) for c in lk.columns],
+                  table_column=column(lk.table_column),
+                  frequencies_column=column(lk.frequencies_column),
+                  filter_columns=[Filter(products=[(column(a), column(b)) for a, b in f.products],
+                                         constants=[column(c) for c in f.constants])
+                                  for f in lk.filter_columns])
 
 
 def fri_params(p) -> FriParams:

@@ -201,6 +201,24 @@ def cumprod(x, dim: int = 0):
     return x.movedim(0, dim)
 
 
+def cumsum(x, dim: int = 0):
+    """Inclusive modular prefix sums along `dim` (fewer than 2^31 terms):
+    torch.cumsum of the 32-bit halves stays below 2^63, and the two running
+    sums recombine as lo + hi·2^32 mod p."""
+    if x.shape[dim] >= 1 << 31:
+        raise ValueError("cumsum takes fewer than 2^31 terms")
+    lo = torch.cumsum(x & MASK32, dim)  # both < 2^63 < p: canonical
+    hi = torch.cumsum(shr32(x), dim)
+    return add(lo, mul_scalar(hi, 1 << 32))
+
+
+def inverse_vector(x):
+    """Inverse of a [n] vector (n a power of two): `inverse_rows` on its
+    [2^(lg n / 2), n / 2^(lg n / 2)] reshape. inverse_vector(0) == 0."""
+    split = 1 << ((x.shape[0].bit_length() - 1) // 2)
+    return inverse_rows(x.reshape(split, -1)).reshape(-1)
+
+
 def inverse_rows(x):
     """Inverse of [R, n] via the Montgomery trick along axis 0: prefix and
     suffix product scans, then one Fermat ladder on [n].

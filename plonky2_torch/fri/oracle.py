@@ -22,10 +22,13 @@ from plonky2_torch.hash.merkle import NaturalMerkleTree
 from plonky2_torch.util import log2_strict
 
 def _as_tensor(x, device):
-    """Tensors stay where they are (a device argument must agree); host data
-    uploads to `device` (CUDA unless the caller asks for another)."""
+    """Tensors stay where they are (a device argument must agree; "cuda"
+    with no index agrees with any card); host data uploads to `device` (CUDA
+    unless the caller asks for another), by the bit pattern of its values."""
     if isinstance(x, torch.Tensor):
-        if device is not None and torch.device(device) != x.device:
+        want = None if device is None else torch.device(device)
+        if want is not None and (want.type != x.device.type
+                                 or want.index not in (None, x.device.index)):
             raise ValueError(f"tensor on {x.device}, device={device} requested")
         if x.dtype != torch.int64:
             raise ValueError("field tensors are int64")

@@ -2,9 +2,11 @@
 
 Each gate writes its constraints once against the ops protocol (constant,
 zero, one, add, sub, mul, square, neg, add_const, mul_const), as in the
-reference package's `gates/ops.py`. Three backends instantiate it:
+reference package's `gates/ops.py`. Four backends instantiate it:
 `HostExtOps` on D = 2 extension tuples of Python ints (the verifier's
-evaluation at ζ, reference `eval_unfiltered`), `TorchBaseOps` on int64
+evaluation at ζ, reference `eval_unfiltered`), `HostBaseOps` on base-field
+Python ints (a STARK's constraints replayed row by row on a trace),
+`TorchBaseOps` on int64
 tensors batched over the quotient domain (constants are 0-d tensors on the
 ops' device, holding the int64 bit pattern of the canonical residue), and
 `CircuitOps` on a builder's `ExtensionTarget`s (the in-circuit dual,
@@ -51,6 +53,41 @@ class HostExtOps:
 
     def mul_const(self, c: int, a):
         return fs.ext_scalar_mul(c % fs.P, a)
+
+
+class HostBaseOps:
+    """Values are base-field Python ints (reference package
+    gates/ops.py:93)."""
+
+    def constant(self, c: int):
+        return c % fs.P
+
+    def zero(self):
+        return 0
+
+    def one(self):
+        return 1
+
+    def add(self, a, b):
+        return fs.add(a, b)
+
+    def sub(self, a, b):
+        return fs.sub(a, b)
+
+    def mul(self, a, b):
+        return fs.mul(a, b)
+
+    def square(self, a):
+        return fs.mul(a, a)
+
+    def neg(self, a):
+        return fs.neg(a)
+
+    def add_const(self, a, c: int):
+        return fs.add(a, c % fs.P)
+
+    def mul_const(self, c: int, a):
+        return fs.mul(c % fs.P, a)
 
 
 class TorchBaseOps:

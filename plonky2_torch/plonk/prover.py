@@ -280,8 +280,7 @@ def _quotient_tables(prover_data, common, device) -> dict:
     z_h_inv = g.tensor(np.tile(np.asarray(fs.batch_inverse(z_h_vals), dtype=np.uint64), n),
                        device)
     den = g.mul_scalar(g.sub(xs, g.scalar_tensor(1, device)), n % fs.P)
-    split = 1 << (lg_q // 2)  # batch-inverse [split, Q / split] along its rows
-    den_inv = g.inverse_rows(den.reshape(split, -1)).reshape(-1)
+    den_inv = g.inverse_vector(den)
     k_is = g.tensor(common.k_is[:common.config.num_routed_wires], device)
     cache["quotient"] = {"z_h_inv": z_h_inv, "l_0": g.mul(z_h, den_inv),
                          "s_id": g.mul(k_is[:, None], xs[None, :])}

@@ -1,0 +1,78 @@
+"""The STARK Fiat-Shamir transcript (reference starky/src/get_challenges.rs).
+
+`bind_constraints` is the step that prover and verifier share: draw α',
+draw the dummy openings, observe the constraints' values there, then draw
+the quotient's alphas (the reference package's starky/prover.py:119-149).
+`get_challenges` replays the whole transcript of a proof for the verifier.
+"""
+
+from __future__ import annotations
+
+from plonky2_torch.fri.verifier import fri_challenges
+from plonky2_torch.iop.challenger import Challenger
+from plonky2_torch.starky.lookup import get_grand_product_challenge_set
+from plonky2_torch.starky.proof import StarkProofChallenges, StarkProofWithPublicInputs
+from plonky2_torch.starky.vanishing import compute_eval_vanishing_poly, get_dummy_polys
+
+
+def bind_constraints(challenger, stark, config, public_inputs, degree_bits: int,
+                     num_auxiliary_polys: int, lookup_challenges) -> list[int]:
+    """The quotient's alphas, drawn after the constraints' values at
+    simulated openings are observed."""
+    alphas_prime = challenger.get_n_challenges(config.num_challenges)
+    pow_degree = max(2, stark.constraint_degree() + 1)
+    poly_evals = get_dummy_polys(challenger, stark.COLUMNS, num_auxiliary_polys, pow_degree)
+    zeta_prime = challenger.get_extension_challenge(2)
+    constraints = compute_eval_vanishing_poly(
+        stark, poly_evals, public_inputs, alphas_prime, zeta_prime, degree_bits,
+        lookup_challenges=lookup_challenges,
+        num_lookup_columns=stark.num_lookup_helper_columns(config),
+    )
+    challenger.observe_extension_elements(constraints)
+    return challenger.get_n_challenges(config.num_challenges)
+
+
+def get_challenges(stark, proof_with_pis: StarkProofWithPublicInputs, config,
+                   verifier_circuit_fri_params=None) -> StarkProofChallenges:
+    if verifier_circuit_fri_params is not None:
+        raise NotImplementedError("STARK recursion's FRI parameters are not ported yet")
+    proof = proof_with_pis.proof
+    public_inputs = proof_with_pis.public_inputs
+    degree_bits = proof.recover_degree_bits(config)
+
+    challenger = Challenger()
+    challenger.observe_elements(public_inputs)
+    config.observe(challenger)
+    challenger.observe_cap(proof.trace_cap)
+
+    lookup_challenge_set = lookup_challenges = None
+    if stark.uses_lookups():
+        lookup_challenge_set = get_grand_product_challenge_set(challenger,
+                                                               config.num_challenges)
+        lookup_challenges = [ch.beta for ch in lookup_challenge_set.challenges]
+    if proof.auxiliary_polys_cap is not None:
+        challenger.observe_cap(proof.auxiliary_polys_cap)
+
+    stark_alphas = bind_constraints(challenger, stark, config, public_inputs, degree_bits,
+                                    len(proof.openings.auxiliary_polys or []),
+                                    lookup_challenges)
+    if proof.quotient_polys_cap is not None:
+        challenger.observe_cap(proof.quotient_polys_cap)
+    stark_zeta = challenger.get_extension_challenge(2)
+
+    for batch in proof.openings.to_fri_openings().batches:
+        challenger.observe_extension_elements(batch.values)
+
+    return StarkProofChallenges(
+        lookup_challenge_set=lookup_challenge_set,
+        stark_alphas=stark_alphas,
+        stark_zeta=stark_zeta,
+        fri_challenges=fri_challenges(
+            challenger,
+            proof.opening_proof.commit_phase_merkle_caps,
+            proof.opening_proof.final_poly,
+            proof.opening_proof.pow_witness,
+            degree_bits,
+            config.fri_config,
+        ),
+    )

@@ -1,0 +1,242 @@
+"""The STARK prover (reference starky/src/prover.rs:40-470; the reference
+package's starky/prover.py).
+
+Every round runs on tensors of one device (CUDA unless the caller asks for
+another):
+
+  compute trace commitment      iFFT, ×2^rate coset LDE, Merkle tree (K2/K3, K4)
+  auxiliary commitment          logUp helper and Z columns (batch inverses, a
+                                modular prefix sum), then as above
+  compute quotient polys        every constraint over the 2^(degree bits +
+                                qd bits)-point coset (`TorchBaseOps`),
+                                α-combined, times Z_H^-1, one coset iFFT (K3)
+  compute quotient commitment   coset LDE and Merkle tree
+  openings, FRI opening proof   fri/oracle.py, fri/prover.py (K2-K5)
+
+The transcript is the host `Challenger` up to FRI; the FRI argument takes
+the port's fused device transcript whenever it has a fold step, and the
+host one otherwise, with the same bytes. The prover draws no randomness.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from plonky2_torch import resolve_device
+from plonky2_torch.field import goldilocks as g
+from plonky2_torch.field import ntt
+from plonky2_torch.field import scalar as fs
+from plonky2_torch.fri.oracle import PolynomialBatch, _as_tensor, eval_polys_at
+from plonky2_torch.gates.ops import TorchBaseOps
+from plonky2_torch.iop.challenger import Challenger
+from plonky2_torch.plonk.prover import _ext_list
+from plonky2_torch.starky.constraint_consumer import ConstraintConsumer
+from plonky2_torch.starky.evaluation_frame import StarkFrame
+from plonky2_torch.starky.get_challenges import bind_constraints
+from plonky2_torch.starky.lookup import (
+    LookupCheckVars,
+    get_grand_product_challenge_set,
+    lookup_helper_columns,
+)
+from plonky2_torch.starky.proof import StarkOpeningSet, StarkProof, StarkProofWithPublicInputs
+from plonky2_torch.starky.vanishing import eval_vanishing_poly
+from plonky2_torch.util import TimingTree, log2_strict
+
+
+def prove(stark, config, trace_poly_values, public_inputs, device=None,
+          timing: TimingTree | None = None,
+          verifier_circuit_fri_params=None) -> StarkProofWithPublicInputs:
+    """Prove that `trace_poly_values` ([COLUMNS, n] u64 values, or that
+    matrix as an int64 tensor already on `device`) satisfies `stark` with
+    `public_inputs`, on `device` (CUDA unless the caller asks for another)."""
+    if verifier_circuit_fri_params is not None:
+        raise NotImplementedError("STARK recursion's FRI parameters are not ported yet")
+    device = resolve_device(device)
+    timing = timing or TimingTree("starky prove")
+    trace = _as_tensor(trace_poly_values, device)
+    degree_bits = log2_strict(trace.shape[-1])
+    fri_params = config.fri_params(degree_bits)
+    rate_bits = config.fri_config.rate_bits
+    cap_height = config.fri_config.cap_height
+    if fri_params.total_arities() > degree_bits + rate_bits - cap_height:
+        raise ValueError("the FRI arities fold below the Merkle cap")
+
+    with timing.scope("compute trace commitment"):
+        trace_commitment = PolynomialBatch.from_values(trace, rate_bits, False, cap_height)
+
+    challenger = Challenger()
+    challenger.observe_elements(public_inputs)
+    config.observe(challenger)
+    challenger.observe_cap(trace_commitment.merkle_tree.cap)
+
+    return prove_with_commitment(stark, config, trace, trace_commitment, challenger,
+                                 public_inputs, timing)
+
+
+def prove_with_commitment(stark, config, trace, trace_commitment, challenger,
+                          public_inputs, timing: TimingTree | None = None,
+                          ctl_data=None, ctl_challenges=None) -> StarkProofWithPublicInputs:
+    """The rounds after the trace commitment. trace: [COLUMNS, n] int64
+    tensor on the commitment's device; the challenger has observed the
+    public inputs, the config and the trace cap."""
+    if ctl_data is not None or ctl_challenges is not None:
+        raise NotImplementedError("cross-table lookups are not ported yet")
+    timing = timing or TimingTree("starky prove")
+    degree = trace.shape[-1]
+    degree_bits = log2_strict(degree)
+    fri_params = config.fri_params(degree_bits)
+    rate_bits = config.fri_config.rate_bits
+    cap_height = config.fri_config.cap_height
+    constraint_degree = stark.constraint_degree()
+    if constraint_degree > (1 << rate_bits) + 1:
+        raise ValueError("The degree of the Stark constraints must be <= blowup_factor + 1")
+
+    lookup_challenges = None
+    auxiliary_polys_commitment = None
+    num_auxiliary_polys = 0
+    if stark.uses_lookups():
+        challenge_set = get_grand_product_challenge_set(challenger, config.num_challenges)
+        lookup_challenges = [ch.beta for ch in challenge_set.challenges]
+        # the helper columns are made inside the commitment's scope, so the
+        # scopes cover the whole prove
+        with timing.scope("compute auxiliary polynomials commitment"):
+            aux_cols = [col for lookup in stark.lookups() for challenge in lookup_challenges
+                        for col in lookup_helper_columns(lookup, trace, challenge,
+                                                         constraint_degree)]
+            num_auxiliary_polys = len(aux_cols)
+            auxiliary_polys_commitment = PolynomialBatch.from_values(
+                torch.stack(aux_cols), rate_bits, False, cap_height)
+        challenger.observe_cap(auxiliary_polys_commitment.merkle_tree.cap)
+
+    alphas = bind_constraints(challenger, stark, config, public_inputs, degree_bits,
+                              num_auxiliary_polys, lookup_challenges)
+
+    with timing.scope("compute quotient polys"):
+        quotient_chunks = compute_quotient_polys(
+            stark, config, trace_commitment, public_inputs, alphas, degree_bits,
+            auxiliary_polys_commitment, lookup_challenges)
+
+    with timing.scope("compute quotient commitment"):
+        quotient_commitment = PolynomialBatch.from_coeffs(quotient_chunks, rate_bits, False,
+                                                          cap_height)
+    challenger.observe_cap(quotient_commitment.merkle_tree.cap)
+
+    zeta = challenger.get_extension_challenge(2)
+    if fs.ext_exp(zeta, degree) == fs.ext_one(2):
+        raise ValueError("Opening point is in the subgroup.")
+
+    g_root = fs.primitive_root_of_unity(degree_bits)
+    with timing.scope("openings"):
+        openings = opening_set(zeta, g_root, trace_commitment, quotient_commitment,
+                               auxiliary_polys_commitment)
+    for batch in openings.to_fri_openings().batches:
+        challenger.observe_extension_elements(batch.values)
+
+    instance = stark.fri_instance(zeta, g_root, 0, [], config)
+    oracles = [trace_commitment]
+    if auxiliary_polys_commitment is not None:
+        oracles.append(auxiliary_polys_commitment)
+    oracles.append(quotient_commitment)
+    with timing.scope("FRI opening proof"):
+        opening_proof = PolynomialBatch.prove_openings(instance, oracles, challenger,
+                                                       fri_params)
+
+    proof = StarkProof(
+        trace_cap=trace_commitment.merkle_tree.cap,
+        auxiliary_polys_cap=(auxiliary_polys_commitment.merkle_tree.cap
+                             if auxiliary_polys_commitment is not None else None),
+        quotient_polys_cap=quotient_commitment.merkle_tree.cap,
+        openings=openings,
+        opening_proof=opening_proof,
+    )
+    return StarkProofWithPublicInputs(proof=proof, public_inputs=list(public_inputs))
+
+
+# -- the quotient ----------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def quotient_tables(degree_bits: int, qd_bits: int, device: str) -> dict:
+    """On the quotient coset's points x = shift · v^j (v of order
+    Q = 2^(degree_bits + qd_bits)): Z_H(x)^-1 (period 2^qd_bits), the
+    Lagrange selectors of the first and the last row LDE'd onto the coset,
+    and x - g^-1; made once per shape and device."""
+    n = 1 << degree_bits
+    shift = fs.MULTIPLICATIVE_GROUP_GENERATOR
+    v = fs.primitive_root_of_unity(qd_bits + degree_bits)
+    xs = g.mul_scalar(g.powers(v, n << qd_bits, device), shift)
+    u = fs.exp(v, n)
+    z_h_vals = [fs.sub(fs.mul(fs.exp(shift, n), fs.exp(u, j)), 1) for j in range(1 << qd_bits)]
+    z_h_inv = g.tensor(fs.batch_inverse(z_h_vals), device).repeat(n)
+    sel = torch.zeros((2, n), dtype=torch.int64, device=device)
+    sel[0, 0] = 1
+    sel[1, n - 1] = 1
+    sel_lde = ntt.coset_lde(ntt.ifft(sel), qd_bits)  # [2, Q]
+    last = fs.inverse(fs.primitive_root_of_unity(degree_bits))
+    return {"z_h_inv": z_h_inv, "l_first": sel_lde[0], "l_last": sel_lde[1],
+            "z_last": g.sub(xs, g.scalar_tensor(last, device))}
+
+
+def compute_quotient_polys(stark, config, trace_commitment, public_inputs, alphas,
+                           degree_bits: int, auxiliary_polys_commitment=None,
+                           lookup_challenges=None) -> torch.Tensor:
+    """The quotient chunks' coefficients [num_challenges · qdf, n]: every
+    constraint over the quotient coset, α-combined per challenge, divided by
+    Z_H and taken back by one coset iFFT (reference prover.rs:488-670)."""
+    qdf = stark.quotient_degree_factor()
+    qd_bits = (qdf - 1).bit_length()
+    rate_bits = config.fri_config.rate_bits
+    if qd_bits > rate_bits:
+        raise ValueError("Having constraints of degree higher than the rate is not supported yet.")
+    device = trace_commitment.device
+    n = 1 << degree_bits
+    Q = n << qd_bits
+    step = 1 << (rate_bits - qd_bits)
+    next_step = 1 << qd_bits  # g is 2^qd_bits steps of the Q-point coset
+    t = quotient_tables(degree_bits, qd_bits, str(device))
+
+    ops = TorchBaseOps(device)
+    trace_q = trace_commitment.lde[:, ::step]
+    frame = StarkFrame(list(trace_q), [torch.roll(c, -next_step) for c in trace_q],
+                       [g.scalar_tensor(pi, device) for pi in public_inputs])
+    consumer = ConstraintConsumer(ops, [g.scalar_tensor(a, device) for a in alphas],
+                                  t["z_last"], t["l_first"], t["l_last"])
+    lookup_vars = None
+    if stark.uses_lookups():
+        aux_q = auxiliary_polys_commitment.lde[:, ::step]
+        lookup_vars = LookupCheckVars(list(aux_q), [torch.roll(c, -next_step) for c in aux_q],
+                                      [g.scalar_tensor(c, device) for c in lookup_challenges])
+    eval_vanishing_poly(ops, stark, frame, consumer, lookup_vars)
+    evals = torch.stack([torch.broadcast_to(a, (Q,)) for a in consumer.accumulators()])
+    return ntt.coset_ifft(g.mul(evals, t["z_h_inv"][None])).reshape(-1, n)
+
+
+# -- openings --------------------------------------------------------------------
+
+def opening_set(zeta, g_root, trace_commitment, quotient_commitment,
+                auxiliary_polys_commitment=None) -> StarkOpeningSet:
+    """The trace, auxiliary and quotient polynomials at ζ, and the trace and
+    auxiliary polynomials at g·ζ; one fetch."""
+    zeta_next = fs.ext_scalar_mul(g_root, zeta)
+    shifted = [trace_commitment.polynomials]
+    if auxiliary_polys_commitment is not None:
+        shifted.append(auxiliary_polys_commitment.polynomials)
+    shifted = torch.cat(shifted)
+    at_z = eval_polys_at(torch.cat([shifted, quotient_commitment.polynomials]), zeta)
+    at_next = eval_polys_at(shifted, zeta_next)
+    values = _ext_list(torch.cat([at_z[0], at_next[0]]), torch.cat([at_z[1], at_next[1]]))
+    num_trace = trace_commitment.polynomials.shape[0]
+    num_shifted = shifted.shape[0]
+    at_z, at_next = values[:len(values) - num_shifted], values[len(values) - num_shifted:]
+    aux = aux_next = None
+    if auxiliary_polys_commitment is not None:
+        aux, aux_next = at_z[num_trace:num_shifted], at_next[num_trace:]
+    return StarkOpeningSet(
+        local_values=at_z[:num_trace],
+        next_values=at_next[:num_trace],
+        auxiliary_polys=aux,
+        auxiliary_polys_next=aux_next,
+        ctl_zs_first=None,
+        quotient_polys=at_z[num_shifted:],
+    )

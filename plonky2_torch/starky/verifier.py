@@ -1,0 +1,86 @@
+"""The STARK verifier on the host (reference starky/src/verifier.rs:30-215;
+the reference package's starky/verifier.py), on the port's FRI verifier."""
+
+from __future__ import annotations
+
+from plonky2_torch.field import scalar as fs
+from plonky2_torch.fri.verifier import verify_fri_proof
+from plonky2_torch.starky.get_challenges import get_challenges
+from plonky2_torch.starky.proof import StarkProofWithPublicInputs
+from plonky2_torch.starky.vanishing import compute_eval_vanishing_poly
+
+
+def validate_proof_shape(stark, proof, public_inputs, config) -> None:
+    if len(public_inputs) != stark.PUBLIC_INPUTS:
+        raise ValueError("Wrong number of public inputs")
+    o = proof.openings
+    if len(o.local_values) != stark.COLUMNS or len(o.next_values) != stark.COLUMNS:
+        raise ValueError("Wrong number of trace openings")
+    num_aux = stark.num_lookup_helper_columns(config)
+    if len(o.auxiliary_polys or []) != num_aux or len(o.auxiliary_polys_next or []) != num_aux:
+        raise ValueError("Wrong number of auxiliary openings")
+    if len(o.quotient_polys or []) != stark.num_quotient_polys(config):
+        raise ValueError("Wrong number of quotient openings")
+    cap_len = 1 << config.fri_config.cap_height
+    for cap in (proof.trace_cap, proof.quotient_polys_cap):
+        if cap is not None and len(cap) != cap_len:
+            raise ValueError("Wrong Merkle cap length")
+
+
+def verify_stark_proof(stark, proof_with_pis: StarkProofWithPublicInputs, config,
+                       verifier_circuit_fri_params=None) -> None:
+    """Raises ValueError where the proof does not verify."""
+    if len(proof_with_pis.public_inputs) != stark.PUBLIC_INPUTS:
+        raise ValueError("Wrong number of public inputs")
+    challenges = get_challenges(stark, proof_with_pis, config, verifier_circuit_fri_params)
+    verify_stark_proof_with_challenges(stark, proof_with_pis.proof, challenges,
+                                       proof_with_pis.public_inputs, config)
+
+
+def verify_stark_proof_with_challenges(stark, proof, challenges, public_inputs, config,
+                                       ctl_vars=None) -> None:
+    if ctl_vars is not None:
+        raise NotImplementedError("cross-table lookups are not ported yet")
+    validate_proof_shape(stark, proof, public_inputs, config)
+    degree_bits = proof.recover_degree_bits(config)
+
+    lookup_challenges = None
+    if stark.uses_lookups():
+        lookup_challenges = [ch.beta for ch in challenges.lookup_challenge_set.challenges]
+    vanishing_polys_zeta = compute_eval_vanishing_poly(
+        stark, proof.openings, public_inputs, challenges.stark_alphas,
+        challenges.stark_zeta, degree_bits,
+        lookup_challenges=lookup_challenges,
+        num_lookup_columns=stark.num_lookup_helper_columns(config),
+    )
+
+    # vanishing(ζ) == Z_H(ζ) · t(ζ) per challenge
+    zeta_pow_deg = fs.ext_exp(challenges.stark_zeta, 1 << degree_bits)
+    z_h_zeta = fs.ext_sub(zeta_pow_deg, fs.ext_one(2))
+    qdf = stark.quotient_degree_factor()
+    quotient_polys = proof.openings.quotient_polys or []
+    for i in range(config.num_challenges):
+        chunk = quotient_polys[i * qdf:(i + 1) * qdf]
+        t_zeta = fs.ext_zero(2)
+        for c in reversed(chunk):
+            t_zeta = fs.ext_add(fs.ext_mul(t_zeta, zeta_pow_deg), c)
+        if vanishing_polys_zeta[i] != fs.ext_mul(z_h_zeta, t_zeta):
+            raise ValueError(
+                "Mismatch between evaluation and opening of quotient polynomial"
+            )
+
+    merkle_caps = [proof.trace_cap]
+    if proof.auxiliary_polys_cap is not None:
+        merkle_caps.append(proof.auxiliary_polys_cap)
+    if proof.quotient_polys_cap is not None:
+        merkle_caps.append(proof.quotient_polys_cap)
+
+    g_root = fs.primitive_root_of_unity(degree_bits)
+    verify_fri_proof(
+        stark.fri_instance(challenges.stark_zeta, g_root, 0, [], config),
+        proof.openings.to_fri_openings(),
+        challenges.fri_challenges,
+        merkle_caps,
+        proof.opening_proof,
+        config.fri_params(degree_bits),
+    )

@@ -327,3 +327,57 @@ def test_bench_recursion_chain_on_the_card_gives_the_fixture(dev):
                         ("proof", proof_to_bytes(proof))):
         with open(os.path.join(root, "fixtures", f"bench_recursion.{suffix}.bin"), "rb") as f:
             assert got == f.read(), suffix
+
+
+@pytest.mark.parametrize("width", [2, 4])
+def test_k4_narrow_tree_over_2_21_leaves_matches_plain(dev, width):
+    """The Starky trace, auxiliary and quotient trees at 2^20 rows: a natural
+    tree of 2^21 hash_or_noop leaves of width 2 (or 4), cap height 4."""
+    leaves = _rand(dev, (width, 1 << 21), width)
+    want = kp.merkle_tree_plain(leaves, 4, True)
+    got = kp.merkle_tree(leaves, 4, True)
+    assert len(got) == len(want) == 18 and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("name,log_rows", [("fibonacci", 5), ("permutation", 5),
+                                           ("fibonacci", 7), ("lookup", 5), ("lookup", 7)])
+def test_starky_prove_on_the_card_gives_the_reference_bytes(dev, name, log_rows):
+    """The Starky prover with the device left to its default: the fixtures
+    at 2^5 and the reference's committed proofs, through K2, K4 and K5's
+    chunk grind (no FRI fold step at 2^5: the host transcript) or its
+    duplexes and device grind (one fold step at 2^7: the fused one)."""
+    import os
+
+    from plonky2_torch import ops
+    from plonky2_torch.starky import prover
+    from plonky2_torch.starky.config import StarkConfig
+    from plonky2_torch.starky.fibonacci_stark import FibonacciStark, fibonacci
+    from plonky2_torch.starky.serialization import stark_proof_to_bytes
+    from plonky2_torch.starky.test_starks import LookupTestStark, PermutationStark
+    from plonky2_torch.starky.verifier import verify_stark_proof
+
+    n = 1 << log_rows
+    if name == "fibonacci":
+        stark, pis = FibonacciStark(n), [0, 1, fibonacci(n - 1, 0, 1)]
+        trace = stark.generate_trace(0, 1)
+    elif name == "permutation":
+        stark, pis = PermutationStark(n), [3, 9]
+        trace = stark.generate_trace(*pis)
+    else:
+        stark, pis = LookupTestStark(n), []
+        trace = stark.generate_trace()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ref = (os.path.join(root, "fixtures", f"starky_{name}.proof.bin")
+           if log_rows == 5 and name != "lookup"
+           else os.path.join(root, "plonky2_torch", "data", f"starky_{name}{log_rows}.proof.bin"))
+    config = StarkConfig.standard_fast_config()
+    ops.reset_launches()
+    proof = prover.prove(stark, config, trace, pis)
+    assert ops.K2.launches and ops.K4.launches
+    if log_rows == 5:
+        assert ops.K5_CHUNK.launches and not ops.K5_DEVICE.launches
+    else:
+        assert ops.K5_DEVICE.launches == 1 and ops.K5.batch1
+    with open(ref, "rb") as f:
+        assert stark_proof_to_bytes(proof, config) == f.read()
+    verify_stark_proof(stark, proof, config)

@@ -20,9 +20,19 @@ does) to
   plonky2_torch/data/inner4.verifier.bin    verifier_data_to_bytes
   plonky2_torch/data/inner4.proof.bin       proof_to_bytes
 so that a test holds the port's build and prove of it to the reference's
-without a reference build (~25 s). Not collected by pytest;
-`tests/test_torch_plonk.py`, `tests/test_torch_witness.py` and
-`tests/test_torch_builder.py` hold the files equal to what this makes.
+without a reference build (~25 s), and proves three Starky statements under
+`StarkConfig.standard_fast_config()` to
+  plonky2_torch/data/starky_fibonacci7.proof.bin  FibonacciStark(2^7), public
+                                                   inputs [0, 1, fibonacci(127, 0, 1)]
+                                                   (one FRI fold step)
+  plonky2_torch/data/starky_lookup{5,7}.proof.bin LookupTestStark(2^5), (2^7),
+                                                   its own generate_trace()
+(stark_proof_to_bytes; ~90 s for the first, most of it compiling), so that
+a test holds the port's Starky proves to the reference's without calling the
+reference prover. `--starky` writes these three alone. Not collected by
+pytest; `tests/test_torch_plonk.py`, `tests/test_torch_witness.py`,
+`tests/test_torch_builder.py` and `tests/test_torch_starky.py` hold the
+files equal to what this makes.
 """
 
 import os
@@ -121,10 +131,51 @@ def inner_data(log2_size: int = 4) -> tuple[bytes, bytes]:
     return verifier_data_to_bytes(verifier_only, common), proof_to_bytes(proof)
 
 
+STARKY_CASES = (("fibonacci", 7), ("lookup", 5), ("lookup", 7))
+
+
+def starky_data(name: str, log_rows: int) -> bytes:
+    """The reference's proof bytes of FibonacciStark or LookupTestStark at
+    2^log_rows rows."""
+    from plonky2_tpu.starky.config import StarkConfig
+    from plonky2_tpu.starky.fibonacci_stark import FibonacciStark, fibonacci
+    from plonky2_tpu.starky.prover import prove
+    from plonky2_tpu.starky.serialization import stark_proof_to_bytes
+    from plonky2_tpu.starky.test_starks import LookupTestStark
+    from plonky2_tpu.starky.verifier import verify_stark_proof
+
+    n = 1 << log_rows
+    config = StarkConfig.standard_fast_config()
+    if name == "fibonacci":
+        stark = FibonacciStark(n)
+        pis = [0, 1, fibonacci(n - 1, 0, 1)]
+        trace = stark.generate_trace(pis[0], pis[1])
+    else:
+        stark = LookupTestStark(n)
+        pis = []
+        trace = stark.generate_trace()
+    proof = prove(stark, config, trace, pis)
+    verify_stark_proof(stark, proof, config)
+    return stark_proof_to_bytes(proof, config)
+
+
+def write_starky_data() -> None:
+    os.makedirs(DATA, exist_ok=True)
+    for name, log_rows in STARKY_CASES:
+        blob = starky_data(name, log_rows)
+        with open(os.path.join(DATA, f"starky_{name}{log_rows}.proof.bin"), "wb") as f:
+            f.write(blob)
+        print(f"wrote starky_{name}{log_rows}: proof {len(blob)} bytes")
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, ROOT)
     import conftest  # noqa: F401  (JAX on the CPU, x64)
+
+    if sys.argv[1:] == ["--starky"]:
+        write_starky_data()
+        return 0
 
     prover_bytes, _, witness, public_inputs, pi_hash, pw = factorial_data()
     os.makedirs(DATA, exist_ok=True)
@@ -149,6 +200,7 @@ def main() -> int:
             f.write(blob)
     print(f"wrote inner4: verifier data {len(verifier_bytes)} bytes, proof "
           f"{len(proof_bytes)} bytes")
+    write_starky_data()
     return 0
 
 
