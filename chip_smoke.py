@@ -72,7 +72,15 @@ and read just after, each the reference's sha256, one synchronised for the
 split by the reference's scope names and (Fibonacci's) one profiled, each
 proof verified; then K3's x2 LDE, iFFTs and rate-0 coset FFT, K4's width-2 and
 width-4 trees over 2^21 leaves and K5's device grind at the Starky
-transcript's state against their plain versions, timed); runs `commit_and_open`
+transcript's state against their plain versions, timed); runs the cyclic
+phase (`cyclic_phase`: the IVC hash chain of `examples/cyclic_recursion.py`,
+the fixpoint built on the card to the reference's verifier bytes, the
+cyclic circuit built once cold and BUILD_REPEATS times timed with its
+split by scope and its verifier bytes the reference's, the base proof and
+CYCLIC_LAYERS self-verifying layers each the reference's sha256, checked by
+`check_cyclic_proof_verifier_data`, the port's verifier and the host
+`hash_no_pad` chain, one layer synchronised for the split and one
+profiled); runs `commit_and_open`
 at the bench_recursion middle-circuit shapes (degree 2^13, oracles of
 85/135/20/16 polynomials; its FRI proof on the fused path) with the counts
 set to 0 just before and read just after each of its runs and its pinned
@@ -99,8 +107,8 @@ versions) and requires identical proof bytes. The line before the last is
 the `kernels` JSON object (launches: the headline prove's, the chunk
 grind's from the host-path prove; beside them the inner build's and
 prove's, the middle and outer builds', the outer prove's and the two 2^20
-Starky proves', and the
-headline's and prove_many's numbers), the last line the ok JSON object. Every timing line names the
+Starky proves', the cyclic build's and
+a cyclic layer's, and the headline's and prove_many's numbers), the last line the ok JSON object. Every timing line names the
 card and its power limit. Any failed check exits non-zero and prints no
 result; so does a run without CUDA, and a run of the script alone, without
 the `plonky2_torch/` package beside it. Imports nothing of JAX.
@@ -173,6 +181,15 @@ STARKY_LOG_ROWS = 20
 FIB20_PROOF_SHA256 = "d0a5c168846f3ac76182eb10e06a66332b41fe3333db9d3e8757a68b103d47c2"
 LOOKUP20_PROOF_SHA256 = "165cc9881eed695f44a9a3fd7a4e89bc2c5c56d7f2a6ac87bb342726b9df588d"
 STARKY_PROVES = 3
+# the IVC hash chain of examples/cyclic_recursion.py under seed 2026
+# (tests/reference_prove_cyclic.py, the reference's): the fixpoint's and the
+# cyclic circuit's verifier bytes, then the base proof and each layer's
+CYCLIC_FIXPOINT_VERIFIER_SHA256 = "22dbdb6c67717335abdd12cb353e1a5c62054df1ec61f7c48d581f355a51fb9a"
+CYCLIC_VERIFIER_SHA256 = "ac6d7e1aa7705efb8866bd781540da5851d781be8b780c6d0cf9bb8471028920"
+CYCLIC_PROOF_SHA256S = ("ca4aa96195c765e13e8a9ad7bc04cef39a83bdd39afce6cb8abac7b8cb030e51",
+                        "9f26fbee1fb26bb2cf96f0f3107c2b93eab2efe8aee1b659e18d0e04f626f48d",
+                        "7822ed40f147fcce688714c4fdf9bc7316918cefef9371dcd227ccf15812512b")
+CYCLIC_LAYERS = 2
 
 
 def same_generators(a: list, b: list) -> bool:
@@ -685,6 +702,173 @@ def starky_phase(torch, dev, card, failures, root) -> dict:
     out["shapes"] = shape_results
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"starky phase ({card}): {out['phase_s']:.1f} s")
+    return out
+
+
+def cyclic_phase(torch, dev, card, failures) -> dict:
+    """The IVC hash chain (`examples/cyclic_recursion.py`) on the card: the
+    fixpoint's three circuits built (its verifier bytes the reference's);
+    the cyclic circuit built once cold and BUILD_REPEATS times timed, each
+    under seed 2026 with the counts set to 0 just before and read just
+    after, split by scope (the dummy circuit's build, its prove, the
+    in-circuit verifier, the build's own scopes), its verifier bytes the
+    reference's; the base proof (`cyclic_base_proof` and the prove) and
+    CYCLIC_LAYERS self-verifying layers, each under seed 2026 with the
+    counts set to 0 just before and read just after, each the reference's
+    sha256, checked by `check_cyclic_proof_verifier_data` and the port's
+    verifier, its counter and tip held to the host `hash_no_pad`; then one
+    layer synchronised at each phase for the split and one profiled.
+    Returns what the kernels line and the summary take; appends to
+    `failures`."""
+    from plonky2_torch import ops
+    from plonky2_torch.examples import cyclic_recursion as ivc
+    from plonky2_torch.hash.poseidon import hash_no_pad
+    from plonky2_torch.plonk import prover as tp
+    from plonky2_torch.plonk.circuit_serialization import verifier_data_to_bytes
+    from plonky2_torch.plonk.serialization import proof_to_bytes
+    from plonky2_torch.recursion.cyclic_recursion import check_cyclic_proof_verifier_data
+    from plonky2_torch.util import TimingTree
+    from plonky2_torch.util import rng as prover_rng
+
+    def seeded(run):
+        prover_rng.seed(SEED)
+        try:
+            return run()
+        finally:
+            prover_rng.seed(None)
+
+    def vd_sha(data) -> str:
+        return hashlib.sha256(verifier_data_to_bytes(data.verifier_only, data.common)).hexdigest()
+
+    t_phase = time.perf_counter()
+    timing = TimingTree("fixpoint", sync=torch.cuda.synchronize)
+    t0 = time.perf_counter()
+    fix = ivc.common_data_for_recursion(dev, timing)
+    fixpoint_s = time.perf_counter() - t0
+    fix_sha = vd_sha(fix)
+    print(f"cyclic fixpoint (the empty circuit and two recursion levels, the last of degree "
+          f"2^{fix.common.degree_bits}, built on the card; {card}): {fixpoint_s:.3f} s ("
+          + ", ".join(f"{k} {v:.3f} s" for k, v in timing.split().items())
+          + f"); verifier sha256 {fix_sha} (the reference's: "
+          f"{CYCLIC_FIXPOINT_VERIFIER_SHA256})")
+    if fix_sha != CYCLIC_FIXPOINT_VERIFIER_SHA256:
+        failures.append(f"the cyclic fixpoint's verifier bytes are {fix_sha}, not the "
+                        "reference's")
+    common = fix.common
+
+    builds = []
+    for _ in range(1 + BUILD_REPEATS):  # the first build is cold
+        timing = TimingTree("build", sync=torch.cuda.synchronize)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        circuit = seeded(lambda: ivc.cyclic_circuit(common, dev, timing))
+        torch.cuda.synchronize()
+        builds.append((time.perf_counter() - t0, timing.split()))
+        build_launches = ops.launch_counts()
+        cyclic_sha = vd_sha(circuit.data)
+        if cyclic_sha != CYCLIC_VERIFIER_SHA256:
+            failures.append(f"the cyclic circuit's verifier bytes are {cyclic_sha}, not the "
+                            "reference's")
+    data = circuit.data
+    build_wall, build_split, build_outside = median_run(builds[1:])
+    print(f"cyclic circuit build (degree 2^{data.common.degree_bits}, "
+          f"{data.common.num_public_inputs} public inputs, {len(data.prover_only.generators)} "
+          f"generators, a 2^{common.degree_bits} dummy circuit built and proved inside; {card}): "
+          f"{build_wall:.4f} s median of {[round(w, 4) for w, _ in builds[1:]]} (cold "
+          f"{builds[0][0]:.4f} s); verifier sha256 {cyclic_sha} (the reference's: "
+          f"{CYCLIC_VERIFIER_SHA256}); launches {build_launches}")
+    for k, v in build_split.items():
+        print(f"cyclic circuit build split, the median run ({card}): {k} {v:.4f} s")
+    print(f"cyclic circuit build split, the median run ({card}): outside the scopes "
+          f"{build_outside:.4f} s")
+    for label, n in build_launches.items():
+        if n == 0 and label != ops.K5_CHUNK.label:  # the host path's grind
+            failures.append(f"{label} was not launched in the cyclic circuit's build")
+
+    def pinned(proof, layer, what) -> str:
+        digest = hashlib.sha256(proof_to_bytes(proof)).hexdigest()
+        if digest != CYCLIC_PROOF_SHA256S[layer]:
+            failures.append(f"{what}: the cyclic proof {layer}'s sha256 is {digest}, not "
+                            f"{CYCLIC_PROOF_SHA256S[layer]}")
+        return digest
+
+    proofs, layers = [], []
+    for layer in range(CYCLIC_LAYERS + 1):
+        name = "base" if layer == 0 else f"layer {layer}"
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        if layer == 0:
+            proof = seeded(lambda: ivc.base_proof(circuit, device=dev))
+        else:
+            proof = seeded(lambda: ivc.step(circuit, proofs[-1], device=dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        duplexes = ops.K5.batch1
+        digest = pinned(proof, layer, name)
+        if tp._LAST_TRANSCRIPT != "fused":
+            failures.append(f"the cyclic {name} prove took the {tp._LAST_TRANSCRIPT} path")
+        for label, n in launches.items():
+            if n == 0 and label != ops.K5_CHUNK.label:
+                failures.append(f"{label} was not launched on the cyclic {name} prove")
+        t0 = time.perf_counter()
+        try:
+            check_cyclic_proof_verifier_data(proof, data.verifier_only, data.common)
+            key_ok = True
+        except ValueError as e:
+            key_ok = False
+            failures.append(f"the cyclic {name} proof's verifier data: {e}")
+        t1 = time.perf_counter()
+        try:
+            data.verify(proof)
+            accepted = True
+        except ValueError as e:
+            accepted = False
+            failures.append(f"the port's verifier rejects the cyclic {name} proof: {e}")
+        verify_s = time.perf_counter() - t1
+        check_s = t1 - t0
+        tip = list(ivc.INITIAL)
+        for _ in range(layer + 1):
+            tip = hash_no_pad(tip)
+        pis = [int(v) for v in proof.public_inputs]
+        chain_ok = pis[ivc.COUNTER] == layer + 1 and pis[4:8] == tip
+        if not chain_ok:
+            failures.append(f"the cyclic {name} proof's counter {pis[ivc.COUNTER]} and tip "
+                            f"{pis[4:8]} are not {layer + 1} and {tip}")
+        plan = data.prover_only.cache("host").get("last_plan")
+        fallbacks = "all (the worklist ran)" if plan is None else plan.fallbacks
+        print(f"cyclic {name} ({'the base proof built and proved, then ' if layer == 0 else ''}"
+              f"witness + fused prove; {card}): {wall:.4f} s, sha256 {digest} (the "
+              f"reference's: {CYCLIC_PROOF_SHA256S[layer]}); launches {launches} (K5 permutes "
+              f"on one state: {duplexes}); generators run in Python: {fallbacks}; counter "
+              f"{pis[ivc.COUNTER]}, tip = hash_no_pad^{layer + 1}(initial): {chain_ok}; "
+              f"check_cyclic_proof_verifier_data {check_s:.4f} s, passed: {key_ok}; the "
+              f"port's verifier {verify_s:.3f} s, accepted: {accepted}")
+        if plan is None or set(plan.fallbacks) != {"DummyProofGenerator"}:
+            failures.append(f"the cyclic {name} prove's witness ran {fallbacks} in Python")
+        proofs.append(proof)
+        layers.append(dict(wall_s=wall, sha256=digest, launches=launches, duplexes=duplexes,
+                           verify_s=verify_s, counter=pis[ivc.COUNTER]))
+
+    def layer_one(timing=None):
+        return seeded(lambda: ivc.step(circuit, proofs[0], device=dev, timing=timing))
+
+    timing = TimingTree("prove", sync=torch.cuda.synchronize)
+    t0 = time.perf_counter()
+    pinned(layer_one(timing), 1, "layer 1, synchronised")
+    sync_wall = time.perf_counter() - t0
+    split = timing.split()
+    print(f"cyclic layer 1 prove phases ({card}), s, the device synchronised at each phase's "
+          f"start and end ({sync_wall:.4f} s wall): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f"; outside the phases {sync_wall - sum(split.values()):.4f}")
+    profile_line(torch, layer_one, layers[1]["wall_s"], "cyclic layer 1")
+    out = dict(fixpoint_s=fixpoint_s, fixpoint_sha256=fix_sha, build_wall_s=build_wall,
+               build_cold_s=builds[0][0], build_split=build_split,
+               build_outside_s=build_outside, build_launches=build_launches,
+               cyclic_sha256=cyclic_sha, layers=layers, layer_split=split,
+               layer_sync_wall_s=sync_wall, phase_s=time.perf_counter() - t_phase)
+    print(f"cyclic phase ({card}): {out['phase_s']:.1f} s")
     return out
 
 
@@ -1439,10 +1623,10 @@ def main() -> int:
         except ValueError:
             accepted = False
         host_cache = data.prover_only.cache("host")
-        engine = ("the worklist (the level schedule has a cycle that the input breaks)"
-                  if host_cache["levels"] is None else
-                  f"the native plan, generators run in Python: "
-                  f"{host_cache['witness_plan'].fallbacks or 'none'}")
+        plan = host_cache["last_plan"]
+        engine = ("the worklist" if plan is None else
+                  f"the native plan{'' if host_cache['levels'] else ' given the inputs'}, "
+                  f"generators run in Python: {plan.fallbacks or 'none'}")
         examples[name] = dict(wall_s=wall, verifier_bytes=same_vd, proof=same_proof,
                               accepted=accepted, launches=launches)
         print(f"example {name} ({card}): built and proved in {wall:.3f} s (first calls), "
@@ -1454,6 +1638,9 @@ def main() -> int:
     # the Starky prover: the fixtures, FibonacciStark and LookupTestStark at
     # 2^STARKY_LOG_ROWS rows, and the new kernel shapes of its path
     starky = starky_phase(torch, dev, card, failures, root)
+    # the IVC hash chain: the fixpoint, the cyclic circuit, the base proof
+    # and CYCLIC_LAYERS self-verifying layers
+    cyclic = cyclic_phase(torch, dev, card, failures)
 
     build_phase = dict(build_wall_s=build_wall, build_cold_s=builds[0][0],
                        build_outside_s=build_outside,
@@ -1846,6 +2033,8 @@ def main() -> int:
                         "launches_prove_outer": build_phase["outer_launches"][k.label],
                         "launches_prove_starky": starky["fibonacci"]["launches"][k.label],
                         "launches_prove_starky_lookup": starky["lookup"]["launches"][k.label],
+                        "launches_build_cyclic": cyclic["build_launches"][k.label],
+                        "launches_prove_cyclic_layer": cyclic["layers"][1]["launches"][k.label],
                         **results[k.label], "library_ms": None})
     print(json.dumps({"kernels": kernels, "card": card, "headline": headline,
                       "prove_many": {"K": BATCH_K, "window": BATCH_WINDOW, "threads": batched,
@@ -1858,7 +2047,8 @@ def main() -> int:
                                 "host": host_syncs},
                       "commit_and_open_middle_s": wall_s,
                       "build_phase": build_phase,
-                      "starky": {k: v for k, v in starky.items() if k != "shapes"}}))
+                      "starky": {k: v for k, v in starky.items() if k != "shapes"},
+                      "cyclic": cyclic}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -196,3 +196,7 @@ class ExtensionArithmeticMixin:
         self.add_simple_generator(QuotientGeneratorExtension(num, den, quotient))
         self.connect_extension(self.mul_extension(quotient, den), num)
         return quotient
+
+    def select_ext(self, b, x, y) -> ExtensionTarget:
+        """b ? x : y with a BoolTarget b."""
+        return self.mul_add_extension(self.convert_to_ext(b.target), self.sub_extension(x, y), y)

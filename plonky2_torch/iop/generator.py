@@ -10,7 +10,14 @@ its outputs. Three engines run a circuit's generators, all on the host:
   "python"  the levelized batch engine: each level's generators of one
             class run through their numpy `run_batch` (or `run_once`)
   worklist  the reference's dynamic scheduler, for circuits whose
-            generators do not all declare their outputs
+            generators do not all declare their outputs or whose schedule
+            stalls even given the inputs
+
+A circuit's level schedule is cached on its prover data. Where it has a
+cycle that the inputs break (a boolean input, checked by b · b = b, is
+also the output of that check's generator), the schedule given the input
+representatives is cached instead, one for each set of inputs: the
+reference runs the worklist there.
 
 `ENGINE` (or the `engine` argument of `generate_partial_witness`) picks
 between the first two; nothing falls back from one to the other. Both draw
@@ -18,6 +25,8 @@ the random values in the same order, so they give the same witness.
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 
@@ -197,14 +206,17 @@ class ArithmeticBaseGenerator(SimpleGenerator):
         witness.set_reps(witness.wire_reps(rows, base + 3), out)
 
 
-def _levelize(generators, witness) -> list[list[int]] | None:
+def _levelize(generators, witness, known=None) -> list[list[int]] | None:
     """Static topological levels over partition representatives.
 
     A dependency is internal where some generator produces its
     representative; the others come from the PartialWitness inputs, set
     before level 0. None (the worklist runs) where a generator lacks static
     outputs or the graph stalls. The schedule depends only on the circuit,
-    so callers cache it."""
+    so callers cache it. Where `known` (a mask over representatives) is
+    given, those representatives count as set before level 0 even where a
+    generator produces them: a schedule for these inputs alone, which
+    breaks a cycle such as a boolean input's check b · b = b."""
     n = len(generators)
     out_reps: list[list[int]] = []
     deps_reps: list[list[int]] = []
@@ -221,7 +233,7 @@ def _levelize(generators, witness) -> list[list[int]] | None:
     unseen = [0] * n
     for i, reps in enumerate(deps_reps):
         for r in set(reps):
-            if r in produced:
+            if r in produced and (known is None or not known[r]):
                 unseen[i] += 1
                 waiters.setdefault(r, []).append(i)
     current = [i for i in range(n) if unseen[i] == 0]
@@ -345,15 +357,25 @@ def generate_partial_witness(inputs: PartialWitness, prover_data, common,
     _scatter_inputs(inputs, witness, common.config.num_wires, common.degree)
     if "levels" not in cache:
         cache["levels"] = _levelize(generators, witness)
-    levels = cache["levels"]
+    levels, plan_key = cache["levels"], "witness_plan"
+    if levels is None:
+        # the circuit's schedule has a cycle; the schedule given these
+        # inputs, cached by the set of input representatives
+        input_set = hashlib.sha256(np.flatnonzero(witness.known).tobytes()).hexdigest()
+        key = ("levels given the inputs", input_set)
+        if key not in cache:
+            cache[key] = _levelize(generators, witness, witness.known)
+        levels, plan_key = cache[key], ("witness_plan given the inputs", input_set)
+    cache["last_plan"] = None
     if levels is None:
         _run_worklist(witness, prover_data, generators)
     elif engine == "native":
         from plonky2_torch.iop.witness_plan import WitnessPlan
 
-        if "witness_plan" not in cache:
-            cache["witness_plan"] = WitnessPlan(generators, levels, witness)
-        cache["witness_plan"].run(witness, generators)
+        if plan_key not in cache:
+            cache[plan_key] = WitnessPlan(generators, levels, witness)
+        cache["last_plan"] = cache[plan_key]
+        cache[plan_key].run(witness, generators)
     else:
         _run_levelized(witness, generators, levels)
     return witness

@@ -10,7 +10,10 @@ the circuit digest. `build` commits the constants and sigmas on the build's
 device (CUDA unless the caller asks for another) and keeps that commitment
 for the proves there. The gadgets of the in-circuit verifier are mixed in
 from `gadgets/`: the extension arithmetic, the extension algebra and the
-recursion gadgets. Zero-knowledge configs (ROADMAP item 10) and lookups
+recursion gadgets. A builder of a cyclic circuit carries its own verifier
+data's public-input targets (`verifier_data_public_input`) and the common
+data its build must give (`goal_common_data`, checked at the end of
+`build`). Zero-knowledge configs (ROADMAP item 10) and lookups
 (item 9) are not ported.
 """
 
@@ -78,6 +81,9 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin):
         self.base_arithmetic_results: dict[tuple, Target] = {}
         # op-slot batching: gate id -> {params: (row, next free op)}
         self.current_slots: dict[str, dict[tuple, tuple[int, int]]] = {}
+        # cyclic recursion (reference circuit_builder.rs:429, 1284)
+        self.verifier_data_public_input = None
+        self.goal_common_data = None
 
     # -- targets --------------------------------------------------------------
 
@@ -88,6 +94,14 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin):
 
     def add_virtual_targets(self, n: int) -> list[Target]:
         return [self.add_virtual_target() for _ in range(n)]
+
+    def add_virtual_bool_target_safe(self) -> BoolTarget:
+        b = BoolTarget(self.add_virtual_target())
+        self.assert_bool(b)
+        return b
+
+    def add_virtual_bool_target_unsafe(self) -> BoolTarget:
+        return BoolTarget(self.add_virtual_target())
 
     def add_virtual_hash(self) -> list[Target]:
         return self.add_virtual_targets(4)
@@ -194,6 +208,26 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin):
     def register_public_inputs(self, ts) -> None:
         self.public_inputs.extend(ts)
 
+    def add_virtual_public_input(self) -> Target:
+        t = self.add_virtual_target()
+        self.register_public_input(t)
+        return t
+
+    def add_virtual_public_input_arr(self, n: int) -> list[Target]:
+        ts = self.add_virtual_targets(n)
+        self.register_public_inputs(ts)
+        return ts
+
+    def num_public_inputs(self) -> int:
+        return len(self.public_inputs)
+
+    def connect_hashes(self, a, b) -> None:
+        for x, y in zip(a, b):
+            self.connect(x, y)
+
+    def select_hash(self, b: BoolTarget, h0, h1) -> list[Target]:
+        return [self.select(b, x, y) for x, y in zip(h0, h1)]
+
     # -- arithmetic (reference circuit_builder.py:306-404) --------------------------
 
     def arithmetic(self, const_0: int, const_1: int, m0: Target, m1: Target,
@@ -291,6 +325,15 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin):
 
     def assert_bool(self, b: BoolTarget) -> None:
         self.connect(self.mul(b.target, b.target), b.target)
+
+    def is_equal(self, x: Target, y: Target) -> BoolTarget:
+        from plonky2_torch.gadgets.inverse import is_equal
+
+        return is_equal(self, x, y)
+
+    def select(self, b: BoolTarget, x: Target, y: Target) -> Target:
+        """b ? x : y = b · (x - y) + y (reference gadgets/select.rs)."""
+        return self.add(self.mul(b.target, self.sub(x, y)), y)
 
     def split_le(self, integer: Target, num_bits: int) -> list[BoolTarget]:
         from plonky2_torch.gadgets.split_join import split_le
@@ -483,6 +526,9 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin):
         prover_only.cache(device)["constants_sigmas"] = commitment
         verifier_only = VerifierOnlyCircuitData(constants_sigmas_cap=cap,
                                                 circuit_digest=circuit_digest)
+        if self.goal_common_data is not None and common != self.goal_common_data:
+            raise ValueError("the built CommonCircuitData is not the goal (the cyclic "
+                             "fixpoint)")
         # the kernel of the commitment's iFFT, by field/ntt.py's dispatch rule
         build_info = {"device": str(device),
                       "constants_sigmas_ifft": "K2" if degree_bits <= kn.MAX_SMEM_LG else "K3"}

@@ -381,3 +381,151 @@ def test_starky_prove_on_the_card_gives_the_reference_bytes(dev, name, log_rows)
     with open(ref, "rb") as f:
         assert stark_proof_to_bytes(proof, config) == f.read()
     verify_stark_proof(stark, proof, config)
+
+
+def _two_inner_proofs():
+    """tests/test_conditional_cyclic.py's inner circuit (x times 30
+    constants) built on the card, and its proofs from x = 3 and x = 5."""
+    from plonky2_torch.iop.witness import PartialWitness
+    from plonky2_torch.plonk.circuit_builder import CircuitBuilder
+
+    b = CircuitBuilder()
+    x = b.add_virtual_target()
+    cur = x
+    for i in range(30):
+        cur = b.mul(cur, b.constant(i % 11 + 2))
+    b.register_public_input(cur)
+    data = b.build()
+    proofs = []
+    for v in (3, 5):
+        pw = PartialWitness()
+        pw.set_target(x, v)
+        proofs.append(data.prove(pw))
+        data.verify(proofs[-1])
+    return data, proofs
+
+
+def test_conditionally_verify_proof_on_the_card(dev):
+    """One circuit selecting between two proofs, proved with the condition
+    either way on the card: each proof verifies and exposes the selected
+    proof's public input."""
+    from plonky2_torch.iop.witness import PartialWitness
+    from plonky2_torch.plonk.circuit_builder import CircuitBuilder
+    from plonky2_torch.recursion import recursive_verifier as rv
+    from plonky2_torch.recursion.conditional_recursive_verifier import conditionally_verify_proof
+
+    data, (proof_a, proof_b) = _two_inner_proofs()
+    cap_h = data.common.config.fri_config.cap_height
+    b = CircuitBuilder()
+    cond = b.add_virtual_bool_target_safe()
+    pt_a, vdt_a = rv.add_virtual_proof_with_pis(b, data.common), rv.add_virtual_verifier_data(
+        b, cap_h)
+    pt_b, vdt_b = rv.add_virtual_proof_with_pis(b, data.common), rv.add_virtual_verifier_data(
+        b, cap_h)
+    conditionally_verify_proof(b, cond, pt_a, vdt_a, pt_b, vdt_b, data.common)
+    b.register_public_input(b.select(cond, pt_a.public_inputs[0], pt_b.public_inputs[0]))
+    outer = b.build()
+    for flag, expected in ((True, proof_a.public_inputs[0]), (False, proof_b.public_inputs[0])):
+        pw = PartialWitness()
+        pw.set_bool_target(cond, flag)
+        for pt, vdt, proof in ((pt_a, vdt_a, proof_a), (pt_b, vdt_b, proof_b)):
+            rv.set_proof_with_pis_target(pw, pt, proof)
+            rv.set_verifier_data_target(pw, vdt, data.verifier_only)
+        outer_proof = outer.prove(pw)
+        assert outer_proof.public_inputs == [expected]
+        outer.verify(outer_proof)
+
+
+def test_conditionally_verify_proof_or_dummy_on_the_card(dev):
+    """A proof or a dummy proof (built and proved on the card inside the
+    build), the condition either way: each outer proof verifies."""
+    from plonky2_torch.iop.witness import PartialWitness
+    from plonky2_torch.plonk.circuit_builder import CircuitBuilder
+    from plonky2_torch.recursion import recursive_verifier as rv
+    from plonky2_torch.recursion.conditional_recursive_verifier import (
+        conditionally_verify_proof_or_dummy,
+    )
+
+    data, (proof_a, _) = _two_inner_proofs()
+    b = CircuitBuilder()
+    cond = b.add_virtual_bool_target_safe()
+    pt = rv.add_virtual_proof_with_pis(b, data.common)
+    vdt = rv.add_virtual_verifier_data(b, data.common.config.fri_config.cap_height)
+    conditionally_verify_proof_or_dummy(b, cond, pt, vdt, data.common)
+    outer = b.build()
+    for flag in (True, False):
+        pw = PartialWitness()
+        pw.set_bool_target(cond, flag)
+        rv.set_proof_with_pis_target(pw, pt, proof_a)
+        rv.set_verifier_data_target(pw, vdt, data.verifier_only)
+        outer.verify(outer.prove(pw))
+
+
+# tests/reference_prove_cyclic.py: the reference's IVC hash chain under seed 2026
+CYCLIC_VERIFIER_SHA256 = "ac6d7e1aa7705efb8866bd781540da5851d781be8b780c6d0cf9bb8471028920"
+CYCLIC_PROOF_SHA256S = ("ca4aa96195c765e13e8a9ad7bc04cef39a83bdd39afce6cb8abac7b8cb030e51",
+                        "9f26fbee1fb26bb2cf96f0f3107c2b93eab2efe8aee1b659e18d0e04f626f48d",
+                        "7822ed40f147fcce688714c4fdf9bc7316918cefef9371dcd227ccf15812512b")
+
+
+@pytest.fixture(scope="module")
+def cyclic_chain():
+    """The hash chain on the card, the device left to its default, each
+    step under seed 2026: (circuit, [base, layer 1, layer 2])."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from plonky2_torch.examples import cyclic_recursion as ivc
+    from plonky2_torch.util import rng
+
+    def seeded(run):
+        rng.seed(2026)
+        try:
+            return run()
+        finally:
+            rng.seed(None)
+
+    circuit = seeded(lambda: ivc.cyclic_circuit(ivc.common_data_for_recursion().common))
+    proofs = [seeded(lambda: ivc.base_proof(circuit))]
+    for _ in range(2):
+        proofs.append(seeded(lambda: ivc.step(circuit, proofs[-1])))
+    return circuit, proofs
+
+
+def test_cyclic_chain_on_the_card_gives_the_reference_bytes(cyclic_chain):
+    """The cyclic circuit's verifier bytes and the base and two layers'
+    proofs are the reference's; each proof carries the circuit's key,
+    verifies, and counts 1, 2, 3 hashes of its chain."""
+    import hashlib
+
+    from plonky2_torch.examples import cyclic_recursion as ivc
+    from plonky2_torch.plonk.circuit_serialization import verifier_data_to_bytes
+    from plonky2_torch.plonk.serialization import proof_to_bytes
+
+    circuit, proofs = cyclic_chain
+    data = circuit.data
+    assert data.build_info["device"] == "cuda"
+    assert hashlib.sha256(verifier_data_to_bytes(data.verifier_only, data.common)
+                          ).hexdigest() == CYCLIC_VERIFIER_SHA256
+    for layer, proof in enumerate(proofs):
+        assert hashlib.sha256(proof_to_bytes(proof)).hexdigest() == CYCLIC_PROOF_SHA256S[layer]
+        ivc.check(circuit, proof, layer + 1)
+
+
+def test_cyclic_proof_with_a_tampered_key_is_rejected(cyclic_chain):
+    """A layer proof whose public inputs carry another circuit digest or cap
+    entry fails check_cyclic_proof_verifier_data and the verifier."""
+    import dataclasses
+
+    from plonky2_torch.field import scalar as fs
+    from plonky2_torch.recursion.cyclic_recursion import check_cyclic_proof_verifier_data
+
+    circuit, proofs = cyclic_chain
+    data = circuit.data
+    for index in (9 + 1, 76):  # a digest element, the last cap element
+        pis = list(proofs[1].public_inputs)
+        pis[index] = fs.add(pis[index], 1)
+        tampered = dataclasses.replace(proofs[1], public_inputs=pis)
+        with pytest.raises(ValueError, match="Cyclic proof"):
+            check_cyclic_proof_verifier_data(tampered, data.verifier_only, data.common)
+        with pytest.raises(ValueError):
+            data.verify(tampered)

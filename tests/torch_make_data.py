@@ -29,10 +29,31 @@ without a reference build (~25 s), and proves three Starky statements under
                                                    its own generate_trace()
 (stark_proof_to_bytes; ~90 s for the first, most of it compiling), so that
 a test holds the port's Starky proves to the reference's without calling the
-reference prover. `--starky` writes these three alone. Not collected by
-pytest; `tests/test_torch_plonk.py`, `tests/test_torch_witness.py`,
-`tests/test_torch_builder.py` and `tests/test_torch_starky.py` hold the
-files equal to what this makes.
+reference prover. `--starky` writes these three alone. `--cyclic` writes
+the data of the dummy circuits and of cyclic recursion (~5 min, most of it
+the fixpoint's 2^13 build and the dummy prove over it; 0.23 MB in all):
+  plonky2_torch/data/dummy_factorial.verifier.bin  the reference's
+                                                   dummy_circuit over
+                                                   factorial's common data
+  plonky2_torch/data/dummy_factorial.proof.bin     its dummy_proof with
+                                                   public input 0 = 42
+                                                   (seed 2026)
+  plonky2_torch/data/cyclic_fixpoint.verifier.bin  the level-1 circuit of
+                                                   tests/validation_cyclic.py's
+                                                   common_data_for_recursion
+  plonky2_torch/data/cyclic_dummy.verifier.bin     the dummy circuit over the
+  plonky2_torch/data/cyclic_dummy.proof.bin        fixpoint's common data with
+                                                   the hash chain's 77 public
+                                                   inputs, and its proof (seed
+                                                   2026): the proof that the
+                                                   cyclic circuit's build makes
+so that `tests/test_torch_cyclic.py` holds the port's dummy circuit and its
+cyclic circuit to the reference's without a reference build or prove. Not
+collected by pytest; `tests/test_torch_plonk.py`, `tests/test_torch_witness.py`,
+`tests/test_torch_builder.py`, `tests/test_torch_starky.py` and
+`tests/test_torch_cyclic.py` hold the files equal to what this makes.
+
+    JAX_PLATFORMS=cpu python tests/torch_make_data.py --cyclic
 """
 
 import os
@@ -168,6 +189,42 @@ def write_starky_data() -> None:
         print(f"wrote starky_{name}{log_rows}: proof {len(blob)} bytes")
 
 
+def write_cyclic_data() -> None:
+    from plonky2_tpu.plonk.circuit_serialization import verifier_data_to_bytes
+    from plonky2_tpu.plonk.serialization import proof_to_bytes
+    from plonky2_tpu.recursion.dummy_circuit import dummy_circuit, dummy_proof
+    from plonky2_tpu.util import rng
+    from reference_prove_cyclic import fixpoint
+
+    def seeded(run):
+        rng.seed(SEED)
+        try:
+            return run()
+        finally:
+            rng.seed(None)
+
+    def dummy(common, nonzero):
+        circuit = dummy_circuit(common)
+        proof = seeded(lambda: dummy_proof(circuit, nonzero))
+        circuit.verify(proof)
+        return {"verifier": verifier_data_to_bytes(circuit.verifier_only, circuit.common),
+                "proof": proof_to_bytes(proof)}
+
+    files = {f"dummy_factorial.{k}.bin": v
+             for k, v in dummy(factorial_data()[1].common, {0: 42}).items()}
+    fix = fixpoint()
+    common = fix.common
+    files["cyclic_fixpoint.verifier.bin"] = verifier_data_to_bytes(fix.verifier_only, common)
+    # the hash chain's public inputs: initial hash, tip, counter, then the key
+    common.num_public_inputs = 9 + 4 + 4 * (1 << common.config.fri_config.cap_height)
+    files.update({f"cyclic_dummy.{k}.bin": v for k, v in dummy(common, {}).items()})
+    os.makedirs(DATA, exist_ok=True)
+    for name, blob in files.items():
+        with open(os.path.join(DATA, name), "wb") as f:
+            f.write(blob)
+        print(f"wrote {name}: {len(blob)} bytes")
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, ROOT)
@@ -175,6 +232,9 @@ def main() -> int:
 
     if sys.argv[1:] == ["--starky"]:
         write_starky_data()
+        return 0
+    if sys.argv[1:] == ["--cyclic"]:
+        write_cyclic_data()
         return 0
 
     prover_bytes, _, witness, public_inputs, pi_hash, pw = factorial_data()
@@ -201,6 +261,7 @@ def main() -> int:
     print(f"wrote inner4: verifier data {len(verifier_bytes)} bytes, proof "
           f"{len(proof_bytes)} bytes")
     write_starky_data()
+    write_cyclic_data()
     return 0
 
 
