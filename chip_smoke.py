@@ -80,7 +80,15 @@ split by scope and its verifier bytes the reference's, the base proof and
 CYCLIC_LAYERS self-verifying layers each the reference's sha256, checked by
 `check_cyclic_proof_verifier_data`, the port's verifier and the host
 `hash_no_pad` chain, one layer synchronised for the split and one
-profiled); runs `commit_and_open`
+profiled); runs the Keccak phase (`keccak_phase`: `keccak_factorial` under
+`KeccakGoldilocksConfig` built and proved on the card and on the CPU to
+its fixtures' bytes, then the headline proof wrapped in a proof with
+Keccak caps and transcript: the bench_recursion outer layer over it built
+on a Keccak builder once cold and BUILD_REPEATS times timed, proved
+KECCAK_PROVES times (the host transcript and host Keccak trees, the
+trees' seconds apart), one synchronised for the split and one profiled,
+verified, compressed and decompressed, every sha256 the reference's, and
+the headline proof compressed to the reference's bytes); runs `commit_and_open`
 at the bench_recursion middle-circuit shapes (degree 2^13, oracles of
 85/135/20/16 polynomials; its FRI proof on the fused path) with the counts
 set to 0 just before and read just after each of its runs and its pinned
@@ -108,7 +116,8 @@ the `kernels` JSON object (launches: the headline prove's, the chunk
 grind's from the host-path prove; beside them the inner build's and
 prove's, the middle and outer builds', the outer prove's and the two 2^20
 Starky proves', the cyclic build's and
-a cyclic layer's, and the headline's and prove_many's numbers), the last line the ok JSON object. Every timing line names the
+a cyclic layer's, the Keccak wrap's build's and prove's, and the
+headline's and prove_many's numbers), the last line the ok JSON object. Every timing line names the
 card and its power limit. Any failed check exits non-zero and prints no
 result; so does a run without CUDA, and a run of the script alone, without
 the `plonky2_torch/` package beside it. Imports nothing of JAX.
@@ -190,6 +199,16 @@ CYCLIC_PROOF_SHA256S = ("ca4aa96195c765e13e8a9ad7bc04cef39a83bdd39afce6cb8abac7b
                         "9f26fbee1fb26bb2cf96f0f3107c2b93eab2efe8aee1b659e18d0e04f626f48d",
                         "7822ed40f147fcce688714c4fdf9bc7316918cefef9371dcd227ccf15812512b")
 CYCLIC_LAYERS = 2
+# the Keccak phase: the bench_recursion outer layer over the headline's
+# middle proof, built under keccak_goldilocks_config(), its proof (seed
+# 2026) and that proof compressed, and the headline proof compressed, as
+# the reference makes them on the CPU (tests/reference_prove_keccak.py)
+KECCAK_WRAP_VERIFIER_SHA256 = "1a37b5b780bda71c137dbfc4b4d70dca7a51ebe57b8a3c18f10f7dd26f00fd1e"
+KECCAK_WRAP_PROOF_SHA256 = "743e8711e2acf31b92717b9d996c774807ea2015192247dde5b29bb7cb285aa1"
+KECCAK_WRAP_COMPRESSED_SHA256 = "db49d158afbc41f591cc9f5f8ec4b028f6248c27cd4d77ec503c7dbce0fb3d0e"
+KECCAK_HEADLINE_COMPRESSED_SHA256 = (
+    "5b025c580d187f30086873ded6505a60ee9d5bcb42cd031d09c2953464cec444")
+KECCAK_PROVES = 5
 
 
 def same_generators(a: list, b: list) -> bool:
@@ -872,6 +891,219 @@ def cyclic_phase(torch, dev, card, failures) -> dict:
     return out
 
 
+def keccak_phase(torch, dev, card, failures, middle, headline_bytes) -> dict:
+    """The Keccak config on the card: `keccak_factorial` built and proved
+    on the card and on the CPU (plain versions) to
+    `fixtures/keccak_factorial.*` and verified; then the wrap, the
+    bench_recursion outer layer over the headline's middle proof
+    (`headline_bytes`, HEADLINE_PROOF_SHA256) on a builder under
+    `keccak_goldilocks_config()`: built once cold and BUILD_REPEATS times
+    timed (split by scope; verifier bytes KECCAK_WRAP_VERIFIER_SHA256),
+    one warm-up and KECCAK_PROVES timed proves (witness + prove, seed 2026,
+    the counts and the host trees' seconds set to 0 just before each and
+    read just after, each KECCAK_WRAP_PROOF_SHA256, the host-transcript
+    path recorded), one synchronised at each phase for the split with the
+    host trees' leaf copies and hashing apart, one profiled; the proof
+    verified, compressed (KECCAK_WRAP_COMPRESSED_SHA256), decompressed to
+    its bytes and accepted by `verify_compressed`; and the headline's proof
+    compressed (KECCAK_HEADLINE_COMPRESSED_SHA256) and decompressed to its
+    bytes. `middle` = (prover-only, common, verifier-only) of
+    `bench_cache/middle14.circuit.bin`. Returns what the kernels line and
+    the summary take; appends to `failures`."""
+    from plonky2_torch import ops
+    from plonky2_torch.examples import factorial
+    from plonky2_torch.fri import prover as fri_prover
+    from plonky2_torch.hash import merkle
+    from plonky2_torch.iop.witness import PartialWitness
+    from plonky2_torch.plonk import prover as tp
+    from plonky2_torch.plonk.circuit_builder import CircuitBuilder
+    from plonky2_torch.plonk.circuit_serialization import verifier_data_to_bytes
+    from plonky2_torch.plonk.compressed import compress, decompress, verify_compressed
+    from plonky2_torch.plonk.config import CircuitConfig, keccak_goldilocks_config
+    from plonky2_torch.plonk.serialization import (
+        compressed_proof_from_bytes,
+        compressed_proof_to_bytes,
+        proof_from_bytes,
+        proof_to_bytes,
+    )
+    from plonky2_torch.recursion import recursive_verifier as rv
+    from plonky2_torch.util import TimingTree
+    from plonky2_torch.util import rng as prover_rng
+
+    def seeded(run):
+        prover_rng.seed(SEED)
+        try:
+            return run()
+        finally:
+            prover_rng.seed(None)
+
+    def sha(b: bytes) -> str:
+        return hashlib.sha256(b).hexdigest()
+
+    def want(what, got, pinned):
+        if got != pinned:
+            failures.append(f"{what}: sha256 {got}, not the reference's {pinned}")
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    fixture = {k: open(os.path.join(root, "fixtures", f"keccak_factorial.{k}.bin"), "rb").read()
+               for k in ("verifier", "proof")}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        with one_cpu_thread(torch) if where == "cpu" else contextlib.nullcontext():
+            data, proof = seeded(lambda: factorial.keccak_build_and_prove(device=where))
+        wall = time.perf_counter() - t0
+        same = (verifier_data_to_bytes(data.verifier_only, data.common) == fixture["verifier"],
+                proof_to_bytes(proof) == fixture["proof"])
+        data.verify(proof)
+        print(f"keccak_factorial (2^5, KeccakGoldilocksConfig; {where}; {card}): built and "
+              f"proved in {wall:.3f} s (first calls), verifier bytes = fixture: {same[0]}, "
+              f"proof = fixture: {same[1]}, verified; transcript {tp._LAST_TRANSCRIPT}, FRI "
+              f"path {fri_prover._LAST_PATH}")
+        if not all(same):
+            failures.append(f"keccak_factorial on {where} is not fixtures/keccak_factorial.*")
+        if (tp._LAST_TRANSCRIPT, fri_prover._LAST_PATH) != ("host", "host"):
+            failures.append(f"keccak_factorial on {where} did not take the host path")
+
+    prover_only, common, verifier_only = middle
+    headline = proof_from_bytes(headline_bytes, common)
+
+    def wrap_circuit(timing):
+        """The outer layer's in-circuit verifier over the middle circuit, on a
+        builder under the Keccak config."""
+        builder = CircuitBuilder(CircuitConfig.standard_recursion_config(),
+                                 gc=keccak_goldilocks_config())
+        with timing.scope("in-circuit verifier"):
+            pt = rv.add_virtual_proof_with_pis(builder, common)
+            vdt = rv.add_virtual_verifier_data(builder, common.config.fri_config.cap_height)
+            rv.verify_proof(builder, pt, vdt, common)
+            builder.register_public_inputs(pt.public_inputs)
+        return builder.build(device=dev, timing=timing), pt, vdt
+
+    builds = []
+    for _ in range(1 + BUILD_REPEATS):  # the first build is cold
+        timing = TimingTree("build", sync=torch.cuda.synchronize)
+        ops.reset_launches()
+        merkle.reset_host_trees()
+        t0 = time.perf_counter()
+        data, pt, vdt = wrap_circuit(timing)
+        torch.cuda.synchronize()
+        builds.append((time.perf_counter() - t0, timing.split()))
+        build_launches = ops.launch_counts()
+        build_trees = dict(merkle.HOST_TREES)
+    vd_sha = sha(verifier_data_to_bytes(data.verifier_only, data.common))
+    want("the Keccak wrap's verifier data", vd_sha, KECCAK_WRAP_VERIFIER_SHA256)
+    build_wall, build_split, build_outside = median_run(builds[1:])
+    print(f"keccak wrap build (degree 2^{data.common.degree_bits}, "
+          f"{len(data.prover_only.generators)} generators, over the headline's middle circuit; "
+          f"{card}): {build_wall:.4f} s median of {[round(w, 4) for w, _ in builds[1:]]} (cold "
+          f"{builds[0][0]:.4f} s); verifier sha256 {vd_sha}; launches {build_launches}; the "
+          f"constants-sigmas Keccak tree: leaves to the host {build_trees['copy_s']:.4f} s, "
+          f"hashed {build_trees['hash_s']:.4f} s")
+    for k, v in build_split.items():
+        print(f"keccak wrap build split, the median run ({card}): {k} {v:.4f} s")
+    print(f"keccak wrap build split, the median run ({card}): outside the scopes "
+          f"{build_outside:.4f} s")
+    pw = PartialWitness()
+    rv.set_proof_with_pis_target(pw, pt, headline)
+    rv.set_verifier_data_target(pw, vdt, verifier_only)
+
+    def wrap_prove(timing=None):
+        return seeded(lambda: data.prove(pw, device=dev, timing=timing))
+
+    t0 = time.perf_counter()
+    proof = wrap_prove()
+    first_s = time.perf_counter() - t0
+    want("the Keccak wrap's first proof", sha(proof_to_bytes(proof)), KECCAK_WRAP_PROOF_SHA256)
+    walls, trees = [], []
+    for _ in range(KECCAK_PROVES):
+        ops.reset_launches()
+        merkle.reset_host_trees()
+        t0 = time.perf_counter()
+        proof = wrap_prove()
+        walls.append(time.perf_counter() - t0)
+        launches = ops.launch_counts()
+        trees.append(dict(merkle.HOST_TREES))
+        digest = sha(proof_to_bytes(proof))
+        want("the Keccak wrap's proof", digest, KECCAK_WRAP_PROOF_SHA256)
+        paths = (tp._LAST_TRANSCRIPT, fri_prover._LAST_PATH)
+        if paths != ("host", "host"):
+            failures.append(f"the Keccak wrap's prove took the {paths} paths, not the host's")
+    wall_s = statistics.median(walls)
+    tree_s = statistics.median(t["copy_s"] + t["hash_s"] for t in trees)
+    print(f"keccak wrap prove (witness + prove from the headline proof; host transcript, "
+          f"Keccak trees on the host; {card}): {wall_s:.4f} s median, {min(walls):.4f} s min of "
+          f"{[round(w, 4) for w in walls]} (first call {first_s:.3f} s); the host trees "
+          f"{tree_s:.4f} s median a prove ({trees[-1]['trees']} trees; leaves to the host "
+          f"{trees[-1]['copy_s']:.4f} s, hashed {trees[-1]['hash_s']:.4f} s in the last); "
+          f"sha256 {digest}; transcript {paths[0]}, FRI path {paths[1]}; launches {launches}")
+    for kernel in (ops.K2, ops.K3):
+        if launches[kernel.label] == 0:
+            failures.append(f"{kernel.label} was not launched on the Keccak wrap's prove")
+    timing = TimingTree("prove", sync=torch.cuda.synchronize)
+    merkle.reset_host_trees()
+    t0 = time.perf_counter()
+    want("the Keccak wrap's synchronised proof", sha(proof_to_bytes(wrap_prove(timing))),
+         KECCAK_WRAP_PROOF_SHA256)
+    sync_wall = time.perf_counter() - t0
+    split = timing.split()
+    sync_trees = dict(merkle.HOST_TREES)
+    print(f"keccak wrap prove phases ({card}), s, the device synchronised at each phase's "
+          f"start and end ({sync_wall:.4f} s wall): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+          + f"; outside the phases {sync_wall - sum(split.values()):.4f}; within them the "
+          f"host trees' leaves to the host {sync_trees['copy_s']:.4f} s (the copies wait for "
+          f"the LDEs) and their Keccak hashing {sync_trees['hash_s']:.4f} s")
+    profile_line(torch, wrap_prove, wall_s, "keccak wrap")
+
+    t0 = time.perf_counter()
+    data.verify(proof)
+    verify_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    compressed = compressed_proof_to_bytes(compress(proof, data.verifier_only, data.common),
+                                           data.common)
+    compress_s = time.perf_counter() - t0
+    want("the Keccak wrap's compressed proof", sha(compressed), KECCAK_WRAP_COMPRESSED_SHA256)
+    t0 = time.perf_counter()
+    read = compressed_proof_from_bytes(compressed, data.common)
+    back = proof_to_bytes(decompress(read, data.verifier_only, data.common))
+    decompress_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    verify_compressed(read, data.verifier_only, data.common)
+    verify_compressed_s = time.perf_counter() - t0
+    if back != proof_to_bytes(proof):
+        failures.append("the Keccak wrap's proof does not decompress to its bytes")
+    print(f"keccak wrap proof ({card}): {len(proof_to_bytes(proof))} bytes, verified in "
+          f"{verify_s:.3f} s; compressed to {len(compressed)} bytes in {compress_s:.3f} s, "
+          f"sha256 {sha(compressed)}; decompressed to the proof's bytes: "
+          f"{back == proof_to_bytes(proof)} ({decompress_s:.3f} s); verify_compressed "
+          f"{verify_compressed_s:.3f} s")
+
+    t0 = time.perf_counter()
+    head_compressed = compressed_proof_to_bytes(compress(headline, verifier_only, common), common)
+    head_back = proof_to_bytes(decompress(compressed_proof_from_bytes(head_compressed, common),
+                                          verifier_only, common))
+    head_s = time.perf_counter() - t0
+    want("the headline's compressed proof", sha(head_compressed),
+         KECCAK_HEADLINE_COMPRESSED_SHA256)
+    if head_back != headline_bytes:
+        failures.append("the headline proof does not decompress to its bytes")
+    print(f"headline proof compressed ({card}): {len(head_compressed)} of {len(headline_bytes)} "
+          f"bytes, sha256 {sha(head_compressed)}; decompressed to its bytes: "
+          f"{head_back == headline_bytes}; both in {head_s:.3f} s")
+    out = dict(build_wall_s=build_wall, build_cold_s=builds[0][0], build_split=build_split,
+               build_outside_s=build_outside, build_launches=build_launches,
+               build_host_trees=build_trees, prove_s=wall_s, prove_walls=walls,
+               prove_first_s=first_s, launches=launches, host_trees_s=tree_s,
+               split=split, sync_wall_s=sync_wall, sync_host_trees=sync_trees,
+               verify_s=verify_s, compressed_bytes=len(compressed),
+               proof_bytes=len(proof_to_bytes(proof)), decompress_s=decompress_s,
+               verify_compressed_s=verify_compressed_s,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"keccak phase ({card}): {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1213,7 +1445,8 @@ def main() -> int:
         return proof_to_bytes(seeded(lambda: tp.prove(prover_only, common, pw, device=dev,
                                                       timing=timing)))
 
-    headline_pinned(headline_prove(), "headline warm-up")
+    headline_bytes = headline_prove()
+    headline_pinned(headline_bytes, "headline warm-up")
     # each timed headline prove is paired with the random-witness fused
     # prove, from its witness on the card and from the host matrix (its
     # pinned upload), so that a drift of the shared host's load shows in
@@ -1641,6 +1874,10 @@ def main() -> int:
     # the IVC hash chain: the fixpoint, the cyclic circuit, the base proof
     # and CYCLIC_LAYERS self-verifying layers
     cyclic = cyclic_phase(torch, dev, card, failures)
+    # the Keccak config: keccak_factorial, and the headline proof wrapped in
+    # a Keccak-transcript proof
+    keccak = keccak_phase(torch, dev, card, failures, (prover_only, common, verifier_only),
+                          headline_bytes)
 
     build_phase = dict(build_wall_s=build_wall, build_cold_s=builds[0][0],
                        build_outside_s=build_outside,
@@ -2035,6 +2272,8 @@ def main() -> int:
                         "launches_prove_starky_lookup": starky["lookup"]["launches"][k.label],
                         "launches_build_cyclic": cyclic["build_launches"][k.label],
                         "launches_prove_cyclic_layer": cyclic["layers"][1]["launches"][k.label],
+                        "launches_build_keccak_wrap": keccak["build_launches"][k.label],
+                        "launches_prove_keccak_wrap": keccak["launches"][k.label],
                         **results[k.label], "library_ms": None})
     print(json.dumps({"kernels": kernels, "card": card, "headline": headline,
                       "prove_many": {"K": BATCH_K, "window": BATCH_WINDOW, "threads": batched,
@@ -2048,7 +2287,7 @@ def main() -> int:
                       "commit_and_open_middle_s": wall_s,
                       "build_phase": build_phase,
                       "starky": {k: v for k, v in starky.items() if k != "shapes"},
-                      "cyclic": cyclic}))
+                      "cyclic": cyclic, "keccak": keccak}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

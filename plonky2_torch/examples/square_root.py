@@ -6,7 +6,8 @@ examples/square_root.py).
 that squares x computes x² from x: the circuit's level schedule has a cycle
 that only the input breaks, so its generators run on the worklist scheduler
 (the reference's dynamic one, `iop/generator.py`), `run_once` each, as in
-the reference package.
+the reference package. Its prover data is written with a registry that
+holds it (`registry()`, for `prover_data_to_bytes` and `read_prover_data`).
 
     python -m plonky2_torch.examples.square_root          # on the card
 """
@@ -38,6 +39,23 @@ class SquareRootGenerator(SimpleGenerator):
         if x is None:
             raise ValueError("the public input is not a quadratic residue")
         out.set_target(self.x, x)
+
+    def serialize(self, w) -> None:
+        """Its payload in a caller's serializer registry (reference
+        square_root.rs `serialize`): the two targets."""
+        w.write_target(self.x)
+        w.write_target(self.x_squared)
+
+    @classmethod
+    def deserialize(cls, r) -> "SquareRootGenerator":
+        return cls(r.target(), r.target())
+
+
+def registry() -> list:
+    """The default generator registry with SquareRootGenerator appended."""
+    from plonky2_torch.plonk.prover_serialization import default_registry
+
+    return default_registry() + [SquareRootGenerator]
 
 
 def build_and_prove(x_value: int = 8846502094546981540, device=None):

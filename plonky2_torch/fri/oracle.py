@@ -2,9 +2,13 @@
 
 All column polynomials of a commitment are one [num_polys, n] tensor:
 iFFT -> coset LDE -> Poseidon Merkle tree over the LDE's natural layout
-(`NaturalMerkleTree`). `prove_openings` forms the batch quotients by
-evaluating on the LDE domain and dividing by (x - z) pointwise, then one
-coset iFFT, and hands the result to the FRI prover.
+(`NaturalMerkleTree`). Under a non-algebraic hasher (Keccak) the LDE's
+columns are gathered into bit-reversed row leaves [N, num_polys] on the
+device, as the reference's `_values_to_lde_leaves` makes them, and those
+leaves come to the host once for the host tree (`KeccakMerkleTree`).
+`prove_openings` forms the batch quotients by evaluating on the LDE domain
+and dividing by (x - z) pointwise, then one coset iFFT, and hands the
+result to the FRI prover.
 """
 
 from __future__ import annotations
@@ -18,8 +22,8 @@ from plonky2_torch.field import goldilocks as g
 from plonky2_torch.field import ntt
 from plonky2_torch.field import scalar as fs
 from plonky2_torch.fri.prover import fri_proof
-from plonky2_torch.hash.merkle import NaturalMerkleTree
-from plonky2_torch.util import log2_strict
+from plonky2_torch.hash.merkle import KeccakMerkleTree, NaturalMerkleTree
+from plonky2_torch.util import log2_strict, reverse_bits
 
 def _as_tensor(x, device):
     """Tensors stay where they are (a device argument must agree; "cuda"
@@ -50,24 +54,26 @@ class PolynomialBatch:
 
     @staticmethod
     def from_values(values, rate_bits: int, blinding: bool, cap_height: int,
-                    device=None) -> "PolynomialBatch":
+                    device=None, hasher=None) -> "PolynomialBatch":
         values = _as_tensor(values, device)
         coeffs = ntt.ifft(values)
-        return PolynomialBatch._finish_natural(coeffs, rate_bits, blinding, cap_height)
+        return PolynomialBatch._commit(coeffs, rate_bits, blinding, cap_height, hasher)
 
     @staticmethod
     def from_coeffs(coeffs, rate_bits: int, blinding: bool, cap_height: int,
-                    device=None) -> "PolynomialBatch":
+                    device=None, hasher=None) -> "PolynomialBatch":
         coeffs = _as_tensor(coeffs, device)
-        return PolynomialBatch._finish_natural(coeffs, rate_bits, blinding, cap_height)
+        return PolynomialBatch._commit(coeffs, rate_bits, blinding, cap_height, hasher)
 
     @staticmethod
-    def _finish_natural(coeffs, rate_bits, blinding, cap_height):
-        """Commit straight off the LDE's natural [num_polys, N] layout."""
+    def _commit(coeffs, rate_bits, blinding, cap_height, hasher):
         if blinding:
             raise NotImplementedError("salted (zk) oracles are not ported yet")
         lde = ntt.coset_lde(coeffs, rate_bits)
-        tree = NaturalMerkleTree(lde, cap_height)
+        if getattr(hasher, "algebraic", True):  # Poseidon (the default): K4 on the card
+            tree = NaturalMerkleTree(lde, cap_height)
+        else:
+            tree = KeccakMerkleTree(_lde_leaves(lde), cap_height)
         return PolynomialBatch(coeffs, lde, tree, log2_strict(coeffs.shape[-1]),
                                rate_bits, blinding)
 
@@ -75,11 +81,25 @@ class PolynomialBatch:
     def device(self):
         return self.polynomials.device
 
+    @property
+    def lde_bits(self) -> int:
+        return self.degree_log + self.rate_bits
+
+    def get_lde_values(self, index: int, step: int = 1) -> list[int]:
+        """The polynomials' values at LDE point index · step (reference
+        fri/oracle.rs:142-151): the row leaf rev(index · step) of a host
+        tree, the natural column index · step otherwise."""
+        i = index * step
+        if isinstance(self.merkle_tree, KeccakMerkleTree):
+            return self.merkle_tree.leaf(reverse_bits(i, self.lde_bits))
+        return [int(v) for v in g.to_numpy(self.lde[:, i])]
+
     # -- batch opening proof ------------------------------------------------
 
     @staticmethod
-    def prove_openings(instance, oracles, challenger, fri_params):
-        """FRI opening proof of `instance` over `oracles`; returns FriProof."""
+    def prove_openings(instance, oracles, challenger, fri_params, hasher=None):
+        """FRI opening proof of `instance` over `oracles`, its fold trees
+        under `hasher`; returns FriProof."""
         alpha = challenger.get_extension_challenge(2)
         rate_bits = fri_params.config.rate_bits
         n = 1 << fri_params.degree_bits
@@ -93,7 +113,16 @@ class PolynomialBatch:
             # final = alpha^(batch size) * final + quotient (ReducingFactor shift)
             shift = fs.ext_exp(alpha, len(batch.polynomials))
             final = g.ext2_add(g.ext2_mul(g.ext_tensor(shift, device), final), q)
-        return fri_proof([o.merkle_tree for o in oracles], final, challenger, fri_params)
+        return fri_proof([o.merkle_tree for o in oracles], final, challenger, fri_params,
+                         hasher)
+
+
+def _lde_leaves(lde):
+    """The natural LDE [num_polys, N] as the reference's row leaves
+    [N, num_polys] in bit-reversed order (reference fri/oracle.py
+    `_coeffs_to_lde_leaves_impl`), on the LDE's device."""
+    lg = log2_strict(lde.shape[-1])
+    return lde[:, ntt.bit_reverse_index(lg, lde.device)].T.contiguous()
 
 
 def eval_polys_at(coeffs, z):

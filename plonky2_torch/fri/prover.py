@@ -7,9 +7,11 @@
   (K5's device grind), the PoW response and the query indices; the openings
   are gathered at the device indices and the whole argument leaves the
   device in one fetch (`_fri_fused_finish`);
-- host (`force_host_path()`, or no fold step): the host challenger, one cap
-  and one β crossing per fold step, the grind chunk by chunk, the indices
-  drawn on the host.
+- host (`force_host_path()`, no fold step, or a non-algebraic hasher): the
+  host challenger, one cap and one β crossing per fold step, the grind
+  chunk by chunk, the indices drawn on the host. Under Keccak
+  (`KeccakGoldilocksConfig`, as in the reference) the fold trees are host
+  Keccak trees and the grind runs on the host (`_fri_proof_of_work_host`).
 
 Folding, re-LDEs and Merkle builds run on the device on both. Coefficient
 tensors are kept trimmed to their nonzero prefix (folding the zero tail
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 from plonky2_torch.field import goldilocks as g
@@ -63,19 +66,23 @@ def _scope(timing, name: str):
     return timing.scope(name) if timing is not None else contextlib.nullcontext()
 
 
-def fri_proof(initial_merkle_trees, final_coeffs, challenger, fri_params) -> FriProof:
-    """final_coeffs: ext coefficient tensors (c0, c1) of length 2^degree_bits.
-    With a fold step and outside force_host_path() the fused path runs and
-    leaves the host challenger in the state the host path would."""
+def fri_proof(initial_merkle_trees, final_coeffs, challenger, fri_params,
+              hasher=None) -> FriProof:
+    """final_coeffs: ext coefficient tensors (c0, c1) of length 2^degree_bits;
+    the fold trees are `hasher`'s (Poseidon by default). With a fold step,
+    a Poseidon transcript and outside force_host_path() the fused path runs
+    and leaves the host challenger in the state the host path would; else
+    the host path, recorded in `_LAST_PATH` (reference fri/prover.py:61-85)."""
     global _LAST_PATH
     from plonky2_torch.hash.hashers import PoseidonHasher
 
-    if (not _FORCE_HOST and fri_params.reduction_arity_bits
+    if (not _FORCE_HOST and getattr(hasher, "algebraic", True)
+            and fri_params.reduction_arity_bits
             and challenger.hasher is PoseidonHasher):
         return _fri_proof_fused(initial_merkle_trees, final_coeffs, challenger, fri_params)[0]
     _LAST_PATH = "host"
     n = fri_params.lde_size
-    trees, final_poly = _fri_committed_trees(final_coeffs, challenger, fri_params)
+    trees, final_poly = _fri_committed_trees(final_coeffs, challenger, fri_params, hasher)
     pow_witness = fri_proof_of_work(challenger, fri_params.config, final_coeffs[0].device)
     query_round_proofs = _fri_prover_query_rounds(
         initial_merkle_trees, trees, challenger, n, fri_params)
@@ -116,7 +123,7 @@ def _initial_lde(coeffs, rate_bits: int):
     return values[0], values[1]
 
 
-def _fri_committed_trees(coeffs, challenger, fri_params):
+def _fri_committed_trees(coeffs, challenger, fri_params, hasher=None):
     rate_bits = fri_params.config.rate_bits
     cap_height = fri_params.config.cap_height
     device = coeffs[0].device
@@ -124,7 +131,7 @@ def _fri_committed_trees(coeffs, challenger, fri_params):
     values = _initial_lde(coeffs, rate_bits)
     trees = []
     for arity_bits in fri_params.reduction_arity_bits:
-        tree = make_merkle_tree(_fold_step_leaves(values, arity_bits), cap_height)
+        tree = make_merkle_tree(_fold_step_leaves(values, arity_bits), cap_height, hasher)
         trees.append(tree)
         challenger.observe_cap(tree.cap)
         beta = challenger.get_extension_challenge(2)
@@ -142,7 +149,10 @@ def _fri_committed_trees(coeffs, challenger, fri_params):
 def fri_proof_of_work(challenger, config, device) -> int:
     """Grind for the LOWEST witness whose duplexed challenge has
     proof_of_work_bits leading zeros (any valid witness verifies, but only
-    the lowest gives the reference's proof bytes)."""
+    the lowest gives the reference's proof bytes). A non-algebraic
+    (Keccak) transcript grinds on the host, as in the reference."""
+    if not getattr(challenger.hasher, "algebraic", True):
+        return _fri_proof_of_work_host(challenger, config)
     pow_bits = config.proof_of_work_bits
     if pow_bits == 0:
         witness = 0
@@ -164,6 +174,56 @@ def fri_proof_of_work(challenger, config, device) -> int:
     challenger.observe_element(witness)
     response = challenger.get_challenge()
     if response >= 1 << (64 - pow_bits):
+        raise RuntimeError("proof-of-work witness does not meet the threshold")
+    return witness
+
+
+GRIND_CHUNK_HOST = 1 << 14
+
+
+def _fri_proof_of_work_host(challenger, config) -> int:
+    """The grind of a Keccak transcript on the host (reference
+    fri/prover.py `_fri_proof_of_work_host`): per candidate, the state with
+    the witness in place hashed three times over gives 12 words; the
+    response is the 8th word below p (the challenger pops state[RATE - 1]
+    first), and a candidate whose three hashes keep fewer than 8 words is
+    passed over, as there. The lowest passing candidate wins. At 0 bits the
+    witness is 0, where the reference's np.uint64(1 << 64) raises
+    (ROADMAP section 3)."""
+    from plonky2_torch.hash import keccak as kk
+
+    pow_bits = config.proof_of_work_bits
+    threshold = 1 << (64 - pow_bits)
+    if pow_bits == 0:
+        witness = 0
+    else:
+        state = list(challenger.sponge_state)
+        pos = len(challenger.input_buffer)
+        state[:pos] = challenger.input_buffer
+        base = np.frombuffer(kk.felts_to_bytes(state), dtype=np.uint8)
+        rows = np.arange(GRIND_CHUNK_HOST)
+        start = 0
+        while True:
+            states = np.tile(base, (GRIND_CHUNK_HOST, 1))
+            cands = np.arange(start, start + GRIND_CHUNK_HOST, dtype=np.uint64)
+            states[:, pos * 8:(pos + 1) * 8] = cands.astype("<u8").view(np.uint8).reshape(-1, 8)
+            d = kk.keccak256_batch(states)
+            words = [d.view("<u8")]
+            for _ in range(2):
+                d = kk.keccak256_batch(d)
+                words.append(d.view("<u8"))
+            w = np.concatenate(words, axis=1)  # [chunk, 12]
+            csum = np.cumsum(w < np.uint64(fs.P), axis=1)
+            resp = w[rows, np.argmax(csum == 8, axis=1)]
+            good = np.nonzero((csum[:, -1] >= 8) & (resp < np.uint64(threshold)))[0]
+            if good.size:
+                witness = int(cands[good[0]])
+                break
+            start += GRIND_CHUNK_HOST
+            if start >= fs.P:
+                raise RuntimeError("proof of work failed (searched the entire field)")
+    challenger.observe_element(witness)
+    if challenger.get_challenge() >= threshold:
         raise RuntimeError("proof-of-work witness does not meet the threshold")
     return witness
 

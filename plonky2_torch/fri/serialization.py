@@ -1,9 +1,11 @@
 """Byte-exact proof serialization, up to the FRI proof, both ways (all
 integers little-endian): field element = canonical u64; extension element =
-its D coordinates; digest = 4 field elements; Merkle cap = its digests with
-no length prefix; Merkle proof = u8 sibling count then digests; FRI proof =
-commit-phase caps, query rounds, final polynomial, PoW witness. The reader
-takes the shapes from the FRI parameters, as the reference's does."""
+its D coordinates; digest = 4 field elements, or under Keccak its
+HASH_SIZE raw bytes; Merkle cap = its digests with no length prefix; Merkle
+proof = u8 sibling count then digests; FRI proof = commit-phase caps, query
+rounds, final polynomial, PoW witness. The reader takes the shapes from the
+FRI parameters, as the reference's does, and the digest form from its
+`hasher` (Poseidon unless set)."""
 
 from __future__ import annotations
 
@@ -39,7 +41,10 @@ class Writer:
             self.write_field_ext(x)
 
     def write_hash(self, h) -> None:
-        self.write_field_vec(h)
+        if isinstance(h, (bytes, bytearray)):
+            self.buf += bytes(h)  # a BytesHash's raw bytes
+        else:
+            self.write_field_vec(h)
 
     def write_merkle_cap(self, cap) -> None:
         for h in cap:
@@ -65,9 +70,10 @@ class Writer:
 
 
 class Reader:
-    def __init__(self, data: bytes):
+    def __init__(self, data: bytes, hasher=None):
         self.data = data
         self.pos = 0
+        self.hasher = hasher
 
     def read_u8(self) -> int:
         x = self.data[self.pos]
@@ -90,7 +96,11 @@ class Reader:
         flat = self.read_field_vec(2 * n)
         return list(zip(flat[::2], flat[1::2]))
 
-    def read_hash(self) -> list[int]:
+    def read_hash(self) -> list[int] | bytes:
+        if not getattr(self.hasher, "algebraic", True):
+            out = bytes(self.data[self.pos:self.pos + self.hasher.HASH_SIZE])
+            self.pos += self.hasher.HASH_SIZE
+            return out
         return self.read_field_vec(4)
 
     def read_merkle_cap(self, cap_height: int) -> list:

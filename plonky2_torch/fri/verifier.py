@@ -91,14 +91,16 @@ class PrecomputedReducedOpenings:
 
 
 def verify_fri_proof(instance, openings, challenges: FriChallenges, initial_merkle_caps,
-                     proof, params) -> None:
+                     proof, params, hasher=None) -> None:
+    """Raise unless `proof` opens `openings`; its Merkle paths are
+    `hasher`'s (Poseidon by default)."""
     verify_proof_of_work(challenges.fri_pow_response, params.config)
     if params.config.num_query_rounds != len(proof.query_round_proofs):
         raise ValueError("Number of query rounds does not match config.")
     precomputed = PrecomputedReducedOpenings(openings, challenges.fri_alpha)
     for x_index, round_proof in zip(challenges.fri_query_indices, proof.query_round_proofs):
         _verify_query_round(instance, challenges, precomputed, initial_merkle_caps, proof,
-                            x_index, params.lde_size, round_proof, params)
+                            x_index, params.lde_size, round_proof, params, hasher)
 
 
 def fri_combine_initial(instance, initial_proof, alpha, subgroup_x: int, precomputed,
@@ -120,10 +122,10 @@ def fri_combine_initial(instance, initial_proof, alpha, subgroup_x: int, precomp
 
 
 def _verify_query_round(instance, challenges, precomputed, initial_merkle_caps, proof,
-                        x_index: int, n: int, round_proof, params) -> None:
+                        x_index: int, n: int, round_proof, params, hasher=None) -> None:
     for (evals, merkle_proof), cap in zip(round_proof.initial_trees_proof.evals_proofs,
                                           initial_merkle_caps):
-        verify_merkle_proof_to_cap(evals, x_index, cap, merkle_proof)
+        verify_merkle_proof_to_cap(evals, x_index, cap, merkle_proof, hasher)
     log_n = log2_strict(n)
     subgroup_x = fs.mul(fs.MULTIPLICATIVE_GROUP_GENERATOR,
                         fs.exp(fs.primitive_root_of_unity(log_n), reverse_bits(x_index, log_n)))
@@ -140,7 +142,7 @@ def _verify_query_round(instance, challenges, precomputed, initial_merkle_caps, 
                                       challenges.fri_betas[i])
         verify_merkle_proof_to_cap([c for e in evals for c in e], coset_index,
                                    proof.commit_phase_merkle_caps[i],
-                                   round_proof.steps[i].merkle_proof)
+                                   round_proof.steps[i].merkle_proof, hasher)
         subgroup_x = fs.exp(subgroup_x, arity)
         x_index = coset_index
     final_eval = fs.ext_zero(2)

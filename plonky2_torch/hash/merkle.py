@@ -11,12 +11,20 @@ contiguous halves per level; `MerkleTree` hashes row leaves [n, width]
 and pairs adjacent rows (the FRI fold trees). Layers stay on the device as
 views of the tree's buffer; query openings are gathered on the device at
 device indices (`gather`) and leave it in one packed copy.
+
+`KeccakMerkleTree` is the tree of `KeccakGoldilocksConfig`, over byte
+digests of `KeccakHasher.HASH_SIZE`: its row leaves come to the host in one
+copy and every level is hashed there in one batch (reference
+hash/merkle.py:415-460). `HOST_TREES` adds up the seconds of those copies
+and of the hashing, for a prove's phase split.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from plonky2_torch.field import goldilocks as g
@@ -147,25 +155,32 @@ def _stack_sibs(sibs, q, device):
 
 
 def open_many_packed(trees, tree_indices):
-    """Open many indices on many trees with ONE device-to-host copy.
-    Returns, per tree, a list of (leaf values, MerkleProof)."""
-    parts = []
-    for tree, idxs in zip(trees, tree_indices):
+    """Open many indices on many trees: the device trees' openings with ONE
+    device-to-host copy, the host (Keccak) trees' on the host (reference
+    fri/prover.py `_open_many_packed`). Returns, per tree, a list of (leaf
+    values, MerkleProof)."""
+    parts, out = [], [None] * len(trees)
+    for slot, (tree, idxs) in enumerate(zip(trees, tree_indices)):
+        if isinstance(tree, KeccakMerkleTree):
+            out[slot] = tree.open_many(idxs)
+            continue
         leaves, sibs = tree.open_many_dev(idxs)
-        parts.append((leaves.shape, sibs.shape, leaves.reshape(-1), sibs.reshape(-1)))
-    flat = g.to_numpy(torch.cat([x for p in parts for x in p[2:]]))
-    out, pos = [], 0
-    for (q, w), (_, levels, _), _, _ in parts:
-        leaves = flat[pos:pos + q * w].reshape(q, w)
-        pos += q * w
-        sibs = flat[pos:pos + q * levels * 4].reshape(q, levels, 4)
-        pos += q * levels * 4
-        out.append(_proofs(leaves, sibs, levels))
+        parts.append((slot, leaves.shape, sibs.shape, leaves.reshape(-1), sibs.reshape(-1)))
+    if parts:
+        flat = g.to_numpy(torch.cat([x for p in parts for x in p[3:]]))
+        pos = 0
+        for slot, (q, w), (_, levels, _), _, _ in parts:
+            leaves = flat[pos:pos + q * w].reshape(q, w)
+            pos += q * w
+            sibs = flat[pos:pos + q * levels * 4].reshape(q, levels, 4)
+            pos += q * levels * 4
+            out[slot] = _proofs(leaves, sibs, levels)
     return out
 
 
 def verify_merkle_proof_to_cap(leaf, leaf_index, cap, proof, hasher=None) -> None:
-    """Raise if the proof is invalid (host scalar check)."""
+    """Raise if the proof is invalid (host scalar check). Digests are 4-felt
+    lists under Poseidon, bytes under Keccak."""
     if hasher is None:
         from plonky2_torch.hash.hashers import PoseidonHasher
 
@@ -178,10 +193,68 @@ def verify_merkle_proof_to_cap(leaf, leaf_index, cap, proof, hasher=None) -> Non
         else:
             digest = hasher.two_to_one(digest, sibling)
         idx >>= 1
-    if digest != list(cap[idx]):
+    expected = cap[idx] if isinstance(cap[idx], (bytes, bytearray)) else list(cap[idx])
+    if digest != expected:
         raise ValueError(f"Merkle proof invalid: leaf {leaf_index} digest != cap[{idx}]")
 
 
-def make_merkle_tree(leaves, cap_height: int) -> MerkleTree:
-    """The Poseidon row-leaf tree (the only hasher the port has so far)."""
-    return MerkleTree(leaves, cap_height)
+# seconds spent by Keccak trees: "copy_s" bringing leaves to the host,
+# "hash_s" hashing them; "trees" counts the trees built
+HOST_TREES = {"copy_s": 0.0, "hash_s": 0.0, "trees": 0}
+
+
+def reset_host_trees() -> None:
+    HOST_TREES.update(copy_s=0.0, hash_s=0.0, trees=0)
+
+
+class KeccakMerkleTree:
+    """A tree over row leaves [n, width] with byte digests, hashed on the
+    host level by level (reference hash/merkle.py `KeccakMerkleTree`).
+    `leaves` is a u64 numpy array or a tensor, which comes to the host in
+    one copy; layers[k] is [n >> k, HASH_SIZE] u8 and the cap is its last
+    level as a list of bytes."""
+
+    def __init__(self, leaves, cap_height: int = 0):
+        from plonky2_torch.hash.hashers import KeccakHasher
+
+        t0 = time.perf_counter()
+        if isinstance(leaves, torch.Tensor):
+            leaves = g.to_numpy(leaves)
+        self.leaves = np.ascontiguousarray(leaves, dtype=np.uint64)
+        t1 = time.perf_counter()
+        self.cap_height = cap_height
+        lg_n = int(self.leaves.shape[0]).bit_length() - 1
+        if 1 << lg_n != self.leaves.shape[0]:
+            raise ValueError(f"{self.leaves.shape[0]} leaves is not a power of two")
+        layers = [KeccakHasher.hash_leaves_batch(self.leaves)]
+        for _ in range(lg_n - cap_height):
+            layers.append(KeccakHasher.compress_batch(layers[-1]))
+        self._layers = layers
+        self.cap = [bytes(row) for row in layers[-1]]
+        HOST_TREES["copy_s"] += t1 - t0
+        HOST_TREES["hash_s"] += time.perf_counter() - t1
+        HOST_TREES["trees"] += 1
+
+    def leaf(self, leaf_index: int) -> list[int]:
+        return [int(v) for v in self.leaves[leaf_index]]
+
+    def prove(self, leaf_index: int) -> MerkleProof:
+        return MerkleProof([bytes(layer[(leaf_index >> k) ^ 1])
+                            for k, layer in enumerate(self._layers[:-1])])
+
+    def open_many(self, indices: list[int]):
+        """(leaf values, MerkleProof) at each index, on the host."""
+        idx = np.asarray(indices, dtype=np.int64)
+        leaves = self.leaves[idx]
+        sibs = [layer[(idx >> k) ^ 1] for k, layer in enumerate(self._layers[:-1])]
+        return [([int(v) for v in leaves[qi]],
+                 MerkleProof([bytes(level[qi]) for level in sibs]))
+                for qi in range(len(indices))]
+
+
+def make_merkle_tree(leaves, cap_height: int, hasher=None):
+    """The row-leaf tree of `hasher`: K4's Poseidon tree on the leaves'
+    device, or the host Keccak tree for a non-algebraic hasher."""
+    if getattr(hasher, "algebraic", True):
+        return MerkleTree(leaves, cap_height)
+    return KeccakMerkleTree(leaves, cap_height)

@@ -18,6 +18,10 @@ from plonky2_torch.hash.poseidon_constants import SPONGE_RATE, SPONGE_WIDTH
 
 
 class Challenger:
+    """The host transcript. `hasher` permutes the sponge state: Poseidon
+    by default, or the Keccak pseudo-permutation of
+    `KeccakGoldilocksConfig`."""
+
     def __init__(self, hasher=None):
         from plonky2_torch.hash.hashers import PoseidonHasher
 
@@ -48,7 +52,11 @@ class Challenger:
             self.observe_extension_element(e)
 
     def observe_hash(self, digest) -> None:
-        self.observe_elements(list(digest))
+        """A Poseidon digest's 4 felts, or a Keccak byte digest as 7-byte
+        felts (reference hash_types.rs:184-194)."""
+        from plonky2_torch.hash.hashers import observe_digest
+
+        observe_digest(self, digest)
 
     def observe_cap(self, cap) -> None:
         for digest in cap:

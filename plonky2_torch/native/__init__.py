@@ -2,9 +2,10 @@
 
 The library holds the witness-plan executor (`iop/witness_plan.py`) and what
 it needs: Goldilocks vector arithmetic, the Poseidon permutation and sponge,
-and the PoseidonGate witness kernel. Bound here: the executor, and the
-batch inverse, the permutation and the PoseidonGate kernel, which the tests
-hold to their Python forms. It is compiled with g++ at first use,
+and the PoseidonGate witness kernel; and keccak-f[1600], the permutation of
+the Keccak config's host Merkle trees and transcript (`hash/keccak.py`).
+Bound here: the executor, keccak-f, and the batch inverse, the permutation
+and the PoseidonGate kernel, which the tests hold to their Python forms. It is compiled with g++ at first use,
 not at import, into `plonky2_torch/build/native-<hash>/`, keyed on a hash of
 the source and of the Poseidon tables, which are generated into the build
 from the port's own constants (`hash/poseidon_constants.py`,
@@ -103,8 +104,10 @@ def library() -> ctypes.CDLL:
         i64 = ctypes.c_int64
         lib.gl_batch_inverse.argtypes = [u64p, u64p, i64]
         lib.poseidon_permute.argtypes = [u64p, i64]
+        lib.keccak_f1600.argtypes = [u64p, i64]
         lib.poseidon_gate_witness.argtypes = [u64p, u64p, u64p, i64]
-        for fn in (lib.gl_batch_inverse, lib.poseidon_permute, lib.poseidon_gate_witness):
+        for fn in (lib.gl_batch_inverse, lib.poseidon_permute, lib.poseidon_gate_witness,
+                   lib.keccak_f1600):
             fn.restype = None
         lib.witness_plan_run_mt.argtypes = [u64p, i32p, i64p, i64p, i64p, i64p, i64p, u64p,
                                             i64p, i64, i64]
@@ -134,6 +137,14 @@ def poseidon_permute(states) -> np.ndarray:
     s = _c(states).copy()
     flat = s.reshape(-1, 12)
     library().poseidon_permute(_p(flat), flat.shape[0])
+    return s
+
+
+def keccak_f1600(states) -> np.ndarray:
+    """keccak-f[1600] of [n, 25] u64 lane arrays, as a new array."""
+    s = _c(states).copy()
+    flat = s.reshape(-1, 25)
+    library().keccak_f1600(_p(flat), flat.shape[0])
     return s
 
 

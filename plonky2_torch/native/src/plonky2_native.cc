@@ -1,14 +1,16 @@
-// Host runtime of plonky2_torch: the witness-plan executor and what it needs.
+// Host runtime of plonky2_torch: the witness-plan executor and what it
+// needs, and keccak-f.
 //
 // Witness generation is a data-dependent dependency graph of ~150 short
 // sequential levels in a recursion circuit; it runs on the host, as in the
 // reference. This library holds Goldilocks vector arithmetic, the Poseidon
 // permutation and sponge, the PoseidonGate witness kernel (the fast
-// partial-round decomposition the gate's constraints are written against)
-// and the executor of a compiled witness plan (iop/witness_plan.py), whose
-// opcodes are each the dual of one generator's run_once. It is the port's
-// own copy of the reference package's native/src/plonky2_native.cc
-// (without keccak-f), exact duals of field/np_field.py and the generators.
+// partial-round decomposition the gate's constraints are written against),
+// the executor of a compiled witness plan (iop/witness_plan.py), whose
+// opcodes are each the dual of one generator's run_once, and keccak-f[1600]
+// for KeccakGoldilocksConfig's host Merkle trees and transcript. It is the
+// port's own copy of the reference package's native/src/plonky2_native.cc,
+// exact duals of field/np_field.py, hash/keccak.py and the generators.
 //
 // Built by plonky2_torch/native/__init__.py with g++ at first use; the
 // Poseidon tables (poseidon_tables.inc) are generated into the build from
@@ -280,6 +282,53 @@ void poseidon_gate_witness(const u64* inputs_all, const u64* swaps, u64* out_all
                            i64 n) {
   for (i64 k = 0; k < n; k++)
     poseidon_gate_row(inputs_all + k * PW, swaps[k], out_all + k * 122);
+}
+
+// ---------------------------------------------------------------------------
+// keccak-f[1600] over n states of 25 lanes, lane A[x + 5y] (dual of
+// hash/keccak.py keccak_f_np; reference hash/keccak.rs).
+// ---------------------------------------------------------------------------
+
+static const u64 KC_RC[24] = {
+    0x0000000000000001ull, 0x0000000000008082ull, 0x800000000000808Aull,
+    0x8000000080008000ull, 0x000000000000808Bull, 0x0000000080000001ull,
+    0x8000000080008081ull, 0x8000000000008009ull, 0x000000000000008Aull,
+    0x0000000000000088ull, 0x0000000080008009ull, 0x000000008000000Aull,
+    0x000000008000808Bull, 0x800000000000008Bull, 0x8000000000008089ull,
+    0x8000000000008003ull, 0x8000000000008002ull, 0x8000000000000080ull,
+    0x000000000000800Aull, 0x800000008000000Aull, 0x8000000080008081ull,
+    0x8000000000008080ull, 0x0000000080000001ull, 0x8000000080008008ull};
+
+static const int KC_ROT[5][5] = {{0, 36, 3, 41, 18},
+                                 {1, 44, 10, 45, 2},
+                                 {62, 6, 43, 15, 61},
+                                 {28, 55, 25, 21, 56},
+                                 {27, 20, 39, 8, 14}};
+
+static inline u64 kc_rotl(u64 v, int r) {
+  return r == 0 ? v : (v << r) | (v >> (64 - r));
+}
+
+void keccak_f1600(u64* states, i64 n) {
+  for (i64 k = 0; k < n; k++) {
+    u64* A = states + k * 25;
+    for (int rnd = 0; rnd < 24; rnd++) {
+      u64 C[5], D[5], B[25];
+      for (int x = 0; x < 5; x++)
+        C[x] = A[x] ^ A[x + 5] ^ A[x + 10] ^ A[x + 15] ^ A[x + 20];
+      for (int x = 0; x < 5; x++)
+        D[x] = C[(x + 4) % 5] ^ kc_rotl(C[(x + 1) % 5], 1);
+      for (int x = 0; x < 5; x++)
+        for (int y = 0; y < 5; y++) A[x + 5 * y] ^= D[x];
+      for (int x = 0; x < 5; x++)
+        for (int y = 0; y < 5; y++)
+          B[y + 5 * ((2 * x + 3 * y) % 5)] = kc_rotl(A[x + 5 * y], KC_ROT[x][y]);
+      for (int x = 0; x < 5; x++)
+        for (int y = 0; y < 5; y++)
+          A[x + 5 * y] = B[x + 5 * y] ^ (~B[(x + 1) % 5 + 5 * y] & B[(x + 2) % 5 + 5 * y]);
+      A[0] ^= KC_RC[rnd];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------

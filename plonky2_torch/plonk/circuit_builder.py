@@ -31,7 +31,6 @@ from plonky2_torch.gates.arithmetic_base import ArithmeticGate
 from plonky2_torch.gates.gate import UNUSED_SELECTOR
 from plonky2_torch.gates.poseidon_gate import PoseidonGate
 from plonky2_torch.gates.simple_gates import ConstantGate, NoopGate, PublicInputGate
-from plonky2_torch.hash.hashers import PoseidonHasher
 from plonky2_torch.iop.generator import ConstantGenerator, CopyGenerator, RandomValueGenerator
 from plonky2_torch.iop.target import (
     BoolTarget,
@@ -67,7 +66,7 @@ class GateInstance:
 
 class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin):
     def __init__(self, config: CircuitConfig | None = None, gc=None):
-        pcfg.check_generic_config(gc)
+        self.gc = pcfg.check_generic_config(gc)
         self.config = config or CircuitConfig.standard_recursion_config()
         self.gate_instances: list[GateInstance] = []
         self.gates: dict[str, object] = {}  # id -> gate, in first-use order
@@ -487,7 +486,8 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin):
         with timing.scope("constants-sigmas commitment"):
             commitment = PolynomialBatch.from_values(
                 np.concatenate([constant_vecs, sigmas]), fri.rate_bits,
-                pcfg.CONSTANTS_SIGMAS.blinding, fri.cap_height, device=device)
+                pcfg.CONSTANTS_SIGMAS.blinding, fri.cap_height, device=device,
+                hasher=self.gc.hasher)
             cap = commitment.merkle_tree.cap
 
         with timing.scope("generators and watch index"):
@@ -508,12 +508,15 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin):
                        for rep, v in watches.items()}
 
         # the circuit digest (reference circuit_builder.rs:1252-1264), with
-        # the digest of an empty domain separator
-        circuit_digest = PoseidonHasher.hash_no_pad(
-            [x for h in cap for x in h] + PoseidonHasher.hash_pad([]) + [degree_bits])
+        # the digest of an empty domain separator, under the config's hasher
+        hasher = self.gc.hasher
+        circuit_digest = hasher.hash_no_pad(
+            [x for h in cap for x in hasher.digest_to_felts(h)]
+            + hasher.digest_to_felts(hasher.hash_pad([])) + [degree_bits])
 
         common = CommonCircuitData(
-            config=config, fri_params=fri_params, gates=gates, selectors_info=selectors_info,
+            gc=self.gc, config=config, fri_params=fri_params, gates=gates,
+            selectors_info=selectors_info,
             quotient_degree_factor=quotient_degree_factor,
             num_gate_constraints=max(g.num_constraints() for g in gates),
             num_constants=num_constants, num_public_inputs=num_public_inputs, k_is=k_is,

@@ -49,6 +49,12 @@ class CommonCircuitData:
     num_partial_products: int
     num_lookup_polys: int = 0
     num_lookup_selectors: int = 0
+    # the GenericConfig (None: Poseidon); not part of the reference's common
+    # data, so left out of equality
+    gc: object = field(default=None, compare=False)
+
+    def generic_config(self):
+        return self.gc if self.gc is not None else pcfg.poseidon_goldilocks_config()
 
     @property
     def degree_bits(self) -> int:
@@ -143,14 +149,15 @@ class ProverOnlyCircuitData:
             fri = common.config.fri_config
             cache["constants_sigmas"] = PolynomialBatch.from_coeffs(
                 self.constants_sigmas_coeffs, fri.rate_bits,
-                pcfg.CONSTANTS_SIGMAS.blinding, fri.cap_height, device=device)
+                pcfg.CONSTANTS_SIGMAS.blinding, fri.cap_height, device=device,
+                hasher=common.generic_config().hasher)
         return cache["constants_sigmas"]
 
 
 @dataclass
 class VerifierOnlyCircuitData:
-    constants_sigmas_cap: list[list[int]]
-    circuit_digest: list[int]
+    constants_sigmas_cap: list  # 4-felt digests, or bytes under Keccak
+    circuit_digest: list[int] | bytes
 
 
 @dataclass
@@ -210,3 +217,20 @@ class CircuitData:
 
     def verify(self, proof_with_pis) -> None:
         self.verifier_data().verify(proof_with_pis)
+
+    def compress(self, proof_with_pis):
+        """The proof compressed (plonk/compressed.py; reference
+        circuit_data.rs:206-215)."""
+        from plonky2_torch.plonk.compressed import compress
+
+        return compress(proof_with_pis, self.verifier_only, self.common)
+
+    def decompress(self, compressed_proof):
+        from plonky2_torch.plonk.compressed import decompress
+
+        return decompress(compressed_proof, self.verifier_only, self.common)
+
+    def verify_compressed(self, compressed_proof) -> None:
+        from plonky2_torch.plonk.compressed import verify_compressed
+
+        verify_compressed(compressed_proof, self.verifier_only, self.common)

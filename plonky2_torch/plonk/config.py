@@ -1,8 +1,13 @@
-"""Circuit configuration and the PLONK oracles' indices and FRI blinding
-roles, as the reference package's `plonk/config.py` defines them (reference
-plonk/circuit_data.rs:62-141, plonk/plonk_common.rs:18-41). Only
-`PoseidonGoldilocksConfig` is ported; the Keccak transcript is ROADMAP
-item 11 and is refused by name."""
+"""Circuit configuration, the generic configs and the PLONK oracles'
+indices and FRI blinding roles, as the reference package's
+`plonk/config.py` defines them (reference plonk/circuit_data.rs:62-141,
+plonk/config.rs:95-126, plonk/plonk_common.rs:18-41).
+
+A `GenericConfig` names the transcript and Merkle hasher and the in-circuit
+(algebraic) hasher: `PoseidonGoldilocksConfig` hashes everything with
+Poseidon; `KeccakGoldilocksConfig` commits and runs its transcript with
+Keccak (the config of a proof posted where Keccak is cheap to verify) and
+keeps Poseidon in-circuit."""
 
 from __future__ import annotations
 
@@ -14,14 +19,39 @@ POSEIDON_GOLDILOCKS = "PoseidonGoldilocksConfig"
 KECCAK_GOLDILOCKS = "KeccakGoldilocksConfig"
 
 
-def check_generic_config(gc) -> None:
-    """Raise unless `gc` (None, a name, or an object with a `name`) is the
-    Poseidon config, the only one the port has."""
+@dataclass(frozen=True)
+class GenericConfig:
+    """The runtime form of the reference's GenericConfig type: the
+    transcript and Merkle hasher and the in-circuit hasher."""
+
+    name: str
+    hasher: object
+    inner_hasher: object
+
+
+def poseidon_goldilocks_config() -> GenericConfig:
+    from plonky2_torch.hash.hashers import PoseidonHasher
+
+    return GenericConfig(POSEIDON_GOLDILOCKS, PoseidonHasher, PoseidonHasher)
+
+
+def keccak_goldilocks_config() -> GenericConfig:
+    from plonky2_torch.hash.hashers import KeccakHasher, PoseidonHasher
+
+    return GenericConfig(KECCAK_GOLDILOCKS, KeccakHasher, PoseidonHasher)
+
+
+def check_generic_config(gc) -> GenericConfig:
+    """`gc` (None for Poseidon, a config's name, or a config with a `name`)
+    as the port's GenericConfig; raise for a config the port does not
+    have."""
     name = POSEIDON_GOLDILOCKS if gc is None else getattr(gc, "name", gc)
-    if name != POSEIDON_GOLDILOCKS:
-        raise NotImplementedError(
-            f"{name} is not ported (the port has {POSEIDON_GOLDILOCKS} only; "
-            f"{KECCAK_GOLDILOCKS} is ROADMAP item 11)")
+    if name == POSEIDON_GOLDILOCKS:
+        return poseidon_goldilocks_config()
+    if name == KECCAK_GOLDILOCKS:
+        return keccak_goldilocks_config()
+    raise NotImplementedError(f"{name} is not ported (the port has {POSEIDON_GOLDILOCKS} "
+                              f"and {KECCAK_GOLDILOCKS})")
 
 
 @dataclass(frozen=True)

@@ -13,7 +13,7 @@ def get_challenges(proof_with_pis, public_inputs_hash, circuit_digest,
                    common) -> ProofChallenges:
     proof = proof_with_pis.proof
     nc = common.config.num_challenges
-    challenger = Challenger()
+    challenger = Challenger(common.generic_config().hasher)
     common.fri_params.observe(challenger)
     challenger.observe_hash(circuit_digest)
     challenger.observe_hash(public_inputs_hash)

@@ -1,6 +1,6 @@
 """PLONK prover (reference plonk/prover.py:384-556, :976-1304,
 plonk/prover.rs:113-815), for non-zk circuits without lookups under
-`PoseidonGoldilocksConfig`.
+`PoseidonGoldilocksConfig` or `KeccakGoldilocksConfig`.
 
 `prepare_witness` is the host witness phase: the circuit's generators run
 from the caller's PartialWitness (`iop/generator.py`, the native witness
@@ -26,9 +26,11 @@ parameters, circuit digest, public-inputs hash) to the device before the
 wires commitment and keeps the transcript there (`DeviceChallenger`): the
 caps, the draws, the openings and the whole FRI argument return in one
 device-to-host fetch, and a warm prove synchronises with the host nowhere
-before it. The host path (inside `fri.prover.force_host_path()`) reads each
-cap and draw back to the host between the rounds. The field work between
-the kernels is plain PyTorch on the same device.
+before it. The host path (inside `fri.prover.force_host_path()`, and
+under Keccak, as the reference routes it) reads each cap and draw back to
+the host between the rounds; under Keccak the commitments' trees and the
+grind are the host's too (`fri/oracle.py`, `fri/prover.py`). The field
+work between the kernels is plain PyTorch on the same device.
 """
 
 from __future__ import annotations
@@ -128,11 +130,13 @@ def prove(prover_data, common, inputs, device=None, timing: TimingTree | None = 
     cap_height = config.fri_config.cap_height
     nc = config.num_challenges
 
+    hasher = common.generic_config().hasher
+
     def commit_values(values):
-        return PolynomialBatch.from_values(values, rate_bits, False, cap_height)
+        return PolynomialBatch.from_values(values, rate_bits, False, cap_height, hasher=hasher)
 
     constants_sigmas = prover_data.commitment(common, device)
-    challenger = Challenger()
+    challenger = Challenger(hasher)
     common.fri_params.observe(challenger)
     challenger.observe_hash(prover_data.circuit_digest)
     challenger.observe_hash(public_inputs_hash)
@@ -172,7 +176,8 @@ def prove(prover_data, common, inputs, device=None, timing: TimingTree | None = 
             prover_data, common, constants_sigmas, wires, zs_pp, public_inputs_hash,
             betas, gammas, alphas)
     with timing.scope("quotient commitment"):
-        quotient = PolynomialBatch.from_coeffs(quotient_chunks, rate_bits, False, cap_height)
+        quotient = PolynomialBatch.from_coeffs(quotient_chunks, rate_bits, False, cap_height,
+                                               hasher=hasher)
     challenger.observe_cap(quotient.merkle_tree.cap)
     zeta = challenger.get_extension_challenge(2)
     if fs.ext_exp(zeta, common.degree) == fs.ext_one(2):
@@ -187,7 +192,7 @@ def prove(prover_data, common, inputs, device=None, timing: TimingTree | None = 
     with timing.scope("FRI opening proof"):
         opening_proof = PolynomialBatch.prove_openings(
             common.get_fri_instance(zeta), [constants_sigmas, wires, zs_pp, quotient],
-            challenger, common.fri_params)
+            challenger, common.fri_params, hasher)
     proof = Proof(wires_cap=wires.merkle_tree.cap,
                   plonk_zs_partial_products_cap=zs_pp.merkle_tree.cap,
                   quotient_polys_cap=quotient.merkle_tree.cap,

@@ -87,4 +87,4 @@ def verify_with_challenges(proof, public_inputs_hash, challenges, verifier_data,
                      challenges.fri_challenges,
                      [verifier_data.constants_sigmas_cap, proof.wires_cap,
                       proof.plonk_zs_partial_products_cap, proof.quotient_polys_cap],
-                     proof.opening_proof, common.fri_params)
+                     proof.opening_proof, common.fri_params, common.generic_config().hasher)

@@ -208,8 +208,8 @@ def test_forest_and_sigmas_equal_the_reference_union_find(seed):
 def test_builder_refuses_zero_knowledge_and_other_configs():
     with pytest.raises(NotImplementedError, match="zero-knowledge"):
         CircuitBuilder(CircuitConfig(zero_knowledge=True)).build(device="cpu")
-    with pytest.raises(NotImplementedError, match="KeccakGoldilocksConfig"):
-        CircuitBuilder(gc="KeccakGoldilocksConfig")
+    with pytest.raises(NotImplementedError, match="BlakeGoldilocksConfig is not ported"):
+        CircuitBuilder(gc="BlakeGoldilocksConfig")
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without CUDA")

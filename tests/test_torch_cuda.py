@@ -302,6 +302,45 @@ def test_example_builds_proves_and_verifies_on_the_card(dev, name):
     data.verify(proof)
 
 
+def test_keccak_factorial_on_the_card_gives_the_fixture(dev):
+    """keccak_factorial (KeccakGoldilocksConfig) built and proved on the
+    card: the fixture's verifier and proof bytes, the host-transcript path
+    recorded, and its compressed proof decompresses to the proof's bytes
+    and verifies."""
+    import os
+
+    from plonky2_torch.examples import factorial
+    from plonky2_torch.fri import prover as fri_prover
+    from plonky2_torch.plonk import prover as tp
+    from plonky2_torch.plonk.circuit_serialization import verifier_data_to_bytes
+    from plonky2_torch.plonk.serialization import proof_to_bytes
+    from plonky2_torch.util import rng
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rng.seed(2026)
+    try:
+        data, proof = factorial.keccak_build_and_prove()
+    finally:
+        rng.seed(None)
+    assert (tp._LAST_TRANSCRIPT, fri_prover._LAST_PATH) == ("host", "host")
+    for suffix, got in (("verifier", verifier_data_to_bytes(data.verifier_only, data.common)),
+                        ("proof", proof_to_bytes(proof))):
+        with open(os.path.join(root, "fixtures", f"keccak_factorial.{suffix}.bin"), "rb") as f:
+            assert got == f.read(), suffix
+    compressed = data.compress(proof)
+    assert proof_to_bytes(data.decompress(compressed)) == proof_to_bytes(proof)
+    data.verify_compressed(compressed)
+
+
+def test_fibonacci_serialization_example_on_the_card(dev):
+    """The example's round trips (proof, verifier data, prover data read
+    back and proved again) run on the card."""
+    from plonky2_torch.examples import fibonacci_serialization
+
+    out = fibonacci_serialization.main()
+    assert set(out) == {"proof", "verifier", "prover"}
+
+
 def test_bench_recursion_chain_on_the_card_gives_the_fixture(dev):
     """The fixture chain, inner 2^4, middle and outer, built by the port's
     in-circuit verifier and proved on the card with the device left to its

@@ -77,7 +77,7 @@ def no_commitment(monkeypatch):
     """Both builders commit to nothing and the cap is zeros; the port's
     keeps the values it was given where its `constants_sigmas_coeffs`
     go."""
-    def port_batch(values, rate_bits, blinding, cap_height, device=None):
+    def port_batch(values, rate_bits, blinding, cap_height, device=None, hasher=None):
         return types.SimpleNamespace(polynomials=oracle._as_tensor(values, device),
                                      merkle_tree=types.SimpleNamespace(
                                          cap=[[0] * 4] * (1 << cap_height)))

@@ -8,8 +8,8 @@ the last the recursion chain's outer proof) and
 polynomial, a missing opening) it raises what the reference's
 `plonk/verifier.py` `verify` raises: the same exception class and message.
 Every gate's `eval_unfiltered` on `HostExtOps` (the verifier's form at ζ)
-equals the reference's at seeded random points, and the Keccak config
-(ROADMAP item 11) is refused by name.
+equals the reference's at seeded random points, and the builder takes the
+Keccak config by its name and refuses a name it has no config for.
 """
 
 import copy
@@ -154,7 +154,15 @@ def test_host_ext_gate_evaluation_equals_the_reference(gate, num_constants):
 
 
 def test_keccak_config_is_refused_by_name():
+    """The configs go by name: the reference's Keccak config object is the
+    port's KeccakGoldilocksConfig (ROADMAP item 11, tests/test_torch_keccak.py),
+    and a name the port has no config for is refused by name."""
     from plonky2_tpu.plonk.config import keccak_goldilocks_config
 
-    with pytest.raises(NotImplementedError, match="KeccakGoldilocksConfig is not ported"):
-        CircuitBuilder(gc=keccak_goldilocks_config())
+    from plonky2_torch.hash.hashers import KeccakHasher, PoseidonHasher
+
+    gc = CircuitBuilder(gc=keccak_goldilocks_config()).gc
+    assert (gc.name, gc.hasher, gc.inner_hasher) == ("KeccakGoldilocksConfig", KeccakHasher,
+                                                     PoseidonHasher)
+    with pytest.raises(NotImplementedError, match="Keccak256GoldilocksConfig is not ported"):
+        CircuitBuilder(gc="Keccak256GoldilocksConfig")

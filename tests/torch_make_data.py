@@ -48,12 +48,20 @@ the fixpoint's 2^13 build and the dummy prove over it; 0.23 MB in all):
                                                    2026): the proof that the
                                                    cyclic circuit's build makes
 so that `tests/test_torch_cyclic.py` holds the port's dummy circuit and its
-cyclic circuit to the reference's without a reference build or prove. Not
-collected by pytest; `tests/test_torch_plonk.py`, `tests/test_torch_witness.py`,
-`tests/test_torch_builder.py`, `tests/test_torch_starky.py` and
-`tests/test_torch_cyclic.py` hold the files equal to what this makes.
+cyclic circuit to the reference's without a reference build or prove.
+`--keccak` writes the Keccak wrap over the 2^4 inner circuit (the
+bench_recursion outer layer over `inner4.verifier.bin`'s common data,
+built under `keccak_goldilocks_config()`; ~10 s):
+  plonky2_torch/data/keccak_wrap4.verifier.bin     verifier_data_to_bytes
+so that `tests/test_torch_keccak.py` holds the port's Keccak build of it to
+the reference's without a reference build. Not collected by pytest;
+`tests/test_torch_plonk.py`, `tests/test_torch_witness.py`,
+`tests/test_torch_builder.py`, `tests/test_torch_starky.py`,
+`tests/test_torch_cyclic.py` and `tests/test_torch_keccak.py` hold the
+files equal to what this makes.
 
     JAX_PLATFORMS=cpu python tests/torch_make_data.py --cyclic
+    JAX_PLATFORMS=cpu python tests/torch_make_data.py --keccak
 """
 
 import os
@@ -225,6 +233,33 @@ def write_cyclic_data() -> None:
         print(f"wrote {name}: {len(blob)} bytes")
 
 
+def write_keccak_data() -> None:
+    """The reference's Keccak wrap over the 2^4 inner circuit: the
+    bench_recursion outer layer over `inner4.verifier.bin`'s common data,
+    built under `keccak_goldilocks_config()`; its verifier bytes."""
+    from plonky2_tpu.plonk.circuit_builder import CircuitBuilder
+    from plonky2_tpu.plonk.circuit_serialization import (
+        verifier_data_from_bytes,
+        verifier_data_to_bytes,
+    )
+    from plonky2_tpu.plonk.config import CircuitConfig, keccak_goldilocks_config
+    from plonky2_tpu.recursion import recursive_verifier as rv
+
+    with open(os.path.join(DATA, "inner4.verifier.bin"), "rb") as f:
+        _, inner_common = verifier_data_from_bytes(f.read())
+    b = CircuitBuilder(CircuitConfig.standard_recursion_config(), gc=keccak_goldilocks_config())
+    pt = rv.add_virtual_proof_with_pis(b, inner_common)
+    vdt = rv.add_virtual_verifier_data(b, inner_common.config.fri_config.cap_height)
+    rv.verify_proof(b, pt, vdt, inner_common)
+    b.register_public_inputs(pt.public_inputs)
+    data = b.build()
+    blob = verifier_data_to_bytes(data.verifier_only, data.common)
+    with open(os.path.join(DATA, "keccak_wrap4.verifier.bin"), "wb") as f:
+        f.write(blob)
+    print(f"wrote keccak_wrap4.verifier.bin: {len(blob)} bytes (degree "
+          f"2^{data.common.degree_bits})")
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, ROOT)
@@ -235,6 +270,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--cyclic"]:
         write_cyclic_data()
+        return 0
+    if sys.argv[1:] == ["--keccak"]:
+        write_keccak_data()
         return 0
 
     prover_bytes, _, witness, public_inputs, pi_hash, pw = factorial_data()
@@ -262,6 +300,7 @@ def main() -> int:
           f"{len(proof_bytes)} bytes")
     write_starky_data()
     write_cyclic_data()
+    write_keccak_data()
     return 0
 
 
