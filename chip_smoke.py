@@ -33,7 +33,7 @@ just before each and read just after, each proof the pinned one), as many
 with every phase synchronised for the split (the two witness scopes beside
 the device phases), and a `prove(_defer=True)` from the prepared host
 witness under "error"; then prove_many at K = BATCH_K, window BATCH_WINDOW,
-threads 1, 2 and 3, each batch's proofs equal to K sequential proves under
+threads 1 and 2, each batch's proofs equal to K sequential proves under
 the same seed sequence, the K witnesses pairwise distinct, at most the
 window in flight, with proofs/s; then the build phase: builds the
 bench_recursion inner circuit at 2^14 with the port's builder
@@ -88,7 +88,28 @@ on a Keccak builder once cold and BUILD_REPEATS times timed, proved
 KECCAK_PROVES times (the host transcript and host Keccak trees, the
 trees' seconds apart), one synchronised for the split and one profiled,
 verified, compressed and decompressed, every sha256 the reference's, and
-the headline proof compressed to the reference's bytes); runs `commit_and_open`
+the headline proof compressed to the reference's bytes); runs the sizes
+phase (`sizes_phase`: the bench_recursion chain at inner 2^SIZES_LOG, the
+middle layer's 28 queries on ExponentiationGate rows: each circuit built
+once, timed and split, each layer proved (a first call with the peak of
+allocated device memory, SIZES_PROVES timed proves of the inner and
+middle layers, one synchronised for the split, the inner one profiled)
+and verified, every verifier data and proof the reference's; then K3's
+LDE x8 of [135, 2^18] and iFFT of [83, 2^18], K4's wires tree over 2^21
+leaves (each compared on a slice, timed whole) and K5's device grind at
+its transcript against their plain versions); runs the zk phase
+(`zk_phase`: the chain at inner 2^ZK_LOG under
+`standard_recursion_zk_config()` for every layer, as above with
+ZK_PROVES, its blinding rows counted, every hash the reference's; the
+inner proof again on the host path to the same bytes; the middle layer's
+fused `prove(_defer=True)` with 0 host synchronisations before its fetch
+and nothing raised under "error"; `prove_many` of ZK_BATCH_K middle
+proofs at threads 1 and 2, each equal to sequential proves, on the
+single-stream pipeline that zero knowledge keeps; the middle proof
+compressed and decompressed to its bytes; then K3's LDE x8 of
+[135, 2^15], K4's salted trees of width 139, 24 and 20 over 2^18 leaves
+and K5's device grind at its transcript against their plain versions);
+runs `commit_and_open`
 at the bench_recursion middle-circuit shapes (degree 2^13, oracles of
 85/135/20/16 polynomials; its FRI proof on the fused path) with the counts
 set to 0 just before and read just after each of its runs and its pinned
@@ -116,8 +137,11 @@ the `kernels` JSON object (launches: the headline prove's, the chunk
 grind's from the host-path prove; beside them the inner build's and
 prove's, the middle and outer builds', the outer prove's and the two 2^20
 Starky proves', the cyclic build's and
-a cyclic layer's, the Keccak wrap's build's and prove's, and the
-headline's and prove_many's numbers), the last line the ok JSON object. Every timing line names the
+a cyclic layer's, the Keccak wrap's build's and prove's, the 2^18
+chain's inner build's and prove's and middle build's and prove's, the zk
+chain's inner build's and prove's and middle prove's, and the headline's,
+prove_many's and the new phases' numbers), the last line the ok JSON
+object. Every timing line names the
 card and its power limit. Any failed check exits non-zero and prints no
 result; so does a run without CUDA, and a run of the script alone, without
 the `plonky2_torch/` package beside it. Imports nothing of JAX.
@@ -158,15 +182,19 @@ MIDDLE_RUNS = 5
 # plain path and the reference's host path give it on the CPU
 # (tests/reference_prove_middle.py)
 MIDDLE_PROVE_SHA256 = "0759dc2ebfa4f3097d596d1633f22fa013534b750fe1ba265a2fee16038a23ea"
-MIDDLE_PROVES = 5
+# The repeats of the earlier paths were cut when the sizes and zk phases
+# came (MIDDLE_PROVES, HEADLINE_PROVES, KECCAK_PROVES 5 -> 3, BATCH_K
+# 16 -> 8, BUILD_REPEATS 3 -> 2), so that a slow call on a loaded host
+# stays well inside the script's time limit.
+MIDDLE_PROVES = 3
 # the headline: bench_cache/inner14.proof.bin in the middle circuit's proof
 # targets, the rng seeded to 2026; the full witness and the proof that the
 # port's plain path, both witness engines and the reference give on the CPU
 # (tests/reference_prove_middle.py)
 HEADLINE_WITNESS_SHA256 = "078753bd98bdd5a12f0b0e27d62eaa1639b66a6c532cb152cb51ff663b98ca1d"
 HEADLINE_PROOF_SHA256 = "9871be1789d5a82569612f725440a7345b8109716330ade7f73f336fa64fde28"
-HEADLINE_PROVES = 5
-BATCH_K = 16  # bench.py's prove_many batch
+HEADLINE_PROVES = 3
+BATCH_K = 8  # half of bench.py's prove_many batch
 BATCH_WINDOW = 3
 # the build phase: the bench_recursion inner circuit at 2^14 built by the
 # port (its verifier bytes must be bench_cache/inner14.verifier.bin), its
@@ -180,7 +208,7 @@ MIDDLE_OVER_INNER14_SHA256 = "e83fe3c3a9c0665b09f7095f9d48b12d8a6d62e32fa60001f5
 # (tests/reference_prove_middle.py --inner14)
 OUTER_VERIFIER_SHA256 = "47c500d46e351b01f17042d874a343163ed27c6345503aa74847f4f8666f43cc"
 OUTER_OVER_INNER14_SHA256 = "e54f11fa117f1111f5c1fa26dde2dfea77210e4ad97378cb2595ad5a1b01ad15"
-BUILD_REPEATS = 3
+BUILD_REPEATS = 2
 INNER_PROVES = 3
 # the Starky phase: FibonacciStark(2^20) (public inputs [0, 1,
 # fibonacci(2^20 - 1, 0, 1)]) and LookupTestStark(2^20) (its own trace,
@@ -208,7 +236,34 @@ KECCAK_WRAP_PROOF_SHA256 = "743e8711e2acf31b92717b9d996c774807ea2015192247dde5b2
 KECCAK_WRAP_COMPRESSED_SHA256 = "db49d158afbc41f591cc9f5f8ec4b028f6248c27cd4d77ec503c7dbce0fb3d0e"
 KECCAK_HEADLINE_COMPRESSED_SHA256 = (
     "5b025c580d187f30086873ded6505a60ee9d5bcb42cd031d09c2953464cec444")
-KECCAK_PROVES = 5
+KECCAK_PROVES = 3
+# the sizes phase: the bench_recursion chain at inner 2^18 (the middle
+# layer's exp_from_bits on ExponentiationGate rows), each layer's verifier
+# data and its proof under seed 2026 as the reference makes them on the CPU
+# (tests/reference_prove_sizes.py), inner first
+SIZES_LOG = 18
+SIZES_VERIFIER_SHA256S = (
+    "e2997095f14a4a952fb9e26b559e1b6ca15799584e0be03f6c473a857b3a7fdb",
+    "51d29bfa35ee08ae495774a6abfab62945fbc2d02f7426707cf6133206297ca8",
+    "1f3d569ce6b3016f16242597adc8be8af5c7afbdabad6525207f309cc4ea2a16")
+SIZES_PROOF_SHA256S = (
+    "9a2307914d0c3be06cff3a846d99ffffa65747a1e5c84d347b4a742af6a88847",
+    "61d95e18d1f88c7bfda381eb4275bab6ecc546bc91648bb7661f18ab7bb8db37",
+    "0304b6d260f046ed93f1802490b012380adec3261d3c3eb965aec10aade2d4a2")
+SIZES_PROVES = 3
+# the zk phase: the chain at inner 2^14 under standard_recursion_zk_config()
+# for every layer (tests/reference_prove_zk.py), inner first
+ZK_LOG = 14
+ZK_VERIFIER_SHA256S = (
+    "db6a25fce39a61b99b9495a1baf477d22610fcd14b2af8b00826f82131ea3351",
+    "94c92dc7b1a6282fc6602fba3a7e4f1cc7f4d5ef36c53a4e98c786963cbd3ce1",
+    "bce1c8be8a8e735fe99211c9f5deee220132222142b49a73eacaad3eccea053d")
+ZK_PROOF_SHA256S = (
+    "281341165b89c2ca6ae96693a07c71748b8d39d11a458e414847e1cee841ce06",
+    "0d81013f0230828d57daa03f2457481fc05f27dc3926efda53c974da537ee6ad",
+    "273384706a5dd026b6a80c029553bd18a098bcdd4afe55a9110d13688ae05d84")
+ZK_PROVES = 3
+ZK_BATCH_K = 4
 
 
 def same_generators(a: list, b: list) -> bool:
@@ -697,28 +752,7 @@ def starky_phase(torch, dev, card, failures, root) -> dict:
                        OPS_PER_PERMUTATION * (witness + 1)))
         print(f"K5 device grind on the starky Fibonacci 2^{lg} transcript ({bits} bits, "
               f"{int(pending.shape[0])} pending): witness {witness}")
-    shape_results = {}
-    for kernel, key, run_k, run_p, n_bytes, n_ops in shapes:
-        got = run_k()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = run_p()  # one run, timed: the plain tree over 2^21 leaves takes seconds
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        if isinstance(got, (list, tuple)):  # a tree's levels
-            mism = int(len(got) != len(want)) + sum(compare(a, b)[0] for a, b in zip(got, want))
-        else:
-            mism = compare(got, want)[0]
-        del got, want
-        ms = time_ms(torch, run_k, reps=10, warmup=2)
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
-        print(f"{kernel.label} {key}: {mism} mismatches; {ms:.4f} ms kernel, {plain_ms:.4f} ms "
-              f"plain, bound {b_ms:.4f} ms ({b_by}, share {b_ms / ms:.1%})")
-        shape_results.setdefault(kernel.label, {})[key] = dict(
-            mismatches=mism, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        if mism:
-            failures.append(f"{kernel.label} disagrees with its plain version at {key}")
-    out["shapes"] = shape_results
+    out["shapes"] = shape_checks(torch, failures, [(*shape, None) for shape in shapes])
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"starky phase ({card}): {out['phase_s']:.1f} s")
     return out
@@ -1101,6 +1135,472 @@ def keccak_phase(torch, dev, card, failures, middle, headline_bytes) -> dict:
                verify_compressed_s=verify_compressed_s,
                phase_s=time.perf_counter() - t_phase)
     print(f"keccak phase ({card}): {out['phase_s']:.1f} s")
+    return out
+
+
+def chain_layers(torch, dev, card, failures, label, size, config, verifier_shas, proof_shas,
+                 proves, grind_inputs) -> list:
+    """The bench_recursion chain at inner 2^size under `config` for every
+    layer, as `examples/bench_recursion.py` `chain(size, config)` runs it,
+    layer by layer: each circuit built once (timed, split by scope, the
+    counts set to 0 just before and read just after; its verifier bytes'
+    sha256 `verifier_shas[i]`; a recursion layer's ExponentiationGate rows
+    counted), then proved from the layer below under seed 2026 (a first
+    call with the peak of allocated device memory, `proves[i]` timed proves
+    with the counts set to 0 just before each and read just after, each
+    `proof_shas[i]`; one synchronised for the split) and verified by the
+    port's verifier. The inner layer's first call records its device
+    grind's inputs in `grind_inputs`. Returns per layer a dict of its
+    numbers, with "data", "proof" and "inputs" (the PartialWitness)."""
+    from plonky2_torch import ops
+    from plonky2_torch.examples import bench_recursion as br
+    from plonky2_torch.gates.exponentiation import ExponentiationGenerator
+    from plonky2_torch.iop.witness import PartialWitness
+    from plonky2_torch.ops import poseidon as kp
+    from plonky2_torch.plonk import prover as tp
+    from plonky2_torch.plonk.circuit_serialization import verifier_data_to_bytes
+    from plonky2_torch.plonk.serialization import proof_to_bytes
+    from plonky2_torch.util import TimingTree
+    from plonky2_torch.util import rng as prover_rng
+
+    def seeded(run):
+        prover_rng.seed(SEED)
+        try:
+            return run()
+        finally:
+            prover_rng.seed(None)
+
+    def sha(b: bytes) -> str:
+        return hashlib.sha256(b).hexdigest()
+
+    grind_device = kp.grind_device
+
+    def recording_grind(state, pending, pow_bits):
+        grind_inputs.append((state.clone(), pending.clone(), pow_bits))
+        return grind_device(state, pending, pow_bits)
+
+    layers = []
+    for i, name in enumerate(("inner", "middle", "outer")):
+        timing = TimingTree("build", sync=torch.cuda.synchronize)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        if i == 0:
+            data = br.dummy_circuit(config, size, device=dev, timing=timing)
+            pw = PartialWitness()
+        else:
+            below = layers[-1]
+            data, pt, vdt = br.recursion_circuit(below["data"].common, config, device=dev,
+                                                 timing=timing)
+            pw = br.recursion_inputs(pt, vdt, (below["proof"], below["data"].verifier_only,
+                                               below["data"].common))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build_launches = ops.launch_counts()
+        vd_sha = sha(verifier_data_to_bytes(data.verifier_only, data.common))
+        if vd_sha != verifier_shas[i]:
+            failures.append(f"{label} {name}: verifier data sha256 {vd_sha}, not the "
+                            f"reference's {verifier_shas[i]}")
+        exp_rows = sum(isinstance(g_, ExponentiationGenerator)
+                       for g_ in data.prover_only.generators)
+        regular, pairs = data.build_info.get("blinding", (0, 0))
+        split = timing.split()
+        print(f"{label} {name} build (degree 2^{data.common.degree_bits}, "
+              f"{len(data.prover_only.generators)} generators, {exp_rows} ExponentiationGate "
+              f"rows, blinding {regular} rows and {pairs} Z pairs; {card}): {build_s:.4f} s; "
+              f"verifier sha256 {vd_sha}; launches {build_launches}; split: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f"; outside the scopes {build_s - sum(split.values()):.4f}")
+
+        def prove(timing=None, data=data, pw=pw):
+            return seeded(lambda: data.prove(pw, device=dev, timing=timing))
+
+        def pinned(proof, what, i=i, name=name):
+            digest = sha(proof_to_bytes(proof))
+            if proof_shas[i] is not None and digest != proof_shas[i]:
+                failures.append(f"{label} {name} {what}: proof sha256 {digest}, not the "
+                                f"reference's {proof_shas[i]}")
+            return digest
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if i == 0:
+            kp.grind_device = recording_grind
+        t0 = time.perf_counter()
+        try:
+            proof = prove()
+        finally:
+            kp.grind_device = grind_device
+        first_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        digest = pinned(proof, "first call")
+        walls, launches = [], {}
+        for _ in range(proves[i]):
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            again = prove()
+            walls.append(time.perf_counter() - t0)
+            launches = ops.launch_counts()
+            pinned(again, "prove")
+            if tp._LAST_TRANSCRIPT != "fused":
+                failures.append(f"the {label} {name} prove took the {tp._LAST_TRANSCRIPT} path")
+        for kernel_label, n in launches.items():
+            if n == 0 and kernel_label != ops.K5_CHUNK.label:  # the host path's grind
+                failures.append(f"{kernel_label} was not launched on the {label} {name} prove")
+        timing = TimingTree("prove", sync=torch.cuda.synchronize)
+        t0 = time.perf_counter()
+        pinned(prove(timing), "synchronised prove")
+        sync_wall = time.perf_counter() - t0
+        prove_split = timing.split()
+        t0 = time.perf_counter()
+        try:
+            data.verify(proof)
+            accepted = True
+        except ValueError as e:
+            accepted = False
+            failures.append(f"the port's verifier rejects the {label} {name} proof: {e}")
+        verify_s = time.perf_counter() - t0
+        wall = statistics.median(walls) if walls else first_s
+        timed = (f"{wall:.4f} s median of {[round(w, 4) for w in walls]} (first call "
+                 f"{first_s:.3f} s" if walls else f"{first_s:.4f} s, one prove (the first call")
+        print(f"{label} {name} prove (witness + fused prove; {card}): {timed}; peak device memory "
+              f"allocated {peak_gib:.2f} GiB), {len(proof_to_bytes(proof))} bytes, sha256 "
+              f"{digest} (the reference's: {proof_shas[i]}); launches {launches}; the port's "
+              f"verifier {verify_s:.3f} s, accepted: {accepted}")
+        print(f"{label} {name} prove phases ({card}), s, the device synchronised at each "
+              f"phase's start and end ({sync_wall:.4f} s wall): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in prove_split.items())
+              + f"; outside the phases {sync_wall - sum(prove_split.values()):.4f}")
+        if i == 0:
+            profile_line(torch, prove, wall, f"{label} inner prove")
+        layers.append(dict(data=data, proof=proof, inputs=pw, prove=prove, build_s=build_s,
+                           build_split=split, build_launches=build_launches,
+                           exp_rows=exp_rows, blinding=(regular, pairs),
+                           degree_bits=data.common.degree_bits, first_s=first_s,
+                           peak_gib=peak_gib, wall_s=wall, walls=walls, launches=launches,
+                           split=prove_split, sync_wall_s=sync_wall, verify_s=verify_s,
+                           sha256=digest, verifier_sha256=vd_sha))
+    return layers
+
+
+def layer_summary(layers) -> list:
+    """The JSON-able numbers of chain_layers' layers."""
+    drop = ("data", "proof", "inputs", "prove")
+    return [{k: v for k, v in layer.items() if k not in drop} for layer in layers]
+
+
+def shape_checks(torch, failures, shapes) -> dict:
+    """Each (kernel, key, kernel call, plain call, bytes, operations,
+    timed kernel call or None): the kernel against its plain version on the
+    same card input (exact), one plain run timed, the kernel timed (the
+    timed call where given: the full shape, where the compared one is a
+    slice), and the bound of the timed work. Returns {kernel label: {key:
+    numbers}}."""
+    out = {}
+    for kernel, key, run_k, run_p, n_bytes, n_ops, timed in shapes:
+        got = run_k()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = run_p()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if isinstance(got, (list, tuple)):  # a tree's levels
+            mism = int(len(got) != len(want)) + sum(compare(a, b)[0] for a, b in zip(got, want))
+        else:
+            mism = compare(got, want)[0]
+        del got, want
+        ms = time_ms(torch, timed or run_k, reps=10, warmup=2)
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        print(f"{kernel.label} {key}: {mism} mismatches; {ms:.4f} ms kernel, {plain_ms:.4f} ms "
+              f"plain{' (on the compared slice)' if timed else ''}, bound {b_ms:.4f} ms ({b_by}, "
+              f"share {b_ms / ms:.1%})")
+        out.setdefault(kernel.label, {})[key] = dict(mismatches=mism, ms=ms, plain_ms=plain_ms,
+                                                     plain_on_slice=timed is not None,
+                                                     bound_ms=b_ms, bound_by=b_by)
+        if mism:
+            failures.append(f"{kernel.label} disagrees with its plain version at {key}")
+    return out
+
+
+def sizes_phase(torch, dev, card, failures) -> dict:
+    """The bench_recursion chain at inner 2^SIZES_LOG on the card
+    (`chain_layers`: the inner circuit, the middle circuit over it, whose
+    28 queries' exp_from_bits take ExponentiationGate rows, and the outer
+    one; SIZES_PROVES timed proves of the inner and middle layers, the
+    inner's profiled), every verifier data and proof the reference's
+    (SIZES_VERIFIER_SHA256S, SIZES_PROOF_SHA256S); then the new kernel
+    shapes of the inner layer against their plain versions: K3's LDE x8 of
+    the wires [135, 2^18] -> [135, 2^21] and the constants-sigmas iFFT
+    [83, 2^18], K4's wires tree of width 135 over 2^21 leaves (each
+    compared on a slice, timed whole) and K5's device grind at the inner
+    transcript. Returns what the kernels line and the summary take."""
+    import numpy as np
+
+    from plonky2_torch import ops
+    from plonky2_torch.field import goldilocks as g
+    from plonky2_torch.field import ntt
+    from plonky2_torch.field import scalar as fs
+    from plonky2_torch.ops import ntt as kn
+    from plonky2_torch.ops import poseidon as kp
+    from plonky2_torch.plonk.config import CircuitConfig
+
+    t_phase = time.perf_counter()
+    grind_inputs = []
+    layers = chain_layers(torch, dev, card, failures, "sizes", SIZES_LOG,
+                          CircuitConfig.standard_recursion_config(), SIZES_VERIFIER_SHA256S,
+                          SIZES_PROOF_SHA256S, (SIZES_PROVES, SIZES_PROVES, 0), grind_inputs)
+    if layers[1]["exp_rows"] == 0:
+        failures.append("the middle circuit over the 2^18 inner circuit has no "
+                        "ExponentiationGate row")
+    out = dict(layers=layer_summary(layers))
+    del layers
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED + 30)
+
+    def rand(shape):
+        return g.tensor(rng.integers(0, fs.P, size=shape, dtype=np.uint64), dev)
+
+    lg, gen = SIZES_LOG, fs.MULTIPLICATIVE_GROUP_GENERATOR
+    n = 1 << lg
+    wires = rand((135, n))
+    cs = rand((83, n))
+    table = ntt._lde_coset_scale_table(gen, lg, 3, str(dev))
+    lde = kn.ntt_four_step(wires, scale=table, fan=8)
+    n_lde = 8 * n
+    lde_slice = lde[:, :1 << 15].contiguous()
+    shapes = [
+        (ops.K3, f"sizes_lde_135x2_{lg}_x8", lambda: kn.ntt_four_step(wires[:2], scale=table,
+                                                                     fan=8),
+         lambda: kn.ntt_four_step_plain(wires[:2], False, table, 8),
+         8 * (wires.numel() + table.numel() + 8 * wires.numel()),
+         OPS_PER_MODMUL * 135 * 8 * ((n // 2) * lg + n),
+         lambda: kn.ntt_four_step(wires, scale=table, fan=8)),
+        (ops.K3, f"sizes_ifft_83x2_{lg}", lambda: kn.ntt_four_step(cs[:2], inverse=True),
+         lambda: kn.ntt_four_step_plain(cs[:2], inverse=True), 8 * 2 * cs.numel(),
+         OPS_PER_MODMUL * 83 * ((n // 2) * lg + n), lambda: kn.ntt_four_step(cs, inverse=True)),
+        (ops.K4, f"sizes_wires_tree_135x2_{lg + 3}", lambda: kp.sponge(lde_slice),
+         lambda: kp.sponge_plain(lde_slice),
+         8 * (lde.numel() + kp.tree_words(n_lde, lg + 3 - 4)),
+         OPS_PER_PERMUTATION * (17 * n_lde + (n_lde - (n_lde >> (lg + 3 - 4)))),
+         lambda: kp.merkle_tree(lde, 4, True)),
+    ]
+    if len(grind_inputs) == 1:
+        state, pending, bits = grind_inputs[0]
+        witness = g.u64(int(kp.grind_device(state, pending, bits)[0]))
+        shapes.append((ops.K5_DEVICE, "sizes_grind_device",
+                       lambda: kp.grind_device(state, pending, bits),
+                       lambda: kp.grind_device_plain(state, pending, bits, chunk=GRIND_CHUNK),
+                       8 * (12 + int(pending.shape[0]) + 1), OPS_PER_PERMUTATION * (witness + 1),
+                       None))
+        print(f"K5 device grind on the 2^{lg} inner transcript ({bits} bits): witness {witness}")
+    else:
+        failures.append(f"the 2^{lg} inner prove's first call ran {len(grind_inputs)} device "
+                        "grinds, not 1")
+    out["shapes"] = shape_checks(torch, failures, shapes)
+    del wires, cs, lde, lde_slice
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"sizes phase ({card}): {out['phase_s']:.1f} s")
+    return out
+
+
+def zk_phase(torch, dev, card, failures) -> dict:
+    """The bench_recursion chain at inner 2^14 under
+    `standard_recursion_zk_config()` for every layer on the card
+    (`chain_layers`: the inner circuit blinded to degree 2^15, the middle
+    and outer layers verifying salted proofs in circuit; ZK_PROVES timed
+    proves of the inner and middle layers), every verifier data and proof
+    the reference's (ZK_VERIFIER_SHA256S, ZK_PROOF_SHA256S); the inner
+    layer proved once on the host path to the same bytes; the host
+    synchronisations of the middle layer's fused prove(_defer=True) (0
+    before its fetch, and nothing raised under "error"); prove_many of
+    ZK_BATCH_K middle proofs at threads 1 and 2, each equal to sequential
+    proves, the pipeline recorded (zero knowledge keeps one stream); the
+    middle proof compressed and decompressed to its bytes; then the new
+    kernel shapes: K3's LDE x8 [135, 2^15] -> [135, 2^18], K4's salted
+    trees over 2^18 leaves of width 139, 24 and 20 (each compared on a
+    slice, timed whole) and K5's device grind at the inner transcript."""
+    import numpy as np
+
+    from plonky2_torch import ops
+    from plonky2_torch.field import goldilocks as g
+    from plonky2_torch.field import ntt
+    from plonky2_torch.field import scalar as fs
+    from plonky2_torch.fri import prover as fri_prover
+    from plonky2_torch.iop.witness import PartialWitness
+    from plonky2_torch.ops import ntt as kn
+    from plonky2_torch.ops import poseidon as kp
+    from plonky2_torch.plonk import prover as tp
+    from plonky2_torch.plonk.compressed import compress, decompress
+    from plonky2_torch.plonk.config import CircuitConfig
+    from plonky2_torch.plonk.serialization import (
+        compressed_proof_from_bytes,
+        compressed_proof_to_bytes,
+        proof_to_bytes,
+    )
+    from plonky2_torch.util import rng as prover_rng
+
+    def seeded(run):
+        prover_rng.seed(SEED)
+        try:
+            return run()
+        finally:
+            prover_rng.seed(None)
+
+    t_phase = time.perf_counter()
+    grind_inputs = []
+    layers = chain_layers(torch, dev, card, failures, "zk", ZK_LOG,
+                          CircuitConfig.standard_recursion_zk_config(), ZK_VERIFIER_SHA256S,
+                          ZK_PROOF_SHA256S, (ZK_PROVES, ZK_PROVES, 0), grind_inputs)
+    inner, middle = layers[0], layers[1]
+    want_inner = proof_to_bytes(inner["proof"])
+    with fri_prover.force_host_path():
+        t0 = time.perf_counter()
+        host = proof_to_bytes(inner["prove"]())
+        host_s = time.perf_counter() - t0
+    host_path = tp._LAST_TRANSCRIPT
+    print(f"zk inner prove on the host path ({card}): {host_s:.4f} s, transcript {host_path}, "
+          f"the fused path's bytes: {host == want_inner}")
+    if host != want_inner or host_path != "host":
+        failures.append("the zk inner prove on the host path is not the fused path's proof")
+
+    data, pw = middle["data"], middle["inputs"]
+    want_middle = proof_to_bytes(middle["proof"])
+    prepared = seeded(lambda: tp.prepare_witness(data.prover_only, data.common, pw))
+
+    def deferred():
+        # the salts are drawn after the witness phase: the rng continues
+        # from the prepared witness as a prove from the inputs continues
+        prover_rng.seed(SEED)
+        try:
+            tp.prepare_witness(data.prover_only, data.common, pw)
+            return tp.prove(data.prover_only, data.common, None, device=dev, _defer=True,
+                            _prepared=prepared)
+        finally:
+            prover_rng.seed(None)
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            finish = deferred()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    same_deferred = proof_to_bytes(finish()) == want_middle
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        finish = deferred()
+        raised = None
+    except RuntimeError as e:
+        finish, raised = None, str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if finish is not None:
+        same_deferred &= proof_to_bytes(finish()) == want_middle
+    print(f"zk middle fused prove(_defer=True) from its prepared witness ({card}): "
+          f"{len(syncs)} host synchronisations before its fetch "
+          f"{[f'{os.path.basename(w.filename)}:{w.lineno}' for w in syncs][:6]}; under "
+          f"set_sync_debug_mode('error'): {'raised ' + raised if raised else 'raised nothing'}; "
+          f"proofs the middle proof: {same_deferred}")
+    if syncs or raised:
+        failures.append(f"the zk middle fused prove synchronised {len(syncs)} times before its "
+                        f"fetch ({raised or 'nothing raised under error'})")
+    if not same_deferred:
+        failures.append("the zk middle deferred proves are not the middle proof")
+
+    t0 = time.perf_counter()
+    sequential = seeded(lambda: [proof_to_bytes(data.prove(pw, device=dev))
+                                 for _ in range(ZK_BATCH_K)])
+    sequential_s = time.perf_counter() - t0
+    batched = {}
+    for threads in (1, 2):
+        t0 = time.perf_counter()
+        got = seeded(lambda: tp.prove_many(data.prover_only, data.common, [pw] * ZK_BATCH_K,
+                                           device=dev, window=BATCH_WINDOW, threads=threads))
+        dt = time.perf_counter() - t0
+        same = [proof_to_bytes(p) for p in got] == sequential
+        batched[threads] = dict(proofs_per_s=ZK_BATCH_K / dt, seconds=dt, equal=same,
+                                mode=tp._LAST_PROVE_MANY_MODE,
+                                max_in_flight=tp._LAST_MAX_IN_FLIGHT)
+        if not same:
+            failures.append(f"zk prove_many (threads {threads}) differs from sequential proves")
+        if tp._LAST_PROVE_MANY_MODE != "single-stream":
+            failures.append(f"zk prove_many (threads {threads}) ran the "
+                            f"{tp._LAST_PROVE_MANY_MODE} pipeline")
+    print(f"zk prove_many K={ZK_BATCH_K}, window {BATCH_WINDOW}, middle layer ({card}): "
+          + "; ".join(f"threads {t}: {v['proofs_per_s']:.3f} proofs/s ({v['seconds']:.2f} s), "
+                      f"pipeline {v['mode']}, at most {v['max_in_flight']} in flight, proofs "
+                      f"equal to the sequential: {v['equal']}" for t, v in batched.items())
+          + f"; sequential {ZK_BATCH_K / sequential_s:.3f} proofs/s ({sequential_s:.2f} s)")
+
+    t0 = time.perf_counter()
+    compressed = compressed_proof_to_bytes(compress(middle["proof"], data.verifier_only,
+                                                    data.common), data.common)
+    back = proof_to_bytes(decompress(compressed_proof_from_bytes(compressed, data.common),
+                                     data.verifier_only, data.common))
+    compress_s = time.perf_counter() - t0
+    print(f"zk middle proof compressed ({card}): {len(compressed)} of {len(want_middle)} bytes, "
+          f"sha256 {hashlib.sha256(compressed).hexdigest()}; decompressed to its bytes: "
+          f"{back == want_middle}; both in {compress_s:.3f} s")
+    if back != want_middle:
+        failures.append("the zk middle proof does not decompress to its bytes")
+    out = dict(layers=layer_summary(layers), host_path_s=host_s, syncs_before_fetch=len(syncs),
+               prove_many=batched, sequential_proofs_per_s=ZK_BATCH_K / sequential_s,
+               compressed_bytes=len(compressed), proof_bytes=len(want_middle))
+    del layers, inner, middle, data, prepared
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED + 40)
+
+    def rand(shape):
+        return g.tensor(rng.integers(0, fs.P, size=shape, dtype=np.uint64), dev)
+
+    lg, gen = ZK_LOG + 1, fs.MULTIPLICATIVE_GROUP_GENERATOR  # the blinded inner degree
+    n = 1 << lg
+    wires = rand((135, n))
+    table = ntt._lde_coset_scale_table(gen, lg, 3, str(dev))
+    n_lde = 8 * n
+
+    def salted_tree(width):
+        cols = rand((width, n_lde))
+        part = cols[:, :1 << 14].contiguous()
+        levels = lg + 3
+        return (ops.K4, f"zk_salted_tree_{width}x2_{levels}",
+                lambda: kp.merkle_tree(part, 4, True),
+                lambda: kp.merkle_tree_plain(part, 4, True),
+                8 * (cols.numel() + kp.tree_words(n_lde, levels - 4)),
+                OPS_PER_PERMUTATION * (-(-width // 8) * n_lde + (n_lde - (n_lde >> (levels - 4)))),
+                lambda: kp.merkle_tree(cols, 4, True))
+
+    shapes = [
+        (ops.K3, f"zk_lde_135x2_{lg}_x8", lambda: kn.ntt_four_step(wires[:2], scale=table,
+                                                                  fan=8),
+         lambda: kn.ntt_four_step_plain(wires[:2], False, table, 8),
+         8 * (wires.numel() + table.numel() + 8 * wires.numel()),
+         OPS_PER_MODMUL * 135 * 8 * ((n // 2) * lg + n),
+         lambda: kn.ntt_four_step(wires, scale=table, fan=8)),
+        salted_tree(135 + 4), salted_tree(20 + 4), salted_tree(16 + 4),
+    ]
+    if len(grind_inputs) == 1:
+        state, pending, bits = grind_inputs[0]
+        witness = g.u64(int(kp.grind_device(state, pending, bits)[0]))
+        shapes.append((ops.K5_DEVICE, "zk_grind_device",
+                       lambda: kp.grind_device(state, pending, bits),
+                       lambda: kp.grind_device_plain(state, pending, bits, chunk=GRIND_CHUNK),
+                       8 * (12 + int(pending.shape[0]) + 1), OPS_PER_PERMUTATION * (witness + 1),
+                       None))
+        print(f"K5 device grind on the zk inner transcript ({bits} bits): witness {witness}")
+    else:
+        failures.append(f"the zk inner prove's first call ran {len(grind_inputs)} device "
+                        "grinds, not 1")
+    out["shapes"] = shape_checks(torch, failures, shapes)
+    del wires, shapes
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"zk phase ({card}): {out['phase_s']:.1f} s")
     return out
 
 
@@ -1531,7 +2031,7 @@ def main() -> int:
     if hashlib.sha256(sequential[0]).hexdigest() != HEADLINE_PROOF_SHA256:
         failures.append("the first sequential proof is not the pinned headline proof")
     batched = {}
-    for threads in (1, 2, 3):
+    for threads in (1, 2):  # 3 threads ran slower than 2 on every call (PERF.md §2)
         t0 = time.perf_counter()
         got = seeded(lambda: tp.prove_many(prover_only, common, [pw] * BATCH_K, device=dev,
                                            window=BATCH_WINDOW, threads=threads))
@@ -1824,7 +2324,7 @@ def main() -> int:
 
     # the fixture chain: inner 2^4, middle and outer, all built by the port
     t0 = time.perf_counter()
-    chain4 = seeded(lambda: br.chain(4, dev))
+    chain4 = seeded(lambda: br.chain(4, device=dev))
     chain4_s = time.perf_counter() - t0
     chain4_proof, chain4_data = chain4[-1].proof, chain4[-1].data
     chain4_same = (proof_to_bytes(chain4_proof) == read("fixtures", "bench_recursion.proof.bin"),
@@ -1878,6 +2378,10 @@ def main() -> int:
     # a Keccak-transcript proof
     keccak = keccak_phase(torch, dev, card, failures, (prover_only, common, verifier_only),
                           headline_bytes)
+    # the chain at inner 2^18 (ExponentiationGate rows in the middle layer),
+    # then the chain under the zero-knowledge config
+    sizes = sizes_phase(torch, dev, card, failures)
+    zk = zk_phase(torch, dev, card, failures)
 
     build_phase = dict(build_wall_s=build_wall, build_cold_s=builds[0][0],
                        build_outside_s=build_outside,
@@ -2066,7 +2570,7 @@ def main() -> int:
     n_wires = 1 << 16
     tree_words = kp.tree_words(n_wires, 12)
     tree_ms = time_ms(torch, lambda: kp.merkle_tree(cols, 4, True), reps=20, warmup=3)
-    tree_plain_ms = time_ms(torch, lambda: kp.merkle_tree_plain(cols, 4, True), reps=3, warmup=1)
+    tree_plain_ms = time_ms(torch, lambda: kp.merkle_tree_plain(cols, 4, True), reps=1, warmup=0)
     tree_bound = bound_ms(8 * (cols.numel() + tree_words),
                           OPS_PER_PERMUTATION * (17 * n_wires + (n_wires - (n_wires >> 12))))
     print(f"K4 wires tree (135 x 2^16, cap height 4): {tree_ms:.4f} ms kernel, "
@@ -2219,7 +2723,7 @@ def main() -> int:
         else:
             mism = compare(got, want)[0]
         ms = time_ms(torch, run_k, reps=10, warmup=2)
-        plain_ms = time_ms(torch, run_p, reps=2, warmup=1)
+        plain_ms = time_ms(torch, run_p, reps=1, warmup=0)
         b_ms, b_by = bound_ms(n_bytes, n_ops)
         print(f"{kernel.label} {key}: {mism} mismatches; {ms:.4f} ms kernel, {plain_ms:.4f} ms "
               f"plain, bound {b_ms:.4f} ms ({b_by})")
@@ -2242,9 +2746,10 @@ def main() -> int:
     if on_card != on_cpu:
         failures.append("degree-2^10 proof bytes differ between the card and the CPU")
 
-    for label, shape_results in starky["shapes"].items():
-        results[label].update(shape_results)
-        results[label]["mismatches"] += sum(r["mismatches"] for r in shape_results.values())
+    for phase in (starky, sizes, zk):
+        for label, shape_results in phase["shapes"].items():
+            results[label].update(shape_results)
+            results[label]["mismatches"] += sum(r["mismatches"] for r in shape_results.values())
 
     if failures:
         for f in failures:
@@ -2274,6 +2779,13 @@ def main() -> int:
                         "launches_prove_cyclic_layer": cyclic["layers"][1]["launches"][k.label],
                         "launches_build_keccak_wrap": keccak["build_launches"][k.label],
                         "launches_prove_keccak_wrap": keccak["launches"][k.label],
+                        "launches_build_inner18": sizes["layers"][0]["build_launches"][k.label],
+                        "launches_prove_inner18": sizes["layers"][0]["launches"][k.label],
+                        "launches_build_middle18": sizes["layers"][1]["build_launches"][k.label],
+                        "launches_prove_middle18": sizes["layers"][1]["launches"][k.label],
+                        "launches_build_zk_inner": zk["layers"][0]["build_launches"][k.label],
+                        "launches_prove_zk_inner": zk["layers"][0]["launches"][k.label],
+                        "launches_prove_zk_middle": zk["layers"][1]["launches"][k.label],
                         **results[k.label], "library_ms": None})
     print(json.dumps({"kernels": kernels, "card": card, "headline": headline,
                       "prove_many": {"K": BATCH_K, "window": BATCH_WINDOW, "threads": batched,
@@ -2287,7 +2799,9 @@ def main() -> int:
                       "commit_and_open_middle_s": wall_s,
                       "build_phase": build_phase,
                       "starky": {k: v for k, v in starky.items() if k != "shapes"},
-                      "cyclic": cyclic, "keccak": keccak}))
+                      "cyclic": cyclic, "keccak": keccak,
+                      "sizes": {k: v for k, v in sizes.items() if k != "shapes"},
+                      "zk": {k: v for k, v in zk.items() if k != "shapes"}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -69,7 +69,9 @@ def gate_from_reference(gate):
         arithmetic_extension,
         base_sum,
         coset_interpolation,
+        exponentiation,
         poseidon_gate,
+        poseidon_mds,
         random_access,
         reducing,
         simple_gates,
@@ -91,6 +93,8 @@ def gate_from_reference(gate):
         "CosetInterpolationGate": lambda: coset_interpolation.CosetInterpolationGate(
             gate.subgroup_bits, gate.degree()),
         "PoseidonGate": lambda: poseidon_gate.PoseidonGate(),
+        "ExponentiationGate": lambda: exponentiation.ExponentiationGate(gate.num_power_bits),
+        "PoseidonMdsGate": lambda: poseidon_mds.PoseidonMdsGate(),
     }.get(type(gate).__name__)
     if make is None:
         raise NotImplementedError(f"{type(gate).__name__} is not ported")

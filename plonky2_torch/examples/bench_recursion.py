@@ -118,12 +118,15 @@ def recursive_proof(inner, config: CircuitConfig, min_degree_bits=None, device=N
     return _prove_layer(data, time.perf_counter() - t, recursion_inputs(pt, vdt, inner), device)
 
 
-def chain(size: int, device=None) -> list[Layer]:
+def chain(size: int, config: CircuitConfig | None = None, device=None) -> list[Layer]:
     """The inner proof at 2^size, the middle proof over it and the outer
-    proof over that, on `device` (CUDA unless the caller asks for another),
-    each verified; inner first."""
+    proof over that, every layer under `config` (the standard recursion
+    config unless given; `CircuitConfig.standard_recursion_zk_config()`
+    blinds and salts all three), on `device` (CUDA unless the caller asks
+    for another), each verified; inner first (the reference package's
+    examples/bench_recursion.py `run_chain`)."""
     device = resolve_device(device)
-    config = CircuitConfig.standard_recursion_config()
+    config = config or CircuitConfig.standard_recursion_config()
     layers = [dummy_proof(config, size, device)]
     for _ in ("middle", "outer"):
         layers.append(recursive_proof(layers[-1].inner, config, device=device))
@@ -136,7 +139,7 @@ def main(argv=None) -> None:
     p.add_argument("--device", default=None, help="default: the CUDA card")
     args = p.parse_args(argv)
     t0 = time.perf_counter()
-    layers = chain(args.size, args.device)
+    layers = chain(args.size, device=args.device)
     for name, layer in zip(("inner", "middle", "outer"), layers):
         print(f"{name}: degree 2^{layer.data.common.degree_bits}, build "
               f"{layer.build_s:.3f} s, prove {layer.prove_s:.3f} s")

@@ -6,6 +6,11 @@ iFFT -> coset LDE -> Poseidon Merkle tree over the LDE's natural layout
 columns are gathered into bit-reversed row leaves [N, num_polys] on the
 device, as the reference's `_values_to_lde_leaves` makes them, and those
 leaves come to the host once for the host tree (`KeccakMerkleTree`).
+A blinding batch (zero knowledge) salts each leaf with SALT_SIZE random
+felts from the prover rng, drawn as the reference draws them: a
+[SALT_SIZE, N] matrix appended as rows of the natural tree's columns, or an
+[N, SALT_SIZE] matrix appended to the row leaves; both are one stream of
+SALT_SIZE · N draws, so `salt_stream` makes either layout from it.
 `prove_openings` forms the batch quotients by evaluating on the LDE domain
 and dividing by (x - z) pointwise, then one coset iFFT, and hands the
 result to the FRI prover.
@@ -15,15 +20,17 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from plonky2_torch import resolve_device
 from plonky2_torch.field import goldilocks as g
 from plonky2_torch.field import ntt
 from plonky2_torch.field import scalar as fs
+from plonky2_torch.fri.proof import SALT_SIZE
 from plonky2_torch.fri.prover import fri_proof
 from plonky2_torch.hash.merkle import KeccakMerkleTree, NaturalMerkleTree
-from plonky2_torch.util import log2_strict, reverse_bits
+from plonky2_torch.util import log2_strict, reverse_bits, rng
 
 def _as_tensor(x, device):
     """Tensors stay where they are (a device argument must agree; "cuda"
@@ -40,6 +47,12 @@ def _as_tensor(x, device):
     return g.tensor(x, resolve_device(device))
 
 
+def salt_stream(lde_size: int) -> np.ndarray:
+    """One blinding commitment's SALT_SIZE · N salt felts from the prover
+    rng, in draw order."""
+    return rng.field_elements(SALT_SIZE * lde_size, fs.P)
+
+
 class PolynomialBatch:
     """A batch of committed polynomials sharing one Merkle-cap tree."""
 
@@ -54,26 +67,33 @@ class PolynomialBatch:
 
     @staticmethod
     def from_values(values, rate_bits: int, blinding: bool, cap_height: int,
-                    device=None, hasher=None) -> "PolynomialBatch":
+                    device=None, hasher=None, salt=None) -> "PolynomialBatch":
+        """salt: a blinding batch's salt stream (`salt_stream`, on the host
+        or the device), else drawn here."""
         values = _as_tensor(values, device)
         coeffs = ntt.ifft(values)
-        return PolynomialBatch._commit(coeffs, rate_bits, blinding, cap_height, hasher)
+        return PolynomialBatch._commit(coeffs, rate_bits, blinding, cap_height, hasher, salt)
 
     @staticmethod
     def from_coeffs(coeffs, rate_bits: int, blinding: bool, cap_height: int,
-                    device=None, hasher=None) -> "PolynomialBatch":
+                    device=None, hasher=None, salt=None) -> "PolynomialBatch":
         coeffs = _as_tensor(coeffs, device)
-        return PolynomialBatch._commit(coeffs, rate_bits, blinding, cap_height, hasher)
+        return PolynomialBatch._commit(coeffs, rate_bits, blinding, cap_height, hasher, salt)
 
     @staticmethod
-    def _commit(coeffs, rate_bits, blinding, cap_height, hasher):
-        if blinding:
-            raise NotImplementedError("salted (zk) oracles are not ported yet")
+    def _commit(coeffs, rate_bits, blinding, cap_height, hasher, salt=None):
         lde = ntt.coset_lde(coeffs, rate_bits)
+        n_lde = lde.shape[-1]
+        if blinding:
+            salt = _as_tensor(salt_stream(n_lde) if salt is None else salt, lde.device)
         if getattr(hasher, "algebraic", True):  # Poseidon (the default): K4 on the card
-            tree = NaturalMerkleTree(lde, cap_height)
+            cols = torch.cat([lde, salt.reshape(SALT_SIZE, n_lde)]) if blinding else lde
+            tree = NaturalMerkleTree(cols, cap_height)
         else:
-            tree = KeccakMerkleTree(_lde_leaves(lde), cap_height)
+            leaves = _lde_leaves(lde)
+            if blinding:
+                leaves = torch.cat([leaves, salt.reshape(n_lde, SALT_SIZE)], dim=1)
+            tree = KeccakMerkleTree(leaves, cap_height)
         return PolynomialBatch(coeffs, lde, tree, log2_strict(coeffs.shape[-1]),
                                rate_bits, blinding)
 
@@ -86,12 +106,14 @@ class PolynomialBatch:
         return self.degree_log + self.rate_bits
 
     def get_lde_values(self, index: int, step: int = 1) -> list[int]:
-        """The polynomials' values at LDE point index · step (reference
-        fri/oracle.rs:142-151): the row leaf rev(index · step) of a host
-        tree, the natural column index · step otherwise."""
+        """The polynomials' values at LDE point index · step, the salt
+        stripped (reference fri/oracle.rs:142-151): the row leaf
+        rev(index · step) of a host tree, the natural column index · step
+        otherwise."""
         i = index * step
         if isinstance(self.merkle_tree, KeccakMerkleTree):
-            return self.merkle_tree.leaf(reverse_bits(i, self.lde_bits))
+            leaf = self.merkle_tree.leaf(reverse_bits(i, self.lde_bits))
+            return leaf[:len(leaf) - (SALT_SIZE if self.blinding else 0)]
         return [int(v) for v in g.to_numpy(self.lde[:, i])]
 
     # -- batch opening proof ------------------------------------------------

@@ -6,6 +6,8 @@ from dataclasses import dataclass
 
 from plonky2_torch.hash.merkle import MerkleProof
 
+SALT_SIZE = 4  # salt felts appended to each leaf of a blinded oracle (zk)
+
 
 @dataclass
 class FriInitialTreeProof:
@@ -15,7 +17,7 @@ class FriInitialTreeProof:
     def unsalted_eval(self, oracle_index: int, poly_index: int, salted: bool) -> int:
         evals = self.evals_proofs[oracle_index][0]
         if salted:
-            evals = evals[:-4]  # strip SALT_SIZE salt columns
+            evals = evals[:-SALT_SIZE]
         return evals[poly_index]
 
 

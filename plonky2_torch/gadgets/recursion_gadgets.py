@@ -12,6 +12,7 @@ from plonky2_torch.gadgets.extension_arithmetic import ext_from_range
 from plonky2_torch.gates.arithmetic_base import ArithmeticGate
 from plonky2_torch.gates.arithmetic_extension import ArithmeticExtensionGate
 from plonky2_torch.gates.base_sum import START_LIMBS, WIRE_SUM, BaseSumGate
+from plonky2_torch.gates.exponentiation import ExponentiationGate
 from plonky2_torch.gates.random_access import RandomAccessGate
 from plonky2_torch.iop.target import ExtensionTarget, Target, Wire
 
@@ -58,10 +59,18 @@ class RecursionGadgetsMixin:
         return Wire(row, WIRE_SUM)
 
     def exp_from_bits(self, base: Target, exponent_bits) -> Target:
-        """base^(Σ 2^i · bits[i]) on an ExponentiationGate row (reference
+        """base^(Σ 2^i · bits[i]) on an ExponentiationGate row, the bits
+        padded with false to the gate's width (reference
         gadgets/arithmetic.rs:248-269)."""
-        raise NotImplementedError("ExponentiationGate is not ported: a recursive verifier "
-                                  "of an inner circuit of degree 2^18 or more needs it")
+        bits = list(exponent_bits)
+        gate = ExponentiationGate.new_from_config(self.config)
+        while len(bits) < gate.num_power_bits:
+            bits.append(self._false())
+        row = self.add_gate(gate, [])
+        self.connect(base, Wire(row, gate.wire_base()))
+        for i, bit in enumerate(bits):
+            self.connect(bit.target, Wire(row, gate.wire_power_bit(i)))
+        return Wire(row, gate.wire_output())
 
     def exp_from_bits_const_base(self, base: int, exponent_bits) -> Target:
         """base^(Σ 2^i · bits[i]) for a constant base: one arithmetic op a

@@ -36,6 +36,7 @@ _QUOTIENT_EXT = 10
 _BASE_SPLIT = 11
 _WIRE_SPLIT = 12
 _NONZERO = 16
+_EXP = 17
 _CONSTANT = 18
 _RANDOM = 19
 
@@ -63,6 +64,7 @@ def _compilers():
     )
     from plonky2_torch.gates.base_sum import BaseSplitGenerator
     from plonky2_torch.gates.coset_interpolation import InterpolationGenerator
+    from plonky2_torch.gates.exponentiation import ExponentiationGenerator
     from plonky2_torch.gates.poseidon_gate import PoseidonGenerator
     from plonky2_torch.gates.random_access import RandomAccessGenerator
     from plonky2_torch.gates.reducing import ReducingExtensionGenerator, ReducingGenerator
@@ -88,6 +90,7 @@ def _compilers():
         BaseSplitGenerator: (_BASE_SPLIT, lambda g: (g.base,)),
         WireSplitGenerator: (_WIRE_SPLIT, lambda g: (g.num_limbs,)),
         NonzeroTestGenerator: (_NONZERO, _no_aux),
+        ExponentiationGenerator: (_EXP, _no_aux),
         ConstantGenerator: (_CONSTANT, lambda g: (g.constant,)),
         RandomValueGenerator: (_RANDOM, lambda g: (0,)),  # drawn per run
     }

@@ -13,8 +13,9 @@ from `gadgets/`: the extension arithmetic, the extension algebra and the
 recursion gadgets. A builder of a cyclic circuit carries its own verifier
 data's public-input targets (`verifier_data_public_input`) and the common
 data its build must give (`goal_common_data`, checked at the end of
-`build`). Zero-knowledge configs (ROADMAP item 10) and lookups
-(item 9) are not ported.
+`build`). Under a zero-knowledge config the build adds the reference's
+blinding rows before padding (`_blind`). Lookups (ROADMAP item 9) are not
+ported.
 """
 
 from __future__ import annotations
@@ -83,6 +84,7 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin):
         # cyclic recursion (reference circuit_builder.rs:429, 1284)
         self.verifier_data_public_input = None
         self.goal_common_data = None
+        self.blinding = (0, 0)  # the blinding rows and Z pairs that build() added
 
     # -- targets --------------------------------------------------------------
 
@@ -386,8 +388,56 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin):
 
     # -- build ------------------------------------------------------------------------
 
-    def _pad(self) -> None:
-        """Noops to the next power of two (at least one row)."""
+    def _fri_params(self, degree_bits: int):
+        return self.config.fri_config.fri_params(degree_bits, self.config.zero_knowledge)
+
+    def _num_blinding_gates(self, degree_estimate: int) -> tuple[int, int]:
+        """(regular blinding rows, Z blinding pairs) for a degree estimate:
+        as many random values as the openings reveal, the FRI queries' among
+        them (the reference package's plonk/circuit_builder.py:517-528)."""
+        d = 2
+        fri_queries = self.config.fri_config.num_query_rounds
+        arities = [1 << x for x in
+                   self._fri_params(log2_strict(degree_estimate)).reduction_arity_bits]
+        total_fri_folding_points = sum(a - 1 for a in arities)
+        final_poly_coeffs = degree_estimate // int(np.prod(arities, dtype=object))
+        fri_openings = fri_queries * (1 + d * total_fri_folding_points + d * final_poly_coeffs)
+        return d + fri_openings, 2 * d + fri_openings
+
+    def _blinding_counts(self) -> tuple[int, int]:
+        """The blinding counts at the least power-of-two degree that holds
+        the gates, the regular rows and both rows of each Z pair."""
+        num_gates = len(self.gate_instances)
+        degree_estimate = 1 << (max(num_gates, 1) - 1).bit_length()
+        while True:
+            regular, z = self._num_blinding_gates(degree_estimate)
+            if num_gates + regular + 2 * z <= degree_estimate:
+                return regular, z
+            degree_estimate *= 2
+
+    def _blind(self) -> None:
+        """Noop rows of random wires, then pairs of noop rows whose routed
+        wires are random and copied from the first row to the second, so
+        each Z's product is blinded and unchanged (the reference package's
+        plonk/circuit_builder.py:547-560)."""
+        regular, z = self.blinding = self._blinding_counts()
+        nw, nrw = self.config.num_wires, self.config.num_routed_wires
+        for _ in range(regular):
+            row = self.add_gate(NoopGate(), [])
+            for w in range(nw):
+                self.add_simple_generator(RandomValueGenerator(Wire(row, w)))
+        for _ in range(z):
+            g1 = self.add_gate(NoopGate(), [])
+            g2 = self.add_gate(NoopGate(), [])
+            for w in range(nrw):
+                self.add_simple_generator(RandomValueGenerator(Wire(g1, w)))
+                self.generate_copy(Wire(g1, w), Wire(g2, w))
+
+    def _blind_and_pad(self) -> None:
+        """Under zero knowledge the blinding rows, then noops to the next
+        power of two (at least one row)."""
+        if self.config.zero_knowledge:
+            self._blind()
         while not self.gate_instances or len(self.gate_instances) & (len(self.gate_instances) - 1):
             self.add_gate(NoopGate(), [])
 
@@ -434,8 +484,6 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin):
         "generators and watch index"."""
         device = resolve_device(device)
         config = self.config
-        if config.zero_knowledge:
-            raise NotImplementedError("zero-knowledge circuits are not ported (ROADMAP item 10)")
         timing = timing or TimingTree("build")
         fri = config.fri_config
 
@@ -458,10 +506,10 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin):
             const_gen.constant = c
             self.add_simple_generator(const_gen)
 
-        self._pad()
+        self._blind_and_pad()
         degree = len(self.gate_instances)
         degree_bits = log2_strict(degree)
-        fri_params = fri.fri_params(degree_bits, False)
+        fri_params = self._fri_params(degree_bits)
         if fri_params.total_arities() > degree_bits + fri.rate_bits - fri.cap_height:
             raise ValueError("FRI total reduction arity is too large.")
 
@@ -535,4 +583,6 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin):
         # the kernel of the commitment's iFFT, by field/ntt.py's dispatch rule
         build_info = {"device": str(device),
                       "constants_sigmas_ifft": "K2" if degree_bits <= kn.MAX_SMEM_LG else "K3"}
+        if config.zero_knowledge:
+            build_info["blinding"] = self.blinding
         return CircuitData(prover_only, verifier_only, common, build_info)

@@ -130,6 +130,8 @@ class ProverOnlyCircuitData:
     subgroup: np.ndarray  # [degree] u64
     circuit_digest: list[int]
     generators: list = field(default_factory=list, repr=False)
+    # the batch's blinding flag as written (pcfg.CONSTANTS_SIGMAS: never)
+    constants_sigmas_blinding: bool = pcfg.CONSTANTS_SIGMAS.blinding
     # partition representative -> indices of the generators that read it
     generator_indices_by_watches: dict = field(default_factory=dict, repr=False)
     public_inputs: list = field(default_factory=list)  # targets
@@ -149,7 +151,7 @@ class ProverOnlyCircuitData:
             fri = common.config.fri_config
             cache["constants_sigmas"] = PolynomialBatch.from_coeffs(
                 self.constants_sigmas_coeffs, fri.rate_bits,
-                pcfg.CONSTANTS_SIGMAS.blinding, fri.cap_height, device=device,
+                self.constants_sigmas_blinding, fri.cap_height, device=device,
                 hasher=common.generic_config().hasher)
         return cache["constants_sigmas"]
 
@@ -197,7 +199,8 @@ class VerifierCircuitData:
 class CircuitData:
     """A built circuit (reference plonk/circuit_data.rs:161-254).
     `build_info`: what the build ran where (its device, the kernel of the
-    constants-sigmas iFFT)."""
+    constants-sigmas iFFT) and, under zero knowledge, its blinding (regular
+    rows, Z pairs)."""
 
     prover_only: ProverOnlyCircuitData
     verifier_only: VerifierOnlyCircuitData

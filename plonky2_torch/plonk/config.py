@@ -84,3 +84,9 @@ class CircuitConfig:
     @staticmethod
     def standard_recursion_config() -> "CircuitConfig":
         return CircuitConfig()
+
+    @staticmethod
+    def standard_recursion_zk_config() -> "CircuitConfig":
+        """The standard config with zero knowledge: blinding rows in the
+        circuit and salted wires, Zs and quotient commitments."""
+        return CircuitConfig(zero_knowledge=True)

@@ -1,13 +1,19 @@
 """PLONK prover (reference plonk/prover.py:384-556, :976-1304,
-plonk/prover.rs:113-815), for non-zk circuits without lookups under
-`PoseidonGoldilocksConfig` or `KeccakGoldilocksConfig`.
+plonk/prover.rs:113-815), for circuits without lookups under
+`PoseidonGoldilocksConfig` or `KeccakGoldilocksConfig`, with or without
+zero knowledge.
 
 `prepare_witness` is the host witness phase: the circuit's generators run
 from the caller's PartialWitness (`iop/generator.py`, the native witness
 plan by default), then the public inputs, their hash and the full witness
-matrix. Every rng draw of a non-zk prove happens there. `prove` runs it and
-then the device chain; `prove_many` runs the witness phases on the caller's
-thread in proof order and overlaps them with earlier proofs' device chains.
+matrix. Every rng draw of a non-zk prove happens there. Under zero
+knowledge the blinding rows' random values are drawn there too, and the
+three salted commitments' salts (wires, Zs and partial products, quotient:
+the reference's draw order, with no other draw between) right after it, on
+the host, and go up with the witness (`_draw_salts`). `prove` runs the
+witness phase and then the device chain; `prove_many` runs the witness
+phases on the caller's thread in proof order and overlaps them with
+earlier proofs' device chains.
 
 The device chain runs every round on tensors of one device:
 
@@ -47,12 +53,13 @@ from plonky2_torch.field import goldilocks as g
 from plonky2_torch.field import ntt
 from plonky2_torch.field import scalar as fs
 from plonky2_torch.fri import prover as fri_prover
-from plonky2_torch.fri.oracle import PolynomialBatch, _batch_quotient, eval_polys_at
+from plonky2_torch.fri.oracle import PolynomialBatch, _batch_quotient, eval_polys_at, salt_stream
 from plonky2_torch.gates.gate import UNUSED_SELECTOR
 from plonky2_torch.hash import poseidon as ps
 from plonky2_torch.hash.merkle import NaturalMerkleTree
 from plonky2_torch.iop.challenger import Challenger, DeviceChallenger, cap_boundary
 from plonky2_torch.iop.generator import generate_partial_witness
+from plonky2_torch.plonk import config as pcfg
 from plonky2_torch.plonk.proof import OpeningSet, Proof, ProofWithPublicInputs
 from plonky2_torch.util import TimingTree, log2_strict
 
@@ -60,6 +67,10 @@ from plonky2_torch.util import TimingTree, log2_strict
 _LAST_TRANSCRIPT = None
 # the most proofs the last prove_many had in flight at once
 _LAST_MAX_IN_FLIGHT = 0
+# the pipeline the last prove_many ran: "single-stream" (threads == 1, and
+# under zero knowledge whatever `threads` asked, so the rng stream stays in
+# proof order) or "threads"
+_LAST_PROVE_MANY_MODE = None
 
 
 def random_witness(common, seed: int):
@@ -104,6 +115,19 @@ def prepare_witness(prover_data, common, inputs, timing: TimingTree | None = Non
     return witness, public_inputs, public_inputs_hash
 
 
+def _draw_salts(common, device):
+    """The salts of a zk prove's three blinding commitments (wires, Zs and
+    partial products, quotient), each a stream of SALT_SIZE · N felts from
+    the prover rng, drawn in that order in one draw and uploaded without a
+    synchronisation; (None, None, None) without zero knowledge."""
+    if not common.config.zero_knowledge:
+        return None, None, None
+    n_lde = common.degree << common.config.fri_config.rate_bits
+    flat = g.upload(salt_stream(3 * n_lde), device)
+    blinding = (pcfg.WIRES.blinding, pcfg.ZS_PARTIAL_PRODUCTS.blinding, pcfg.QUOTIENT.blinding)
+    return tuple(s if b else None for s, b in zip(flat.reshape(3, -1), blinding))
+
+
 def prove(prover_data, common, inputs, device=None, timing: TimingTree | None = None,
           _defer: bool = False, _prepared=None):
     """Prove `common`'s circuit from `inputs` (a PartialWitness) on `device`
@@ -117,8 +141,6 @@ def prove(prover_data, common, inputs, device=None, timing: TimingTree | None = 
     proof."""
     global _LAST_TRANSCRIPT
     device = resolve_device(device)
-    if common.config.zero_knowledge:
-        raise NotImplementedError("zero-knowledge circuits are not ported (ROADMAP item 10)")
     if common.num_lookup_polys:
         raise NotImplementedError("circuits with lookups are not ported (ROADMAP item 9)")
     timing = timing or TimingTree("prove")
@@ -129,11 +151,13 @@ def prove(prover_data, common, inputs, device=None, timing: TimingTree | None = 
     rate_bits = config.fri_config.rate_bits
     cap_height = config.fri_config.cap_height
     nc = config.num_challenges
+    salts = _draw_salts(common, device)
 
     hasher = common.generic_config().hasher
 
-    def commit_values(values):
-        return PolynomialBatch.from_values(values, rate_bits, False, cap_height, hasher=hasher)
+    def commit_values(values, salt):
+        return PolynomialBatch.from_values(values, rate_bits, salt is not None, cap_height,
+                                           hasher=hasher, salt=salt)
 
     constants_sigmas = prover_data.commitment(common, device)
     challenger = Challenger(hasher)
@@ -148,12 +172,12 @@ def prove(prover_data, common, inputs, device=None, timing: TimingTree | None = 
     with timing.scope("wires commitment"):
         witness_dev = (witness.to(device) if isinstance(witness, torch.Tensor)
                        else g.upload(witness, device))
-        wires = commit_values(witness_dev)
+        wires = commit_values(witness_dev, salts[0])
 
     if fused:
         _LAST_TRANSCRIPT = "fused"
         out = _prove_fused(prover_data, common, constants_sigmas, wires, witness_dev,
-                           transcript, public_inputs, pi_hash_dev, timing, _defer)
+                           transcript, public_inputs, pi_hash_dev, timing, _defer, salts)
         if not _defer:  # every per-circuit table of this device now exists
             prover_data.cache(device)["warm"] = True
         return out
@@ -167,7 +191,7 @@ def prove(prover_data, common, inputs, device=None, timing: TimingTree | None = 
             witness_dev[:config.num_routed_wires], prover_data, common, betas, gammas)
     del witness_dev
     with timing.scope("zs_partial_products commitment"):
-        zs_pp = commit_values(zs_pp_values)
+        zs_pp = commit_values(zs_pp_values, salts[1])
     challenger.observe_cap(zs_pp.merkle_tree.cap)
     alphas = challenger.get_n_challenges(nc)
 
@@ -176,8 +200,8 @@ def prove(prover_data, common, inputs, device=None, timing: TimingTree | None = 
             prover_data, common, constants_sigmas, wires, zs_pp, public_inputs_hash,
             betas, gammas, alphas)
     with timing.scope("quotient commitment"):
-        quotient = PolynomialBatch.from_coeffs(quotient_chunks, rate_bits, False, cap_height,
-                                               hasher=hasher)
+        quotient = PolynomialBatch.from_coeffs(quotient_chunks, rate_bits, salts[2] is not None,
+                                               cap_height, hasher=hasher, salt=salts[2])
     challenger.observe_cap(quotient.merkle_tree.cap)
     zeta = challenger.get_extension_challenge(2)
     if fs.ext_exp(zeta, common.degree) == fs.ext_one(2):
@@ -440,7 +464,7 @@ def _openings_final(sponge, zdraw, cs, wires, zs_pp, quot, num_challenges: int,
 
 
 def _prove_fused(prover_data, common, constants_sigmas, wires, witness_dev, transcript,
-                 public_inputs, pi_hash_dev, timing, defer: bool):
+                 public_inputs, pi_hash_dev, timing, defer: bool, salts):
     """The prove on the device transcript (reference `_prove_fused`): after
     the host-observed prefix, each cap is absorbed and its challenges drawn
     on the device (`cap_boundary`), the openings and the FRI argument follow
@@ -461,7 +485,8 @@ def _prove_fused(prover_data, common, constants_sigmas, wires, witness_dev, tran
         zs_pp_values = all_partial_products_and_zs(
             witness_dev[:config.num_routed_wires], prover_data, common, betas, gammas)
     with timing.scope("zs_partial_products commitment"):
-        zs_pp = PolynomialBatch.from_values(zs_pp_values, rate_bits, False, cap_height)
+        zs_pp = PolynomialBatch.from_values(zs_pp_values, rate_bits, salts[1] is not None,
+                                            cap_height, salt=salts[1])
     sponge, _, alphas, cap_z = cap_boundary(sponge, no_pending, 0, zs_pp.merkle_tree.cap_dev,
                                             cap_height, True, nc)
     with timing.scope("quotient polys"):
@@ -469,7 +494,8 @@ def _prove_fused(prover_data, common, constants_sigmas, wires, witness_dev, tran
             prover_data, common, constants_sigmas, wires, zs_pp, pi_hash_dev,
             betas, gammas, alphas)
     with timing.scope("quotient commitment"):
-        quotient = PolynomialBatch.from_coeffs(quotient_chunks, rate_bits, False, cap_height)
+        quotient = PolynomialBatch.from_coeffs(quotient_chunks, rate_bits, salts[2] is not None,
+                                               cap_height, salt=salts[2])
     sponge, _, zdraw, cap_q = cap_boundary(sponge, no_pending, 0,
                                            quotient.merkle_tree.cap_dev, cap_height, True, 2)
 
@@ -556,7 +582,11 @@ def prove_many(prover_data, common, inputs_list, device=None,
     plonk/prover.py:1245), the proofs byte-identical to sequential `prove`
     calls: every witness phase (all of a non-zk proof's rng draws) runs on
     the caller's thread in proof order, and at most `window` proofs are in
-    flight, each holding its oracles on the device.
+    flight, each holding its oracles on the device. A zk proof also draws
+    its salts when its prove is dispatched, so under zero knowledge the
+    single-stream pipeline runs whatever `threads` says, as in the
+    reference (plonk/prover.py:1258-1273); `_LAST_PROVE_MANY_MODE` records
+    the pipeline taken.
 
     threads == 1 (the default): each proof's chain is queued as
     `prove(_defer=True)` on a CUDA stream of a pool of `window`, and the
@@ -569,12 +599,13 @@ def prove_many(prover_data, common, inputs_list, device=None,
     per-device cache's "warm"), the first proof runs alone on the caller's
     stream, so the per-circuit tables exist before other streams read
     them. `_LAST_MAX_IN_FLIGHT` holds the most proofs in flight."""
-    global _LAST_MAX_IN_FLIGHT
+    global _LAST_MAX_IN_FLIGHT, _LAST_PROVE_MANY_MODE
     device = resolve_device(device)
-    if common.config.zero_knowledge:
-        raise NotImplementedError("zero-knowledge circuits are not ported (ROADMAP item 10)")
     if window < 1 or threads < 1:
         raise ValueError("window and threads must be at least 1")
+    if common.config.zero_knowledge:
+        threads = 1
+    _LAST_PROVE_MANY_MODE = "single-stream" if threads == 1 else "threads"
     timing = timing or TimingTree("prove_many")
     cuda = device.type == "cuda"
     cache = prover_data.cache(device)

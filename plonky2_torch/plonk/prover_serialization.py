@@ -43,7 +43,9 @@ from plonky2_torch.gates.arithmetic_extension import (
 )
 from plonky2_torch.gates.base_sum import BaseSplitGenerator, BaseSumGate
 from plonky2_torch.gates.coset_interpolation import CosetInterpolationGate, InterpolationGenerator
+from plonky2_torch.gates.exponentiation import ExponentiationGate, ExponentiationGenerator
 from plonky2_torch.gates.poseidon_gate import PoseidonGate, PoseidonGenerator
+from plonky2_torch.gates.poseidon_mds import PoseidonMdsGate, PoseidonMdsGenerator
 from plonky2_torch.gates.random_access import RandomAccessGate, RandomAccessGenerator
 from plonky2_torch.gates.reducing import (
     ReducingExtensionGate,
@@ -75,12 +77,12 @@ GATE_TAGS = [
     ("BaseSumGate", lambda r: BaseSumGate(r.usize(), 2)),
     ("ConstantGate", lambda r: ConstantGate(r.usize())),
     ("CosetInterpolationGate", lambda r: _coset_interpolation_gate(r)),
-    ("ExponentiationGate", None),
+    ("ExponentiationGate", lambda r: ExponentiationGate(r.usize())),
     ("LookupGate", None),
     ("LookupTableGate", None),
     ("MulExtensionGate", lambda r: MulExtensionGate(r.usize())),
     ("NoopGate", lambda r: NoopGate()),
-    ("PoseidonMdsGate", None),
+    ("PoseidonMdsGate", lambda r: PoseidonMdsGate()),
     ("PoseidonGate", lambda r: PoseidonGate()),
     ("PublicInputGate", lambda r: PublicInputGate()),
     ("RandomAccessGate", lambda r: RandomAccessGate(r.usize(), r.usize(), r.usize())),
@@ -103,7 +105,7 @@ GENERATOR_TAGS = [
     ("DummyProofGenerator", lambda r: _read_dummy_proof_generator(r)),
     ("EqualityGenerator", lambda r: _inverse_module().EqualityGenerator(
         r.target(), r.target(), r.target(), r.target())),
-    ("ExponentiationGenerator", None),
+    ("ExponentiationGenerator", lambda r: ExponentiationGenerator(r.usize(), r.usize())),
     ("InterpolationGenerator", lambda r: _interpolation_generator(r)),
     ("LookupGenerator", None),
     ("LookupTableGenerator", None),
@@ -111,7 +113,7 @@ GENERATOR_TAGS = [
     ("MulExtensionGenerator", lambda r: MulExtensionGenerator(r.usize(), r.field(), r.usize())),
     ("NonzeroTestGenerator", lambda r: NonzeroTestGenerator(r.target(), r.target())),
     ("PoseidonGenerator", lambda r: PoseidonGenerator(r.usize())),
-    ("PoseidonMdsGenerator", None),
+    ("PoseidonMdsGenerator", lambda r: PoseidonMdsGenerator(r.usize())),
     ("QuotientGeneratorExtension", lambda r: QuotientGeneratorExtension(
         r.ext_target(), r.ext_target(), r.ext_target())),
     ("RandomAccessGenerator", lambda r: _random_access_generator(r)),
@@ -139,8 +141,8 @@ def default_registry() -> list:
     classes = {c.__name__: c for c in (
         ArithmeticBaseGenerator, ArithmeticExtensionGenerator, BaseSplitGenerator,
         ConstantGenerator, CopyGenerator, DummyProofGenerator, inv.EqualityGenerator,
-        InterpolationGenerator, MulExtensionGenerator, NonzeroTestGenerator, PoseidonGenerator,
-        QuotientGeneratorExtension, RandomAccessGenerator, RandomValueGenerator,
+        ExponentiationGenerator, InterpolationGenerator, MulExtensionGenerator,
+        NonzeroTestGenerator, PoseidonGenerator, PoseidonMdsGenerator, QuotientGeneratorExtension, RandomAccessGenerator, RandomValueGenerator,
         ReducingGenerator, ReducingExtensionGenerator, WireSplitGenerator,
         inv.InverseGenerator)}
     return [classes.get(name) if read is not None else None for name, read in GENERATOR_TAGS]
@@ -320,7 +322,7 @@ class Reader:
             watches[k] = self.usize_vec().astype(np.int64)
         coeffs = self.matrix()  # the constants-sigmas batch's coefficients
         degree_log, rate_bits, blinding = self.usize(), self.usize(), self.bool()
-        if (1 << degree_log != coeffs.shape[1] or blinding
+        if (1 << degree_log != coeffs.shape[1]
                 or rate_bits != common.config.fri_config.rate_bits):
             raise ValueError("constants-sigmas batch does not match the common data")
         sigmas = self.matrix()
@@ -334,7 +336,8 @@ class Reader:
         for _ in range(self.usize()):  # lut_to_lookups: target pairs
             for _ in range(2 * self.usize()):
                 self.skip_target()
-        return ProverOnlyCircuitData(constants_sigmas_coeffs=coeffs, sigmas=sigmas,
+        return ProverOnlyCircuitData(constants_sigmas_coeffs=coeffs,
+                                     constants_sigmas_blinding=blinding, sigmas=sigmas,
                                      subgroup=subgroup, circuit_digest=circuit_digest,
                                      generators=generators,
                                      generator_indices_by_watches=watches,
@@ -505,6 +508,8 @@ class CircuitWriter(Writer):
             self.write_usize(gate.num_limbs)
         elif isinstance(gate, ConstantGate):
             self.write_usize(gate.num_consts)
+        elif isinstance(gate, ExponentiationGate):
+            self.write_usize(gate.num_power_bits)
         elif isinstance(gate, CosetInterpolationGate):
             self.write_usize(gate.subgroup_bits)
             self.write_usize(gate.degree())
@@ -515,7 +520,7 @@ class CircuitWriter(Writer):
                 self.write_usize(x)
         elif isinstance(gate, (ReducingGate, ReducingExtensionGate)):
             self.write_usize(gate.num_coeffs)
-        # Noop, Poseidon, PublicInput: no payload
+        # Noop, PoseidonMds, Poseidon, PublicInput: no payload
 
     def write_common_circuit_data(self, common: CommonCircuitData) -> None:
         self.write_circuit_config(common.config)
@@ -607,6 +612,9 @@ def _write_generator_payload(w: ProverWriter, gen) -> None:
     elif name == "EqualityGenerator":
         for t in (gen.x, gen.y, gen.equal, gen.inv_hint):
             w.write_target(t)
+    elif name == "ExponentiationGenerator":
+        w.write_usize(gen.row)
+        w.write_usize(gen.num_power_bits)
     elif name == "InterpolationGenerator":
         w.write_usize(gen.row)
         w.write_usize(gen.subgroup_bits)
@@ -621,7 +629,7 @@ def _write_generator_payload(w: ProverWriter, gen) -> None:
     elif name == "NonzeroTestGenerator":
         w.write_target(gen.to_test)
         w.write_target(gen.dummy)
-    elif name == "PoseidonGenerator":
+    elif name in ("PoseidonGenerator", "PoseidonMdsGenerator"):
         w.write_usize(gen.row)
     elif name == "QuotientGeneratorExtension":
         for et in (gen.numerator, gen.denominator, gen.quotient):
@@ -666,18 +674,20 @@ def write_generator(w: ProverWriter, gen, registry=None) -> None:
         f"custom registry (reference WitnessGeneratorSerializer pattern)")
 
 
-def write_polynomial_batch(w: ProverWriter, coeffs, rate_bits: int) -> None:
+def write_polynomial_batch(w: ProverWriter, coeffs, rate_bits: int,
+                           blinding: bool = False) -> None:
     """The constants-sigmas batch as the reference writes it (reference
     prover_serialization.py:488): the coefficient matrix, then degree_log,
-    rate_bits and blinding (never, without zero knowledge); its LDE and
-    tree are recomputed on reading."""
+    rate_bits and blinding (a built circuit's is never salted, zero
+    knowledge or not); its LDE and tree are recomputed on reading, salted
+    from the prover rng where the flag says so."""
     coeffs = np.ascontiguousarray(coeffs, dtype=np.uint64)
     w.write_usize(coeffs.shape[0])
     w.write_usize(coeffs.shape[1])
     w.buf += coeffs.astype("<u8").tobytes()
     w.write_usize(int(coeffs.shape[1]).bit_length() - 1)
     w.write_usize(rate_bits)
-    w.write_bool(False)
+    w.write_bool(blinding)
 
 
 def write_prover_only_circuit_data(w: ProverWriter, prover_only, common,
@@ -692,7 +702,8 @@ def write_prover_only_circuit_data(w: ProverWriter, prover_only, common,
         w.write_usize(int(k))
         w.write_usize_vec([int(v) for v in watches[k]])
     write_polynomial_batch(w, prover_only.constants_sigmas_coeffs,
-                           common.config.fri_config.rate_bits)
+                           common.config.fri_config.rate_bits,
+                           prover_only.constants_sigmas_blinding)
     sigmas = np.ascontiguousarray(prover_only.sigmas, dtype=np.uint64)
     w.write_usize(sigmas.shape[0])
     w.write_usize(sigmas.shape[1])

@@ -2,8 +2,8 @@
 util/serialization/mod.rs), on the FRI proof writer and reader of
 `fri/serialization.py`: the three caps, the opening set (with the empty
 lookup openings in their place), the FRI proof, then the public inputs with
-their count. `proof_from_bytes` reads a proof of a circuit without lookups
-or zero knowledge, its shapes from the common data and its digests' form
+their count. `proof_from_bytes` reads a proof of a circuit without lookups,
+its shapes from the common data and its digests' form
 from the common data's generic config (reference
 plonk/serialization.py:358).
 
@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import struct
 
-from plonky2_torch.fri.proof import FriInitialTreeProof, FriQueryStep
+from plonky2_torch.fri.proof import SALT_SIZE, FriInitialTreeProof, FriQueryStep
 from plonky2_torch.fri.serialization import Reader as FriReader
 from plonky2_torch.fri.serialization import Writer as FriWriter
 from plonky2_torch.plonk.proof import OpeningSet, Proof, ProofWithPublicInputs
@@ -104,15 +104,18 @@ class Reader(FriReader):
 
     def _read_caps_and_openings(self, common):
         """The three caps, the opening set and the initial trees' leaf
-        widths."""
-        if common.num_lookup_polys or common.fri_params.hiding:
-            raise ValueError("proofs with lookups or zero knowledge are not ported")
+        widths, each salted oracle's with its SALT_SIZE salt (reference
+        plonk/serialization.py:249-254)."""
+        if common.num_lookup_polys:
+            raise ValueError("proofs with lookups are not ported")
         cap_height = common.config.fri_config.cap_height
         caps = [self.read_merkle_cap(cap_height) for _ in range(3)]
         openings = self.read_opening_set(common)
-        num_leaves_per_oracle = [common.num_preprocessed_polys(), common.config.num_wires,
-                                 common.num_zs_partial_products_polys(),
-                                 common.num_quotient_polys()]
+        salt = SALT_SIZE if common.fri_params.hiding else 0
+        num_leaves_per_oracle = [common.num_preprocessed_polys(),
+                                 common.config.num_wires + salt,
+                                 common.num_zs_partial_products_polys() + salt,
+                                 common.num_quotient_polys() + salt]
         return caps, openings, num_leaves_per_oracle
 
     def read_proof(self, common) -> Proof:

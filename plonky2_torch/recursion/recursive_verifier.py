@@ -8,7 +8,8 @@ recursion/recursive_verifier.py).
 The vanishing polynomial is the host verifier's ops-generic
 `eval_vanishing_poly` on `CircuitOps`, so the circuit checks the gate
 constraints in the order the prover and the verifier compute them.
-Proofs with lookups (ROADMAP item 9) or zero knowledge (item 10) are not
+A zero-knowledge proof's salted oracles give leaves SALT_SIZE wider; the
+FRI check strips the salt. Proofs with lookups (ROADMAP item 9) are not
 ported.
 """
 
@@ -25,6 +26,7 @@ from plonky2_torch.fri.recursive_verifier import (
     set_fri_proof_target,
     verify_fri_proof,
 )
+from plonky2_torch.fri.proof import SALT_SIZE
 from plonky2_torch.fri.structure import FriBatchInfo, FriInstanceInfo, FriOpeningBatch, FriOpenings
 from plonky2_torch.gadgets.reducing import ReducingFactorTarget
 from plonky2_torch.gates.ops import CircuitOps, EvaluationVars
@@ -86,10 +88,10 @@ class ProofChallengesTarget:
 
 
 def add_virtual_proof_with_pis(builder, common) -> ProofWithPublicInputsTarget:
-    """Targets for a proof of `common`'s circuit (without lookups or zero
-    knowledge, as the port's proofs are), then its public inputs."""
-    if common.num_lookup_polys or common.fri_params.hiding:
-        raise ValueError("proofs with lookups or zero knowledge are not ported")
+    """Targets for a proof of `common`'s circuit (without lookups, as the
+    port's proofs are), then its public inputs."""
+    if common.num_lookup_polys:
+        raise ValueError("proofs with lookups are not ported")
     proof = _add_virtual_proof(builder, common)
     return ProofWithPublicInputsTarget(
         proof=proof, public_inputs=builder.add_virtual_targets(common.num_public_inputs))
@@ -97,10 +99,11 @@ def add_virtual_proof_with_pis(builder, common) -> ProofWithPublicInputsTarget:
 
 def _add_virtual_proof(builder, common) -> ProofTarget:
     cap_height = common.fri_params.config.cap_height
-    num_leaves_per_oracle = [common.num_preprocessed_polys(), common.config.num_wires,
-                             common.num_zs_partial_products_polys()]
+    salt = SALT_SIZE if common.fri_params.hiding else 0
+    num_leaves_per_oracle = [common.num_preprocessed_polys(), common.config.num_wires + salt,
+                             common.num_zs_partial_products_polys() + salt]
     if common.num_quotient_polys() > 0:
-        num_leaves_per_oracle.append(common.num_quotient_polys())
+        num_leaves_per_oracle.append(common.num_quotient_polys() + salt)
     return ProofTarget(
         wires_cap=add_virtual_cap(builder, cap_height),
         plonk_zs_partial_products_cap=add_virtual_cap(builder, cap_height),

@@ -38,7 +38,7 @@ to 2026 again) and prints its sha256: chip_smoke's
 OUTER_OVER_INNER14_SHA256.
 
 `--chain4` runs the port alone, on the CPU, on the chain of
-`tools/generate_fixtures.py`: `bench_recursion.chain(4, "cpu")` under the
+`tools/generate_fixtures.py`: `bench_recursion.chain(4, device="cpu")` under the
 seed 2026, the middle and outer circuits built by the port's in-circuit
 verifier, and holds the outer proof and verifier data to
 `fixtures/bench_recursion.proof.bin` and `.verifier.bin` (several minutes,
@@ -306,7 +306,7 @@ def chain4() -> int:
     t = time.perf_counter()
     trng.seed(SEED)
     try:
-        layers = chain(4, "cpu")
+        layers = chain(4, device="cpu")
     finally:
         trng.seed(None)
     proof, data = layers[-1].proof, layers[-1].data
@@ -316,7 +316,7 @@ def chain4() -> int:
         same_proof = proof_bytes == f.read()
     with open(os.path.join(ROOT, "fixtures", "bench_recursion.verifier.bin"), "rb") as f:
         same_vd = vd_bytes == f.read()
-    print(f"chain4: the port's bench_recursion.chain(4, 'cpu') under seed {SEED}: "
+    print(f"chain4: the port's bench_recursion.chain(4, device='cpu') under seed {SEED}: "
           f"{time.perf_counter() - t:.1f} s, "
           f"{[(round(x.build_s, 2), round(x.prove_s, 2)) for x in layers]} (each layer's "
           f"build and prove s); degrees {[x.data.common.degree_bits for x in layers]}; outer "

@@ -54,16 +54,35 @@ bench_recursion outer layer over `inner4.verifier.bin`'s common data,
 built under `keccak_goldilocks_config()`; ~10 s):
   plonky2_torch/data/keccak_wrap4.verifier.bin     verifier_data_to_bytes
 so that `tests/test_torch_keccak.py` holds the port's Keccak build of it to
-the reference's without a reference build. Not collected by pytest;
+the reference's without a reference build. `--zk` writes the small
+zero-knowledge circuit (`zk_factorial`: the factorial of
+tests/test_plonk_e2e.py:63, 2..29, under `standard_recursion_zk_config()`
+with 2 FRI queries, degree 2^9 after its blinding rows; ~8 min):
+  plonky2_torch/data/zk_factorial.verifier.bin       verifier_data_to_bytes
+  plonky2_torch/data/zk_factorial.proof.bin          its proof (seed 2026)
+  plonky2_torch/data/zk_factorial.prover.bin.xz      prover_data_to_bytes, xz
+                                                     (2.5 MB raw, 0.47 MB so)
+  plonky2_torch/data/zk_keccak_factorial.verifier.bin  the same circuit under
+  plonky2_torch/data/zk_keccak_factorial.proof.bin     keccak_goldilocks_config()
+and `--inner18` the bench_recursion inner circuit at 2^18 (~7 min):
+  plonky2_torch/data/inner18.verifier.bin  verifier_data_to_bytes (its
+                                           build alone, no prove)
+so that `tests/test_torch_zk.py` and `tests/test_torch_exponentiation.py`
+hold the port's zk builds and proves and its recursion circuit over a 2^18
+inner circuit to the reference's. Not collected by pytest;
 `tests/test_torch_plonk.py`, `tests/test_torch_witness.py`,
 `tests/test_torch_builder.py`, `tests/test_torch_starky.py`,
-`tests/test_torch_cyclic.py` and `tests/test_torch_keccak.py` hold the
+`tests/test_torch_cyclic.py`, `tests/test_torch_keccak.py`,
+`tests/test_torch_zk.py` and `tests/test_torch_exponentiation.py` hold the
 files equal to what this makes.
 
     JAX_PLATFORMS=cpu python tests/torch_make_data.py --cyclic
     JAX_PLATFORMS=cpu python tests/torch_make_data.py --keccak
+    JAX_PLATFORMS=cpu python tests/torch_make_data.py --zk
+    JAX_PLATFORMS=cpu python tests/torch_make_data.py --inner18
 """
 
+import lzma
 import os
 import sys
 
@@ -260,6 +279,74 @@ def write_keccak_data() -> None:
           f"2^{data.common.degree_bits})")
 
 
+ZK_QUERIES = 1  # the zk tests' config: degree 2^8 with its blinding rows
+
+
+def zk_factorial_circuit(config_module, builder_module, gc=None, queries=ZK_QUERIES):
+    """(builder, initial target) of the small zk circuit on a builder of
+    the given package: tests/test_plonk_e2e.py:63's factorial, 2..29,
+    under the zk config with `queries` FRI queries."""
+    import dataclasses
+
+    config = config_module.CircuitConfig.standard_recursion_zk_config()
+    config = dataclasses.replace(config, fri_config=dataclasses.replace(
+        config.fri_config, num_query_rounds=queries))
+    b = builder_module.CircuitBuilder(config, gc=gc) if gc else builder_module.CircuitBuilder(
+        config)
+    initial = b.add_virtual_target()
+    cur = initial
+    for i in range(2, 30):
+        cur = b.mul(cur, b.constant(i))
+    b.register_public_input(initial)
+    b.register_public_input(cur)
+    return b, initial
+
+
+def write_zk_data() -> None:
+    from plonky2_tpu.iop.witness import PartialWitness
+    from plonky2_tpu.plonk import circuit_builder, config
+    from plonky2_tpu.plonk.circuit_serialization import verifier_data_to_bytes
+    from plonky2_tpu.plonk.prover_serialization import prover_data_to_bytes
+    from plonky2_tpu.plonk.serialization import proof_to_bytes
+    from plonky2_tpu.util import rng
+
+    files = {}
+    for name, gc in (("zk_factorial", None), ("zk_keccak_factorial",
+                                              config.keccak_goldilocks_config())):
+        b, initial = zk_factorial_circuit(config, circuit_builder, gc)
+        data = b.build()
+        pw = PartialWitness()
+        pw.set_target(initial, 1)
+        rng.seed(SEED)
+        try:
+            proof = data.prove(pw)
+        finally:
+            rng.seed(None)
+        data.verify(proof)
+        files[f"{name}.verifier.bin"] = verifier_data_to_bytes(data.verifier_only, data.common)
+        files[f"{name}.proof.bin"] = proof_to_bytes(proof)
+        if gc is None:
+            files[f"{name}.prover.bin.xz"] = lzma.compress(
+                prover_data_to_bytes(data.prover_only, data.common))
+    os.makedirs(DATA, exist_ok=True)
+    for name, blob in files.items():
+        with open(os.path.join(DATA, name), "wb") as f:
+            f.write(blob)
+        print(f"wrote {name}: {len(blob)} bytes")
+
+
+def write_inner18_data() -> None:
+    from plonky2_tpu.plonk.config import CircuitConfig
+    from plonky2_tpu.plonk.circuit_serialization import verifier_data_to_bytes
+    from reference_prove_sizes import build_inner
+
+    data = build_inner(CircuitConfig.standard_recursion_config(), 18)[0]
+    blob = verifier_data_to_bytes(data.verifier_only, data.common)
+    with open(os.path.join(DATA, "inner18.verifier.bin"), "wb") as f:
+        f.write(blob)
+    print(f"wrote inner18.verifier.bin: {len(blob)} bytes")
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, ROOT)
@@ -273,6 +360,12 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--keccak"]:
         write_keccak_data()
+        return 0
+    if sys.argv[1:] == ["--zk"]:
+        write_zk_data()
+        return 0
+    if sys.argv[1:] == ["--inner18"]:
+        write_inner18_data()
         return 0
 
     prover_bytes, _, witness, public_inputs, pi_hash, pw = factorial_data()
@@ -301,6 +394,8 @@ def main() -> int:
     write_starky_data()
     write_cyclic_data()
     write_keccak_data()
+    write_zk_data()
+    write_inner18_data()
     return 0
 
 
