@@ -109,6 +109,17 @@ single-stream pipeline that zero knowledge keeps; the middle proof
 compressed and decompressed to its bytes; then K3's LDE x8 of
 [135, 2^15], K4's salted trees of width 139, 24 and 20 over 2^18 leaves
 and K5's device grind at its transcript against their plain versions);
+runs the lookups phase (`lookups_phase`: the chains at inner 2^LOOKUP_LOG
+over the one-TIP5-lookup and the 515-lookup inner circuits, as above with
+LOOKUP_PROVES timed inner proves split with "compute lookup polys", the
+one-lookup chain's outer only built, every hash the reference's; the
+515-lookup inner proved on the host path to the same bytes; its device
+lookup columns and LUT evaluations of one fused prove equal to the host
+recurrence on that prove's draws; 0 host synchronisations before the
+fused prove's fetch and nothing raised under "error"; prove_many of four
+lookup inputs equal to sequential proves; then K3's LDE x8 of the 34-wide
+Zs-partial-products-lookup batch [34, 2^14] and K4's tree of width 34
+over 2^17 leaves against their plain versions);
 runs `commit_and_open`
 at the bench_recursion middle-circuit shapes (degree 2^13, oracles of
 85/135/20/16 polynomials; its FRI proof on the fused path) with the counts
@@ -139,7 +150,8 @@ prove's, the middle and outer builds', the outer prove's and the two 2^20
 Starky proves', the cyclic build's and
 a cyclic layer's, the Keccak wrap's build's and prove's, the 2^18
 chain's inner build's and prove's and middle build's and prove's, the zk
-chain's inner build's and prove's and middle prove's, and the headline's,
+chain's inner build's and prove's and middle prove's, the two lookup
+inners' builds' and proves', and the headline's,
 prove_many's and the new phases' numbers), the last line the ok JSON
 object. Every timing line names the
 card and its power limit. Any failed check exits non-zero and prints no
@@ -264,6 +276,29 @@ ZK_PROOF_SHA256S = (
     "273384706a5dd026b6a80c029553bd18a098bcdd4afe55a9110d13688ae05d84")
 ZK_PROVES = 3
 ZK_BATCH_K = 4
+# the bench_recursion chains over the two lookup inner circuits at 2^14
+# (lookup type 1: one TIP5 lookup, its input public; 2: 515 lookups), the
+# reference's verifier data and proofs per layer under seed 2026
+# (tests/reference_prove_lookups.py)
+LOOKUP_LOG = 14
+LOOKUP_VERIFIER_SHA256S = {
+    1: ("cb141d086c16b3d45b5f8e8fa81dc86df7f4a81a0f10f7f1fa0cf00e17934b57",
+        "03a52f14897fe078c304c70fff036d89ebfbaeabd014432df9681d78e39c011e",
+        "c3920fc7477d47f97fc6a5fb481f698cd040e969bd89ef9a9eb722498f8f15d4"),
+    2: ("0010d0d3ec6d9860dd15982357fcea6f93f35b29459aa1b35d73b501e609b437",
+        "182073434d02302e3a9e24402dc953c82add6ef530de69d03f9b670cd2712db1",
+        "47c500d46e351b01f17042d874a343163ed27c6345503aa74847f4f8666f43cc"),
+}
+LOOKUP_PROOF_SHA256S = {
+    1: ("b12527abc8f477232b163160095997aff591b2ddd3070dbb399279b661afe297",
+        "3ad4d23a7893d0ba3f08d448305388c638aebeedf892bc694baffda919bd1888",
+        "df986d7f11c2587a25300289a99eadeaeb732668d434ecd660a4777504abb472"),
+    2: ("0969dd9fcf082f3c0b00ace263a8fe743f3d156eeaff44064cf5435c3fa17bc9",
+        "fab4e31cff18f922990405be8a324dcc873e9e45367735223103d33f11cf0c41",
+        "1996bf97c1bb62fdbcabb8e4b14e4cd91c6aec02d4644d94ae41a1592c878d4f"),
+}
+LOOKUP_PROVES = 3
+LOOKUP_BATCH_INPUTS = (2, 17, 100, 255)  # prove_many's lookup inputs, K = 4
 
 
 def same_generators(a: list, b: list) -> bool:
@@ -1139,10 +1174,12 @@ def keccak_phase(torch, dev, card, failures, middle, headline_bytes) -> dict:
 
 
 def chain_layers(torch, dev, card, failures, label, size, config, verifier_shas, proof_shas,
-                 proves, grind_inputs) -> list:
+                 proves, grind_inputs, lookup_type=0, prove_outer=True) -> list:
     """The bench_recursion chain at inner 2^size under `config` for every
-    layer, as `examples/bench_recursion.py` `chain(size, config)` runs it,
-    layer by layer: each circuit built once (timed, split by scope, the
+    layer, as `examples/bench_recursion.py` `chain(size, config,
+    lookup_type=lookup_type)` runs it (the inner circuit of noops, or the
+    lookup circuit of `lookup_type`), layer by layer: each circuit built
+    once (timed, split by scope, the
     counts set to 0 just before and read just after; its verifier bytes'
     sha256 `verifier_shas[i]`; a recursion layer's ExponentiationGate rows
     counted), then proved from the layer below under seed 2026 (a first
@@ -1150,8 +1187,10 @@ def chain_layers(torch, dev, card, failures, label, size, config, verifier_shas,
     with the counts set to 0 just before each and read just after, each
     `proof_shas[i]`; one synchronised for the split) and verified by the
     port's verifier. The inner layer's first call records its device
-    grind's inputs in `grind_inputs`. Returns per layer a dict of its
-    numbers, with "data", "proof" and "inputs" (the PartialWitness)."""
+    grind's inputs in `grind_inputs`. With `prove_outer` false the outer
+    layer is built and its verifier bytes checked, and not proved. Returns
+    per proved layer a dict of its numbers, with "data", "proof" and
+    "inputs" (the PartialWitness)."""
     from plonky2_torch import ops
     from plonky2_torch.examples import bench_recursion as br
     from plonky2_torch.gates.exponentiation import ExponentiationGenerator
@@ -1184,7 +1223,9 @@ def chain_layers(torch, dev, card, failures, label, size, config, verifier_shas,
         timing = TimingTree("build", sync=torch.cuda.synchronize)
         ops.reset_launches()
         t0 = time.perf_counter()
-        if i == 0:
+        if i == 0 and lookup_type:
+            data, pw = br.lookup_circuit(config, size, lookup_type, device=dev, timing=timing)
+        elif i == 0:
             data = br.dummy_circuit(config, size, device=dev, timing=timing)
             pw = PartialWitness()
         else:
@@ -1210,6 +1251,8 @@ def chain_layers(torch, dev, card, failures, label, size, config, verifier_shas,
               f"verifier sha256 {vd_sha}; launches {build_launches}; split: "
               + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
               + f"; outside the scopes {build_s - sum(split.values()):.4f}")
+        if i == 2 and not prove_outer:
+            break
 
         def prove(timing=None, data=data, pw=pw):
             return seeded(lambda: data.prove(pw, device=dev, timing=timing))
@@ -1601,6 +1644,215 @@ def zk_phase(torch, dev, card, failures) -> dict:
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"zk phase ({card}): {out['phase_s']:.1f} s")
+    return out
+
+
+def lookups_phase(torch, dev, card, failures) -> dict:
+    """The bench_recursion chains at inner 2^LOOKUP_LOG over the two lookup
+    inner circuits (`chain_layers` with lookup type 1, then 2: each layer
+    built once, timed and split; the inner proved as a first call and
+    LOOKUP_PROVES timed proves, split with "compute lookup polys", its
+    peak memory and profile line; the middle and outer proved once and
+    synchronised once, but the one-lookup chain's outer layer only built
+    and its verifier bytes checked, for the script's time limit; every
+    verifier data and proof the reference's, LOOKUP_VERIFIER_SHA256S and
+    LOOKUP_PROOF_SHA256S, each proof verified by the port); then on the
+    515-lookup inner: one prove on the host path to the fused proof's
+    bytes; the device lookup columns and LUT evaluations of
+    one fused prove against the host recurrence (`compute_lookup_polys`,
+    `eval_lut_poly`) on its own draws; the host synchronisations of a
+    fused prove(_defer=True) (0 before its fetch, nothing raised under
+    "error"); prove_many at K = 4, threads 1, over four lookup inputs,
+    equal to sequential proves; then the new kernel shapes: K3's LDE x8 of
+    the Zs-partial-products-lookup batch [34, 2^14] -> [34, 2^17] and K4's
+    tree of width 34 over 2^17 leaves against their plain versions (each
+    compared on a slice, timed whole)."""
+    import numpy as np
+
+    from plonky2_torch import ops
+    from plonky2_torch.field import goldilocks as g
+    from plonky2_torch.field import ntt
+    from plonky2_torch.field import scalar as fs
+    from plonky2_torch.fri import prover as fri_prover
+    from plonky2_torch.iop.witness import PartialWitness
+    from plonky2_torch.ops import ntt as kn
+    from plonky2_torch.ops import poseidon as kp
+    from plonky2_torch.plonk import prover as tp
+    from plonky2_torch.plonk.config import CircuitConfig
+    from plonky2_torch.plonk.serialization import proof_to_bytes
+    from plonky2_torch.plonk.vanishing_poly import NUM_COINS_LOOKUP, eval_lut_poly
+    from plonky2_torch.util import rng as prover_rng
+
+    def seeded(run):
+        prover_rng.seed(SEED)
+        try:
+            return run()
+        finally:
+            prover_rng.seed(None)
+
+    t_phase = time.perf_counter()
+    out = {}
+    for lookup_type in (1, 2):
+        layers = chain_layers(torch, dev, card, failures, f"lookup{lookup_type}", LOOKUP_LOG,
+                              CircuitConfig.standard_recursion_config(),
+                              LOOKUP_VERIFIER_SHA256S[lookup_type],
+                              LOOKUP_PROOF_SHA256S[lookup_type], (LOOKUP_PROVES, 0, 0), [],
+                              lookup_type=lookup_type, prove_outer=lookup_type == 2)
+        out[f"lookup{lookup_type}"] = layer_summary(layers)
+        if "compute lookup polys" not in layers[0]["split"]:
+            failures.append(f"the lookup{lookup_type} inner prove has no 'compute lookup "
+                            "polys' phase")
+    inner = layers[0]  # the 515-lookup chain's
+    data, pw, common = inner["data"], inner["inputs"], inner["data"].common
+    want = proof_to_bytes(inner["proof"])
+
+    with fri_prover.force_host_path():
+        t0 = time.perf_counter()
+        host = proof_to_bytes(inner["prove"]())
+        host_s = time.perf_counter() - t0
+    host_path = tp._LAST_TRANSCRIPT
+    print(f"lookup2 inner prove on the host path ({card}): {host_s:.4f} s, transcript "
+          f"{host_path}, the fused path's bytes: {host == want}")
+    if host != want or host_path != "host":
+        failures.append("the lookup2 inner prove on the host path is not the fused path's proof")
+
+    # one fused prove with its device lookup columns and LUT evaluations
+    # recorded, against the host recurrence on the same draws
+    recorded = {}
+    device_cols, device_evals = tp.lookup_polys_device, tp.lut_evals_device
+
+    def cols_spy(witness, draws, prover_data, common_):
+        got = device_cols(witness, draws, prover_data, common_)
+        recorded["draws"], recorded["cols"] = draws.clone(), got.clone()
+        return got
+
+    def evals_spy(common_, draws, device):
+        recorded["evals"] = device_evals(common_, draws, device).clone()
+        return recorded["evals"]
+
+    tp.lookup_polys_device, tp.lut_evals_device = cols_spy, evals_spy
+    try:
+        spied = proof_to_bytes(inner["prove"]())
+    finally:
+        tp.lookup_polys_device, tp.lut_evals_device = device_cols, device_evals
+    prepared = seeded(lambda: tp.prepare_witness(data.prover_only, data.common, pw))
+    draws = [int(v) for v in g.to_numpy(recorded["draws"])]
+    nc = common.config.num_challenges
+    t0 = time.perf_counter()
+    host_cols = np.asarray([col for c in range(nc) for col in tp.compute_lookup_polys(
+        prepared[0], draws[NUM_COINS_LOOKUP * c:NUM_COINS_LOOKUP * (c + 1)], data.prover_only,
+        common)], dtype=np.uint64)
+    host_evals = np.asarray([[eval_lut_poly(common, k, draws[NUM_COINS_LOOKUP * c:
+                                                               NUM_COINS_LOOKUP * (c + 1)])
+                              for k in range(len(common.luts))] for c in range(nc)],
+                            dtype=np.uint64)
+    recurrence_s = time.perf_counter() - t0
+    cols_equal = bool((g.to_numpy(recorded["cols"]) == host_cols).all())
+    evals_equal = bool((g.to_numpy(recorded["evals"]) == host_evals).all())
+    print(f"lookup2 inner: the device lookup columns {tuple(host_cols.shape)} equal the host "
+          f"recurrence on the prove's draws: {cols_equal}; the device LUT evaluations "
+          f"{host_evals.tolist()} equal eval_lut_poly's: {evals_equal} (the host recurrence "
+          f"{recurrence_s:.3f} s); the recorded prove is the proof: {spied == want}")
+    if not (cols_equal and evals_equal and spied == want):
+        failures.append("the lookup2 inner's device lookup columns or LUT evaluations differ "
+                        "from the host recurrence")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            finish = tp.prove(data.prover_only, common, None, device=dev, _defer=True,
+                              _prepared=prepared)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    same_deferred = proof_to_bytes(finish()) == want
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        finish = tp.prove(data.prover_only, common, None, device=dev, _defer=True,
+                          _prepared=prepared)
+        raised = None
+    except RuntimeError as e:
+        finish, raised = None, str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if finish is not None:
+        same_deferred &= proof_to_bytes(finish()) == want
+    print(f"lookup2 inner fused prove(_defer=True) from its prepared witness ({card}): "
+          f"{len(syncs)} host synchronisations before its fetch "
+          f"{[f'{os.path.basename(w.filename)}:{w.lineno}' for w in syncs][:6]}; under "
+          f"set_sync_debug_mode('error'): {'raised ' + raised if raised else 'raised nothing'}; "
+          f"proofs the inner proof: {same_deferred}")
+    if syncs or raised:
+        failures.append(f"the lookup2 inner fused prove synchronised {len(syncs)} times before "
+                        f"its fetch ({raised or 'nothing raised under error'})")
+    if not same_deferred:
+        failures.append("the lookup2 inner deferred proves are not the inner proof")
+
+    (initial_a,) = pw.target_values
+    inputs = []
+    for v in LOOKUP_BATCH_INPUTS:
+        pw_v = PartialWitness()
+        pw_v.set_target(initial_a, v)
+        inputs.append(pw_v)
+    t0 = time.perf_counter()
+    sequential = seeded(lambda: [proof_to_bytes(data.prove(p, device=dev)) for p in inputs])
+    sequential_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batched = seeded(lambda: tp.prove_many(data.prover_only, common, inputs, device=dev,
+                                           window=BATCH_WINDOW, threads=1))
+    batch_s = time.perf_counter() - t0
+    batch_equal = [proof_to_bytes(p) for p in batched] == sequential
+    k = len(inputs)
+    print(f"lookup2 inner prove_many K={k} (inputs {LOOKUP_BATCH_INPUTS}), window "
+          f"{BATCH_WINDOW}, threads 1 ({card}): {k / batch_s:.3f} proofs/s ({batch_s:.2f} s), "
+          f"at most {tp._LAST_MAX_IN_FLIGHT} in flight, proofs equal to the sequential: "
+          f"{batch_equal}; sequential {k / sequential_s:.3f} proofs/s ({sequential_s:.2f} s); "
+          f"{len(set(sequential))} distinct proofs")
+    if not batch_equal or len(set(sequential)) != k:
+        failures.append("the lookup2 prove_many differs from sequential proves")
+    out.update(host_path_s=host_s, columns_equal=cols_equal, lut_evals_equal=evals_equal,
+               syncs_before_fetch=len(syncs),
+               prove_many=dict(K=k, proofs_per_s=k / batch_s, seconds=batch_s,
+                               equal=batch_equal, max_in_flight=tp._LAST_MAX_IN_FLIGHT,
+                               sequential_proofs_per_s=k / sequential_s))
+    width = common.num_zs_partial_products_polys() + common.num_all_lookup_polys()
+    if width != 34:
+        failures.append(f"the lookup inner's Zs-partial-products oracle is {width} wide, not 34")
+    del layers, inner, data, prepared, batched
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED + 50)
+
+    def rand(shape):
+        return g.tensor(rng.integers(0, fs.P, size=shape, dtype=np.uint64), dev)
+
+    lg, gen = LOOKUP_LOG, fs.MULTIPLICATIVE_GROUP_GENERATOR
+    n, n_lde, levels = 1 << lg, 8 << lg, lg + 3
+    zs = rand((width, n))
+    table = ntt._lde_coset_scale_table(gen, lg, 3, str(dev))
+    lde = kn.ntt_four_step(zs, scale=table, fan=8)
+    part = lde[:, :1 << 14].contiguous()
+    shapes = [
+        (ops.K3, f"lookup_zs_lde_{width}x2_{lg}_x8",
+         lambda: kn.ntt_four_step(zs[:2], scale=table, fan=8),
+         lambda: kn.ntt_four_step_plain(zs[:2], False, table, 8),
+         8 * (zs.numel() + table.numel() + 8 * zs.numel()),
+         OPS_PER_MODMUL * width * 8 * ((n // 2) * lg + n),
+         lambda: kn.ntt_four_step(zs, scale=table, fan=8)),
+        (ops.K4, f"lookup_zs_tree_{width}x2_{levels}", lambda: kp.merkle_tree(part, 4, True),
+         lambda: kp.merkle_tree_plain(part, 4, True),
+         8 * (lde.numel() + kp.tree_words(n_lde, levels - 4)),
+         OPS_PER_PERMUTATION * (-(-width // 8) * n_lde + (n_lde - (n_lde >> (levels - 4)))),
+         lambda: kp.merkle_tree(lde, 4, True)),
+    ]
+    out["shapes"] = shape_checks(torch, failures, shapes)
+    del zs, lde, part, shapes
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"lookups phase ({card}): {out['phase_s']:.1f} s")
     return out
 
 
@@ -2382,6 +2634,8 @@ def main() -> int:
     # then the chain under the zero-knowledge config
     sizes = sizes_phase(torch, dev, card, failures)
     zk = zk_phase(torch, dev, card, failures)
+    # the chains over the two lookup inner circuits
+    lookups = lookups_phase(torch, dev, card, failures)
 
     build_phase = dict(build_wall_s=build_wall, build_cold_s=builds[0][0],
                        build_outside_s=build_outside,
@@ -2746,7 +3000,7 @@ def main() -> int:
     if on_card != on_cpu:
         failures.append("degree-2^10 proof bytes differ between the card and the CPU")
 
-    for phase in (starky, sizes, zk):
+    for phase in (starky, sizes, zk, lookups):
         for label, shape_results in phase["shapes"].items():
             results[label].update(shape_results)
             results[label]["mismatches"] += sum(r["mismatches"] for r in shape_results.values())
@@ -2786,6 +3040,10 @@ def main() -> int:
                         "launches_build_zk_inner": zk["layers"][0]["build_launches"][k.label],
                         "launches_prove_zk_inner": zk["layers"][0]["launches"][k.label],
                         "launches_prove_zk_middle": zk["layers"][1]["launches"][k.label],
+                        **{f"launches_{what}_lookup{t}_inner": lookups[f"lookup{t}"][0][key]
+                           .get(k.label, 0) for t in (1, 2)
+                           for what, key in (("build", "build_launches"),
+                                             ("prove", "launches"))},
                         **results[k.label], "library_ms": None})
     print(json.dumps({"kernels": kernels, "card": card, "headline": headline,
                       "prove_many": {"K": BATCH_K, "window": BATCH_WINDOW, "threads": batched,
@@ -2801,7 +3059,8 @@ def main() -> int:
                       "starky": {k: v for k, v in starky.items() if k != "shapes"},
                       "cyclic": cyclic, "keccak": keccak,
                       "sizes": {k: v for k, v in sizes.items() if k != "shapes"},
-                      "zk": {k: v for k, v in zk.items() if k != "shapes"}}))
+                      "zk": {k: v for k, v in zk.items() if k != "shapes"},
+                      "lookups": {k: v for k, v in lookups.items() if k != "shapes"}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -2,7 +2,8 @@
 tensors, and FRI parameters given by any object with the reference's field
 names (for example the reference package's FriConfig/FriParams) -> the
 port's dataclasses, the reference's StarkConfig and logUp lookups -> the
-port's, and the reference's gates and circuit data -> the port's. Reads attributes only; imports nothing outside the port."""
+port's, and the reference's gates, targets and circuit data -> the
+port's. Reads attributes only; imports nothing outside the port."""
 
 from __future__ import annotations
 
@@ -61,6 +62,17 @@ def fri_params(p) -> FriParams:
                      reduction_arity_bits=tuple(p.reduction_arity_bits))
 
 
+def lut(table) -> list[tuple[int, int]]:
+    return [(int(i), int(o)) for i, o in table]
+
+
+def target(t):
+    """The port's Wire or VirtualTarget for a reference target."""
+    from plonky2_torch.iop.target import VirtualTarget, Wire
+
+    return Wire(t.row, t.column) if hasattr(t, "row") else VirtualTarget(t.index)
+
+
 def gate_from_reference(gate):
     """The port's gate for a reference gate object (by class name and
     fields). Raises NotImplementedError for a gate the port lacks."""
@@ -76,6 +88,7 @@ def gate_from_reference(gate):
         reducing,
         simple_gates,
     )
+    from plonky2_torch.gates import lookup as lookup_gates
 
     make = {
         "NoopGate": lambda: simple_gates.NoopGate(),
@@ -95,6 +108,9 @@ def gate_from_reference(gate):
         "PoseidonGate": lambda: poseidon_gate.PoseidonGate(),
         "ExponentiationGate": lambda: exponentiation.ExponentiationGate(gate.num_power_bits),
         "PoseidonMdsGate": lambda: poseidon_mds.PoseidonMdsGate(),
+        "LookupGate": lambda: lookup_gates.LookupGate(gate.num_slots, lut(gate.lut)),
+        "LookupTableGate": lambda: lookup_gates.LookupTableGate(
+            gate.num_slots, lut(gate.lut), gate.last_lut_row),
     }.get(type(gate).__name__)
     if make is None:
         raise NotImplementedError(f"{type(gate).__name__} is not ported")
@@ -125,20 +141,27 @@ def common_from_reference(common):
         num_constants=common.num_constants, num_public_inputs=common.num_public_inputs,
         k_is=[int(k) for k in common.k_is], num_partial_products=common.num_partial_products,
         num_lookup_polys=common.num_lookup_polys,
-        num_lookup_selectors=common.num_lookup_selectors)
+        num_lookup_selectors=common.num_lookup_selectors,
+        luts=[lut(t) for t in common.luts])
 
 
 def circuit_from_reference(prover_only, common):
     """(ProverOnlyCircuitData, CommonCircuitData) of the port for the
     reference's circuit objects: its commitment's coefficients, sigmas,
-    subgroup and digest, and every common field the prover reads."""
+    subgroup, digest and lookup rows, and every common field the prover
+    reads."""
     import numpy as np
 
+    from plonky2_torch.gadgets.lookup import LookupWire
     from plonky2_torch.plonk.circuit_data import ProverOnlyCircuitData
 
     u64 = lambda a: np.ascontiguousarray(np.asarray(a, dtype=np.uint64))  # noqa: E731
     port_prover = ProverOnlyCircuitData(
         constants_sigmas_coeffs=u64(prover_only.constants_sigmas_commitment.polynomials),
         sigmas=u64(prover_only.sigmas), subgroup=u64(prover_only.subgroup),
-        circuit_digest=[int(v) for v in prover_only.circuit_digest])
+        circuit_digest=[int(v) for v in prover_only.circuit_digest],
+        lookup_rows=[LookupWire(lw.last_lu_gate, lw.last_lut_gate, lw.first_lut_gate)
+                     for lw in prover_only.lookup_rows],
+        lut_to_lookups=[[(target(a), target(b)) for a, b in lookups]
+                        for lookups in prover_only.lut_to_lookups])
     return port_prover, common_from_reference(common)

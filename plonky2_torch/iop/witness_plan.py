@@ -8,7 +8,9 @@ witness generation is then a few calls into the port's C++ executor
 per-level Python dispatch. A generator class without an opcode runs through
 its Python `run_batch` / `run_once` between native segments (`fallbacks`
 names them). Random values are drawn from the prover rng (`util/rng.py`) in
-the levelized engine's order, so both engines give the same witness.
+the levelized engine's order, so both engines give the same witness. A
+lookup op reads its LUT from the aux array's tail, where each distinct
+LUT is stored once; a LUT slot's pair is a constant of the op.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ _NONZERO = 16
 _EXP = 17
 _CONSTANT = 18
 _RANDOM = 19
+_LOOKUP = 20  # aux: (the LUT's offset in aux, its length)
+_CONSTANT_PAIR = 21  # aux: the two outputs
 
 THREADS = max(1, min(4, os.cpu_count() or 1))  # executor threads for costly levels
 
@@ -65,6 +69,7 @@ def _compilers():
     from plonky2_torch.gates.base_sum import BaseSplitGenerator
     from plonky2_torch.gates.coset_interpolation import InterpolationGenerator
     from plonky2_torch.gates.exponentiation import ExponentiationGenerator
+    from plonky2_torch.gates.lookup import LookupGenerator, LookupTableGenerator
     from plonky2_torch.gates.poseidon_gate import PoseidonGenerator
     from plonky2_torch.gates.random_access import RandomAccessGenerator
     from plonky2_torch.gates.reducing import ReducingExtensionGenerator, ReducingGenerator
@@ -93,6 +98,8 @@ def _compilers():
         ExponentiationGenerator: (_EXP, _no_aux),
         ConstantGenerator: (_CONSTANT, lambda g: (g.constant,)),
         RandomValueGenerator: (_RANDOM, lambda g: (0,)),  # drawn per run
+        LookupGenerator: (_LOOKUP, None),  # aux set once the LUTs are placed
+        LookupTableGenerator: (_CONSTANT_PAIR, lambda g: g.entry()),  # its slot's LUT pair
     }
 
 
@@ -116,6 +123,9 @@ class WitnessPlan:
         seg_start = 0
         rep = witness.rep_index
         self.fallbacks: dict[str, int] = {}  # class name -> generators run in Python
+        lut_ids: dict[int, int] = {}  # id of a LUT list -> its index in luts
+        luts: list = []
+        lut_sites: list[tuple[int, int]] = []  # (aux index of a lookup op, LUT index)
         for level in levels:
             for gcls, idxs in by_class(generators, level).items():
                 entry = compilers.get(gcls)
@@ -135,7 +145,13 @@ class WitnessPlan:
                     opcodes.append(opcode)
                     in_reps.extend(rep(t) for t in g.dependencies())
                     out_reps.extend(rep(t) for t in g.outputs())
-                    aux.extend(int(a) % fs.P for a in aux_fn(g))
+                    if opcode == _LOOKUP:
+                        lut_sites.append((len(aux), lut_ids.setdefault(id(g.lut), len(luts))))
+                        if lut_sites[-1][1] == len(luts):
+                            luts.append(g.lut)
+                        aux.extend((0, len(g.lut)))
+                    else:
+                        aux.extend(int(a) % fs.P for a in aux_fn(g))
                     in_off.append(len(in_reps))
                     out_off.append(len(out_reps))
                     aux_off.append(len(aux))
@@ -143,6 +159,13 @@ class WitnessPlan:
                 barriers.append(len(opcodes))
         if seg_start < len(opcodes):
             segments.append(("c", seg_start, len(opcodes)))
+        offsets = []
+        for lut in luts:  # the LUTs' (input, output) pairs at the aux tail
+            offsets.append(len(aux))
+            for i, o in lut:
+                aux.extend((int(i), int(o)))
+        for site, k in lut_sites:
+            aux[site] = offsets[k]
 
         self.opcodes = np.asarray(opcodes, np.int32)
         self.in_off = np.asarray(in_off, np.int64)

@@ -13,9 +13,11 @@ from `gadgets/`: the extension arithmetic, the extension algebra and the
 recursion gadgets. A builder of a cyclic circuit carries its own verifier
 data's public-input targets (`verifier_data_public_input`) and the common
 data its build must give (`goal_common_data`, checked at the end of
-`build`). Under a zero-knowledge config the build adds the reference's
-blinding rows before padding (`_blind`). Lookups (ROADMAP item 9) are not
-ported.
+`build`). Lookups come from `gadgets/lookup.py` (LUTs, lookups into them);
+the build places their gates after the public-input gate and adds the
+lookup selector columns between the gate selectors and the gate
+constants. Under a zero-knowledge config the build adds the reference's
+blinding rows before padding (`_blind`).
 """
 
 from __future__ import annotations
@@ -27,9 +29,11 @@ from plonky2_torch.field import goldilocks as g
 from plonky2_torch.field import scalar as fs
 from plonky2_torch.fri.oracle import PolynomialBatch
 from plonky2_torch.gadgets.extension_arithmetic import ExtensionArithmeticMixin
+from plonky2_torch.gadgets.lookup import LookupMixin
 from plonky2_torch.gadgets.recursion_gadgets import RecursionGadgetsMixin
 from plonky2_torch.gates.arithmetic_base import ArithmeticGate
 from plonky2_torch.gates.gate import UNUSED_SELECTOR
+from plonky2_torch.gates.lookup import LookupGate
 from plonky2_torch.gates.poseidon_gate import PoseidonGate
 from plonky2_torch.gates.simple_gates import ConstantGate, NoopGate, PublicInputGate
 from plonky2_torch.iop.generator import ConstantGenerator, CopyGenerator, RandomValueGenerator
@@ -65,7 +69,7 @@ class GateInstance:
         self.constants = constants
 
 
-class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin):
+class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin, LookupMixin):
     def __init__(self, config: CircuitConfig | None = None, gc=None):
         self.gc = pcfg.check_generic_config(gc)
         self.config = config or CircuitConfig.standard_recursion_config()
@@ -85,6 +89,11 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin):
         self.verifier_data_public_input = None
         self.goal_common_data = None
         self.blinding = (0, 0)  # the blinding rows and Z pairs that build() added
+        # lookups (gadgets/lookup.py): the LUTs, each LUT's region of rows
+        # and each LUT's (looking in, looking out) pairs
+        self.luts: list = []
+        self.lookup_rows: list = []
+        self.lut_to_lookups: list = []
 
     # -- targets --------------------------------------------------------------
 
@@ -449,6 +458,24 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin):
             out[:len(gi.constants), j] = gi.constants
         return out
 
+    def _lookup_selectors(self) -> list[np.ndarray]:
+        """Where the circuit has LUTs, [4 + num LUTs, degree]: the RE
+        transition (the table rows), the SLDC transition (the lookup rows),
+        the RE start (the noop row after each table), the last lookup row,
+        then one column a LUT marking its lowest table row (reference
+        gates/selectors.rs:51-111); else nothing."""
+        if not self.luts:
+            return []
+        n = len(self.gate_instances)
+        sel = np.zeros((4 + len(self.luts), n), dtype=np.uint64)
+        for k, lw in enumerate(self.lookup_rows):
+            sel[0, lw.last_lut_gate:lw.first_lut_gate + 1] = 1
+            sel[1, lw.last_lu_gate:lw.last_lut_gate] = 1
+            sel[2, lw.first_lut_gate + 1] = 1
+            sel[3, lw.last_lu_gate] = 1
+            sel[4 + k, lw.last_lut_gate] = 1
+        return [sel]
+
     def _selector_polynomials(self, gates, max_degree: int):
         """The greedy grouping by degree (reference gates/selectors.rs:113-185):
         one selector polynomial a group, holding a row's gate index where
@@ -495,6 +522,8 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin):
             self.connect(hash_part, Wire(pi_gate, wire))
         for wire in range(4, config.num_wires):
             self.add_simple_generator(RandomValueGenerator(Wire(pi_gate, wire)))
+        if self.luts:
+            self.add_all_lookups()
 
         # the constants, sorted by value, on ConstantGates
         while len(self.constants_to_targets) > len(self.constant_generators):
@@ -518,7 +547,9 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin):
         with timing.scope("selectors and constants"):
             selector_polys, selectors_info = self._selector_polynomials(
                 gates, quotient_degree_factor + 1)
-            constant_vecs = np.concatenate([np.stack(selector_polys), self._constant_polys()])
+            lookup_selectors = self._lookup_selectors()
+            constant_vecs = np.concatenate([np.stack(selector_polys)] + lookup_selectors
+                                           + [self._constant_polys()])
         num_constants = constant_vecs.shape[0]
         subgroup = np.asarray(fs.two_adic_subgroup(degree_bits), dtype=np.uint64)
         k_is = fs.get_unique_coset_shifts(degree, config.num_routed_wires)
@@ -568,12 +599,18 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin):
             quotient_degree_factor=quotient_degree_factor,
             num_gate_constraints=max(g.num_constraints() for g in gates),
             num_constants=num_constants, num_public_inputs=num_public_inputs, k_is=k_is,
-            num_partial_products=-(-config.num_routed_wires // quotient_degree_factor) - 1)
+            num_partial_products=-(-config.num_routed_wires // quotient_degree_factor) - 1,
+            num_lookup_polys=(-(-LookupGate.num_slots_from_config(config)
+                                // (quotient_degree_factor - 1)) + 1 if self.luts else 0),
+            num_lookup_selectors=4 + len(self.luts) if self.luts else 0,
+            luts=[list(lut) for lut in self.luts])
         prover_only = ProverOnlyCircuitData(
             constants_sigmas_coeffs=g.to_numpy(commitment.polynomials),
             sigmas=sigmas, subgroup=subgroup, circuit_digest=circuit_digest,
             generators=self.generators, generator_indices_by_watches=watches,
-            public_inputs=self.public_inputs, representative_map=parents)
+            public_inputs=self.public_inputs, representative_map=parents,
+            lookup_rows=list(self.lookup_rows),
+            lut_to_lookups=[list(lookups) for lookups in self.lut_to_lookups])
         prover_only.cache(device)["constants_sigmas"] = commitment
         verifier_only = VerifierOnlyCircuitData(constants_sigmas_cap=cap,
                                                 circuit_digest=circuit_digest)

@@ -47,8 +47,9 @@ class CommonCircuitData:
     num_public_inputs: int
     k_is: list[int]
     num_partial_products: int
-    num_lookup_polys: int = 0
+    num_lookup_polys: int = 0  # a challenge's RE and partial-SLDC columns
     num_lookup_selectors: int = 0
+    luts: list = field(default_factory=list)  # lists of (u16 input, u16 output)
     # the GenericConfig (None: Poseidon); not part of the reference's common
     # data, so left out of equality
     gc: object = field(default=None, compare=False)
@@ -78,34 +79,46 @@ class CommonCircuitData:
         return range(self.config.num_challenges,
                      (self.num_partial_products + 1) * self.config.num_challenges)
 
+    def lookup_range(self) -> range:
+        """The lookup columns, after the Zs and partial products."""
+        start = self.num_zs_partial_products_polys()
+        return range(start, start + self.num_all_lookup_polys())
+
     def num_preprocessed_polys(self) -> int:
         return self.sigmas_range().stop
 
     def num_zs_partial_products_polys(self) -> int:
         return self.config.num_challenges * (1 + self.num_partial_products)
 
+    def num_all_lookup_polys(self) -> int:
+        return self.config.num_challenges * self.num_lookup_polys
+
     def num_quotient_polys(self) -> int:
         return self.config.num_challenges * self.quotient_degree_factor
 
-    # the FRI instance (lookups are not ported, so they add no polynomials)
+    # the FRI instance: the lookup columns live in the Zs-partial-products
+    # oracle but are opened after the quotient at ζ, and after the Zs at g·ζ
     def fri_all_polys(self) -> list[FriPolynomialInfo]:
+        zpp = pcfg.ZS_PARTIAL_PRODUCTS.index
         return (
             FriPolynomialInfo.from_range(pcfg.CONSTANTS_SIGMAS.index,
                                          range(self.num_preprocessed_polys()))
             + FriPolynomialInfo.from_range(pcfg.WIRES.index, range(self.config.num_wires))
-            + FriPolynomialInfo.from_range(pcfg.ZS_PARTIAL_PRODUCTS.index,
-                                           range(self.num_zs_partial_products_polys()))
+            + FriPolynomialInfo.from_range(zpp, range(self.num_zs_partial_products_polys()))
             + FriPolynomialInfo.from_range(pcfg.QUOTIENT.index,
-                                           range(self.num_quotient_polys())))
+                                           range(self.num_quotient_polys()))
+            + FriPolynomialInfo.from_range(zpp, self.lookup_range()))
 
     def fri_next_batch_polys(self) -> list[FriPolynomialInfo]:
-        return FriPolynomialInfo.from_range(pcfg.ZS_PARTIAL_PRODUCTS.index, self.zs_range())
+        zpp = pcfg.ZS_PARTIAL_PRODUCTS.index
+        return (FriPolynomialInfo.from_range(zpp, self.zs_range())
+                + FriPolynomialInfo.from_range(zpp, self.lookup_range()))
 
     def fri_oracles(self) -> list[FriOracleInfo]:
         return [
             FriOracleInfo(self.num_preprocessed_polys(), pcfg.CONSTANTS_SIGMAS.blinding),
             FriOracleInfo(self.config.num_wires, pcfg.WIRES.blinding),
-            FriOracleInfo(self.num_zs_partial_products_polys(),
+            FriOracleInfo(self.num_zs_partial_products_polys() + self.num_all_lookup_polys(),
                           pcfg.ZS_PARTIAL_PRODUCTS.blinding),
             FriOracleInfo(self.num_quotient_polys(), pcfg.QUOTIENT.blinding),
         ]
@@ -137,6 +150,10 @@ class ProverOnlyCircuitData:
     public_inputs: list = field(default_factory=list)  # targets
     # flat target index (iop/target.py target_index) -> partition representative
     representative_map: np.ndarray | None = field(default=None, repr=False)
+    # lookups: each LUT's region of rows (gadgets/lookup.py LookupWire) and
+    # its (looking in, looking out) target pairs
+    lookup_rows: list = field(default_factory=list)
+    lut_to_lookups: list = field(default_factory=list, repr=False)
     caches: dict = field(default_factory=dict, repr=False, compare=False)
 
     def cache(self, device) -> dict:

@@ -3,7 +3,7 @@ D = 2 tuples of Python ints; Merkle caps are lists of 4-element digests."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from plonky2_torch.fri.proof import FriProof
 from plonky2_torch.fri.structure import FriOpeningBatch, FriOpenings
@@ -11,9 +11,9 @@ from plonky2_torch.fri.structure import FriOpeningBatch, FriOpenings
 
 @dataclass
 class OpeningSet:
-    """The committed polynomials' values at ζ, and the Z polynomials' at
-    g·ζ (reference plonk/proof.rs:301). Lookups are not ported, so their
-    openings are always empty."""
+    """The committed polynomials' values at ζ, and the Z polynomials' and
+    the lookup columns' at g·ζ (reference plonk/proof.rs:301); the lookup
+    openings are empty for a circuit without LUTs."""
 
     constants: list[tuple]
     plonk_sigmas: list[tuple]
@@ -22,13 +22,17 @@ class OpeningSet:
     plonk_zs_next: list[tuple]
     partial_products: list[tuple]
     quotient_polys: list[tuple]
+    lookup_zs: list[tuple] = field(default_factory=list)
+    lookup_zs_next: list[tuple] = field(default_factory=list)
 
     def to_fri_openings(self) -> FriOpenings:
-        """In the order of CommonCircuitData.fri_all_polys."""
+        """In the order of CommonCircuitData.fri_all_polys (the lookup
+        columns after the quotient) and fri_next_batch_polys."""
         return FriOpenings(batches=[
             FriOpeningBatch(values=self.constants + self.plonk_sigmas + self.wires
-                            + self.plonk_zs + self.partial_products + self.quotient_polys),
-            FriOpeningBatch(values=list(self.plonk_zs_next))])
+                            + self.plonk_zs + self.partial_products + self.quotient_polys
+                            + self.lookup_zs),
+            FriOpeningBatch(values=self.plonk_zs_next + self.lookup_zs_next)])
 
 
 @dataclass
@@ -53,5 +57,6 @@ class ProofChallenges:
     plonk_betas: list[int]
     plonk_gammas: list[int]
     plonk_alphas: list[int]
+    plonk_deltas: list[int]  # NUM_COINS_LOOKUP a challenge; empty without LUTs
     plonk_zeta: tuple
     fri_challenges: object

@@ -1,12 +1,14 @@
 """PLONK prover (reference plonk/prover.py:384-556, :976-1304,
-plonk/prover.rs:113-815), for circuits without lookups under
-`PoseidonGoldilocksConfig` or `KeccakGoldilocksConfig`, with or without
-zero knowledge.
+plonk/prover.rs:113-815), under `PoseidonGoldilocksConfig` or
+`KeccakGoldilocksConfig`, with or without zero knowledge, with or without
+lookups.
 
 `prepare_witness` is the host witness phase: the circuit's generators run
 from the caller's PartialWitness (`iop/generator.py`, the native witness
-plan by default), then the public inputs, their hash and the full witness
-matrix. Every rng draw of a non-zk prove happens there. Under zero
+plan by default), the lookup wires are filled (`set_lookup_wires`: the last
+LookupGate's free slots and the table rows' multiplicities), then the
+public inputs, their hash and the full witness matrix. Every rng draw of
+a non-zk prove happens there. Under zero
 knowledge the blinding rows' random values are drawn there too, and the
 three salted commitments' salts (wires, Zs and partial products, quotient:
 the reference's draw order, with no other draw between) right after it, on
@@ -18,7 +20,11 @@ earlier proofs' device chains.
 The device chain runs every round on tensors of one device:
 
   wires commitment        iFFT, coset LDE, Merkle tree   (fri/oracle.py: K2, K4)
-  partial products, Zs    batch inverses and modular prefix-product scans
+  partial products, Zs    batch inverses and modular prefix-product scans;
+  and lookup columns      with LUTs, each challenge's RE and partial-SLDC
+                          columns over the lookup region's rows (host row
+                          recurrences, or on the device an affine scan and
+                          prefix sums), committed with the Zs
   quotient polynomials    every gate's constraints over the 2^(degree bits +
                           log qdf)-point coset, filtered, α-reduced, divided by
                           Z_H, then one coset iFFT (K3) into qdf chunks per
@@ -32,7 +38,9 @@ parameters, circuit digest, public-inputs hash) to the device before the
 wires commitment and keeps the transcript there (`DeviceChallenger`): the
 caps, the draws, the openings and the whole FRI argument return in one
 device-to-host fetch, and a warm prove synchronises with the host nowhere
-before it. The host path (inside `fri.prover.force_host_path()`, and
+before it: the lookup deltas stay device draws, and each LUT's polynomial
+is evaluated from them on the device. The host path (inside
+`fri.prover.force_host_path()`, and
 under Keccak, as the reference routes it) reads each cap and draw back to
 the host between the rounds; under Keccak the commitments' trees and the
 grind are the host's too (`fri/oracle.py`, `fri/prover.py`). The field
@@ -54,13 +62,25 @@ from plonky2_torch.field import ntt
 from plonky2_torch.field import scalar as fs
 from plonky2_torch.fri import prover as fri_prover
 from plonky2_torch.fri.oracle import PolynomialBatch, _batch_quotient, eval_polys_at, salt_stream
-from plonky2_torch.gates.gate import UNUSED_SELECTOR
+from plonky2_torch.gates.gate import UNUSED_SELECTOR, rows
+from plonky2_torch.gates.lookup import LookupGate, LookupTableGate
 from plonky2_torch.hash import poseidon as ps
 from plonky2_torch.hash.merkle import NaturalMerkleTree
 from plonky2_torch.iop.challenger import Challenger, DeviceChallenger, cap_boundary
 from plonky2_torch.iop.generator import generate_partial_witness
+from plonky2_torch.iop.target import Wire
 from plonky2_torch.plonk import config as pcfg
 from plonky2_torch.plonk.proof import OpeningSet, Proof, ProofWithPublicInputs
+from plonky2_torch.plonk.vanishing_poly import (
+    CHALLENGE_A,
+    CHALLENGE_ALPHA,
+    CHALLENGE_B,
+    CHALLENGE_DELTA,
+    NUM_COINS_LOOKUP,
+    check_lookup_constraints_device,
+    eval_lut_poly,
+    lut_evals_device,
+)
 from plonky2_torch.util import TimingTree, log2_strict
 
 # which transcript path the last prove took: "fused" or "host"
@@ -108,11 +128,190 @@ def prepare_witness(prover_data, common, inputs, timing: TimingTree | None = Non
     timing = timing or TimingTree("prepare")
     with timing.scope("generate partial witness"):
         partition_witness = generate_partial_witness(inputs, prover_data, common, engine)
+    if common.num_lookup_polys:
+        set_lookup_wires(prover_data, common, partition_witness)
     public_inputs = partition_witness.get_targets(prover_data.public_inputs)
     public_inputs_hash = ps.hash_no_pad(public_inputs)
     with timing.scope("compute full witness"):
         witness = partition_witness.full_witness()
     return witness, public_inputs, public_inputs_hash
+
+
+# -- lookups ------------------------------------------------------------------
+
+def set_lookup_wires(prover_data, common, witness) -> None:
+    """Each LUT's lookups counted into its table rows' multiplicity wires,
+    and the last LookupGate's free slots filled with the LUT's first entry,
+    each counted too (reference plonk/prover.rs:41-111). `witness`: the
+    PartitionWitness after the generators."""
+    num_entries = LookupGate.num_slots_from_config(common.config)
+    num_lut_entries = LookupTableGate.num_slots_from_config(common.config)
+    for lut_index, lw in enumerate(prover_data.lookup_rows):
+        lut = common.luts[lut_index]
+        lookups = prover_data.lut_to_lookups[lut_index]
+        value_to_idx = {inp: i for i, (inp, _) in enumerate(lut)}
+        multiplicities = [0] * len(lut)
+        for looking_in, _ in lookups:
+            multiplicities[value_to_idx[witness.get_target(looking_in)]] += 1
+        first_inp, first_out = lut[0]
+        for slot in range(num_entries - (-len(lookups)) % num_entries, num_entries):
+            witness.set_target(Wire(lw.last_lut_gate - 1, LookupGate.wire_ith_looking_inp(slot)),
+                               first_inp)
+            witness.set_target(Wire(lw.last_lut_gate - 1, LookupGate.wire_ith_looking_out(slot)),
+                               first_out)
+            multiplicities[0] += 1
+        for entry, m in enumerate(multiplicities):
+            witness.set_target(Wire(lw.first_lut_gate - entry // num_lut_entries,
+                                    LookupTableGate.wire_ith_multiplicity(
+                                        entry % num_lut_entries)), m)
+
+
+def _lookup_shape(common) -> tuple[int, int, int, int, int]:
+    """(LookupGate slots, slots a lookup chunk, SLDC columns, LookupTableGate
+    slots, slots a table chunk)."""
+    config = common.config
+    num_lu_slots = LookupGate.num_slots_from_config(config)
+    lu_degree = config.max_quotient_degree_factor - 1
+    num_partial = -(-num_lu_slots // lu_degree)
+    num_lut_slots = LookupTableGate.num_slots_from_config(config)
+    return num_lu_slots, lu_degree, num_partial, num_lut_slots, -(-num_lut_slots // num_partial)
+
+
+def compute_lookup_polys(witness, deltas4, prover_data, common) -> list[list[int]]:
+    """One challenge's RE column and partial-SLDC columns [num_lookup_polys,
+    degree] from its four draws, by the reference's row recurrences over
+    each lookup region, table rows from the top, then the lookup rows
+    (reference plonk/prover.rs:458-605). witness: [num_wires, degree] u64."""
+    degree = common.degree
+    num_lu_slots, lu_degree, num_partial, num_lut_slots, lut_degree = _lookup_shape(common)
+    polys = [[0] * degree for _ in range(num_partial + 1)]
+    da, db, dalpha, ddelta = (deltas4[k] for k in (CHALLENGE_A, CHALLENGE_B, CHALLENGE_ALPHA,
+                                                   CHALLENGE_DELTA))
+
+    def w(row, col):
+        return int(witness[col, row])
+
+    for lw in prover_data.lookup_rows:
+        for row in range(lw.first_lut_gate, lw.last_lut_gate - 1, -1):
+            ins = [w(row, LookupTableGate.wire_ith_looked_inp(s)) for s in range(num_lut_slots)]
+            outs = [w(row, LookupTableGate.wire_ith_looked_out(s)) for s in range(num_lut_slots)]
+            inv = fs.batch_inverse([fs.sub(dalpha, fs.add(i, fs.mul(da, o)))
+                                    for i, o in zip(ins, outs)])
+            new_re = polys[0][(row + 1) % degree]
+            for i, o in zip(ins, outs):
+                new_re = fs.add(fs.mul(new_re, ddelta), fs.add(i, fs.mul(db, o)))
+            polys[0][row] = new_re
+            for slot in range(num_partial):
+                acc = polys[slot][row] if slot else polys[num_partial][(row + 1) % degree]
+                for s in range(slot * lut_degree, min((slot + 1) * lut_degree, num_lut_slots)):
+                    acc = fs.add(acc, fs.mul(w(row, LookupTableGate.wire_ith_multiplicity(s)),
+                                             inv[s]))
+                polys[slot + 1][row] = acc
+        for row in range(lw.last_lut_gate - 1, lw.last_lu_gate - 1, -1):
+            inv = fs.batch_inverse([
+                fs.sub(dalpha, fs.add(w(row, LookupGate.wire_ith_looking_inp(s)),
+                                      fs.mul(da, w(row, LookupGate.wire_ith_looking_out(s)))))
+                for s in range(num_lu_slots)])
+            for slot in range(num_partial):
+                prev = polys[slot][row] if slot else polys[num_partial][(row + 1) % degree]
+                acc = 0
+                for s in range(slot * lu_degree, min((slot + 1) * lu_degree, num_lu_slots)):
+                    acc = fs.add(acc, inv[s])
+                polys[slot + 1][row] = fs.sub(prev, acc)
+    return polys
+
+
+def _affine_scan(a, b):
+    """Along the last dim, the inclusive prefix compositions of the maps
+    x -> a_k x + b_k: (A, B) with x_k = A_k x_{-1} + B_k, in log2(len)
+    Hillis-Steele steps. Field arithmetic is exact, so this is the
+    sequential recurrence's value."""
+    k = 1
+    while k < a.shape[-1]:
+        a, b = (torch.cat([a[..., :k], g.mul(a[..., k:], a[..., :-k])], -1),
+                torch.cat([b[..., :k], g.add(g.mul(b[..., :-k], a[..., k:]), b[..., k:])], -1))
+        k <<= 1
+    return a, b
+
+
+def _chunk_sums(x, size: int, count: int):
+    """[..., S] -> [..., count]: modular sums of `size` consecutive slots,
+    the tail padded with zeros."""
+    fill = count * size - x.shape[-1]
+    if fill:
+        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (fill,))], -1)
+    return g.sum_mod(x.reshape(x.shape[:-1] + (count, size)), -1)
+
+
+def lookup_polys_device(witness, deltas, prover_data, common):
+    """Every challenge's lookup columns [num_challenges · num_lookup_polys,
+    degree] on the witness's device, bit for bit `compute_lookup_polys`'s,
+    from the device witness and the device draws `deltas` [4 · num
+    challenges], with no host read: the region's wires are read with host
+    row ranges and column lists; per row the table slots' inverses come
+    from one batch inversion, the RE's row Horner is a weighted sum with
+    δ's powers and its recurrence an affine scan, and the SLDC columns are
+    modular prefix sums, all challenges at once."""
+    nc = common.config.num_challenges
+    degree = common.degree
+    num_lu_slots, lu_degree, num_partial, num_lut_slots, lut_degree = _lookup_shape(common)
+    d = deltas.reshape(nc, NUM_COINS_LOOKUP)
+    da, db, dalpha = (d[:, k, None, None] for k in (CHALLENGE_A, CHALLENGE_B, CHALLENGE_ALPHA))
+    pows = torch.stack([g.powers(d[c, CHALLENGE_DELTA], num_lut_slots + 1) for c in range(nc)])
+    out = torch.zeros((nc, num_partial + 1, degree), dtype=torch.int64, device=witness.device)
+    for lw in prover_data.lookup_rows:
+        first, last_lut, last_lu = lw.first_lut_gate, lw.last_lut_gate, lw.last_lu_gate
+        n_lut, n_lu = first + 1 - last_lut, last_lut - last_lu
+
+        def region(cols, lo, hi):
+            """[rows, slots]: the wires of `cols` at rows hi - 1 down to lo."""
+            return rows(witness[:, lo:hi], cols).flip(1).T
+
+        ins = region([LookupTableGate.wire_ith_looked_inp(s) for s in range(num_lut_slots)],
+                     last_lut, first + 1)
+        outs = region([LookupTableGate.wire_ith_looked_out(s) for s in range(num_lut_slots)],
+                      last_lut, first + 1)
+        mult = region([LookupTableGate.wire_ith_multiplicity(s) for s in range(num_lut_slots)],
+                      last_lut, first + 1)
+        lu_ins = region([LookupGate.wire_ith_looking_inp(s) for s in range(num_lu_slots)],
+                        last_lu, last_lut)
+        lu_outs = region([LookupGate.wire_ith_looking_out(s) for s in range(num_lu_slots)],
+                         last_lu, last_lut)
+        # every 1 / (α - (in + a · out)) of the region in one inversion
+        dens = torch.cat([g.sub(dalpha, g.add(ins, g.mul(da, outs))).reshape(-1),
+                          g.sub(dalpha, g.add(lu_ins, g.mul(da, lu_outs))).reshape(-1)])
+        n = dens.shape[0]
+        size = 1 << max(n - 1, 1).bit_length()
+        inv = g.inverse_vector(torch.cat([dens, torch.ones(size - n, dtype=torch.int64,
+                                                           device=dens.device)]))[:n]
+        inv_lut = inv[:nc * n_lut * num_lut_slots].reshape(nc, n_lut, num_lut_slots)
+        inv_lu = inv[nc * n_lut * num_lut_slots:].reshape(nc, n_lu, num_lu_slots)
+
+        # the RE over the table rows: x_k = δ^S · x_{k-1} + Σ_s (in_s + b · out_s) δ^(S-1-s)
+        combos = g.add(ins, g.mul(db, outs))
+        e = g.sum_mod(g.mul(combos, pows[:, None, :num_lut_slots].flip(-1)), -1)  # [nc, n_lut]
+        step = pows[:, num_lut_slots]
+        e[:, 0] = g.add(e[:, 0], g.mul(step, out[:, 0, (first + 1) % degree]))
+        _, re_col = _affine_scan(step[:, None].expand(nc, n_lut).contiguous(), e)
+
+        # the SLDC over the table rows, then on down the lookup rows
+        chunks = g.cumsum(_chunk_sums(g.mul(mult, inv_lut), lut_degree, num_partial), -1)
+        carry = out[:, num_partial, (first + 1) % degree]
+        s_incl = g.cumsum(chunks[..., -1], -1)  # [nc, n_lut]
+        s_before = g.add(carry[:, None], torch.cat([torch.zeros_like(s_incl[:, :1]),
+                                                    s_incl[:, :-1]], -1))
+        cols_lut = g.add(s_before[..., None], chunks)
+        out[:, 0, last_lut:first + 1] = re_col.flip(-1)
+        out[:, 1:, last_lut:first + 1] = cols_lut.flip(1).transpose(1, 2)
+        if n_lu:
+            carry = g.add(carry, s_incl[:, -1])
+            chunks = g.cumsum(_chunk_sums(inv_lu, lu_degree, num_partial), -1)
+            s_incl = g.cumsum(chunks[..., -1], -1)
+            s_before = g.sub(carry[:, None], torch.cat([torch.zeros_like(s_incl[:, :1]),
+                                                        s_incl[:, :-1]], -1))
+            cols_lu = g.sub(s_before[..., None], chunks)
+            out[:, 1:, last_lu:last_lut] = cols_lu.flip(1).transpose(1, 2)
+    return out.reshape(nc * (num_partial + 1), degree)
 
 
 def _draw_salts(common, device):
@@ -141,8 +340,6 @@ def prove(prover_data, common, inputs, device=None, timing: TimingTree | None = 
     proof."""
     global _LAST_TRANSCRIPT
     device = resolve_device(device)
-    if common.num_lookup_polys:
-        raise NotImplementedError("circuits with lookups are not ported (ROADMAP item 9)")
     timing = timing or TimingTree("prove")
     if _prepared is None:
         _prepared = prepare_witness(prover_data, common, inputs, timing)
@@ -185,10 +382,20 @@ def prove(prover_data, common, inputs, device=None, timing: TimingTree | None = 
     challenger.observe_cap(wires.merkle_tree.cap)
     betas = challenger.get_n_challenges(nc)
     gammas = challenger.get_n_challenges(nc)
+    deltas = []
+    if common.num_lookup_polys:
+        deltas = betas + gammas + challenger.get_n_challenges((NUM_COINS_LOOKUP - 2) * nc)
 
     with timing.scope("partial products and Zs"):
         zs_pp_values = all_partial_products_and_zs(
             witness_dev[:config.num_routed_wires], prover_data, common, betas, gammas)
+    if deltas:
+        with timing.scope("compute lookup polys"):
+            witness_np = g.to_numpy(witness_dev) if isinstance(witness, torch.Tensor) else witness
+            lookup = [col for c in range(nc) for col in compute_lookup_polys(
+                witness_np, deltas[NUM_COINS_LOOKUP * c:NUM_COINS_LOOKUP * (c + 1)],
+                prover_data, common)]
+            zs_pp_values = torch.cat([zs_pp_values, g.tensor(lookup, device)])
     del witness_dev
     with timing.scope("zs_partial_products commitment"):
         zs_pp = commit_values(zs_pp_values, salts[1])
@@ -196,9 +403,15 @@ def prove(prover_data, common, inputs, device=None, timing: TimingTree | None = 
     alphas = challenger.get_n_challenges(nc)
 
     with timing.scope("quotient polys"):
+        lookup_args = ()  # the draws and the LUT evaluations, where there are LUTs
+        if deltas:
+            lookup_args = (g.tensor(deltas, device), g.tensor(
+                [[eval_lut_poly(common, k, deltas[NUM_COINS_LOOKUP * c:NUM_COINS_LOOKUP * (c + 1)])
+                  for k in range(len(common.luts))] for c in range(nc)],
+                device).reshape(nc, len(common.luts)))
         quotient_chunks = compute_quotient_polys(
             prover_data, common, constants_sigmas, wires, zs_pp, public_inputs_hash,
-            betas, gammas, alphas)
+            betas, gammas, alphas, *lookup_args)
     with timing.scope("quotient commitment"):
         quotient = PolynomialBatch.from_coeffs(quotient_chunks, rate_bits, salts[2] is not None,
                                                cap_height, hasher=hasher, salt=salts[2])
@@ -349,12 +562,15 @@ def _gate_constraints(common, wires_q, constants_q, public_inputs_hash):
 
 
 def compute_quotient_polys(prover_data, common, constants_sigmas, wires, zs_pp,
-                           public_inputs_hash, betas, gammas, alphas):
+                           public_inputs_hash, betas, gammas, alphas, deltas=None,
+                           lut_re_evals=None):
     """The quotient chunks' coefficients [num_challenges · qdf, degree]:
     t_0 .. t_{qdf-1} of each challenge. The terms are, in order, each
-    challenge's L_0 · (Z - 1), each challenge's partial-product checks, then
-    the filtered gate constraints; challenge i reduces them by powers of
-    α_i, divides by Z_H and takes the coset iFFT."""
+    challenge's L_0 · (Z - 1), each challenge's partial-product checks, each
+    challenge's lookup checks (with LUTs: `deltas` [4 · num_challenges] and
+    `lut_re_evals` [num_challenges, num_luts] on the device), then the
+    filtered gate constraints; challenge i reduces them by powers of α_i,
+    divides by Z_H and takes the coset iFFT."""
     device = wires.device
     config = common.config
     qdf, n = common.quotient_degree_factor, common.degree
@@ -384,9 +600,20 @@ def compute_quotient_polys(prover_data, common, constants_sigmas, wires, zs_pp,
         pp = common.partial_products_range()[i * num_prods:(i + 1) * num_prods]
         accs = torch.cat([z_x[None], zs_q[pp.start:pp.stop], z_gx[None]])
         pp_terms.append(g.sub(g.mul(accs[1:], den_prod), g.mul(accs[:-1], num_prod)))
-    all_terms = torch.cat(z1_terms + pp_terms
+    lookup_terms = []
+    if common.num_lookup_polys:
+        num_sel, nlp = common.selectors_info.num_selectors, common.num_lookup_polys
+        lookup_selectors = cs_q[num_sel:num_sel + common.num_lookup_selectors]
+        lk = common.lookup_range().start
+        d = deltas.reshape(nc, NUM_COINS_LOOKUP)
+        for i in range(nc):
+            local = zs_q[lk + nlp * i:lk + nlp * (i + 1)]
+            lookup_terms.append(check_lookup_constraints_device(
+                common, wires_q, lookup_selectors, local, torch.roll(local, -qdf, 1), d[i],
+                lut_re_evals[i]))
+    all_terms = torch.cat(z1_terms + pp_terms + lookup_terms
                           + [_gate_constraints(common, wires_q, cs_q, public_inputs_hash)])
-    del z1_terms, pp_terms
+    del z1_terms, pp_terms, lookup_terms
 
     vanishing = torch.stack([
         g.sum_mod(g.mul(g.powers(a, all_terms.shape[0], device)[:, None],
@@ -403,13 +630,15 @@ def _ext_list(e0, e1) -> list[tuple]:
 
 
 def opening_set(zeta, g_root, constants_sigmas, wires, zs_pp, quotient, common) -> OpeningSet:
-    """Every committed polynomial at ζ, and the Zs at g·ζ
-    (reference plonk/proof.rs:314-351)."""
+    """Every committed polynomial at ζ, and the Zs and the lookup columns
+    at g·ζ (reference plonk/proof.rs:314-351)."""
     oracles = (constants_sigmas, wires, zs_pp, quotient)
     at_zeta = _ext_list(*eval_polys_at(torch.cat([o.polynomials for o in oracles]), zeta))
-    zs = common.zs_range()
+    zs, lk = common.zs_range(), common.lookup_range()
     zeta_next = fs.ext_scalar_mul(g_root, zeta)
-    at_next = _ext_list(*eval_polys_at(zs_pp.polynomials[zs.start:zs.stop], zeta_next))
+    at_next = _ext_list(*eval_polys_at(torch.cat([zs_pp.polynomials[zs.start:zs.stop],
+                                                  zs_pp.polynomials[lk.start:lk.stop]]),
+                                       zeta_next))
     off = np.cumsum([0] + [o.polynomials.shape[0] for o in oracles])
     cs_eval, wires_eval, zs_pp_eval, quotient_eval = (
         at_zeta[a:b] for a, b in zip(off[:-1], off[1:]))
@@ -418,44 +647,57 @@ def opening_set(zeta, g_root, constants_sigmas, wires, zs_pp, quotient, common) 
         plonk_sigmas=[cs_eval[i] for i in common.sigmas_range()],
         wires=wires_eval,
         plonk_zs=[zs_pp_eval[i] for i in zs],
-        plonk_zs_next=at_next,
+        plonk_zs_next=at_next[:len(zs)],
         partial_products=[zs_pp_eval[i] for i in common.partial_products_range()],
         quotient_polys=quotient_eval,
+        lookup_zs=[zs_pp_eval[i] for i in lk],
+        lookup_zs_next=at_next[len(zs):],
     )
 
 
 # -- the fused path: the transcript on the device -------------------------------
 
 def _openings_final(sponge, zdraw, cs, wires, zs_pp, quot, num_challenges: int,
-                    degree_bits: int, rate_bits: int):
+                    degree_bits: int, rate_bits: int, n_zpp: int | None = None):
     """The opening argument's transcript segment on the device (reference
     `_openings_final_fn`): every committed polynomial (coefficients [rows,
     n] of the four oracles) at ζ = zdraw and the Zs-partial-products oracle
     at g·ζ; the openings observed in the FRI-openings order (batch 0: every
-    polynomial at ζ; batch 1: the Zs at g·ζ; c0 then c1 of each); the FRI α
-    drawn; and the FRI final polynomial, Σ over the two batches of α^(batch
-    size)-shifted batch quotients. Returns (openings [2, cs + wires + 2 zs +
-    quot] laid out [cs@ζ | wires@ζ | zs@ζ | zs@gζ | quot@ζ], [ζ0, ζ1, gζ0,
-    gζ1], final c0, final c1, sponge state)."""
+    polynomial at ζ, the lookup columns (the Zs-partial-products oracle's
+    rows from `n_zpp` on) after the quotient; batch 1: the Zs, then the
+    lookup columns, at g·ζ; c0 then c1 of each); the FRI α drawn; and the
+    FRI final polynomial, Σ over the two batches of α^(batch size)-shifted
+    batch quotients. Returns (openings [2, cs + wires + 2 zs + quot] laid
+    out [cs@ζ | wires@ζ | zs@ζ | zs@gζ | quot@ζ], [ζ0, ζ1, gζ0, gζ1], final
+    c0, final c1, sponge state)."""
     z = (zdraw[0], zdraw[1])
     g_root = fs.primitive_root_of_unity(degree_bits)
     gz = (g.mul_scalar(z[0], g_root), g.mul_scalar(z[1], g_root))
     all_polys = torch.cat([cs, wires, zs_pp, quot])
     at_z = eval_polys_at(all_polys, z)
     at_gz = eval_polys_at(zs_pp, gz)
-    o = cs.shape[0] + wires.shape[0] + zs_pp.shape[0]
+    n_z = zs_pp.shape[0]
+    o = cs.shape[0] + wires.shape[0] + n_z
     packed = torch.stack([torch.cat([at_z[i][:o], at_gz[i], at_z[i][o:]]) for i in (0, 1)])
 
+    n_zpp = n_z if n_zpp is None else n_zpp
+    batch0, batch1 = all_polys, zs_pp[:num_challenges]
+    obs0, obs1 = torch.stack(at_z, dim=-1), torch.stack(at_gz, dim=-1)[:num_challenges]
+    if n_zpp < n_z:  # the lookup columns: after the quotient at ζ, after the Zs at g·ζ
+        lookup = zs_pp[n_zpp:]
+        batch0 = torch.cat([all_polys[:o - n_z + n_zpp], quot, lookup])
+        batch1 = torch.cat([batch1, lookup])
+        obs0 = torch.cat([obs0[:o - n_z + n_zpp], obs0[o:], obs0[o - n_z + n_zpp:o]])
+        obs1 = torch.cat([obs1, torch.stack(at_gz, dim=-1)[n_zpp:]])
     dc = DeviceChallenger(sponge)
-    dc.observe_elements(torch.stack(at_z, dim=-1))
-    dc.observe_elements(torch.stack([at_gz[0][:num_challenges], at_gz[1][:num_challenges]],
-                                    dim=-1))
+    dc.observe_elements(obs0)
+    dc.observe_elements(obs1)
     alpha = (dc.get_challenge(), dc.get_challenge())
 
     n = cs.shape[-1]
     final = (torch.zeros(n, dtype=torch.int64, device=cs.device),
              torch.zeros(n, dtype=torch.int64, device=cs.device))
-    for point, polys in ((z, all_polys), (gz, zs_pp[:num_challenges])):
+    for point, polys in ((z, batch0), (gz, batch1)):
         q = _batch_quotient(polys, alpha, point, rate_bits)
         shift = g.ext2_pow_static(alpha, polys.shape[0])
         final = g.ext2_add(g.ext2_mul(shift, final), q)
@@ -478,21 +720,28 @@ def _prove_fused(prover_data, common, constants_sigmas, wires, witness_dev, tran
     sponge, pending = transcript
     no_pending = sponge.new_empty((0,))
 
-    sponge, _, draws, cap_w = cap_boundary(sponge, pending, int(pending.shape[0]),
-                                           wires.merkle_tree.cap_dev, cap_height, True, 2 * nc)
-    betas, gammas = draws[:nc], draws[nc:]
+    lookups = bool(common.num_lookup_polys)
+    sponge, _, draws, cap_w = cap_boundary(
+        sponge, pending, int(pending.shape[0]), wires.merkle_tree.cap_dev, cap_height, True,
+        (NUM_COINS_LOOKUP if lookups else 2) * nc)
+    betas, gammas = draws[:nc], draws[nc:2 * nc]
     with timing.scope("partial products and Zs"):
         zs_pp_values = all_partial_products_and_zs(
             witness_dev[:config.num_routed_wires], prover_data, common, betas, gammas)
+    if lookups:  # the deltas are the whole draw stream
+        with timing.scope("compute lookup polys"):
+            zs_pp_values = torch.cat([zs_pp_values, lookup_polys_device(
+                witness_dev, draws, prover_data, common)])
     with timing.scope("zs_partial_products commitment"):
         zs_pp = PolynomialBatch.from_values(zs_pp_values, rate_bits, salts[1] is not None,
                                             cap_height, salt=salts[1])
     sponge, _, alphas, cap_z = cap_boundary(sponge, no_pending, 0, zs_pp.merkle_tree.cap_dev,
                                             cap_height, True, nc)
     with timing.scope("quotient polys"):
+        lookup_args = (draws, lut_evals_device(common, draws, draws.device)) if lookups else ()
         quotient_chunks = compute_quotient_polys(
             prover_data, common, constants_sigmas, wires, zs_pp, pi_hash_dev,
-            betas, gammas, alphas)
+            betas, gammas, alphas, *lookup_args)
     with timing.scope("quotient commitment"):
         quotient = PolynomialBatch.from_coeffs(quotient_chunks, rate_bits, salts[2] is not None,
                                                cap_height, salt=salts[2])
@@ -505,7 +754,7 @@ def _prove_fused(prover_data, common, constants_sigmas, wires, witness_dev, tran
     with timing.scope("openings + final poly"):
         packed, zz, f0, f1, sponge = _openings_final(
             sponge, zdraw, *(o.polynomials for o in oracles), nc, common.degree_bits,
-            rate_bits)
+            rate_bits, *((common.num_zs_partial_products_polys(),) if lookups else ()))
     extra = torch.cat([cap_w.reshape(-1), cap_z.reshape(-1), cap_q.reshape(-1),
                        packed.reshape(-1), zz])
     with timing.scope("FRI dispatch" if defer else "FRI opening proof"):
@@ -540,6 +789,8 @@ def _prove_fused(prover_data, common, constants_sigmas, wires, witness_dev, tran
             plonk_zs_next=[zs_pp_next_eval[i] for i in common.zs_range()],
             partial_products=[zs_pp_eval[i] for i in common.partial_products_range()],
             quotient_polys=quotient_eval,
+            lookup_zs=[zs_pp_eval[i] for i in common.lookup_range()],
+            lookup_zs_next=[zs_pp_next_eval[i] for i in common.lookup_range()],
         )
         proof = Proof(wires_cap=caps[0], plonk_zs_partial_products_cap=caps[1],
                       quotient_polys_cap=caps[2], openings=openings,

@@ -17,9 +17,11 @@ Generators go by tag in the reference's registry order
 A generator outside the registry, such as square_root's, raises the
 reference's ValueError; a caller's `registry` (the default one with its
 own classes appended) adds it, and such a class writes and reads its own
-payload (`serialize(w)`, classmethod `deserialize(r)`). The lookup rows are
-stepped over on reading and written empty. A gate or generator tag the port
-has no class for raises ValueError. Digests are Poseidon's unless the
+payload (`serialize(w)`, classmethod `deserialize(r)`). The common data
+carries the LUTs; a lookup gate or generator names its LUT by index (and a
+gate by its hash too), and the prover-only data ends with the lookup rows
+and each LUT's lookups. A gate or generator tag the port has no class for
+raises ValueError. Digests are Poseidon's unless the
 reader is given a Keccak hasher (`Reader(data, hasher)`).
 """
 
@@ -32,6 +34,7 @@ import numpy as np
 
 from plonky2_torch.fri.config import FriConfig, FriParams, FriReductionStrategy
 from plonky2_torch.fri.serialization import Writer
+from plonky2_torch.gadgets.lookup import LookupWire
 from plonky2_torch.gadgets.extension_arithmetic import QuotientGeneratorExtension
 from plonky2_torch.gadgets.split_join import WireSplitGenerator
 from plonky2_torch.gates.arithmetic_base import ArithmeticGate
@@ -44,6 +47,12 @@ from plonky2_torch.gates.arithmetic_extension import (
 from plonky2_torch.gates.base_sum import BaseSplitGenerator, BaseSumGate
 from plonky2_torch.gates.coset_interpolation import CosetInterpolationGate, InterpolationGenerator
 from plonky2_torch.gates.exponentiation import ExponentiationGate, ExponentiationGenerator
+from plonky2_torch.gates.lookup import (
+    LookupGate,
+    LookupGenerator,
+    LookupTableGate,
+    LookupTableGenerator,
+)
 from plonky2_torch.gates.poseidon_gate import PoseidonGate, PoseidonGenerator
 from plonky2_torch.gates.poseidon_mds import PoseidonMdsGate, PoseidonMdsGenerator
 from plonky2_torch.gates.random_access import RandomAccessGate, RandomAccessGenerator
@@ -78,8 +87,8 @@ GATE_TAGS = [
     ("ConstantGate", lambda r: ConstantGate(r.usize())),
     ("CosetInterpolationGate", lambda r: _coset_interpolation_gate(r)),
     ("ExponentiationGate", lambda r: ExponentiationGate(r.usize())),
-    ("LookupGate", None),
-    ("LookupTableGate", None),
+    ("LookupGate", lambda r: _lookup_gate(r)),
+    ("LookupTableGate", lambda r: _lookup_table_gate(r)),
     ("MulExtensionGate", lambda r: MulExtensionGate(r.usize())),
     ("NoopGate", lambda r: NoopGate()),
     ("PoseidonMdsGate", lambda r: PoseidonMdsGate()),
@@ -107,8 +116,8 @@ GENERATOR_TAGS = [
         r.target(), r.target(), r.target(), r.target())),
     ("ExponentiationGenerator", lambda r: ExponentiationGenerator(r.usize(), r.usize())),
     ("InterpolationGenerator", lambda r: _interpolation_generator(r)),
-    ("LookupGenerator", None),
-    ("LookupTableGenerator", None),
+    ("LookupGenerator", lambda r: _lookup_generator(r)),
+    ("LookupTableGenerator", lambda r: _lookup_table_generator(r)),
     ("LowHighGenerator", None),
     ("MulExtensionGenerator", lambda r: MulExtensionGenerator(r.usize(), r.field(), r.usize())),
     ("NonzeroTestGenerator", lambda r: NonzeroTestGenerator(r.target(), r.target())),
@@ -141,8 +150,10 @@ def default_registry() -> list:
     classes = {c.__name__: c for c in (
         ArithmeticBaseGenerator, ArithmeticExtensionGenerator, BaseSplitGenerator,
         ConstantGenerator, CopyGenerator, DummyProofGenerator, inv.EqualityGenerator,
-        ExponentiationGenerator, InterpolationGenerator, MulExtensionGenerator,
-        NonzeroTestGenerator, PoseidonGenerator, PoseidonMdsGenerator, QuotientGeneratorExtension, RandomAccessGenerator, RandomValueGenerator,
+        ExponentiationGenerator, InterpolationGenerator, LookupGenerator,
+        LookupTableGenerator, MulExtensionGenerator, NonzeroTestGenerator, PoseidonGenerator,
+        PoseidonMdsGenerator, QuotientGeneratorExtension, RandomAccessGenerator,
+        RandomValueGenerator,
         ReducingGenerator, ReducingExtensionGenerator, WireSplitGenerator,
         inv.InverseGenerator)}
     return [classes.get(name) if read is not None else None for name, read in GENERATOR_TAGS]
@@ -154,6 +165,7 @@ class Reader:
         self.pos = 0
         self.hasher = hasher  # the digests' form: Poseidon unless a Keccak hasher
         self.registry = registry  # generator classes by tag; None: the default
+        self.luts: list = []  # the common data's, once read
 
     def u8(self) -> int:
         x = self.data[self.pos]
@@ -220,15 +232,6 @@ class Reader:
         self.pos += n
         return out
 
-    def skip_target(self) -> None:
-        is_wire = self.bool()
-        self.pos += 16 if is_wire else 8
-
-    def skip_vec(self, item_bytes: int) -> None:
-        """Step over a length-prefixed vector of fixed-size items."""
-        n = self.usize()
-        self.pos += item_bytes * n
-
     # -- common circuit data ------------------------------------------------
 
     def fri_reduction_strategy(self) -> FriReductionStrategy:
@@ -285,8 +288,8 @@ class Reader:
         k_is = self.field_vec(self.usize())
         num_partial_products, num_lookup_polys, num_lookup_selectors = (
             self.usize(), self.usize(), self.usize())
-        for _ in range(self.usize()):  # lookup tables: (u16, u16) pairs
-            self.skip_vec(4)
+        self.luts = [[(self.u16(), self.u16()) for _ in range(self.usize())]
+                     for _ in range(self.usize())]
         gates = [self.gate() for _ in range(self.usize())]
         return CommonCircuitData(
             config=config, fri_params=fri_params, gates=gates,
@@ -294,7 +297,7 @@ class Reader:
             num_gate_constraints=num_gate_constraints, num_constants=num_constants,
             num_public_inputs=num_public_inputs, k_is=k_is,
             num_partial_products=num_partial_products, num_lookup_polys=num_lookup_polys,
-            num_lookup_selectors=num_lookup_selectors)
+            num_lookup_selectors=num_lookup_selectors, luts=self.luts)
 
     # -- prover-only circuit data ---------------------------------------------
 
@@ -332,17 +335,18 @@ class Reader:
         if self.bool():
             raise ValueError("an FFT root table is not expected")
         circuit_digest = self.hash()
-        self.skip_vec(24)  # lookup rows: 3 usizes each
-        for _ in range(self.usize()):  # lut_to_lookups: target pairs
-            for _ in range(2 * self.usize()):
-                self.skip_target()
+        lookup_rows = [LookupWire(self.usize(), self.usize(), self.usize())
+                       for _ in range(self.usize())]
+        lut_to_lookups = [[(self.target(), self.target()) for _ in range(self.usize())]
+                          for _ in range(self.usize())]
         return ProverOnlyCircuitData(constants_sigmas_coeffs=coeffs,
                                      constants_sigmas_blinding=blinding, sigmas=sigmas,
                                      subgroup=subgroup, circuit_digest=circuit_digest,
                                      generators=generators,
                                      generator_indices_by_watches=watches,
                                      public_inputs=public_inputs,
-                                     representative_map=representative_map)
+                                     representative_map=representative_map,
+                                     lookup_rows=lookup_rows, lut_to_lookups=lut_to_lookups)
 
     def verifier_only_circuit_data(self) -> VerifierOnlyCircuitData:
         cap = self.merkle_cap(self.usize())
@@ -360,6 +364,39 @@ def _coset_interpolation_gate(r: Reader) -> CosetInterpolationGate:
     if gate.degree() != degree or gate.barycentric_weights != weights:
         raise ValueError("CosetInterpolationGate payload disagrees with its parameters")
     return gate
+
+
+def _lookup_gate(r: Reader) -> LookupGate:
+    """Tag 6: the slot count, the LUT's index and its hash."""
+    num_slots = r.usize()
+    lut = r.luts[r.usize()]
+    return _hashed(r, LookupGate(num_slots, lut))
+
+
+def _lookup_table_gate(r: Reader) -> LookupTableGate:
+    """Tag 7: the slot count, the last LUT row, the LUT's index and its
+    hash."""
+    num_slots, last_lut_row = r.usize(), r.usize()
+    lut = r.luts[r.usize()]
+    return _hashed(r, LookupTableGate(num_slots, lut, last_lut_row))
+
+
+def _hashed(r: Reader, gate):
+    """The gate, once the 32-byte LUT hash that follows is its LUT's."""
+    if bytes(r.data[r.pos:r.pos + 32]) != gate.lut_hash:
+        raise ValueError(f"the LUT hash read with a {type(gate).__name__} is not its LUT's")
+    r.pos += 32
+    return gate
+
+
+def _lookup_generator(r: Reader) -> LookupGenerator:
+    row, slot_nb = r.usize(), r.usize()
+    return LookupGenerator(row, r.luts[r.usize()], slot_nb)
+
+
+def _lookup_table_generator(r: Reader) -> LookupTableGenerator:
+    row, slot_nb, num_slots, last_lut_row = (r.usize() for _ in range(4))
+    return LookupTableGenerator(row, r.luts[r.usize()], slot_nb, num_slots, last_lut_row)
 
 
 def _interpolation_generator(r: Reader) -> InterpolationGenerator:
@@ -450,6 +487,8 @@ _TAG_OF = {name: tag for tag, (name, _) in enumerate(GATE_TAGS)}
 
 
 class CircuitWriter(Writer):
+    luts: list = []  # the common data's LUTs, which lookup gates and generators index
+
     def write_bool(self, b: bool) -> None:
         self.write_u8(1 if b else 0)
 
@@ -496,6 +535,8 @@ class CircuitWriter(Writer):
         self.write_fri_config(c.fri_config)
 
     def write_gate(self, gate) -> None:
+        """The gate's tag and parameters; a lookup gate's LUT by its index
+        in the common data's LUTs (`self.luts`), then its hash."""
         name = type(gate).__name__
         if name not in _TAG_OF:
             raise ValueError(f"no registry tag for {gate.id()}")
@@ -510,6 +551,12 @@ class CircuitWriter(Writer):
             self.write_usize(gate.num_consts)
         elif isinstance(gate, ExponentiationGate):
             self.write_usize(gate.num_power_bits)
+        elif isinstance(gate, (LookupGate, LookupTableGate)):
+            self.write_usize(gate.num_slots)
+            if isinstance(gate, LookupTableGate):
+                self.write_usize(gate.last_lut_row)
+            self.write_usize(self.luts.index(gate.lut))
+            self.buf += gate.lut_hash
         elif isinstance(gate, CosetInterpolationGate):
             self.write_usize(gate.subgroup_bits)
             self.write_usize(gate.degree())
@@ -538,7 +585,12 @@ class CircuitWriter(Writer):
         for x in (common.num_partial_products, common.num_lookup_polys,
                   common.num_lookup_selectors):
             self.write_usize(x)
-        self.write_usize(0)  # lookup tables (ROADMAP item 9)
+        self.luts = common.luts
+        self.write_usize(len(common.luts))
+        for lut in common.luts:
+            self.write_usize(len(lut))
+            for i, o in lut:
+                self.buf += struct.pack("<HH", i, o)
         self.write_usize(len(common.gates))
         for gate in common.gates:
             self.write_gate(gate)
@@ -615,6 +667,14 @@ def _write_generator_payload(w: ProverWriter, gen) -> None:
     elif name == "ExponentiationGenerator":
         w.write_usize(gen.row)
         w.write_usize(gen.num_power_bits)
+    elif name == "LookupGenerator":
+        w.write_usize(gen.row)
+        w.write_usize(gen.slot_nb)
+        w.write_usize(w.luts.index(gen.lut))
+    elif name == "LookupTableGenerator":
+        for x in (gen.row, gen.slot_nb, gen.num_slots, gen.last_lut_row):
+            w.write_usize(x)
+        w.write_usize(w.luts.index(gen.lut))
     elif name == "InterpolationGenerator":
         w.write_usize(gen.row)
         w.write_usize(gen.subgroup_bits)
@@ -693,6 +753,7 @@ def write_polynomial_batch(w: ProverWriter, coeffs, rate_bits: int,
 def write_prover_only_circuit_data(w: ProverWriter, prover_only, common,
                                    registry=None) -> None:
     """In the reference's field order (reference mod.rs:1834-1933)."""
+    w.luts = common.luts
     w.write_usize(len(prover_only.generators))
     for gen in prover_only.generators:
         write_generator(w, gen, registry)
@@ -715,8 +776,16 @@ def write_prover_only_circuit_data(w: ProverWriter, prover_only, common,
     w.write_usize_vec([int(v) for v in prover_only.representative_map])
     w.write_bool(False)  # no FFT root table
     w.write_hash(prover_only.circuit_digest)
-    w.write_usize(0)  # lookup rows (ROADMAP item 9)
-    w.write_usize(0)  # lut_to_lookups
+    w.write_usize(len(prover_only.lookup_rows))
+    for lw in prover_only.lookup_rows:
+        for x in (lw.last_lu_gate, lw.last_lut_gate, lw.first_lut_gate):
+            w.write_usize(x)
+    w.write_usize(len(prover_only.lut_to_lookups))
+    for lookups in prover_only.lut_to_lookups:
+        w.write_usize(len(lookups))
+        for looking_in, looking_out in lookups:
+            w.write_target(looking_in)
+            w.write_target(looking_out)
 
 
 def circuit_data_to_bytes(data, registry=None) -> bytes:

@@ -1,11 +1,11 @@
 """Byte-exact proof serialization both ways (reference
 util/serialization/mod.rs), on the FRI proof writer and reader of
-`fri/serialization.py`: the three caps, the opening set (with the empty
-lookup openings in their place), the FRI proof, then the public inputs with
-their count. `proof_from_bytes` reads a proof of a circuit without lookups,
-its shapes from the common data and its digests' form
-from the common data's generic config (reference
-plonk/serialization.py:358).
+`fri/serialization.py`: the three caps, the opening set (the lookup
+columns' openings at ζ and g·ζ after the Zs'), the FRI proof, then the
+public inputs with their count. `proof_from_bytes` reads a proof, its
+shapes from the common data (the Zs-partial-products leaves with the
+lookup columns) and its digests' form from the common data's generic
+config (reference plonk/serialization.py:358).
 
 A compressed proof (`plonk/compressed.py`; reference mod.rs:1042-1160,
 2032-2126) has the caps and openings, then the FRI proof's caps, the query
@@ -31,7 +31,8 @@ class Writer(FriWriter):
         self.write_field_ext_vec(os.wires)
         self.write_field_ext_vec(os.plonk_zs)
         self.write_field_ext_vec(os.plonk_zs_next)
-        # lookup_zs and lookup_zs_next: empty (lookups are not ported)
+        self.write_field_ext_vec(os.lookup_zs)
+        self.write_field_ext_vec(os.lookup_zs_next)
         self.write_field_ext_vec(os.partial_products)
         self.write_field_ext_vec(os.quotient_polys)
 
@@ -99,6 +100,8 @@ class Reader(FriReader):
             wires=ext(config.num_wires),
             plonk_zs=ext(nc),
             plonk_zs_next=ext(nc),
+            lookup_zs=ext(common.num_all_lookup_polys()),
+            lookup_zs_next=ext(common.num_all_lookup_polys()),
             partial_products=ext(nc * common.num_partial_products),
             quotient_polys=ext(common.num_quotient_polys()))
 
@@ -106,15 +109,14 @@ class Reader(FriReader):
         """The three caps, the opening set and the initial trees' leaf
         widths, each salted oracle's with its SALT_SIZE salt (reference
         plonk/serialization.py:249-254)."""
-        if common.num_lookup_polys:
-            raise ValueError("proofs with lookups are not ported")
         cap_height = common.config.fri_config.cap_height
         caps = [self.read_merkle_cap(cap_height) for _ in range(3)]
         openings = self.read_opening_set(common)
         salt = SALT_SIZE if common.fri_params.hiding else 0
         num_leaves_per_oracle = [common.num_preprocessed_polys(),
                                  common.config.num_wires + salt,
-                                 common.num_zs_partial_products_polys() + salt,
+                                 common.num_zs_partial_products_polys()
+                                 + common.num_all_lookup_polys() + salt,
                                  common.num_quotient_polys() + salt]
         return caps, openings, num_leaves_per_oracle
 

@@ -7,10 +7,13 @@ recursion/recursive_verifier.py).
 
 The vanishing polynomial is the host verifier's ops-generic
 `eval_vanishing_poly` on `CircuitOps`, so the circuit checks the gate
-constraints in the order the prover and the verifier compute them.
+constraints in the order the prover and the verifier compute them. Over
+a circuit with LUTs the transcript draws the lookup deltas, each LUT's
+polynomial is evaluated in the circuit (`eval_lut_poly_circuit`, before
+the vanishing polynomial, as the reference adds its targets) and the
+lookup columns' openings join the Zs-partial-products oracle's leaves.
 A zero-knowledge proof's salted oracles give leaves SALT_SIZE wider; the
-FRI check strips the salt. Proofs with lookups (ROADMAP item 9) are not
-ported.
+FRI check strips the salt.
 """
 
 from __future__ import annotations
@@ -31,7 +34,11 @@ from plonky2_torch.fri.structure import FriBatchInfo, FriInstanceInfo, FriOpenin
 from plonky2_torch.gadgets.reducing import ReducingFactorTarget
 from plonky2_torch.gates.ops import CircuitOps, EvaluationVars
 from plonky2_torch.iop.target import ExtensionTarget
-from plonky2_torch.plonk.vanishing_poly import eval_vanishing_poly
+from plonky2_torch.plonk.vanishing_poly import (
+    NUM_COINS_LOOKUP,
+    eval_lut_poly_circuit,
+    eval_vanishing_poly,
+)
 from plonky2_torch.recursion.recursive_challenger import RecursiveChallenger
 
 
@@ -88,10 +95,7 @@ class ProofChallengesTarget:
 
 
 def add_virtual_proof_with_pis(builder, common) -> ProofWithPublicInputsTarget:
-    """Targets for a proof of `common`'s circuit (without lookups, as the
-    port's proofs are), then its public inputs."""
-    if common.num_lookup_polys:
-        raise ValueError("proofs with lookups are not ported")
+    """Targets for a proof of `common`'s circuit, then its public inputs."""
     proof = _add_virtual_proof(builder, common)
     return ProofWithPublicInputsTarget(
         proof=proof, public_inputs=builder.add_virtual_targets(common.num_public_inputs))
@@ -101,7 +105,8 @@ def _add_virtual_proof(builder, common) -> ProofTarget:
     cap_height = common.fri_params.config.cap_height
     salt = SALT_SIZE if common.fri_params.hiding else 0
     num_leaves_per_oracle = [common.num_preprocessed_polys(), common.config.num_wires + salt,
-                             common.num_zs_partial_products_polys() + salt]
+                             common.num_zs_partial_products_polys()
+                             + common.num_all_lookup_polys() + salt]
     if common.num_quotient_polys() > 0:
         num_leaves_per_oracle.append(common.num_quotient_polys() + salt)
     return ProofTarget(
@@ -122,8 +127,8 @@ def _add_opening_set(builder, common) -> OpeningSetTarget:
         wires=ext(common.config.num_wires),
         plonk_zs=ext(nc),
         plonk_zs_next=ext(nc),
-        lookup_zs=[],
-        next_lookup_zs=[],
+        lookup_zs=ext(common.num_all_lookup_polys()),
+        next_lookup_zs=ext(common.num_all_lookup_polys()),
         partial_products=ext(nc * common.num_partial_products),
         quotient_polys=ext(common.num_quotient_polys()))
 
@@ -161,6 +166,10 @@ def get_challenges_target(builder, proof_t: ProofTarget, public_inputs_hash, cir
     challenger.observe_cap(proof_t.wires_cap)
     plonk_betas = challenger.get_n_challenges(nc)
     plonk_gammas = challenger.get_n_challenges(nc)
+    plonk_deltas = []
+    if common.num_lookup_polys:
+        plonk_deltas = (plonk_betas + plonk_gammas
+                        + challenger.get_n_challenges((NUM_COINS_LOOKUP - 2) * nc))
     challenger.observe_cap(proof_t.plonk_zs_partial_products_cap)
     plonk_alphas = challenger.get_n_challenges(nc)
     challenger.observe_cap(proof_t.quotient_polys_cap)
@@ -180,7 +189,7 @@ def get_challenges_target(builder, proof_t: ProofTarget, public_inputs_hash, cir
     fri_query_indices = challenger.get_n_challenges(common.config.fri_config.num_query_rounds)
     return ProofChallengesTarget(
         plonk_betas=plonk_betas, plonk_gammas=plonk_gammas, plonk_alphas=plonk_alphas,
-        plonk_deltas=[], plonk_zeta=plonk_zeta,
+        plonk_deltas=plonk_deltas, plonk_zeta=plonk_zeta,
         fri_challenges=FriChallengesTarget(fri_alpha=fri_alpha, fri_betas=fri_betas,
                                            fri_pow_response=fri_pow_response,
                                            fri_query_indices=fri_query_indices))
@@ -203,8 +212,6 @@ def verify_proof(builder, proof_with_pis: ProofWithPublicInputsTarget,
     inner circuit (reference recursion/recursive_verifier.rs:18-39)."""
     if len(proof_with_pis.public_inputs) != inner_common.num_public_inputs:
         raise ValueError("the public inputs do not match the inner circuit")
-    if inner_common.num_lookup_polys:
-        raise NotImplementedError("circuits with lookups are not ported (ROADMAP item 9)")
     public_inputs_hash = builder.hash_n_to_hash_no_pad(list(proof_with_pis.public_inputs))
     challenges = get_challenges_target(builder, proof_with_pis.proof, public_inputs_hash,
                                        inner_verifier_data.circuit_digest, inner_common)
@@ -227,11 +234,17 @@ def _verify_proof_with_challenges(builder, proof_t: ProofTarget, public_inputs_h
     # L_0(ζ) = Z_H(ζ) / (n (ζ - 1))
     denom = builder.mul_const_extension(common.degree % fs.P, builder.sub_extension(zeta, one))
     l_0_zeta = builder.div_extension(z_h_zeta, denom)
+    deltas = challenges.plonk_deltas
+    lut_re_evals = [[lift(eval_lut_poly_circuit(
+        builder, common, k, deltas[NUM_COINS_LOOKUP * c:NUM_COINS_LOOKUP * (c + 1)]))
+        for k in range(len(common.luts))]
+        for c in range(common.config.num_challenges)] if deltas else []
     vanishing_polys_zeta = eval_vanishing_poly(
         CircuitOps(builder), common, zeta, vars, openings.plonk_zs, openings.plonk_zs_next,
         openings.partial_products, openings.plonk_sigmas,
         [lift(b) for b in challenges.plonk_betas], [lift(g) for g in challenges.plonk_gammas],
-        [lift(a) for a in challenges.plonk_alphas], l_0_zeta)
+        [lift(a) for a in challenges.plonk_alphas], l_0_zeta, openings.lookup_zs,
+        openings.next_lookup_zs, [lift(d) for d in deltas], lut_re_evals)
 
     # each challenge's vanishing value = Z_H(ζ) · t(ζ), t's chunks
     # recombined with powers of ζ^n
@@ -259,9 +272,13 @@ def set_proof_with_pis_target(pw, proof_t: ProofWithPublicInputsTarget, proof_wi
                    proof.plonk_zs_partial_products_cap)
     set_cap_target(pw, proof_t.proof.quotient_polys_cap, proof.quotient_polys_cap)
     ot, o = proof_t.proof.openings, proof.openings
-    for name in ("constants", "plonk_sigmas", "wires", "plonk_zs", "plonk_zs_next",
-                 "partial_products", "quotient_polys"):
-        for t, v in zip(getattr(ot, name), getattr(o, name)):
+    for targets, values in ((ot.constants, o.constants), (ot.plonk_sigmas, o.plonk_sigmas),
+                            (ot.wires, o.wires), (ot.plonk_zs, o.plonk_zs),
+                            (ot.plonk_zs_next, o.plonk_zs_next), (ot.lookup_zs, o.lookup_zs),
+                            (ot.next_lookup_zs, o.lookup_zs_next),
+                            (ot.partial_products, o.partial_products),
+                            (ot.quotient_polys, o.quotient_polys)):
+        for t, v in zip(targets, values):
             pw.set_extension_target(t, v)
     set_fri_proof_target(pw, proof_t.proof.opening_proof, proof.opening_proof)
 

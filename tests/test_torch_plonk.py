@@ -342,14 +342,23 @@ def test_middle_reader_equals_reference(monkeypatch):
 ])
 def test_reader_rejects_tags_it_does_not_know(tag, read, what):
     """Tags the port has no class for raise; ExponentiationGate (5, its
-    num_power_bits after the tag) and PoseidonMdsGate (10, no payload) are
-    read, to the reference's gates."""
-    if tag in (5, 10):
+    num_power_bits after the tag), LookupGate (6: its slots, its LUT's
+    index in the common data's LUTs and the LUT's hash), LookupTableGate (7:
+    its slots, its last LUT row, the LUT's index and hash) and
+    PoseidonMdsGate (10, no payload) are read, to the reference's gates."""
+    if tag in (5, 6, 7, 10):
         from plonky2_tpu.plonk.circuit_serialization import CircuitReader
+        from plonky2_torch.gadgets.lookup import TIP5_TABLE
+        from plonky2_torch.gates.lookup import lut_hash
 
-        blob = struct.pack("<IQ", tag, 66) + bytes(56)
-        want = CircuitReader(blob).read_gate([])
-        got = Reader(blob).gate()
+        lut = list(zip(range(256), TIP5_TABLE))
+        payload = {6: struct.pack("<QQ", 40, 0) + lut_hash(lut),
+                   7: struct.pack("<QQQ", 26, 5, 0) + lut_hash(lut)}.get(tag, struct.pack("<Q", 66))
+        blob = struct.pack("<I", tag) + payload + bytes(56)
+        want = CircuitReader(blob).read_gate([lut])
+        reader = Reader(blob)
+        reader.luts = [lut]
+        got = reader.gate()
         assert what in got.id() and got.id() == want.id()
         return
     with pytest.raises(ValueError, match=what):
@@ -359,16 +368,25 @@ def test_reader_rejects_tags_it_does_not_know(tag, read, what):
 
 
 def test_prove_refuses_what_is_not_ported(port_data):
-    import dataclasses
+    """Without a card the default device raises. Zero knowledge is ported
+    (tests/test_torch_zk.py proves a zk circuit), and lookups: the committed
+    two-LUT circuit (degree 2^5) proves on the CPU from its prover data to
+    the reference's bytes (tests/test_torch_lookups.py has the rest)."""
+    from plonky2_torch.iop.witness import PartialWitness
 
     prover_only, common, *prepared = port_data
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tp.prove(prover_only, common, None, _prepared=prepared)
-    # zero knowledge is ported: tests/test_torch_zk.py proves a zk circuit
-    with pytest.raises(NotImplementedError, match="lookups"):
-        tp.prove(prover_only, dataclasses.replace(common, num_lookup_polys=1), None,
-                 device="cpu", _prepared=prepared)
+    lk_prover, lk_common = read_prover_data(
+        _read("plonky2_torch", "data", "lookup_two_tables.prover.bin"))
+    trng.seed(2026)
+    try:
+        got = proof_to_bytes(tp.prove(lk_prover, lk_common, PartialWitness(), device="cpu"))
+    finally:
+        trng.seed(None)
+    assert lk_common.num_lookup_polys and tp._LAST_TRANSCRIPT == "host"
+    assert got == _read("plonky2_torch", "data", "lookup_two_tables.proof.bin")
 
 
 def test_random_witness_is_seeded_and_hashes_its_public_inputs(port_data):

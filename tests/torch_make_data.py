@@ -69,7 +69,23 @@ and `--inner18` the bench_recursion inner circuit at 2^18 (~7 min):
                                            build alone, no prove)
 so that `tests/test_torch_zk.py` and `tests/test_torch_exponentiation.py`
 hold the port's zk builds and proves and its recursion circuit over a 2^18
-inner circuit to the reference's. Not collected by pytest;
+inner circuit to the reference's. `--lookups` writes the lookup circuits
+(~10 min, most of it compiling the reference's proves):
+  plonky2_torch/data/lookup515.{verifier,proof,prover}.bin
+      the body of the reference's dummy_many_rows_proof (515 lookups on
+      the TIP5 table, input 2, no noop padding: degree 2^5), its proof
+      (seed 2026, the host transcript: no FRI fold at 2^5) and its
+      prover_data_to_bytes
+  plonky2_torch/data/lookup_two_tables.{verifier,proof,prover}.bin
+      tests/test_lookups.py:29's circuit (five TIP5 lookups, three into a
+      second LUT of eight pairs), likewise
+  plonky2_torch/data/lookup1_6.{verifier,proof}.bin
+      the one-lookup inner circuit of dummy_lookup_proof padded to 2^6,
+      the smallest degree whose prove takes the fused transcript
+  plonky2_torch/data/lookup{1,2}_14.verifier.bin
+      the two lookup inner circuits of the chain at 2^14 (builds alone)
+so that `tests/test_torch_lookups.py` holds the port's lookup builds,
+proves and serialization to the reference's. Not collected by pytest;
 `tests/test_torch_plonk.py`, `tests/test_torch_witness.py`,
 `tests/test_torch_builder.py`, `tests/test_torch_starky.py`,
 `tests/test_torch_cyclic.py`, `tests/test_torch_keccak.py`,
@@ -80,6 +96,7 @@ files equal to what this makes.
     JAX_PLATFORMS=cpu python tests/torch_make_data.py --keccak
     JAX_PLATFORMS=cpu python tests/torch_make_data.py --zk
     JAX_PLATFORMS=cpu python tests/torch_make_data.py --inner18
+    JAX_PLATFORMS=cpu python tests/torch_make_data.py --lookups
 """
 
 import lzma
@@ -347,6 +364,74 @@ def write_inner18_data() -> None:
     print(f"wrote inner18.verifier.bin: {len(blob)} bytes")
 
 
+def two_tables_circuit(builder_cls, tables, config):
+    """tests/test_lookups.py:29's circuit on a builder of either package
+    (`tables`: that package's gadgets/lookup module): lookups of constants
+    into the TIP5 table and into a table of SMALLER_TABLE's eight pairs,
+    the outputs public."""
+    b = builder_cls(config)
+    tip5 = b.add_lookup_table_from_table(list(range(256)), list(tables.TIP5_TABLE))
+    small = b.add_lookup_table_from_pairs(list(zip([2, 4, 6, 8, 10, 12, 14, 16],
+                                                   tables.SMALLER_TABLE)))
+    outs = [b.add_lookup_from_index(b.constant(v), tip5) for v in (0, 5, 17, 255, 17)]
+    outs += [b.add_lookup_from_index(b.constant(v), small) for v in (2, 10, 16)]
+    b.register_public_inputs(outs)
+    return b
+
+
+def lookup_circuits(builder_cls, noop_cls, tables, config) -> dict:
+    """name -> (builder, the lookup input target or None) of the
+    `--lookups` circuits on a builder of either package."""
+    from reference_prove_lookups import lookup_circuit
+
+    def inner(lookup_type, size):
+        return lookup_circuit(builder_cls, noop_cls, tables.TIP5_TABLE, config, lookup_type,
+                              size)
+
+    return {"lookup515": inner(2, None),
+            "lookup_two_tables": (two_tables_circuit(builder_cls, tables, config), None),
+            "lookup1_6": inner(1, 6), "lookup1_14": inner(1, 14), "lookup2_14": inner(2, 14)}
+
+
+def write_lookup_data() -> None:
+    from plonky2_tpu.gadgets import lookup as tables
+    from plonky2_tpu.gates.simple_gates import NoopGate
+    from plonky2_tpu.iop.witness import PartialWitness
+    from plonky2_tpu.plonk.circuit_builder import CircuitBuilder
+    from plonky2_tpu.plonk.circuit_serialization import verifier_data_to_bytes
+    from plonky2_tpu.plonk.config import CircuitConfig
+    from plonky2_tpu.plonk.prover_serialization import prover_data_to_bytes
+    from plonky2_tpu.plonk.serialization import proof_to_bytes
+    from plonky2_tpu.util import rng
+    from reference_prove_lookups import INITIAL_A
+
+    files = {}
+    circuits = lookup_circuits(CircuitBuilder, NoopGate, tables,
+                               CircuitConfig.standard_recursion_config())
+    for name, (builder, initial) in circuits.items():
+        data = builder.build()
+        files[f"{name}.verifier.bin"] = verifier_data_to_bytes(data.verifier_only, data.common)
+        if name.endswith("_14"):
+            continue
+        pw = PartialWitness()
+        if initial is not None:
+            pw.set_target(initial, INITIAL_A)
+        rng.seed(SEED)
+        try:
+            proof = data.prove(pw)
+        finally:
+            rng.seed(None)
+        data.verify(proof)
+        files[f"{name}.proof.bin"] = proof_to_bytes(proof)
+        if name != "lookup1_6":
+            files[f"{name}.prover.bin"] = prover_data_to_bytes(data.prover_only, data.common)
+    os.makedirs(DATA, exist_ok=True)
+    for name, blob in files.items():
+        with open(os.path.join(DATA, name), "wb") as f:
+            f.write(blob)
+        print(f"wrote {name}: {len(blob)} bytes", flush=True)
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, ROOT)
@@ -366,6 +451,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--inner18"]:
         write_inner18_data()
+        return 0
+    if sys.argv[1:] == ["--lookups"]:
+        write_lookup_data()
         return 0
 
     prover_bytes, _, witness, public_inputs, pi_hash, pw = factorial_data()
@@ -396,6 +484,7 @@ def main() -> int:
     write_keccak_data()
     write_zk_data()
     write_inner18_data()
+    write_lookup_data()
     return 0
 
 
