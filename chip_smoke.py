@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # the whole run, on this checkout
     python3 chip_smoke.py --times DIR     # only K3's and K5's timings, on the
                                           # checkout at DIR (e.g. the parent commit)
+    python3 chip_smoke.py --phases NAME.. # only the named phases (PHASES)
 
 In order: prints the card's name and power limit; builds the CUDA kernels
 from `plonky2_torch/csrc/` (timed); proves the factorial circuit on the card
@@ -18,7 +19,8 @@ proves it on the fused path (the main path) and on the host path
 to end with no synchronised phase, each with every launch count set to 0
 just before and read just after and the proof's sha256 the pinned one,
 then MIDDLE_PROVES proves with the device synchronised at each phase's
-start and end for the phase split, and one profiled prove; counts the host
+start and end for the phase split, and (the fused path) one profiled
+prove; counts the host
 synchronisations of one warm prove per path under
 `torch.cuda.set_sync_debug_mode("warn")` and requires the fused
 `prove(_defer=True)` to raise nothing under "error"; then the headline
@@ -43,7 +45,7 @@ read just after, the split by scope of the median run on lines of its
 own), requires its
 verifier bytes to be `bench_cache/inner14.verifier.bin`'s, proves it under
 seed 2026 (a first call and INNER_PROVES timed proves, each proof the
-reference's, INNER14_PROOF_SHA256, and one profiled) and verifies it with
+reference's, INNER14_PROOF_SHA256) and verifies it with
 the port's verifier, proves the middle circuit from that proof (seed 2026; the
 reference's MIDDLE_OVER_INNER14_SHA256) and verifies the middle proof
 against the circuit file's verifier data; builds the middle circuit with
@@ -58,8 +60,8 @@ MIDDLE_OVER_INNER14_SHA256) and verifies it; builds the outer
 circuit over it (timed, its verifier bytes the reference's
 OUTER_VERIFIER_SHA256) and proves it from that middle proof (seed 2026; a
 first call, INNER_PROVES timed proves, each the reference's
-OUTER_OVER_INNER14_SHA256, one synchronised for the split and one
-profiled) and verifies it; runs the fixture chain (`chain(4)` under seed
+OUTER_OVER_INNER14_SHA256, one synchronised for the split) and verifies
+it; runs the fixture chain (`chain(4)` under seed
 2026: inner 2^4, middle and outer built, proved and verified on the card)
 to `fixtures/bench_recursion.proof.bin` and `.verifier.bin`; then builds,
 proves and verifies factorial, fibonacci, range_check and square_root on
@@ -69,8 +71,7 @@ fixtures' bytes, then
 FibonacciStark and LookupTestStark at 2^STARKY_LOG_ROWS rows, a first
 call, STARKY_PROVES timed proves with the counts set to 0 just before each
 and read just after, each the reference's sha256, one synchronised for the
-split by the reference's scope names and (Fibonacci's) one profiled, each
-proof verified; then K3's x2 LDE, iFFTs and rate-0 coset FFT, K4's width-2 and
+split by the reference's scope names, each proof verified; then K3's x2 LDE, iFFTs and rate-0 coset FFT, K4's width-2 and
 width-4 trees over 2^21 leaves and K5's device grind at the Starky
 transcript's state against their plain versions, timed); runs the cyclic
 phase (`cyclic_phase`: the IVC hash chain of `examples/cyclic_recursion.py`,
@@ -79,15 +80,14 @@ cyclic circuit built once cold and BUILD_REPEATS times timed with its
 split by scope and its verifier bytes the reference's, the base proof and
 CYCLIC_LAYERS self-verifying layers each the reference's sha256, checked by
 `check_cyclic_proof_verifier_data`, the port's verifier and the host
-`hash_no_pad` chain, one layer synchronised for the split and one
-profiled); runs the Keccak phase (`keccak_phase`: `keccak_factorial` under
+`hash_no_pad` chain, one layer synchronised for the split); runs the
+Keccak phase (`keccak_phase`: `keccak_factorial` under
 `KeccakGoldilocksConfig` built and proved on the card and on the CPU to
 its fixtures' bytes, then the headline proof wrapped in a proof with
 Keccak caps and transcript: the bench_recursion outer layer over it built
 on a Keccak builder once cold and BUILD_REPEATS times timed, proved
 KECCAK_PROVES times (the host transcript and host Keccak trees, the
-trees' seconds apart), one synchronised for the split and one profiled,
-verified, compressed and decompressed, every sha256 the reference's, and
+trees' seconds apart), one synchronised for the split, verified, compressed and decompressed, every sha256 the reference's, and
 the headline proof compressed to the reference's bytes); runs the sizes
 phase (`sizes_phase`: the bench_recursion chain at inner 2^SIZES_LOG, the
 middle layer's 28 queries on ExponentiationGate rows: each circuit built
@@ -100,7 +100,7 @@ leaves (each compared on a slice, timed whole) and K5's device grind at
 its transcript against their plain versions); runs the zk phase
 (`zk_phase`: the chain at inner 2^ZK_LOG under
 `standard_recursion_zk_config()` for every layer, as above with
-ZK_PROVES, its blinding rows counted, every hash the reference's; the
+ZK_PROVES but no profile, its blinding rows counted, every hash the reference's; the
 inner proof again on the host path to the same bytes; the middle layer's
 fused `prove(_defer=True)` with 0 host synchronisations before its fetch
 and nothing raised under "error"; `prove_many` of ZK_BATCH_K middle
@@ -111,15 +111,29 @@ compressed and decompressed to its bytes; then K3's LDE x8 of
 and K5's device grind at its transcript against their plain versions);
 runs the lookups phase (`lookups_phase`: the chains at inner 2^LOOKUP_LOG
 over the one-TIP5-lookup and the 515-lookup inner circuits, as above with
-LOOKUP_PROVES timed inner proves split with "compute lookup polys", the
-one-lookup chain's outer only built, every hash the reference's; the
+LOOKUP_PROVES timed inner proves split with "compute lookup polys" (the
+515-lookup inner's profiled), the one-lookup chain's outer only built, every hash the reference's; the
 515-lookup inner proved on the host path to the same bytes; its device
 lookup columns and LUT evaluations of one fused prove equal to the host
 recurrence on that prove's draws; 0 host synchronisations before the
 fused prove's fetch and nothing raised under "error"; prove_many of four
 lookup inputs equal to sequential proves; then K3's LDE x8 of the 34-wide
 Zs-partial-products-lookup batch [34, 2^14] and K4's tree of width 34
-over 2^17 leaves against their plain versions);
+over 2^17 leaves against their plain versions); runs the batch FRI phase
+(`batch_fri_phase`: groups of 2^20, 2^16 and 2^12 coefficients committed
+in one BatchFriOracle and opened in one batch-FRI proof, fused and host
+paths to the same bytes and challenger state, 0 host synchronisations
+before the fused proof's fetch, the host verifier, its verifier circuit
+built, proved and verified, every hash the reference's; then K3's and
+K2's LDE x2 of the three groups, K3's coset FFT and iFFT at [2, 2^17],
+K4's batch-tree segments and fold tree and K5's device grind at its
+transcript against their plain versions); runs the STARK recursion phase
+(`stark_recursion_phase`: the Starky phase's 2^20-row proofs each
+verified in a circuit, built, proved STARK_WRAP_PROVES times after a
+first call and verified, and the variable-degree circuit (STARK_VAR) over
+FibonacciStark proofs of 2^14 and 2^17 rows made under its FRI params,
+every hash the reference's; `--phases batch_fri stark_recursion` runs
+these two alone);
 runs `commit_and_open`
 at the bench_recursion middle-circuit shapes (degree 2^13, oracles of
 85/135/20/16 polynomials; its FRI proof on the fused path) with the counts
@@ -151,7 +165,8 @@ Starky proves', the cyclic build's and
 a cyclic layer's, the Keccak wrap's build's and prove's, the 2^18
 chain's inner build's and prove's and middle build's and prove's, the zk
 chain's inner build's and prove's and middle prove's, the two lookup
-inners' builds' and proves', and the headline's,
+inners' builds' and proves', the batch FRI prove's, the Fibonacci 2^20
+wrap's and the variable-degree wrap's of 2^17 rows, and the headline's,
 prove_many's and the new phases' numbers), the last line the ok JSON
 object. Every timing line names the
 card and its power limit. Any failed check exits non-zero and prints no
@@ -196,17 +211,23 @@ MIDDLE_RUNS = 5
 MIDDLE_PROVE_SHA256 = "0759dc2ebfa4f3097d596d1633f22fa013534b750fe1ba265a2fee16038a23ea"
 # The repeats of the earlier paths were cut when the sizes and zk phases
 # came (MIDDLE_PROVES, HEADLINE_PROVES, KECCAK_PROVES 5 -> 3, BATCH_K
-# 16 -> 8, BUILD_REPEATS 3 -> 2), so that a slow call on a loaded host
-# stays well inside the script's time limit.
-MIDDLE_PROVES = 3
+# 16 -> 8, BUILD_REPEATS 3 -> 2), and again when the batch FRI and STARK
+# recursion phases came (STARKY_PROVES, SIZES_PROVES, ZK_PROVES,
+# LOOKUP_PROVES, MIDDLE_PROVES, HEADLINE_PROVES, INNER_PROVES,
+# KECCAK_PROVES 3 -> 2, BATCH_K 8 -> 4; the profiled runs of the host-path
+# middle prove, the inner 2^14 prove, the outer prove, the Starky 2^20
+# prove, the cyclic layer, the Keccak wrap and the zk and one-lookup
+# inners dropped: PERF.md keeps their earlier profiles), so that a slow
+# call on a loaded host stays well inside the script's time limit.
+MIDDLE_PROVES = 2
 # the headline: bench_cache/inner14.proof.bin in the middle circuit's proof
 # targets, the rng seeded to 2026; the full witness and the proof that the
 # port's plain path, both witness engines and the reference give on the CPU
 # (tests/reference_prove_middle.py)
 HEADLINE_WITNESS_SHA256 = "078753bd98bdd5a12f0b0e27d62eaa1639b66a6c532cb152cb51ff663b98ca1d"
 HEADLINE_PROOF_SHA256 = "9871be1789d5a82569612f725440a7345b8109716330ade7f73f336fa64fde28"
-HEADLINE_PROVES = 3
-BATCH_K = 8  # half of bench.py's prove_many batch
+HEADLINE_PROVES = 2
+BATCH_K = 4  # a quarter of bench.py's prove_many batch
 BATCH_WINDOW = 3
 # the build phase: the bench_recursion inner circuit at 2^14 built by the
 # port (its verifier bytes must be bench_cache/inner14.verifier.bin), its
@@ -221,7 +242,7 @@ MIDDLE_OVER_INNER14_SHA256 = "e83fe3c3a9c0665b09f7095f9d48b12d8a6d62e32fa60001f5
 OUTER_VERIFIER_SHA256 = "47c500d46e351b01f17042d874a343163ed27c6345503aa74847f4f8666f43cc"
 OUTER_OVER_INNER14_SHA256 = "e54f11fa117f1111f5c1fa26dde2dfea77210e4ad97378cb2595ad5a1b01ad15"
 BUILD_REPEATS = 2
-INNER_PROVES = 3
+INNER_PROVES = 2
 # the Starky phase: FibonacciStark(2^20) (public inputs [0, 1,
 # fibonacci(2^20 - 1, 0, 1)]) and LookupTestStark(2^20) (its own trace,
 # numpy seed 0) under standard_fast_config, as the reference proves them on
@@ -229,7 +250,7 @@ INNER_PROVES = 3
 STARKY_LOG_ROWS = 20
 FIB20_PROOF_SHA256 = "d0a5c168846f3ac76182eb10e06a66332b41fe3333db9d3e8757a68b103d47c2"
 LOOKUP20_PROOF_SHA256 = "165cc9881eed695f44a9a3fd7a4e89bc2c5c56d7f2a6ac87bb342726b9df588d"
-STARKY_PROVES = 3
+STARKY_PROVES = 2
 # the IVC hash chain of examples/cyclic_recursion.py under seed 2026
 # (tests/reference_prove_cyclic.py, the reference's): the fixpoint's and the
 # cyclic circuit's verifier bytes, then the base proof and each layer's
@@ -248,7 +269,7 @@ KECCAK_WRAP_PROOF_SHA256 = "743e8711e2acf31b92717b9d996c774807ea2015192247dde5b2
 KECCAK_WRAP_COMPRESSED_SHA256 = "db49d158afbc41f591cc9f5f8ec4b028f6248c27cd4d77ec503c7dbce0fb3d0e"
 KECCAK_HEADLINE_COMPRESSED_SHA256 = (
     "5b025c580d187f30086873ded6505a60ee9d5bcb42cd031d09c2953464cec444")
-KECCAK_PROVES = 3
+KECCAK_PROVES = 2
 # the sizes phase: the bench_recursion chain at inner 2^18 (the middle
 # layer's exp_from_bits on ExponentiationGate rows), each layer's verifier
 # data and its proof under seed 2026 as the reference makes them on the CPU
@@ -262,7 +283,7 @@ SIZES_PROOF_SHA256S = (
     "9a2307914d0c3be06cff3a846d99ffffa65747a1e5c84d347b4a742af6a88847",
     "61d95e18d1f88c7bfda381eb4275bab6ecc546bc91648bb7661f18ab7bb8db37",
     "0304b6d260f046ed93f1802490b012380adec3261d3c3eb965aec10aade2d4a2")
-SIZES_PROVES = 3
+SIZES_PROVES = 2
 # the zk phase: the chain at inner 2^14 under standard_recursion_zk_config()
 # for every layer (tests/reference_prove_zk.py), inner first
 ZK_LOG = 14
@@ -274,7 +295,7 @@ ZK_PROOF_SHA256S = (
     "281341165b89c2ca6ae96693a07c71748b8d39d11a458e414847e1cee841ce06",
     "0d81013f0230828d57daa03f2457481fc05f27dc3926efda53c974da537ee6ad",
     "273384706a5dd026b6a80c029553bd18a098bcdd4afe55a9110d13688ae05d84")
-ZK_PROVES = 3
+ZK_PROVES = 2
 ZK_BATCH_K = 4
 # the bench_recursion chains over the two lookup inner circuits at 2^14
 # (lookup type 1: one TIP5 lookup, its input public; 2: 515 lookups), the
@@ -297,8 +318,42 @@ LOOKUP_PROOF_SHA256S = {
         "fab4e31cff18f922990405be8a324dcc873e9e45367735223103d33f11cf0c41",
         "1996bf97c1bb62fdbcabb8e4b14e4cd91c6aec02d4644d94ae41a1592c878d4f"),
 }
-LOOKUP_PROVES = 3
+LOOKUP_PROVES = 2
 LOOKUP_BATCH_INPUTS = (2, 17, 100, 255)  # prove_many's lookup inputs, K = 4
+# the batch FRI phase: groups of 2^20, 2^16 and 2^12 coefficients (16, 8
+# and 4 polynomials, numpy seed 2026) under standard_fast_config's FRI
+# config, the batch-FRI proof, its verifier circuit's verifier data and
+# that circuit's proof (seed 2026), as the reference makes them on the CPU
+# (tests/reference_prove_batch_fri.py)
+BATCH_FRI_PROOF_SHA256 = "4ccf65c4ce7803ece49b719140e1cbd0004a5e973c4308bb5a1ec32d4efa59f8"
+BATCH_FRI_VERIFIER_SHA256 = "607f2dcbc8210654c9967b8e18b67382c76620fb7b83e2e453795ada18ad1f42"
+BATCH_FRI_CIRCUIT_PROOF_SHA256 = (
+    "e168ff9a54cdf27a91e38fb50f6b96653e1ba7129413379e8340beae5b1803e8")
+BATCH_FRI_PROVES = 2
+# the STARK recursion phase: the 2^20-row FibonacciStark and LookupTestStark
+# proofs (FIB20_PROOF_SHA256, LOOKUP20_PROOF_SHA256) each verified in a
+# circuit under standard_recursion_config(); the variable-degree circuit
+# (max 2^18, min 2^12, standard_fast_config's 84 queries) over the
+# FibonacciStark proofs of 2^14 and 2^17 rows made under fri_params(18):
+# the reference's verifier data and proofs (seed 2026;
+# tests/reference_prove_stark_recursion.py)
+STARK_WRAP_VERIFIER_SHA256S = {
+    "fibonacci": "335a6d29a0c204c6eb7d1d79e328d695e656c2eadebbe2e2fc2986c01f25714b",
+    "lookup": "5766fdf47f47fa77fe7fab46bcb6d5c5c9be9e247684641ecfd3cb6e06ff1ed1",
+}
+STARK_WRAP_PROOF_SHA256S = {
+    "fibonacci": "580afe02ed4557389cbd8e88c5827ada7b7e123524d5ecf791faadd9088d9dea",
+    "lookup": "63728c5e0326326a483d12b255cc99c5f280fa15014dfad1a88e71baa38d1324",
+}
+STARK_WRAP_PROVES = 2
+STARK_VAR = (18, 12, 14, 17)  # max and min degree bits, the two proofs' degree bits
+STARK_VAR_VERIFIER_SHA256 = "e2a9c4221e7e8f912694021516d91ea6f6833edb22bdf81c490b6306cce5f972"
+STARK_VAR_PROOF_SHA256S = (  # the STARK proofs under fri_params(18)
+    "c687d72c02c09c5541197a1c5fadfff29b23e0a2e2ecdffdaae72fcdccbee3d5",
+    "7a5122171db3cb24ad620f53948e167776bebcebfcd9caaa2e2ddaadcf433913")
+STARK_VAR_WRAP_SHA256S = (
+    "4544b636c1e98e225caa8ecdb77797e0029e3ece72404d2a75a5cc6f951f2e7c",
+    "c876f2bf4e922e3b11868286bea70b222ca42171df4edbf61aba8345c4c9e731")
 
 
 def same_generators(a: list, b: list) -> bool:
@@ -587,8 +642,8 @@ def starky_phase(torch, dev, card, failures, root) -> dict:
     FibonacciStark and LookupTestStark at 2^STARKY_LOG_ROWS rows, each a
     first call, STARKY_PROVES timed proves (the counts set to 0 just before
     each and read just after, each proof the reference's sha256), one
-    synchronised for the phase split, Fibonacci's one profiled, and each
-    verified by the port's verifier; then each new kernel shape of the path against its
+    synchronised for the phase split, and each verified by the port's
+    verifier; then each new kernel shape of the path against its
     plain version, timed. Returns what the kernels line and the summary
     take; appends to `failures`."""
     import numpy as np
@@ -718,14 +773,11 @@ def starky_phase(torch, dev, card, failures, root) -> dict:
         for label, count in launches.items():
             if count == 0 and label != ops.K5_CHUNK.label:  # the host path's grind
                 failures.append(f"{label} was not launched on the starky {name} prove")
-        if name == "fibonacci":  # the driver's configuration; a profiled run takes ~15 s
-            t0 = time.perf_counter()
-            profile_line(torch, prove, wall, f"starky {name} prove")
-            print(f"starky {name}: the profiled runs took {time.perf_counter() - t0:.1f} s")
         print(f"starky phase so far: {time.perf_counter() - t_phase:.1f} s")
         out[name] = dict(wall_s=wall, walls=walls, first_s=first_s, sync_wall_s=sync_wall,
                          split=split, launches=launches, duplexes=duplexes,
                          verify_s=verify_s, sha256=digest, proof_bytes=size)
+        out.setdefault("proofs", {})[name] = proof  # the STARK recursion phase wraps them
         del trace_dev
 
     # each new kernel shape of the path against its plain version: K3's
@@ -805,8 +857,8 @@ def cyclic_phase(torch, dev, card, failures) -> dict:
     counts set to 0 just before and read just after, each the reference's
     sha256, checked by `check_cyclic_proof_verifier_data` and the port's
     verifier, its counter and tip held to the host `hash_no_pad`; then one
-    layer synchronised at each phase for the split and one profiled.
-    Returns what the kernels line and the summary take; appends to
+    layer synchronised at each phase for the split. Returns what the
+    kernels line and the summary take; appends to
     `failures`."""
     from plonky2_torch import ops
     from plonky2_torch.examples import cyclic_recursion as ivc
@@ -950,7 +1002,7 @@ def cyclic_phase(torch, dev, card, failures) -> dict:
           f"start and end ({sync_wall:.4f} s wall): "
           + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
           + f"; outside the phases {sync_wall - sum(split.values()):.4f}")
-    profile_line(torch, layer_one, layers[1]["wall_s"], "cyclic layer 1")
+    # no profile: a layer has the outer circuit's gates and launches (PERF.md §5)
     out = dict(fixpoint_s=fixpoint_s, fixpoint_sha256=fix_sha, build_wall_s=build_wall,
                build_cold_s=builds[0][0], build_split=build_split,
                build_outside_s=build_outside, build_launches=build_launches,
@@ -972,7 +1024,7 @@ def keccak_phase(torch, dev, card, failures, middle, headline_bytes) -> dict:
     the counts and the host trees' seconds set to 0 just before each and
     read just after, each KECCAK_WRAP_PROOF_SHA256, the host-transcript
     path recorded), one synchronised at each phase for the split with the
-    host trees' leaf copies and hashing apart, one profiled; the proof
+    host trees' leaf copies and hashing apart; the proof
     verified, compressed (KECCAK_WRAP_COMPRESSED_SHA256), decompressed to
     its bytes and accepted by `verify_compressed`; and the headline's proof
     compressed (KECCAK_HEADLINE_COMPRESSED_SHA256) and decompressed to its
@@ -1123,7 +1175,6 @@ def keccak_phase(torch, dev, card, failures, middle, headline_bytes) -> dict:
           + f"; outside the phases {sync_wall - sum(split.values()):.4f}; within them the "
           f"host trees' leaves to the host {sync_trees['copy_s']:.4f} s (the copies wait for "
           f"the LDEs) and their Keccak hashing {sync_trees['hash_s']:.4f} s")
-    profile_line(torch, wrap_prove, wall_s, "keccak wrap")
 
     t0 = time.perf_counter()
     data.verify(proof)
@@ -1174,7 +1225,8 @@ def keccak_phase(torch, dev, card, failures, middle, headline_bytes) -> dict:
 
 
 def chain_layers(torch, dev, card, failures, label, size, config, verifier_shas, proof_shas,
-                 proves, grind_inputs, lookup_type=0, prove_outer=True) -> list:
+                 proves, grind_inputs, lookup_type=0, prove_outer=True,
+                 profile_inner=True) -> list:
     """The bench_recursion chain at inner 2^size under `config` for every
     layer, as `examples/bench_recursion.py` `chain(size, config,
     lookup_type=lookup_type)` runs it (the inner circuit of noops, or the
@@ -1188,7 +1240,8 @@ def chain_layers(torch, dev, card, failures, label, size, config, verifier_shas,
     `proof_shas[i]`; one synchronised for the split) and verified by the
     port's verifier. The inner layer's first call records its device
     grind's inputs in `grind_inputs`. With `prove_outer` false the outer
-    layer is built and its verifier bytes checked, and not proved. Returns
+    layer is built and its verifier bytes checked, and not proved. With
+    `profile_inner` the inner prove is profiled once. Returns
     per proved layer a dict of its numbers, with "data", "proof" and
     "inputs" (the PartialWitness)."""
     from plonky2_torch import ops
@@ -1313,7 +1366,7 @@ def chain_layers(torch, dev, card, failures, label, size, config, verifier_shas,
               f"phase's start and end ({sync_wall:.4f} s wall): "
               + ", ".join(f"{k} {v:.4f}" for k, v in prove_split.items())
               + f"; outside the phases {sync_wall - sum(prove_split.values()):.4f}")
-        if i == 0:
+        if i == 0 and profile_inner:
             profile_line(torch, prove, wall, f"{label} inner prove")
         layers.append(dict(data=data, proof=proof, inputs=pw, prove=prove, build_s=build_s,
                            build_split=split, build_launches=build_launches,
@@ -1494,7 +1547,8 @@ def zk_phase(torch, dev, card, failures) -> dict:
     grind_inputs = []
     layers = chain_layers(torch, dev, card, failures, "zk", ZK_LOG,
                           CircuitConfig.standard_recursion_zk_config(), ZK_VERIFIER_SHA256S,
-                          ZK_PROOF_SHA256S, (ZK_PROVES, ZK_PROVES, 0), grind_inputs)
+                          ZK_PROOF_SHA256S, (ZK_PROVES, ZK_PROVES, 0), grind_inputs,
+                          profile_inner=False)  # the time limit; PERF.md §5 keeps PR 12's
     inner, middle = layers[0], layers[1]
     want_inner = proof_to_bytes(inner["proof"])
     with fri_prover.force_host_path():
@@ -1697,7 +1751,8 @@ def lookups_phase(torch, dev, card, failures) -> dict:
                               CircuitConfig.standard_recursion_config(),
                               LOOKUP_VERIFIER_SHA256S[lookup_type],
                               LOOKUP_PROOF_SHA256S[lookup_type], (LOOKUP_PROVES, 0, 0), [],
-                              lookup_type=lookup_type, prove_outer=lookup_type == 2)
+                              lookup_type=lookup_type, prove_outer=lookup_type == 2,
+                              profile_inner=lookup_type == 2)
         out[f"lookup{lookup_type}"] = layer_summary(layers)
         if "compute lookup polys" not in layers[0]["split"]:
             failures.append(f"the lookup{lookup_type} inner prove has no 'compute lookup "
@@ -1853,6 +1908,590 @@ def lookups_phase(torch, dev, card, failures) -> dict:
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"lookups phase ({card}): {out['phase_s']:.1f} s")
+    return out
+
+
+def count_syncs_before_fetch(torch, run):
+    """(host synchronisations before the fused FRI proof's one fetch, the
+    result) of one `run()` under set_sync_debug_mode("warn"): the fetch is
+    `fri.prover._fri_fused_finish`, where the count is read."""
+    from plonky2_torch.fri import prover as fri_prover
+
+    finish = fri_prover._fri_fused_finish
+    at_fetch = []
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def marked(*a, **k):
+            at_fetch.append([w for w in caught
+                             if "called a synchronizing CUDA operation" in str(w.message)])
+            return finish(*a, **k)
+
+        fri_prover._fri_fused_finish = marked
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            fri_prover._fri_fused_finish = finish
+    if len(at_fetch) != 1:
+        return None, result
+    return at_fetch[0], result
+
+
+def batch_fri_phase(torch, dev, card, failures) -> dict:
+    """Batch FRI at full width (`examples/batch_fri.py`): three degree groups
+    of 2^20, 2^16 and 2^12 coefficients (16, 8 and 4 polynomials from
+    numpy seed 2026) committed in one BatchFriOracle under
+    StarkConfig.standard_fast_config()'s FRI config (arities 4, 4, 4, 4;
+    its K3 LDEs and K4 batch tree timed with the counts set to 0 just
+    before and read just after), opened in one batch-FRI proof (the
+    reference test's transcript, points (5, 7), (11, 13), (17, 19)): a
+    first call and BATCH_FRI_PROVES timed proves on the fused path (counts
+    as above, the peak of allocated device memory, each the reference's
+    sha256), the host synchronisations before the fused proof's fetch, one
+    prove on the host path (its bytes and challenger state the fused
+    one's), one profiled, the host verifier (a tampered opening refused),
+    then its verifier circuit under standard_recursion_config() built (a
+    first call, split by scope; the reference's verifier bytes) and proved
+    (a first call and BATCH_FRI_PROVES timed, each the reference's sha256,
+    one synchronised for the split) and verified; then each new kernel
+    shape of the path against its plain version."""
+    import numpy as np
+
+    from plonky2_torch import ops
+    from plonky2_torch.examples import batch_fri as bf
+    from plonky2_torch.field import goldilocks as g
+    from plonky2_torch.field import ntt
+    from plonky2_torch.field import scalar as fs
+    from plonky2_torch.fri import prover as fri_prover
+    from plonky2_torch.fri.batch_fri import batch_fri_proof
+    from plonky2_torch.fri.oracle import _batch_quotient
+    from plonky2_torch.iop.challenger import Challenger
+    from plonky2_torch.ops import ntt as kn
+    from plonky2_torch.ops import poseidon as kp
+    from plonky2_torch.plonk.circuit_serialization import verifier_data_to_bytes
+    from plonky2_torch.plonk.config import CircuitConfig
+    from plonky2_torch.plonk.serialization import proof_to_bytes
+    from plonky2_torch.starky.config import StarkConfig
+    from plonky2_torch.util import TimingTree
+    from plonky2_torch.util import rng as prover_rng
+
+    def sha(b: bytes) -> str:
+        return hashlib.sha256(b).hexdigest()
+
+    def seeded(run):
+        prover_rng.seed(SEED)
+        try:
+            return run()
+        finally:
+            prover_rng.seed(None)
+
+    t_phase = time.perf_counter()
+    out = {}
+    params = StarkConfig.standard_fast_config().fri_config.fri_params(bf.BITS[0], False)
+    if tuple(params.reduction_arity_bits) != (4, 4, 4, 4):
+        failures.append(f"the batch FRI arities are {params.reduction_arity_bits}")
+    t0 = time.perf_counter()
+    groups = bf.random_groups(seed=SEED)
+    groups_s = time.perf_counter() - t0
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    oracle = bf.commit(groups, params, dev)
+    torch.cuda.synchronize()
+    commit_first_s = time.perf_counter() - t0
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    oracle = bf.commit(groups, params, dev)
+    cap = oracle.batch_merkle_tree.cap  # the one fetch: the cap
+    commit_s = time.perf_counter() - t0
+    commit_launches = ops.launch_counts()
+
+    def pinned(proof, what):
+        digest = sha(bf.proof_bytes(proof))
+        if digest != BATCH_FRI_PROOF_SHA256:
+            failures.append(f"{what}: the batch FRI proof's sha256 is {digest}, not "
+                            f"{BATCH_FRI_PROOF_SHA256}")
+        return digest
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = bf.prove(groups, params, oracle=oracle)
+    first_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    pinned(run.proof, "first call")
+    walls = []
+    for _ in range(BATCH_FRI_PROVES):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        run = bf.prove(groups, params, oracle=oracle)
+        walls.append(time.perf_counter() - t0)
+        launches = ops.launch_counts()
+        duplexes = ops.K5.batch1
+        digest = pinned(run.proof, "timed prove")
+        if fri_prover._LAST_PATH != "batch_fused":
+            failures.append(f"the batch FRI prove took the {fri_prover._LAST_PATH} path")
+    wall = statistics.median(walls)
+    state = (run.challenger.sponge_state, run.challenger.input_buffer,
+             run.challenger.output_buffer)
+
+    # the FRI argument alone, its inputs made first: the syncs before its fetch
+    challenger = Challenger()
+    challenger.observe_cap(cap)
+    alpha = challenger.get_extension_challenge(2)
+    comps = [_batch_quotient(c, alpha, bf.POINTS[i], params.config.rate_bits)
+             for i, c in enumerate(oracle.polynomial_groups)]
+    syncs, proof = count_syncs_before_fetch(
+        torch, lambda: batch_fri_proof([oracle.batch_merkle_tree], comps, challenger, params))
+    pinned(proof, "sync-counted prove")
+    if syncs is None or syncs:
+        failures.append(f"the fused batch FRI proof synchronised before its fetch: {syncs}")
+    n_syncs = None if syncs is None else len(syncs)
+    t0 = time.perf_counter()
+    with fri_prover.force_host_path():
+        host_run = bf.prove(groups, params, oracle=oracle)
+        host_path = fri_prover._LAST_PATH
+    host_s = time.perf_counter() - t0
+    host_state = (host_run.challenger.sponge_state, host_run.challenger.input_buffer,
+                  host_run.challenger.output_buffer)
+    same_host = (bf.proof_bytes(host_run.proof) == bf.proof_bytes(run.proof)
+                 and host_state == state and host_path == "batch_host")
+    if not same_host:
+        failures.append("the batch FRI host path differs from the fused path")
+
+    t0 = time.perf_counter()
+    values = bf.openings(run)
+    openings_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        bf.verify(run, params, values)
+        accepted = True
+    except ValueError as e:
+        accepted = False
+        failures.append(f"the port's batch FRI verifier rejects the proof: {e}")
+    verify_s = time.perf_counter() - t0
+    bad = [list(v) for v in values]
+    bad[2][3] = (fs.add(bad[2][3][0], 1), bad[2][3][1])
+    try:
+        bf.verify(run, params, bad)
+        refused = False
+        failures.append("the port's batch FRI verifier accepts a tampered opening")
+    except ValueError:
+        refused = True
+    print(f"batch FRI ({card}): groups 2^{bf.BITS} x {bf.COUNTS} polynomials (drawn on the "
+          f"host in {groups_s:.2f} s), arities {params.reduction_arity_bits}, "
+          f"{params.config.num_query_rounds} queries; BatchFriOracle {commit_s:.4f} s (first "
+          f"call {commit_first_s:.3f} s), launches {commit_launches}; fused prove "
+          f"{wall:.4f} s median of {[round(w, 4) for w in walls]} (first call {first_s:.3f} s; "
+          f"peak allocated {peak_gib:.2f} GiB), {len(bf.proof_bytes(run.proof))} proof "
+          f"bytes, sha256 {digest} (the reference's: {BATCH_FRI_PROOF_SHA256}); launches "
+          f"{launches} (K5 permutes on one state: {duplexes}); host synchronisations before "
+          f"its fetch: {n_syncs}; host path {host_s:.3f} s, its proof and challenger state "
+          f"the fused one's: {same_host}; openings {openings_s:.3f} s; the port's verifier "
+          f"{verify_s:.3f} s, accepted: {accepted}, a tampered opening refused: {refused}")
+    for label, count in launches.items():
+        if count == 0 and label != ops.K5_CHUNK.label:
+            failures.append(f"{label} was not launched on the batch FRI prove")
+    profile_line(torch, lambda: bf.prove(groups, params, oracle=oracle), wall,
+                 "batch FRI prove")
+
+    config = CircuitConfig.standard_recursion_config()
+    ops.reset_launches()
+    timing = TimingTree("build", sync=torch.cuda.synchronize)
+    t0 = time.perf_counter()
+    data, targets = bf.circuit(run, params, config, values, device=dev, timing=timing)
+    build_s, build_split, build_launches = (time.perf_counter() - t0, timing.split(),
+                                            ops.launch_counts())
+    vd = sha(verifier_data_to_bytes(data.verifier_only, data.common))
+    if vd != BATCH_FRI_VERIFIER_SHA256:
+        failures.append(f"the batch FRI verifier circuit's verifier data sha256 is {vd}, not "
+                        f"{BATCH_FRI_VERIFIER_SHA256}")
+    pw = bf.circuit_inputs(targets, run)
+
+    def circuit_prove(timing=None):
+        return seeded(lambda: data.prove(pw, device=dev, timing=timing))
+
+    def circuit_pinned(proof, what):
+        digest = sha(proof_to_bytes(proof))
+        if digest != BATCH_FRI_CIRCUIT_PROOF_SHA256:
+            failures.append(f"{what}: the batch FRI circuit's proof sha256 is {digest}, not "
+                            f"{BATCH_FRI_CIRCUIT_PROOF_SHA256}")
+        return digest
+
+    t0 = time.perf_counter()
+    circuit_proof = circuit_prove()
+    circuit_first_s = time.perf_counter() - t0
+    circuit_pinned(circuit_proof, "first call")
+    circuit_walls = []
+    for _ in range(BATCH_FRI_PROVES):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        proof = circuit_prove()
+        circuit_walls.append(time.perf_counter() - t0)
+        circuit_launches = ops.launch_counts()
+        circuit_digest = circuit_pinned(proof, "timed prove")
+    timing = TimingTree("prove", sync=torch.cuda.synchronize)
+    circuit_pinned(circuit_prove(timing), "synchronised prove")
+    circuit_split = timing.split()
+    t0 = time.perf_counter()
+    try:
+        data.verify(circuit_proof)
+        circuit_ok = True
+    except ValueError as e:
+        circuit_ok = False
+        failures.append(f"the port's verifier rejects the batch FRI circuit's proof: {e}")
+    circuit_verify_s = time.perf_counter() - t0
+    circuit_wall = statistics.median(circuit_walls)
+    print(f"batch FRI verifier circuit ({card}): degree 2^{data.common.degree_bits}; build "
+          f"{build_s:.4f} s (a first call), verifier data sha256 {vd}; split: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in build_split.items())
+          + f"; build launches {build_launches}; prove (witness + fused prove) "
+          f"{circuit_wall:.4f} s median of {[round(w, 4) for w in circuit_walls]} (first call "
+          f"{circuit_first_s:.3f} s), sha256 {circuit_digest} (the reference's: "
+          f"{BATCH_FRI_CIRCUIT_PROOF_SHA256}); launches {circuit_launches}; phases, "
+          f"synchronised: " + ", ".join(f"{k} {v:.4f}" for k, v in circuit_split.items())
+          + f"; the port's verifier {circuit_verify_s:.3f} s, accepted: {circuit_ok}")
+    out.update(commit_s=commit_s, commit_first_s=commit_first_s,
+               commit_launches=commit_launches, wall_s=wall, walls=walls, first_s=first_s,
+               peak_gib=peak_gib, launches=launches, duplexes=duplexes, sha256=digest,
+               syncs_before_fetch=n_syncs, host_path_s=host_s, host_equal=same_host,
+               verify_s=verify_s, tampered_refused=refused,
+               circuit=dict(degree_bits=data.common.degree_bits, build_s=build_s,
+                            build_split=build_split,
+                            build_launches=build_launches, prove_s=circuit_wall,
+                            prove_walls=circuit_walls, first_s=circuit_first_s,
+                            split=circuit_split, launches=circuit_launches,
+                            verify_s=circuit_verify_s, sha256=circuit_digest,
+                            verifier_sha256=vd))
+
+    # each new kernel shape of the path against its plain version: the
+    # groups' LDE x2 ([16, 2^20] and [8, 2^16] in K3, [4, 2^12] in K2), the
+    # folds' coset FFT and iFFT at [2, 2^17] (K3), the batch tree's three
+    # segments and the first fold's tree (K4), and K5's device grind at the
+    # batch transcript's state (16 bits)
+    grind_state = {}
+    grind_device = kp.grind_device
+
+    def recording_grind(state, pending, pow_bits):
+        grind_state["args"] = (state.clone(), pending.clone(), pow_bits)
+        return grind_device(state, pending, pow_bits)
+
+    kp.grind_device = recording_grind
+    try:
+        bf.prove(groups, params, oracle=oracle)
+    finally:
+        kp.grind_device = grind_device
+    del run, host_run, data, circuit_proof, proof
+    gen = fs.MULTIPLICATIVE_GROUP_GENERATOR
+    coeffs = oracle.polynomial_groups
+    tables = [ntt._lde_coset_scale_table(gen, b, 1, str(dev)) for b in bf.BITS]
+    rng = np.random.default_rng(SEED + 60)
+
+    def rand(shape):
+        return g.tensor(rng.integers(0, fs.P, size=shape, dtype=np.uint64), dev)
+
+    n17 = 1 << 17
+    fold = rand((2, n17))
+    shift = fs.exp(gen, 16)
+    fwd = ntt.shift_powers(shift, n17, dev).reshape(1, n17)
+    seg0 = rand((1 << 21, 16))
+    seg1 = rand((1 << 17, 12))
+    seg2 = rand((1 << 13, 8))
+    fold_leaves = rand((n17, 32))
+
+    def lde_shape(kernel, k):
+        c, t, lg = coeffs[k], tables[k], bf.BITS[k]
+        m = 1 << lg
+        rows = c.shape[0]
+        part = c[:2]
+        if kernel is ops.K3:
+            run_k, run_p = (lambda: kn.ntt_four_step(part, scale=t, fan=2),
+                            lambda: kn.ntt_four_step_plain(part, False, t, 2))
+            timed = lambda: kn.ntt_four_step(c, scale=t, fan=2)  # noqa: E731
+        else:
+            run_k, run_p = (lambda: kn.ntt_rows(c, scale=t, fan=2),
+                            lambda: kn.ntt_rows_plain(c, False, t, 2))
+            timed = None
+        return (kernel, f"batch_lde_{rows}x2_{lg}_x2", run_k, run_p,
+                8 * (c.numel() + t.numel() + 2 * c.numel()),
+                OPS_PER_MODMUL * rows * 2 * ((m // 2) * lg + m), timed)
+
+    def tree_shape(key, leaves, stop):
+        """A row-leaf tree stopped at height `stop`, compared on its first
+        2^14 leaves compressed as many levels (or down to one digest)."""
+        n, width = leaves.shape
+        levels = (n.bit_length() - 1) - stop
+        part = leaves[:min(n, 1 << 14)].contiguous()
+        part_cap = max((part.shape[0].bit_length() - 1) - levels, 0)
+        return (ops.K4, key, lambda: kp.merkle_tree(part, part_cap, False),
+                lambda: kp.merkle_tree_plain(part, part_cap, False),
+                8 * (leaves.numel() + kp.tree_words(n, levels)),
+                OPS_PER_PERMUTATION * (-(-width // 8) * n + (n - (n >> levels))),
+                lambda: kp.merkle_tree(leaves, stop, False))
+
+    shapes = [
+        lde_shape(ops.K3, 0), lde_shape(ops.K3, 1), lde_shape(ops.K2, 2),
+        (ops.K3, "batch_fold_coset_fft_2x2_17", lambda: kn.ntt_four_step(fold, scale=fwd),
+         lambda: kn.ntt_four_step_plain(fold, scale=fwd),
+         8 * (2 * fold.numel() + n17), OPS_PER_MODMUL * 2 * ((n17 // 2) * 17 + 2 * n17), None),
+        (ops.K3, "batch_fold_ifft_2x2_17", lambda: kn.ntt_four_step(fold, inverse=True),
+         lambda: kn.ntt_four_step_plain(fold, inverse=True),
+         8 * 2 * fold.numel(), OPS_PER_MODMUL * 2 * ((n17 // 2) * 17 + n17), None),
+        # segments: leaves of width 16, then 4 + 8 and 4 + 4 (the running
+        # digests beside the next group's rows)
+        tree_shape("batch_tree_segment_16x2_21", seg0, 17),
+        tree_shape("batch_tree_segment_12x2_17", seg1, 13),
+        tree_shape("batch_tree_segment_8x2_13", seg2, 4),
+        tree_shape("batch_fold_tree_32x2_17", fold_leaves, 4),
+    ]
+    if "args" in grind_state:
+        state, pending, bits = grind_state["args"]
+        witness = g.u64(int(kp.grind_device(state, pending, bits)[0]))
+        shapes.append((ops.K5_DEVICE, "batch_grind_device",
+                       lambda: kp.grind_device(state, pending, bits),
+                       lambda: kp.grind_device_plain(state, pending, bits, chunk=GRIND_CHUNK),
+                       8 * (12 + int(pending.shape[0]) + 1), OPS_PER_PERMUTATION * (witness + 1),
+                       None))
+        print(f"K5 device grind on the batch FRI transcript ({bits} bits, "
+              f"{int(pending.shape[0])} pending): witness {witness}")
+    else:
+        failures.append("the batch FRI prove ran no device grind")
+    out["shapes"] = shape_checks(torch, failures, shapes)
+    del oracle, coeffs, tables, fold, seg0, seg1, seg2, fold_leaves, shapes
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"batch FRI phase ({card}): {out['phase_s']:.1f} s")
+    return out
+
+
+def stark_recursion_phase(torch, dev, card, failures, proofs=None) -> dict:
+    """STARK -> SNARK recursion (`examples/stark_recursion.py`): the
+    2^STARKY_LOG_ROWS-row FibonacciStark and LookupTestStark proofs of
+    `starky_phase` (`proofs`; proved here when not given) each verified in a
+    circuit under standard_recursion_config(): built (a first call, split
+    by scope, the counts set to 0 just before and read just after; the
+    reference's verifier bytes), proved (a first call with the peak of
+    allocated device memory, STARK_WRAP_PROVES timed proves, counts as
+    above, each the reference's sha256; Fibonacci's one synchronised for
+    the split, one with its host synchronisations before the fetch
+    counted and one profiled) and verified, its public inputs the
+    STARK's; then the variable-degree
+    circuit (max 2^STARK_VAR[0], min 2^STARK_VAR[1], 84 queries) built
+    once and timed, the FibonacciStark proofs of 2^STARK_VAR[2] and
+    2^STARK_VAR[3] rows made on the card under verifier_circuit_fri_params
+    = fri_params(STARK_VAR[0]) (each the reference's sha256 and accepted by
+    the port's verifier under those params), and each wrapped (a first
+    call, and for the larger one a timed prove and the port's verifier;
+    each the reference's sha256), its public inputs the STARK's."""
+    from plonky2_torch import ops
+    from plonky2_torch.examples import stark_recursion as sr
+    from plonky2_torch.plonk.circuit_serialization import verifier_data_to_bytes
+    from plonky2_torch.plonk.config import CircuitConfig
+    from plonky2_torch.plonk.serialization import proof_to_bytes
+    from plonky2_torch.starky import prover as sp
+    from plonky2_torch.starky.config import StarkConfig
+    from plonky2_torch.starky.fibonacci_stark import FibonacciStark, fibonacci
+    from plonky2_torch.starky.serialization import stark_proof_to_bytes
+    from plonky2_torch.starky.test_starks import LookupTestStark
+    from plonky2_torch.starky.verifier import verify_stark_proof
+    from plonky2_torch.util import TimingTree
+    from plonky2_torch.util import rng as prover_rng
+
+    def sha(b: bytes) -> str:
+        return hashlib.sha256(b).hexdigest()
+
+    def seeded(run):
+        prover_rng.seed(SEED)
+        try:
+            return run()
+        finally:
+            prover_rng.seed(None)
+
+    def fib_case(n):
+        stark = FibonacciStark(n)
+        pis = [0, 1, fibonacci(n - 1, 0, 1)]
+        return stark, stark.generate_trace(pis[0], pis[1]), pis
+
+    t_phase = time.perf_counter()
+    stark_config = StarkConfig.standard_fast_config()
+    config = CircuitConfig.standard_recursion_config()
+    n = 1 << STARKY_LOG_ROWS
+    out = {}
+    for name in ("fibonacci", "lookup"):
+        stark = FibonacciStark(n) if name == "fibonacci" else LookupTestStark(n)
+        stark_proof = (proofs or {}).get(name)
+        if stark_proof is None:
+            s, trace, pis = (fib_case(n) if name == "fibonacci"
+                             else (stark, stark.generate_trace(), []))
+            stark_proof = sp.prove(stark, stark_config, trace, pis, device=dev)
+        want_vd, want_proof = STARK_WRAP_VERIFIER_SHA256S[name], STARK_WRAP_PROOF_SHA256S[name]
+        ops.reset_launches()
+        timing = TimingTree("build", sync=torch.cuda.synchronize)
+        t0 = time.perf_counter()
+        data, pt = sr.wrap_circuit(stark, stark_config, STARKY_LOG_ROWS, config, device=dev,
+                                   timing=timing)
+        build_s, build_split, build_launches = (time.perf_counter() - t0, timing.split(),
+                                                ops.launch_counts())
+        vd = sha(verifier_data_to_bytes(data.verifier_only, data.common))
+        if vd != want_vd:
+            failures.append(f"the {name} 2^{STARKY_LOG_ROWS} wrap's verifier data sha256 is "
+                            f"{vd}, not {want_vd}")
+        pw = sr.wrap_inputs(pt, stark_proof)
+
+        def prove(timing=None, data=data, pw=pw):
+            return seeded(lambda: data.prove(pw, device=dev, timing=timing))
+
+        def pinned(proof, what, name=name, want=want_proof, pis=stark_proof.public_inputs):
+            digest = sha(proof_to_bytes(proof))
+            if digest != want:
+                failures.append(f"{what}: the {name} wrap proof's sha256 is {digest}, not {want}")
+            if proof.public_inputs != list(pis):
+                failures.append(f"{what}: the {name} wrap proof does not expose the STARK's "
+                                "public inputs")
+            return digest
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        proof = prove()
+        first_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        pinned(proof, "first call")
+        walls = []
+        for _ in range(STARK_WRAP_PROVES):
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            proof = prove()
+            walls.append(time.perf_counter() - t0)
+            launches = ops.launch_counts()
+            digest = pinned(proof, "timed prove")
+        split, syncs = {}, None
+        if name == "fibonacci":  # the split, the syncs and the profile: one wrap's
+            timing = TimingTree("prove", sync=torch.cuda.synchronize)
+            pinned(prove(timing), "synchronised prove")
+            split = timing.split()
+            caught, synced_proof = count_syncs_before_fetch(torch, prove)
+            pinned(synced_proof, "sync-counted prove")
+            syncs = None if caught is None else len(caught)
+        t0 = time.perf_counter()
+        try:
+            data.verify(proof)
+            ok = True
+        except ValueError as e:
+            ok = False
+            failures.append(f"the port's verifier rejects the {name} wrap proof: {e}")
+        verify_s = time.perf_counter() - t0
+        wall = statistics.median(walls)
+        print(f"stark wrap {name} 2^{STARKY_LOG_ROWS} ({card}): degree "
+              f"2^{data.common.degree_bits}; build {build_s:.4f} s (a first call), "
+              f"verifier data sha256 {vd}; split: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in build_split.items())
+              + f"; build launches {build_launches}; prove (witness + fused prove) {wall:.4f} s "
+              f"median of {[round(w, 4) for w in walls]} (first call {first_s:.3f} s, peak "
+              f"allocated {peak_gib:.2f} GiB), sha256 {digest} (the reference's: {want_proof}); "
+              f"launches {launches}; phases, synchronised: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f"; host synchronisations before the fetch (witness phase included): "
+              f"{'not counted' if syncs is None else syncs}; public inputs "
+              f"{proof.public_inputs}; the port's verifier {verify_s:.3f} s, accepted: {ok}")
+        for label, count in launches.items():
+            if count == 0 and label != ops.K5_CHUNK.label:
+                failures.append(f"{label} was not launched on the {name} wrap prove")
+        if name == "fibonacci":
+            profile_line(torch, prove, wall, f"stark wrap {name} prove")
+        out[name] = dict(degree_bits=data.common.degree_bits, build_s=build_s,
+                         build_split=build_split,
+                         build_launches=build_launches, wall_s=wall, walls=walls,
+                         first_s=first_s, peak_gib=peak_gib, launches=launches, split=split,
+                         syncs_before_fetch=syncs, verify_s=verify_s, sha256=digest,
+                         verifier_sha256=vd)
+        del data, pt, pw, proof, stark_proof
+        torch.cuda.empty_cache()
+
+    max_bits, min_bits, *logs = STARK_VAR
+    vc = stark_config.fri_params(max_bits)
+    ops.reset_launches()
+    timing = TimingTree("build", sync=torch.cuda.synchronize)
+    t0 = time.perf_counter()
+    data, pt = sr.wrap_circuit(FibonacciStark(1 << max_bits), stark_config, max_bits, config,
+                               min_degree_bits=min_bits, device=dev, timing=timing)
+    var_build_s = time.perf_counter() - t0
+    var_build_launches = ops.launch_counts()
+    var_build_split = timing.split()
+    vd = sha(verifier_data_to_bytes(data.verifier_only, data.common))
+    if vd != STARK_VAR_VERIFIER_SHA256:
+        failures.append(f"the variable-degree wrap's verifier data sha256 is {vd}, not "
+                        f"{STARK_VAR_VERIFIER_SHA256}")
+    print(f"stark wrap variable degree (max 2^{max_bits}, min 2^{min_bits}; {card}): degree "
+          f"2^{data.common.degree_bits}; build {var_build_s:.3f} s (a first call), verifier data "
+          f"sha256 {vd}; split: " + ", ".join(f"{k} {v:.4f}" for k, v in var_build_split.items())
+          + f"; launches {var_build_launches}")
+    var = dict(degree_bits=data.common.degree_bits, build_s=var_build_s,
+               build_split=var_build_split, build_launches=var_build_launches,
+               verifier_sha256=vd, proofs={})
+    for lg, want_stark, want_wrap in zip(logs, STARK_VAR_PROOF_SHA256S,
+                                         STARK_VAR_WRAP_SHA256S):
+        stark, trace, pis = fib_case(1 << lg)
+        t0 = time.perf_counter()
+        stark_proof = sp.prove(stark, stark_config, trace, pis, device=dev,
+                               verifier_circuit_fri_params=vc)
+        stark_s = time.perf_counter() - t0
+        stark_digest = sha(stark_proof_to_bytes(stark_proof, stark_config))
+        if stark_digest != want_stark:
+            failures.append(f"the fibonacci 2^{lg} proof under fri_params({max_bits}) has sha256 "
+                            f"{stark_digest}, not {want_stark}")
+        try:
+            verify_stark_proof(stark, stark_proof, stark_config, verifier_circuit_fri_params=vc)
+            stark_ok = True
+        except ValueError as e:
+            stark_ok = False
+            failures.append(f"the port's STARK verifier rejects the 2^{lg} proof: {e}")
+        pw = sr.wrap_inputs(pt, stark_proof, lg)
+        walls = []
+        last = lg == logs[-1]
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(2 if last else 1):  # a first call, then the last degree's one timed
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            proof = seeded(lambda: data.prove(pw, device=dev))
+            walls.append(time.perf_counter() - t0)
+            launches = ops.launch_counts()
+            digest = sha(proof_to_bytes(proof))
+            if digest != want_wrap:
+                failures.append(f"the variable-degree wrap of 2^{lg} has sha256 {digest}, not "
+                                f"{want_wrap}")
+            if proof.public_inputs != pis:
+                failures.append(f"the variable-degree wrap of 2^{lg} does not expose the "
+                                "STARK's public inputs")
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        ok = None
+        if last:  # the other wrap's bytes are the reference's, which plonky2_verify accepts
+            try:
+                data.verify(proof)
+                ok = True
+            except ValueError as e:
+                ok = False
+                failures.append(f"the port's verifier rejects the variable-degree wrap of "
+                                f"2^{lg}: {e}")
+        print(f"stark wrap variable degree, fibonacci 2^{lg} ({card}): the STARK prove under "
+              f"fri_params({max_bits}) {stark_s:.3f} s, sha256 {stark_digest} (the reference's: "
+              f"{want_stark}), the port's STARK verifier accepts it: {stark_ok}; wrap prove "
+              f"{walls[-1]:.4f} s (first call {walls[0]:.3f} s; peak allocated "
+              f"{peak_gib:.2f} GiB), sha256 {digest} (the reference's: {want_wrap}); launches "
+              f"{launches}; public inputs "
+              f"{proof.public_inputs}; the port's verifier accepts it: "
+              f"{'not run' if ok is None else ok}")
+        var["proofs"][lg] = dict(stark_s=stark_s, stark_sha256=stark_digest, wall_s=walls[-1],
+                                 first_s=walls[0], peak_gib=peak_gib, launches=launches,
+                                 sha256=digest)
+    for label, count in var["proofs"][logs[-1]]["launches"].items():
+        if count == 0 and label != ops.K5_CHUNK.label:
+            failures.append(f"{label} was not launched on the variable-degree wrap prove")
+    out["variable"] = var
+    del data, pt
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"stark recursion phase ({card}): {out['phase_s']:.1f} s")
     return out
 
 
@@ -2081,7 +2720,7 @@ def main() -> int:
                 failures.append(f"{label} was not launched on the {path} middle prove")
         if path == "fused" and launches[ops.K5_DEVICE.label] != 1:
             failures.append("K5's device grind did not launch once on the fused prove")
-        with force():
+        if path == "fused":  # the host path's profile: PERF.md §5 (PR 8)
             profile_line(torch, lambda: middle_prove(), wall_s, f"middle prove ({path})")
     prove_s = paths["fused"]["wall_s"]
 
@@ -2387,7 +3026,6 @@ def main() -> int:
           + ", ".join(f"{k} {v:.4f}" for k, v in inner_split.items()))
     print(f"inner verify (the port's verifier, host; {card}): {inner_verify_s:.3f} s, "
           f"accepted: {inner_ok}")
-    profile_line(torch, inner_prove, statistics.median(inner_walls), "inner prove")
 
     # the middle circuit's proof over the port's own inner proof
     builder = CircuitBuilder()
@@ -2428,7 +3066,7 @@ def main() -> int:
     # bench_cache/middle14.circuit.bin, the headline's input, cap and digest
     # included; proved from the port's inner proof and verified. The outer
     # circuit over it (built once, timed), proved from that middle proof (a
-    # first call, INNER_PROVES timed proves and one profiled, each the
+    # first call and INNER_PROVES timed proves, each the
     # reference's outer proof) and verified. Each build and prove with the
     # counts set to 0 just before it and read just after.
     def accepted(data, proof, name) -> bool:
@@ -2572,7 +3210,7 @@ def main() -> int:
           f"synchronised: " + ", ".join(f"{k} {v:.4f}" for k, v in outer_split.items()))
     print(f"outer verify (the port's verifier, host; {card}): {outer_verify_s:.3f} s, "
           f"accepted: {outer_ok}")
-    profile_line(torch, outer_prove, statistics.median(outer_walls), "outer prove")
+    # no profile: the outer circuit has the middle's gates and degree, profiled above
 
     # the fixture chain: inner 2^4, middle and outer, all built by the port
     t0 = time.perf_counter()
@@ -2636,6 +3274,10 @@ def main() -> int:
     zk = zk_phase(torch, dev, card, failures)
     # the chains over the two lookup inner circuits
     lookups = lookups_phase(torch, dev, card, failures)
+    # batch FRI at 2^20, 2^16, 2^12; the 2^20 Starky proofs verified in
+    # circuits, and the variable-degree wrap
+    batch_fri = batch_fri_phase(torch, dev, card, failures)
+    stark_wrap = stark_recursion_phase(torch, dev, card, failures, starky.pop("proofs"))
 
     build_phase = dict(build_wall_s=build_wall, build_cold_s=builds[0][0],
                        build_outside_s=build_outside,
@@ -3000,7 +3642,7 @@ def main() -> int:
     if on_card != on_cpu:
         failures.append("degree-2^10 proof bytes differ between the card and the CPU")
 
-    for phase in (starky, sizes, zk, lookups):
+    for phase in (starky, sizes, zk, lookups, batch_fri):
         for label, shape_results in phase["shapes"].items():
             results[label].update(shape_results)
             results[label]["mismatches"] += sum(r["mismatches"] for r in shape_results.values())
@@ -3044,6 +3686,10 @@ def main() -> int:
                            .get(k.label, 0) for t in (1, 2)
                            for what, key in (("build", "build_launches"),
                                              ("prove", "launches"))},
+                        "launches_batch_fri": batch_fri["launches"][k.label],
+                        "launches_stark_wrap20": stark_wrap["fibonacci"]["launches"][k.label],
+                        "launches_stark_wrap_var": stark_wrap["variable"]["proofs"][
+                            STARK_VAR[3]]["launches"][k.label],
                         **results[k.label], "library_ms": None})
     print(json.dumps({"kernels": kernels, "card": card, "headline": headline,
                       "prove_many": {"K": BATCH_K, "window": BATCH_WINDOW, "threads": batched,
@@ -3060,15 +3706,51 @@ def main() -> int:
                       "cyclic": cyclic, "keccak": keccak,
                       "sizes": {k: v for k, v in sizes.items() if k != "shapes"},
                       "zk": {k: v for k, v in zk.items() if k != "shapes"},
-                      "lookups": {k: v for k, v in lookups.items() if k != "shapes"}}))
+                      "lookups": {k: v for k, v in lookups.items() if k != "shapes"},
+                      "batch_fri": {k: v for k, v in batch_fri.items() if k != "shapes"},
+                      "stark_recursion": stark_wrap}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
 
 
+PHASES = {"batch_fri": batch_fri_phase, "stark_recursion": stark_recursion_phase}
+
+
+def phases_only(names: list) -> int:
+    """Only the named phases (of PHASES), after the kernels' build: a quick
+    check of a new path on the card. Prints what each phase prints, then
+    the failures; exits non-zero on any."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false")
+    if not names or any(n not in PHASES for n in names):
+        return fail(f"usage: chip_smoke.py --phases {' '.join(PHASES)}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from plonky2_torch.ops import build
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    print(card)
+    t0 = time.perf_counter()
+    build.build_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    failures = []
+    for name in names:
+        PHASES[name](torch, torch.device("cuda"), card, failures)
+    for f in failures:
+        print(f"chip_smoke: {f}", file=sys.stderr)
+    return 1 if failures else 0
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--times":
         sys.exit(times_only(sys.argv[2]))
+    if len(sys.argv) >= 2 and sys.argv[1] == "--phases":
+        sys.exit(phases_only(sys.argv[2:]))
     if len(sys.argv) != 1:
-        sys.exit(fail("usage: chip_smoke.py [--times DIR]"))
+        sys.exit(fail("usage: chip_smoke.py [--times DIR | --phases NAME ...]"))
     sys.exit(main())

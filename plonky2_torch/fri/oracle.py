@@ -119,9 +119,11 @@ class PolynomialBatch:
     # -- batch opening proof ------------------------------------------------
 
     @staticmethod
-    def prove_openings(instance, oracles, challenger, fri_params, hasher=None):
+    def prove_openings(instance, oracles, challenger, fri_params, hasher=None,
+                       final_poly_coeff_len=None, max_num_query_steps=None):
         """FRI opening proof of `instance` over `oracles`, its fold trees
-        under `hasher`; returns FriProof."""
+        under `hasher`, its transcript in the unified shape where the two
+        lengths are given (`fri_proof`); returns FriProof."""
         alpha = challenger.get_extension_challenge(2)
         rate_bits = fri_params.config.rate_bits
         n = 1 << fri_params.degree_bits
@@ -136,7 +138,7 @@ class PolynomialBatch:
             shift = fs.ext_exp(alpha, len(batch.polynomials))
             final = g.ext2_add(g.ext2_mul(g.ext_tensor(shift, device), final), q)
         return fri_proof([o.merkle_tree for o in oracles], final, challenger, fri_params,
-                         hasher)
+                         hasher, final_poly_coeff_len, max_num_query_steps)
 
 
 def _lde_leaves(lde):

@@ -67,22 +67,32 @@ def _scope(timing, name: str):
 
 
 def fri_proof(initial_merkle_trees, final_coeffs, challenger, fri_params,
-              hasher=None) -> FriProof:
+              hasher=None, final_poly_coeff_len=None, max_num_query_steps=None) -> FriProof:
     """final_coeffs: ext coefficient tensors (c0, c1) of length 2^degree_bits;
     the fold trees are `hasher`'s (Poseidon by default). With a fold step,
     a Poseidon transcript and outside force_host_path() the fused path runs
     and leaves the host challenger in the state the host path would; else
-    the host path, recorded in `_LAST_PATH` (reference fri/prover.py:61-85)."""
+    the host path, recorded in `_LAST_PATH` (reference fri/prover.py:61-85).
+
+    final_poly_coeff_len and max_num_query_steps give the transcript the
+    shape of a larger proof, for a circuit that verifies proofs of several
+    degrees: after the last fold, each missing step observes a zero cap
+    and draws a β that nothing uses, and the final polynomial is observed
+    padded with zero coefficients (reference fri/prover.rs:119-131). The
+    proof itself keeps its own shape. Both paths do it (the reference's
+    takes its "commit_fused" route here); the bytes are the same."""
     global _LAST_PATH
     from plonky2_torch.hash.hashers import PoseidonHasher
 
+    pads = _unified_pads(fri_params, final_poly_coeff_len, max_num_query_steps)
     if (not _FORCE_HOST and getattr(hasher, "algebraic", True)
             and fri_params.reduction_arity_bits
             and challenger.hasher is PoseidonHasher):
-        return _fri_proof_fused(initial_merkle_trees, final_coeffs, challenger, fri_params)[0]
+        return _fri_proof_fused(initial_merkle_trees, final_coeffs, challenger, fri_params,
+                                pads=pads)[0]
     _LAST_PATH = "host"
     n = fri_params.lde_size
-    trees, final_poly = _fri_committed_trees(final_coeffs, challenger, fri_params, hasher)
+    trees, final_poly = _fri_committed_trees(final_coeffs, challenger, fri_params, hasher, pads)
     pow_witness = fri_proof_of_work(challenger, fri_params.config, final_coeffs[0].device)
     query_round_proofs = _fri_prover_query_rounds(
         initial_merkle_trees, trees, challenger, n, fri_params)
@@ -104,8 +114,8 @@ def _fold_step_leaves(values, arity_bits: int):
                                                              2 << arity_bits)
 
 
-def _fold_coeffs_and_relde(coeffs, beta, arity_bits: int, rate_bits: int, shift: int):
-    """Fold the coefficients by β per arity chunk; LDE them on the next coset."""
+def _fold_coeffs(coeffs, beta, arity_bits: int):
+    """Fold the coefficients by β per arity chunk: Σ_j β^j c[i·arity + j]."""
     c0, c1 = coeffs
     arity = 1 << arity_bits
     m = c0.shape[0] // arity
@@ -114,6 +124,12 @@ def _fold_coeffs_and_relde(coeffs, beta, arity_bits: int, rate_bits: int, shift:
     acc = (c0[:, arity - 1], c1[:, arity - 1])
     for j in range(arity - 2, -1, -1):
         acc = g.ext2_add(g.ext2_mul(acc, beta), (c0[:, j], c1[:, j]))
+    return acc
+
+
+def _fold_coeffs_and_relde(coeffs, beta, arity_bits: int, rate_bits: int, shift: int):
+    """Fold the coefficients by β per arity chunk; LDE them on the next coset."""
+    acc = _fold_coeffs(coeffs, beta, arity_bits)
     values = ntt.lde_fft(torch.stack(acc), rate_bits, shift=shift)
     return acc, (values[0], values[1])
 
@@ -123,7 +139,17 @@ def _initial_lde(coeffs, rate_bits: int):
     return values[0], values[1]
 
 
-def _fri_committed_trees(coeffs, challenger, fri_params, hasher=None):
+def _unified_pads(fri_params, final_poly_coeff_len, max_num_query_steps) -> tuple[int, int]:
+    """(dummy fold steps, zero final coefficients) the transcript adds for
+    the unified shape."""
+    steps = (0 if max_num_query_steps is None
+             else max(0, max_num_query_steps - len(fri_params.reduction_arity_bits)))
+    coeffs = (0 if final_poly_coeff_len is None
+              else max(0, final_poly_coeff_len - fri_params.final_poly_len()))
+    return steps, coeffs
+
+
+def _fri_committed_trees(coeffs, challenger, fri_params, hasher=None, pads=(0, 0)):
     rate_bits = fri_params.config.rate_bits
     cap_height = fri_params.config.cap_height
     device = coeffs[0].device
@@ -139,9 +165,12 @@ def _fri_committed_trees(coeffs, challenger, fri_params, hasher=None):
         coeffs, values = _fold_coeffs_and_relde(coeffs, g.ext_tensor(beta, device), arity_bits,
                                                 rate_bits, shift)
 
+    for _ in range(pads[0]):
+        challenger.observe_elements([0] * (4 << cap_height))
+        challenger.get_extension_challenge(2)
     c0, c1 = g.to_numpy(torch.stack(coeffs))
     final_poly = [(int(a), int(b)) for a, b in zip(c0, c1)]
-    for coeff in final_poly:
+    for coeff in final_poly + [(0, 0)] * pads[1]:
         challenger.observe_extension_element(coeff)
     return trees, final_poly
 
@@ -256,10 +285,11 @@ def _unflatten(flat: list[int]) -> list[tuple]:
 
 # -- the fused path --------------------------------------------------------------
 
-def _fused_commit_pow(coeffs, dc, fri_params):
+def _fused_commit_pow(coeffs, dc, fri_params, pads=(0, 0)):
     """The FRI transcript on the device (reference `_fused_commit_pow_fn`):
     the initial LDE; per fold step the leaves, the K4 tree, its cap observed
-    into `dc`, β, the fold and re-LDE; then the final polynomial observed,
+    into `dc`, β, the fold and re-LDE; then the unified shape's dummy steps
+    and zero coefficients (`pads`) around the final polynomial observed,
     K5's device grind, the PoW response and the query indices drawn (masked
     to the LDE size). Returns (step trees, packed payload [caps, final
     polynomial c0 then c1, witness, response, indices, sponge state],
@@ -276,21 +306,38 @@ def _fused_commit_pow(coeffs, dc, fri_params):
         beta = (dc.get_challenge(), dc.get_challenge())
         shift = fs.exp(shift, 1 << arity_bits)
         coeffs, values = _fold_coeffs_and_relde(coeffs, beta, arity_bits, rate_bits, shift)
-    dc.observe_elements(torch.stack(coeffs, dim=-1))  # (c0, c1) per coefficient
-    witness = kp.grind_device(dc.state, dc.pending(), config.proof_of_work_bits)
-    dc.observe_elements(witness)
-    pow_response = dc.get_challenge()
-    idx = torch.stack(dc.get_n_challenges(config.num_query_rounds)) & (fri_params.lde_size - 1)
+    witness, pow_response, idx = _final_pow_queries(dc, coeffs, fri_params, pads)
     packed = torch.cat([t.cap_dev.reshape(-1) for t in trees]
                        + [coeffs[0], coeffs[1], witness, pow_response.reshape(1), idx,
                           dc.state])
     return trees, packed, idx
 
 
+def _final_pow_queries(dc, coeffs, fri_params, pads=(0, 0)):
+    """The fused transcript's end: the unified shape's dummy steps, the
+    final polynomial (c0, c1 per coefficient, then the zero padding)
+    observed, K5's device grind, the PoW response and the query indices
+    masked to the LDE size; all on the device."""
+    config = fri_params.config
+    zeros = coeffs[0].new_zeros
+    for _ in range(pads[0]):
+        dc.observe_cap_rows(zeros((1 << config.cap_height, 4)))
+        dc.get_n_challenges(2)
+    dc.observe_elements(torch.stack(coeffs, dim=-1))
+    if pads[1]:
+        dc.observe_elements(zeros(2 * pads[1]))
+    witness = kp.grind_device(dc.state, dc.pending(), config.proof_of_work_bits)
+    dc.observe_elements(witness)
+    pow_response = dc.get_challenge()
+    idx = torch.stack(dc.get_n_challenges(config.num_query_rounds)) & (fri_params.lde_size - 1)
+    return witness, pow_response, idx
+
+
 def _sim_remaining_outputs(k_pending: int, arities, cap_rows: int, n_final: int,
-                           num_queries: int) -> int:
+                           num_queries: int, pads=(0, 0)) -> int:
     """How many squeezed outputs the host challenger would still hold after
-    the fused transcript: its observe / draw sequence run on counts alone."""
+    the fused transcript: its observe / draw sequence run on counts alone
+    (the unified shape's `pads` included)."""
     state = {"inp": k_pending, "out": 0}
 
     def observe(times):
@@ -308,10 +355,10 @@ def _sim_remaining_outputs(k_pending: int, arities, cap_rows: int, n_final: int,
                 state["out"] = SPONGE_RATE
             state["out"] -= 1
 
-    for _ in arities:
+    for _ in range(len(arities) + pads[0]):
         observe(cap_rows * 4)
         get(2)
-    observe(2 * n_final)
+    observe(2 * (n_final + pads[1]))
     observe(1)  # the PoW witness
     get(1)  # the PoW response
     get(num_queries)  # the query indices
@@ -336,9 +383,10 @@ def _gather_all(initial_trees, step_trees, arities, idx, head):
 
 
 def _fri_proof_fused(initial_trees, coeffs, challenger, fri_params, device_state=None,
-                     extra_payload=None, timing=None, defer: bool = False):
+                     extra_payload=None, timing=None, defer: bool = False, pads=(0, 0)):
     """The fused FRI proof (reference `_fri_proof_fused_impl`). Returns
-    (FriProof, the fetched `extra_payload` or None).
+    (FriProof, the fetched `extra_payload` or None). `pads`: the unified
+    shape's (dummy steps, zero final coefficients).
 
     device_state = (sponge [12], pending [k]) continues a transcript that is
     already on the device (the fused prove) and `challenger` may be None;
@@ -361,7 +409,7 @@ def _fri_proof_fused(initial_trees, coeffs, challenger, fri_params, device_state
     k_pending = int(pending.shape[0])
     with _scope(timing, "dispatch commit+pow+query program"):
         trees, packed, idx = _fused_commit_pow(coeffs, DeviceChallenger(sponge, pending),
-                                               fri_params)
+                                               fri_params, pads)
     extra = extra_payload if extra_payload is not None else packed.new_empty((0,))
     with _scope(timing, "dispatch gather program"):
         out_dev, shapes = _gather_all(initial_trees, trees, arities, idx, [extra, packed])
@@ -369,13 +417,13 @@ def _fri_proof_fused(initial_trees, coeffs, challenger, fri_params, device_state
     def finish():
         return _fri_fused_finish(out_dev, len(initial_trees), challenger, fri_params,
                                  device_state is None, timing, int(extra.shape[0]),
-                                 extra_payload is not None, n_final, k_pending, shapes)
+                                 extra_payload is not None, n_final, k_pending, shapes, pads)
 
     return finish if defer else finish()
 
 
 def _fri_fused_finish(out_dev, n_init, challenger, fri_params, sync_challenger, timing,
-                      n_extra, has_extra, n_final, k_pending, shapes):
+                      n_extra, has_extra, n_final, k_pending, shapes, pads=(0, 0)):
     """The one device-to-host fetch of the fused FRI proof and its parse;
     the PoW response is checked here, after the fetch."""
     config = fri_params.config
@@ -410,7 +458,7 @@ def _fri_fused_finish(out_dev, n_init, challenger, fri_params, sync_challenger, 
             pos += q * levels * 4
             opens.append((leaves, sibs, levels))
         if sync_challenger:
-            m = _sim_remaining_outputs(k_pending, arities, rows, n_final, num_queries)
+            m = _sim_remaining_outputs(k_pending, arities, rows, n_final, num_queries, pads)
             challenger.sponge_state = [int(x) for x in sponge_out]
             challenger.input_buffer = []
             challenger.output_buffer = [int(x) for x in sponge_out[:m]]

@@ -5,8 +5,9 @@ reference package's fri/recursive_verifier.py).
 The verification follows the host's `fri/verifier.py` step by step: a
 Merkle path becomes swapped Poseidon rows, a coset fold a
 CosetInterpolationGate row, an α-reduction Reducing(Extension)Gate rows.
-The verifier of proofs of several degrees (batch FRI, ROADMAP item 12) is
-not ported.
+`verify_fri_proof_with_multiple_degree_bits` verifies, in one circuit,
+proofs of any degree in a range, their degree a target (STARK recursion's
+variable-degree mode); batch FRI's circuit verifier is `fri/batch_fri.py`'s.
 """
 
 from __future__ import annotations
@@ -206,6 +207,91 @@ def _fri_verifier_query_round(builder, instance, challenges_t, precomputed,
         x_index_bits = coset_index_bits
 
     # the final polynomial at subgroup_x, by Horner
+    acc = builder.zero_extension()
+    for coeff in reversed(proof_t.final_poly):
+        acc = builder.scalar_mul_add_extension(subgroup_x, acc, coeff)
+    builder.connect_extension(acc, old_eval)
+
+
+def verify_fri_proof_with_multiple_degree_bits(
+        builder, instance, openings_t, challenges_t: FriChallengesTarget,
+        initial_merkle_caps_t, proof_t: FriProofTarget, params, current_degree_bits: Target,
+        degree_sub_one_bits_vec, min_degree_bits_to_support: int) -> None:
+    """One circuit for FRI proofs of any degree in
+    [min_degree_bits_to_support, params.degree_bits]: the proof's targets
+    have the largest shape (a smaller proof's are zero-padded, as its
+    unified-shape transcript was), the cap index and subgroup point of
+    each query are selected by the degree, and a fold step runs only where
+    the bit of degree - 1 that it stands for is set (reference
+    fri/recursive_verifier.rs:189-274)."""
+    if params.final_poly_len() != len(proof_t.final_poly):
+        raise ValueError("the final polynomial's length does not match the FRI params")
+    log_n = params.config.rate_bits + params.degree_bits
+    min_log_n = params.config.rate_bits + min_degree_bits_to_support
+    if min_log_n <= params.config.cap_height:
+        raise ValueError("the smallest degree's LDE is not taller than the cap")
+    current_log_n = builder.add_const(current_degree_bits, params.config.rate_bits)
+    fri_verify_proof_of_work(builder, challenges_t.fri_pow_response, params.config)
+    if params.config.num_query_rounds != len(proof_t.query_round_proofs):
+        raise ValueError("the number of query rounds does not match the FRI params")
+    precomputed = PrecomputedReducedOpeningsTarget(openings_t, challenges_t.fri_alpha, builder)
+    for i, round_proof in enumerate(proof_t.query_round_proofs):
+        _fri_verifier_query_round_multi(builder, instance, challenges_t, precomputed,
+                                        initial_merkle_caps_t, proof_t,
+                                        challenges_t.fri_query_indices[i], min_log_n, log_n,
+                                        current_log_n, degree_sub_one_bits_vec, round_proof,
+                                        params)
+
+
+def _fri_verifier_query_round_multi(builder, instance, challenges_t, precomputed,
+                                    initial_merkle_caps_t, proof_t, x_index: Target,
+                                    min_log_n: int, max_log_n: int, log_n_t: Target,
+                                    degree_sub_one_bits_vec, round_proof, params) -> None:
+    cap_height = params.config.cap_height
+    n_index = builder.sub(log_n_t, builder.constant(min_log_n))
+    x_index_bits = builder.low_bits(x_index, max_log_n, 64)
+    cap_indices = [builder.le_sum(x_index_bits[n - cap_height:n])
+                   for n in range(min_log_n, max_log_n + 1)]
+    cap_index = builder.random_access(n_index, cap_indices)
+    one = builder.one()
+    for (evals, merkle_proof), cap in zip(round_proof.initial_trees_proof.evals_proofs,
+                                          initial_merkle_caps_t):
+        builder.verify_merkle_proof_to_cap_with_cap_indices(
+            one, list(evals), x_index_bits, min_log_n, max_log_n, n_index, cap_index, cap,
+            merkle_proof)
+
+    # subgroup_x for each domain size, then the live one selected
+    g_const = builder.constant(fs.MULTIPLICATIVE_GROUP_GENERATOR)
+    subgroup_x_vec = []
+    for n_log in range(min_log_n, max_log_n + 1):
+        phi_pow = builder.exp_from_bits_const_base(fs.primitive_root_of_unity(n_log),
+                                                   x_index_bits[:n_log][::-1])
+        subgroup_x_vec.append(builder.mul(g_const, phi_pow))
+    subgroup_x = builder.random_access(n_index, subgroup_x_vec)
+
+    old_eval = fri_combine_initial(builder, instance, round_proof.initial_trees_proof,
+                                   challenges_t.fri_alpha, subgroup_x, precomputed, params)
+    idx = len(degree_sub_one_bits_vec) - sum(params.reduction_arity_bits)
+    for i, arity_bits in enumerate(params.reduction_arity_bits):
+        evals = round_proof.steps[i].evals
+        coset_index_bits = x_index_bits[arity_bits:]
+        x_index_within_coset_bits = x_index_bits[:arity_bits]
+        x_index_within_coset = builder.le_sum(x_index_within_coset_bits)
+        step_active = degree_sub_one_bits_vec[idx]
+        new_eval = builder.random_access_extension(x_index_within_coset, list(evals))
+        builder.conditional_assert_eq_ext(step_active.target, new_eval, old_eval)
+        ev = compute_evaluation(builder, subgroup_x, x_index_within_coset_bits, arity_bits,
+                                evals, challenges_t.fri_betas[i])
+        old_eval = builder.select_ext(step_active, ev, old_eval)
+        builder.verify_merkle_proof_to_cap_with_cap_indices(
+            step_active.target, [c for e in evals for c in e.parts], coset_index_bits,
+            min_log_n, max_log_n, n_index, cap_index, proof_t.commit_phase_merkle_caps[i],
+            round_proof.steps[i].merkle_proof)
+        subgroup_x_cur = builder.exp_power_of_2(subgroup_x, arity_bits)
+        subgroup_x = builder.select(step_active, subgroup_x_cur, subgroup_x)
+        x_index_bits = coset_index_bits
+        idx += arity_bits
+
     acc = builder.zero_extension()
     for coeff in reversed(proof_t.final_poly):
         acc = builder.scalar_mul_add_extension(subgroup_x, acc, coeff)

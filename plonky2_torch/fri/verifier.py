@@ -17,15 +17,26 @@ from plonky2_torch.util import ReducingFactor, log2_strict, reverse_bits
 
 
 def fri_challenges(challenger, commit_phase_merkle_caps, final_poly, pow_witness,
-                   degree_bits: int, config) -> FriChallenges:
-    """α, each fold step's β, the PoW response and the query indices."""
+                   degree_bits: int, config, final_poly_coeff_len=None,
+                   max_num_query_steps=None) -> FriChallenges:
+    """α, each fold step's β, the PoW response and the query indices; with
+    the unified shape's lengths, the prover's zero caps (their βs unused)
+    and zero final coefficients observed as it observed them (reference
+    fri/challenges.rs:28-95)."""
     lde_size = 1 << (degree_bits + config.rate_bits)
     fri_alpha = challenger.get_extension_challenge(2)
     fri_betas = []
     for cap in commit_phase_merkle_caps:
         challenger.observe_cap(cap)
         fri_betas.append(challenger.get_extension_challenge(2))
+    if max_num_query_steps is not None:
+        for _ in range(len(commit_phase_merkle_caps), max_num_query_steps):
+            challenger.observe_elements([0] * (4 << config.cap_height))
+            challenger.get_extension_challenge(2)
     challenger.observe_extension_elements(final_poly)
+    if final_poly_coeff_len is not None:
+        for _ in range(len(final_poly), final_poly_coeff_len):
+            challenger.observe_extension_element((0, 0))
     challenger.observe_element(pow_witness)
     fri_pow_response = challenger.get_challenge()
     fri_query_indices = [challenger.get_challenge() % lde_size

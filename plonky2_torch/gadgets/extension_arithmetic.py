@@ -197,6 +197,9 @@ class ExtensionArithmeticMixin:
         self.connect_extension(self.mul_extension(quotient, den), num)
         return quotient
 
+    def inverse_extension(self, x) -> ExtensionTarget:
+        return self.div_extension(self.one_extension(), x)
+
     def select_ext(self, b, x, y) -> ExtensionTarget:
         """b ? x : y with a BoolTarget b."""
         return self.mul_add_extension(self.convert_to_ext(b.target), self.sub_extension(x, y), y)

@@ -85,6 +85,21 @@ class RecursionGadgetsMixin:
             product = self.arithmetic(fs.sub(pow_const, 1), 1, product, bit.target, product)
         return product
 
+    def exp(self, base: Target, exponent: Target, max_bits: int) -> Target:
+        """base^exponent for an exponent target of at most max_bits bits
+        (reference gadgets/arithmetic.rs exp)."""
+        return self.exp_from_bits(base, self.split_le(exponent, max_bits))
+
+    def exp_extension_from_bits(self, base, exponent_bits) -> ExtensionTarget:
+        """base^(Σ 2^i · bits[i]) for an extension base: square and select
+        (reference gadgets/arithmetic_extension.rs exp_extension_from_bits)."""
+        one = self.one_extension()
+        acc, cur = one, base
+        for bit in exponent_bits:
+            acc = self.mul_extension(acc, self.select_ext(bit, cur, one))
+            cur = self.square_extension(cur)
+        return acc
+
     def exp_power_of_2(self, base: Target, k: int) -> Target:
         for _ in range(k):
             base = self.square(base)
@@ -117,6 +132,16 @@ class RecursionGadgetsMixin:
         return ExtensionTarget(tuple(self.random_access(access_index, [et.parts[i] for et in v])
                                      for i in range(2)))
 
+    # -- conditional equality -----------------------------------------------------------
+
+    def conditional_assert_eq(self, cond: Target, x: Target, y: Target) -> None:
+        """cond · (x - y) = 0 (reference circuit_builder.rs conditional_assert_eq)."""
+        self.assert_zero(self.mul(cond, self.sub(x, y)))
+
+    def conditional_assert_eq_ext(self, cond: Target, x, y) -> None:
+        prod = self.mul_extension(self.convert_to_ext(cond), self.sub_extension(x, y))
+        self.connect_extension(prod, self.zero_extension())
+
     # -- Merkle paths ------------------------------------------------------------------
 
     def verify_merkle_proof_to_cap_with_cap_index(self, leaf_data: list, leaf_index_bits,
@@ -128,6 +153,47 @@ class RecursionGadgetsMixin:
         state = self.hash_or_noop(leaf_data)
         for bit, sibling in zip(leaf_index_bits, proof_t.siblings):
             state = self.permute_swapped(list(state) + list(sibling) + [zero] * 4, bit)[:4]
+        for i in range(4):
+            result = self.random_access(cap_index, [h[i] for h in merkle_cap_t])
+            self.connect(result, state[i])
+
+    def verify_merkle_proof_to_cap_with_cap_indices(
+            self, condition: Target, leaf_data: list, leaf_index_bits, min_log_n: int,
+            max_log_n: int, n_index: Target, cap_index: Target, merkle_cap_t,
+            proof_t) -> None:
+        """A path of a tree of any height 2^min_log_n..2^max_log_n: every
+        sibling of the tallest path is compressed in, a shift register
+        keeps the last max - min + 1 digests, the one at n_index (the
+        tree's height) is selected and, where `condition` is 1, compared
+        with the cap entry at cap_index (reference
+        hash/merkle_proofs.rs:186-239)."""
+        zero = self.zero()
+        state = self.hash_or_noop(leaf_data)
+        final_states = [state] * (max_log_n - min_log_n + 1)
+        for bit, sibling in zip(leaf_index_bits, proof_t.siblings):
+            state = self.permute_swapped(list(state) + list(sibling) + [zero] * 4, bit)[:4]
+            final_states = final_states[1:] + [state]
+        for i in range(4):
+            result = self.random_access(cap_index, [h[i] for h in merkle_cap_t])
+            selected = self.random_access(n_index, [s[i] for s in final_states])
+            self.conditional_assert_eq(condition, result, selected)
+
+    def verify_batch_merkle_proof_to_cap_with_cap_index(
+            self, leaf_data: list, leaf_heights: list[int], leaf_index_bits,
+            cap_index: Target, merkle_cap_t, proof_t) -> None:
+        """A `BatchMerkleTree` path: each shorter matrix's row is hashed in
+        with the running digest where the walk reaches its height
+        (reference hash/merkle_proofs.rs:243-296)."""
+        zero = self.zero()
+        state = self.hash_or_noop(list(leaf_data[0]))
+        height = leaf_heights[0]
+        data_index = 1
+        for bit, sibling in zip(leaf_index_bits, proof_t.siblings):
+            state = self.permute_swapped(list(state) + list(sibling) + [zero] * 4, bit)[:4]
+            height -= 1
+            if data_index < len(leaf_heights) and height == leaf_heights[data_index]:
+                state = self.hash_or_noop(list(state) + list(leaf_data[data_index]))
+                data_index += 1
         for i in range(4):
             result = self.random_access(cap_index, [h[i] for h in merkle_cap_t])
             self.connect(result, state[i])

@@ -166,6 +166,10 @@ class CircuitOps:
     def mul_const(self, c: int, a):
         return self.builder.mul_const_extension(c, a)
 
+    def from_base_target(self, t):
+        """A base Target lifted into the extension ops domain."""
+        return self.builder.convert_to_ext(t)
+
 
 class EvaluationVars:
     """local_constants / local_wires / public_inputs_hash are sequences of

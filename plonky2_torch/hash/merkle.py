@@ -258,3 +258,108 @@ def make_merkle_tree(leaves, cap_height: int, hasher=None):
     if getattr(hasher, "algebraic", True):
         return MerkleTree(leaves, cap_height)
     return KeccakMerkleTree(leaves, cap_height)
+
+
+class BatchMerkleTree:
+    """One Merkle cap over row matrices of decreasing heights (reference
+    hash/batch_merkle_tree.rs:17-165; the reference package's
+    hash/merkle.py:478-580). Segment k is K4's tree over its leaves, stopped
+    at the next matrix's height (the cap's at the last): the tallest
+    matrix's rows for the first segment, [running digests ‖ rows] for each
+    later one. Query i reads row i >> (top - h) of a matrix of height h.
+    `leaves`: [2^h_k, width_k] int64 tensors on one device, h_k strictly
+    decreasing."""
+
+    def __init__(self, leaves: list, cap_height: int):
+        if not leaves:
+            raise ValueError("a batch tree needs at least one matrix")
+        heights = [int(m.shape[0]).bit_length() - 1 for m in leaves]
+        if any(1 << h != m.shape[0] for h, m in zip(heights, leaves)):
+            raise ValueError("every matrix's height must be a power of two")
+        if any(a <= b for a, b in zip(heights, heights[1:])):
+            raise ValueError("the matrices' heights must decrease strictly")
+        if cap_height > heights[-1]:
+            raise ValueError("the cap is taller than the shortest matrix")
+        self.cap_height = cap_height
+        self.leaf_heights = heights
+        self._mats = leaves
+        self._segments = []  # per matrix: its segment's levels, the next matrix's height last
+        digests = None
+        for k, mat in enumerate(leaves):
+            stop = heights[k + 1] if k + 1 < len(leaves) else cap_height
+            seg = mat if k == 0 else torch.cat([digests, mat], dim=1)
+            self._segments.append(kp.merkle_tree(seg, stop, natural=False))
+            digests = self._segments[-1][-1]
+        self._cap = None
+
+    @property
+    def cap_dev(self):
+        """The cap on the device, [2^cap_height, 4] in digest order."""
+        return self._segments[-1][-1]
+
+    @property
+    def cap(self) -> list[list[int]]:
+        if self._cap is None:
+            self._cap = [[int(v) for v in row] for row in g.to_numpy(self.cap_dev)]
+        return self._cap
+
+    def gather(self, idx, shift_bits: int = 0):
+        """(the rows of every matrix side by side [q, Σ widths], the
+        siblings of every segment in walk order [q, levels, 4]) at device
+        indices."""
+        top = self.leaf_heights[0]
+        i = idx >> shift_bits
+        rows = torch.cat([m[i >> (top - h)] for m, h in zip(self._mats, self.leaf_heights)],
+                         dim=1)
+        sibs = [layer[((i >> (top - h)) >> k) ^ 1]
+                for seg, h in zip(self._segments, self.leaf_heights)
+                for k, layer in enumerate(seg[:-1])]
+        return rows, _stack_sibs(sibs, i.shape[0], i.device)
+
+    def open_many_dev(self, indices: list[int]):
+        return self.gather(torch.tensor(indices, dtype=torch.int64,
+                                        device=self._mats[0].device))
+
+    def open_batch_many(self, indices: list[int]):
+        """(the matrices' rows concatenated, MerkleProof) at each index, in
+        one device-to-host copy."""
+        return open_many_packed([self], [indices])[0]
+
+    def values(self, leaf_index: int) -> list[list[int]]:
+        """Each matrix's row at the leaf index."""
+        rows = self.open_batch_many([leaf_index])[0][0]
+        out, pos = [], 0
+        for m in self._mats:
+            out.append(rows[pos:pos + m.shape[1]])
+            pos += m.shape[1]
+        return out
+
+    def open_batch(self, leaf_index: int) -> MerkleProof:
+        return self.open_batch_many([leaf_index])[0][1]
+
+
+def verify_batch_merkle_proof_to_cap(leaf_data: list, leaf_heights: list, leaf_index: int,
+                                     cap, proof: MerkleProof, hasher=None) -> None:
+    """Raise if the batch path is invalid (reference hash/merkle_proofs.rs:72-110):
+    the first matrix's row hashed, each sibling compressed in, and the next
+    matrix's row absorbed with the digest where the walk reaches its height."""
+    if hasher is None:
+        from plonky2_torch.hash.hashers import PoseidonHasher
+
+        hasher = PoseidonHasher
+    if len(leaf_data) != len(leaf_heights):
+        raise ValueError("one leaf row for each matrix")
+    current = hasher.hash_or_noop(list(leaf_data[0]))
+    height = leaf_heights[0]
+    data_index = 1
+    for sibling in proof.siblings:
+        bit = leaf_index & 1
+        leaf_index >>= 1
+        current = (hasher.two_to_one(sibling, current) if bit
+                   else hasher.two_to_one(current, sibling))
+        height -= 1
+        if data_index < len(leaf_heights) and height == leaf_heights[data_index]:
+            current = hasher.hash_or_noop(list(current) + list(leaf_data[data_index]))
+            data_index += 1
+    if list(current) != list(cap[leaf_index]):
+        raise ValueError("Batch Merkle proof invalid")

@@ -325,6 +325,12 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin, LookupMixi
     def square(self, x: Target) -> Target:
         return self.mul(x, x)
 
+    def inverse(self, x: Target) -> Target:
+        """1 / x, held by x · x_inv = 1 (`gadgets/inverse.py`)."""
+        from plonky2_torch.gadgets.inverse import add_inverse
+
+        return add_inverse(self, x)
+
     # -- assertions and bit splits ------------------------------------------------
 
     def assert_zero(self, x: Target) -> None:

@@ -8,10 +8,33 @@ over the whole quotient coset on the prover's device, the verifier with
 `CircuitOps` in a circuit. The commitments, openings and FRI argument run
 on the port's PCS (`fri/oracle.py`, `fri/prover.py`) and its kernels.
 
-    prover.prove(stark, config, trace, public_inputs, device=None)
-    verifier.verify_stark_proof(stark, proof_with_pis, config)
+    prover.prove(stark, config, trace, public_inputs, device=None,
+                 verifier_circuit_fri_params=None)
+    verifier.verify_stark_proof(stark, proof_with_pis, config,
+                                verifier_circuit_fri_params=None)
     serialization.stark_proof_to_bytes / stark_proof_from_bytes
+    recursive_verifier.add_virtual_stark_proof_with_pis / verify_stark_proof_circuit
+        / set_stark_proof_with_pis_target   (a STARK proof verified in a circuit)
 
-Cross-table lookups and the STARK-to-SNARK recursive verifier are not
-ported yet.
+The entry points load their module on first use. Cross-table lookups are
+not ported yet.
 """
+
+import importlib
+
+_EXPORTS = {
+    "prove": "prover",
+    "verify_stark_proof": "verifier",
+    "stark_proof_to_bytes": "serialization",
+    "stark_proof_from_bytes": "serialization",
+    "add_virtual_stark_proof_with_pis": "recursive_verifier",
+    "verify_stark_proof_circuit": "recursive_verifier",
+    "set_stark_proof_with_pis_target": "recursive_verifier",
+}
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name: str):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)

@@ -32,10 +32,20 @@ def bind_constraints(challenger, stark, config, public_inputs, degree_bits: int,
     return challenger.get_n_challenges(config.num_challenges)
 
 
+def unified_shape(verifier_circuit_fri_params) -> dict:
+    """The FRI transcript's unified-shape lengths for a variable-degree
+    recursion circuit's FRI params (reference starky/prover.rs:49-73)."""
+    if verifier_circuit_fri_params is None:
+        return {}
+    return {"final_poly_coeff_len": verifier_circuit_fri_params.final_poly_len(),
+            "max_num_query_steps": len(verifier_circuit_fri_params.reduction_arity_bits)}
+
+
 def get_challenges(stark, proof_with_pis: StarkProofWithPublicInputs, config,
                    verifier_circuit_fri_params=None) -> StarkProofChallenges:
-    if verifier_circuit_fri_params is not None:
-        raise NotImplementedError("STARK recursion's FRI parameters are not ported yet")
+    """The proof's challenges; with verifier_circuit_fri_params, its FRI
+    transcript in the shape of those params (reference
+    get_challenges.rs:73-90)."""
     proof = proof_with_pis.proof
     public_inputs = proof_with_pis.public_inputs
     degree_bits = proof.recover_degree_bits(config)
@@ -74,5 +84,6 @@ def get_challenges(stark, proof_with_pis: StarkProofWithPublicInputs, config,
             proof.opening_proof.pow_witness,
             degree_bits,
             config.fri_config,
+            **unified_shape(verifier_circuit_fri_params),
         ),
     )

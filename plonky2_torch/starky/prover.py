@@ -34,7 +34,7 @@ from plonky2_torch.iop.challenger import Challenger
 from plonky2_torch.plonk.prover import _ext_list
 from plonky2_torch.starky.constraint_consumer import ConstraintConsumer
 from plonky2_torch.starky.evaluation_frame import StarkFrame
-from plonky2_torch.starky.get_challenges import bind_constraints
+from plonky2_torch.starky.get_challenges import bind_constraints, unified_shape
 from plonky2_torch.starky.lookup import (
     LookupCheckVars,
     get_grand_product_challenge_set,
@@ -50,9 +50,10 @@ def prove(stark, config, trace_poly_values, public_inputs, device=None,
           verifier_circuit_fri_params=None) -> StarkProofWithPublicInputs:
     """Prove that `trace_poly_values` ([COLUMNS, n] u64 values, or that
     matrix as an int64 tensor already on `device`) satisfies `stark` with
-    `public_inputs`, on `device` (CUDA unless the caller asks for another)."""
-    if verifier_circuit_fri_params is not None:
-        raise NotImplementedError("STARK recursion's FRI parameters are not ported yet")
+    `public_inputs`, on `device` (CUDA unless the caller asks for another).
+    verifier_circuit_fri_params: the FRI params of the largest degree that
+    a variable-degree recursion circuit verifies; the FRI transcript then
+    takes their shape (`fri.prover.fri_proof`)."""
     device = resolve_device(device)
     timing = timing or TimingTree("starky prove")
     trace = _as_tensor(trace_poly_values, device)
@@ -72,12 +73,14 @@ def prove(stark, config, trace_poly_values, public_inputs, device=None,
     challenger.observe_cap(trace_commitment.merkle_tree.cap)
 
     return prove_with_commitment(stark, config, trace, trace_commitment, challenger,
-                                 public_inputs, timing)
+                                 public_inputs, timing,
+                                 verifier_circuit_fri_params=verifier_circuit_fri_params)
 
 
 def prove_with_commitment(stark, config, trace, trace_commitment, challenger,
                           public_inputs, timing: TimingTree | None = None,
-                          ctl_data=None, ctl_challenges=None) -> StarkProofWithPublicInputs:
+                          ctl_data=None, ctl_challenges=None,
+                          verifier_circuit_fri_params=None) -> StarkProofWithPublicInputs:
     """The rounds after the trace commitment. trace: [COLUMNS, n] int64
     tensor on the commitment's device; the challenger has observed the
     public inputs, the config and the trace cap."""
@@ -140,8 +143,9 @@ def prove_with_commitment(stark, config, trace, trace_commitment, challenger,
         oracles.append(auxiliary_polys_commitment)
     oracles.append(quotient_commitment)
     with timing.scope("FRI opening proof"):
-        opening_proof = PolynomialBatch.prove_openings(instance, oracles, challenger,
-                                                       fri_params)
+        opening_proof = PolynomialBatch.prove_openings(
+            instance, oracles, challenger, fri_params,
+            **unified_shape(verifier_circuit_fri_params))
 
     proof = StarkProof(
         trace_cap=trace_commitment.merkle_tree.cap,

@@ -29,7 +29,9 @@ def validate_proof_shape(stark, proof, public_inputs, config) -> None:
 
 def verify_stark_proof(stark, proof_with_pis: StarkProofWithPublicInputs, config,
                        verifier_circuit_fri_params=None) -> None:
-    """Raises ValueError where the proof does not verify."""
+    """Raises ValueError where the proof does not verify.
+    verifier_circuit_fri_params: those the proof was made with, if any (its
+    transcript's unified shape)."""
     if len(proof_with_pis.public_inputs) != stark.PUBLIC_INPUTS:
         raise ValueError("Wrong number of public inputs")
     challenges = get_challenges(stark, proof_with_pis, config, verifier_circuit_fri_params)

@@ -568,3 +568,75 @@ def test_cyclic_proof_with_a_tampered_key_is_rejected(cyclic_chain):
             check_cyclic_proof_verifier_data(tampered, data.verifier_only, data.common)
         with pytest.raises(ValueError):
             data.verify(tampered)
+
+
+def test_batch_fri_on_the_card_gives_the_reference_bytes(dev):
+    """The CPU tests' batch-FRI case on the card, both transcript paths:
+    the reference's proof bytes and challenger state
+    (plonky2_torch/data/batch_fri_9_7.npz), accepted by the verifier."""
+    import os
+
+    from plonky2_torch.examples import batch_fri as bf
+    from plonky2_torch.fri import config as tfc
+    from plonky2_torch.fri import prover as fp
+    from torch_make_data import DATA, batch_fri_small_params
+
+    params = batch_fri_small_params(tfc)
+    groups = bf.random_groups((9, 7), (3, 2), 2)
+    oracle = bf.commit(groups, params, dev)
+    with np.load(os.path.join(DATA, "batch_fri_9_7.npz")) as z:
+        want = z["proof"].tobytes(), tuple([int(v) for v in z[k]]
+                                           for k in ("sponge", "inputs", "outputs"))
+    for host in (False, True):
+        if host:
+            with fp.force_host_path():
+                run = bf.prove(groups, params, oracle=oracle)
+        else:
+            run = bf.prove(groups, params, oracle=oracle)
+        ch = run.challenger
+        assert (bf.proof_bytes(run.proof), (list(ch.sponge_state), list(ch.input_buffer),
+                                            list(ch.output_buffer))) == want
+    bf.verify(run, params)
+
+
+def test_variable_degree_stark_wrap_on_the_card_gives_the_reference_bytes(dev):
+    """The CPU tests' variable-degree wrap (max 2^10, min 2^4, one inner
+    query) built and proved on the card over the 2^7-row FibonacciStark
+    proof: the reference's verifier bytes and proof."""
+    import dataclasses
+    import os
+
+    from plonky2_torch.examples import stark_recursion as sr
+    from plonky2_torch.plonk.circuit_serialization import verifier_data_to_bytes
+    from plonky2_torch.plonk.config import CircuitConfig
+    from plonky2_torch.plonk.serialization import proof_to_bytes
+    from plonky2_torch.starky.config import StarkConfig
+    from plonky2_torch.starky.fibonacci_stark import FibonacciStark, fibonacci
+    from plonky2_torch.starky.prover import prove
+    from plonky2_torch.util import rng
+    from torch_make_data import DATA, STARK_WRAP_QUERIES
+
+    base = StarkConfig.standard_fast_config()
+    config = dataclasses.replace(base, fri_config=dataclasses.replace(
+        base.fri_config, num_query_rounds=STARK_WRAP_QUERIES))
+
+    def read(name):
+        with open(os.path.join(DATA, name), "rb") as f:
+            return f.read()
+
+    data, pt = sr.wrap_circuit(FibonacciStark(1 << 10), config, 10,
+                               CircuitConfig.standard_recursion_config(), min_degree_bits=4,
+                               device=dev)
+    assert verifier_data_to_bytes(data.verifier_only, data.common) == read(
+        "stark_wrap_var10_4.verifier.bin")
+    stark = FibonacciStark(1 << 7)
+    pis = [0, 1, fibonacci(127, 0, 1)]
+    stark_proof = prove(stark, config, stark.generate_trace(0, 1), pis, device=dev,
+                        verifier_circuit_fri_params=config.fri_params(10))
+    rng.seed(2026)
+    try:
+        proof = data.prove(sr.wrap_inputs(pt, stark_proof, 7), device=dev)
+    finally:
+        rng.seed(None)
+    assert proof_to_bytes(proof) == read("stark_wrap_var10_4_7.proof.bin")
+    data.verify(proof)

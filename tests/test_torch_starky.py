@@ -15,6 +15,7 @@ elements throughout, so every comparison is exact.
 """
 
 import copy
+import dataclasses
 import os
 
 import numpy as np
@@ -363,9 +364,15 @@ def test_entry_point_refuses_what_it_does_not_do():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tprover.prove(stark, CONFIG, trace, pis)
-    with pytest.raises(NotImplementedError):
-        tprover.prove(stark, CONFIG, trace, pis, device="cpu",
-                      verifier_circuit_fri_params=CONFIG.fri_params(5))
+    # the unified shape of a variable-degree recursion circuit (max 2^10):
+    # the reference's bytes (tests/torch_make_data.py --stark-recursion)
+    small = dataclasses.replace(CONFIG, fri_config=dataclasses.replace(CONFIG.fri_config,
+                                                                       num_query_rounds=1))
+    proof = tprover.prove(stark, small, trace, pis, device="cpu",
+                          verifier_circuit_fri_params=small.fri_params(10))
+    with open(os.path.join(ROOT, "plonky2_torch", "data", "stark_var10_5.stark_proof.bin"),
+              "rb") as f:
+        assert stark_proof_to_bytes(proof, small) == f.read()
     with pytest.raises(NotImplementedError):
         tprover.prove_with_commitment(stark, CONFIG, tg.tensor(trace, "cpu"), None,
                                       Challenger(), pis, ctl_data=object())

@@ -97,6 +97,31 @@ files equal to what this makes.
     JAX_PLATFORMS=cpu python tests/torch_make_data.py --zk
     JAX_PLATFORMS=cpu python tests/torch_make_data.py --inner18
     JAX_PLATFORMS=cpu python tests/torch_make_data.py --lookups
+    JAX_PLATFORMS=cpu python tests/torch_make_data.py --batch-fri
+    JAX_PLATFORMS=cpu python tests/torch_make_data.py --stark-recursion
+
+`--batch-fri` (~8 min, most of it compiling) writes
+  plonky2_torch/data/batch_merkle.npz
+      the reference's BatchMerkleTree over tests/test_batch_fri.py:25's
+      matrices (cap height 2): its cap, `values` and `open_batch` at
+      BATCH_MERKLE_INDICES, and `open_batch_many` there
+  plonky2_torch/data/batch_fri_9_7.npz, .verifier.bin, .circuit_proof.bin
+      the batch-FRI proof of groups of degree 2^9 and 2^7 (3 and 2
+      polynomials, numpy seed 2, points (5, 7) and (11, 13)) under
+      `batch_fri_small_params`, the challenger state after it, and its
+      verifier circuit under standard_recursion_config() and that
+      circuit's proof (rng seed 2026)
+  plonky2_torch/data/fri_unified.npz
+      `fri_proof` in the unified shape on tests/test_fri_path_matrix.py:299's
+      case (max_num_query_steps one above its steps), and with two dummy
+      steps and zero final coefficients, with the challenger states
+and `--stark-recursion` (~12 min) the STARK wraps of
+`write_stark_recursion_data` (plonky2_torch/data/stark_wrap_*,
+stark_var10_*), so that `tests/test_torch_batch_fri.py` and
+`tests/test_torch_stark_recursion.py` hold the port to the reference
+without running it. `tests/reference_prove_batch_fri.py` and
+`tests/reference_prove_stark_recursion.py` run the same at chip_smoke's
+sizes.
 """
 
 import lzma
@@ -432,6 +457,132 @@ def write_lookup_data() -> None:
         print(f"wrote {name}: {len(blob)} bytes", flush=True)
 
 
+BATCH_MERKLE_INDICES = (0, 3, 40, 63)
+
+
+def batch_fri_small_params(fri_config_module):
+    """The CPU tests' batch-FRI params: tests/test_batch_fri.py's (rate 3,
+    cap height 2, 8 PoW bits, arities 1 x 4, degree bits 9) at 8 queries."""
+    arities = (1,) * 4
+    return fri_config_module.FriParams(
+        config=fri_config_module.FriConfig(
+            rate_bits=3, cap_height=2, proof_of_work_bits=8,
+            reduction_strategy=fri_config_module.FriReductionStrategy.Fixed(arities),
+            num_query_rounds=8),
+        hiding=False, degree_bits=9, reduction_arity_bits=arities)
+
+
+def unified_shape_case(rng_seed: int = 0):
+    """tests/test_fri_path_matrix.py:299's FRI case: (config, degree bits,
+    coefficients (c0, c1) [16] u64, the initial tree's leaves [32, 4] u64)."""
+    n = 1 << 4
+    r = np.random.default_rng(rng_seed)
+    P = (1 << 64) - (1 << 32) + 1
+    c0, c1 = r.integers(0, P, n, dtype=np.uint64), r.integers(0, P, n, dtype=np.uint64)
+    return 4, (c0, c1), r.integers(0, P, (n * 2, 4), dtype=np.uint64)
+
+
+def _state(challenger) -> dict:
+    return {"sponge": np.asarray(challenger.sponge_state, dtype=np.uint64),
+            "inputs": np.asarray(challenger.input_buffer, dtype=np.uint64),
+            "outputs": np.asarray(challenger.output_buffer, dtype=np.uint64)}
+
+
+def write_batch_fri_data() -> None:
+    """The reference's BatchMerkleTree over tests/test_batch_fri.py:25's
+    matrices, its batch-FRI proof and in-circuit verifier at the CPU tests'
+    size, and its unified-shape fri_proof."""
+    import jax.numpy as jnp
+
+    import reference_prove_batch_fri as rbf
+    from plonky2_tpu.fri import config as jfc
+    from plonky2_tpu.fri import prover as jfp
+    from plonky2_tpu.hash.merkle import BatchMerkleTree, MerkleTree
+    from plonky2_tpu.iop.challenger import Challenger
+
+    os.makedirs(DATA, exist_ok=True)
+    rng = np.random.default_rng(1)
+    mats = [rng.integers(0, 1 << 63, size=(64, 5), dtype=np.uint64),
+            rng.integers(0, 1 << 63, size=(16, 7), dtype=np.uint64)]
+    tree = BatchMerkleTree(mats, cap_height=2)
+    opens = tree.open_batch_many(list(BATCH_MERKLE_INDICES))
+    np.savez(os.path.join(DATA, "batch_merkle.npz"),
+             cap=np.asarray(tree.cap, dtype=np.uint64),
+             values=np.asarray([[v for row in tree.values(i) for v in row]
+                                for i in BATCH_MERKLE_INDICES], dtype=np.uint64),
+             siblings=np.asarray([tree.open_batch(i).siblings for i in BATCH_MERKLE_INDICES],
+                                 dtype=np.uint64),
+             many_values=np.asarray([v for v, _ in opens], dtype=np.uint64),
+             many_siblings=np.asarray([p.siblings for _, p in opens], dtype=np.uint64))
+    print("wrote batch_merkle.npz", flush=True)
+
+    out = rbf.reference_case(rbf.random_groups((9, 7), (3, 2), 2),
+                             batch_fri_small_params(jfc), rbf.POINTS[:2])
+    sponge, inputs, outputs = out["state"]
+    np.savez(os.path.join(DATA, "batch_fri_9_7.npz"),
+             proof=np.frombuffer(out["proof"], dtype=np.uint8),
+             sponge=np.asarray(sponge, dtype=np.uint64),
+             inputs=np.asarray(inputs, dtype=np.uint64),
+             outputs=np.asarray(outputs, dtype=np.uint64))
+    for name in ("verifier", "circuit_proof"):
+        with open(os.path.join(DATA, f"batch_fri_9_7.{name}.bin"), "wb") as f:
+            f.write(out[name])
+    print("wrote batch_fri_9_7.*", flush=True)
+
+    from plonky2_tpu.plonk.serialization import Writer
+
+    degree_bits, (c0, c1), leaves = unified_shape_case()
+    config = jfc.FriConfig(rate_bits=1, cap_height=0, proof_of_work_bits=1,
+                           reduction_strategy=jfc.FriReductionStrategy.ConstantArityBits(1, 2),
+                           num_query_rounds=2)
+    params = config.fri_params(degree_bits, False)
+    cases = {"steps": {"max_num_query_steps": len(params.reduction_arity_bits) + 1},
+             "steps_coeffs": {"max_num_query_steps": len(params.reduction_arity_bits) + 2,
+                              "final_poly_coeff_len": 2 * params.final_poly_len() + 3}}
+    arrays = {}
+    for name, kwargs in cases.items():
+        challenger = Challenger()
+        challenger.observe_element(1)
+        proof = jfp.fri_proof([MerkleTree(leaves, 0)], (jnp.asarray(c0), jnp.asarray(c1)),
+                              challenger, params, **kwargs)
+        w = Writer()
+        w.write_fri_proof(proof)
+        arrays[f"{name}_proof"] = np.frombuffer(bytes(w.buf), dtype=np.uint8)
+        arrays.update({f"{name}_{k}": v for k, v in _state(challenger).items()})
+    np.savez(os.path.join(DATA, "fri_unified.npz"), **arrays)
+    print("wrote fri_unified.npz", flush=True)
+
+
+STARK_WRAP_QUERIES = 1  # the CPU tests' inner STARK config: standard_fast_config at 1 query
+
+
+def write_stark_recursion_data() -> None:
+    """The reference's STARK wraps at the CPU tests' size (the inner STARK
+    config at STARK_WRAP_QUERIES queries, the outer standard_recursion_config):
+    the fixed-degree wraps of FibonacciStark and LookupTestStark at 2^5,
+    the variable-degree circuit (max 10, min 4) and its wraps of the 2^5
+    and 2^7 FibonacciStark proofs made under fri_params(10)."""
+    import reference_prove_stark_recursion as rsr
+
+    os.makedirs(DATA, exist_ok=True)
+    config = rsr.stark_config(STARK_WRAP_QUERIES)
+
+    def write(name, blob):
+        with open(os.path.join(DATA, name), "wb") as f:
+            f.write(blob)
+        print(f"wrote {name}: {len(blob)} bytes", flush=True)
+
+    for name in ("fibonacci", "lookup"):
+        out = rsr.fixed_wrap(name, 5, config)
+        write(f"stark_wrap_{name}5.verifier.bin", out["verifier"])
+        write(f"stark_wrap_{name}5.proof.bin", out["proof"])
+    out = rsr.variable_wrap(10, 4, [5, 7], config)
+    write("stark_wrap_var10_4.verifier.bin", out["verifier"])
+    for lg, sb, pb in zip((5, 7), out["stark_proofs"], out["proofs"]):
+        write(f"stark_var10_{lg}.stark_proof.bin", sb)
+        write(f"stark_wrap_var10_4_{lg}.proof.bin", pb)
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, ROOT)
@@ -454,6 +605,12 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--lookups"]:
         write_lookup_data()
+        return 0
+    if sys.argv[1:] == ["--batch-fri"]:
+        write_batch_fri_data()
+        return 0
+    if sys.argv[1:] == ["--stark-recursion"]:
+        write_stark_recursion_data()
         return 0
 
     prover_bytes, _, witness, public_inputs, pi_hash, pw = factorial_data()
@@ -485,6 +642,8 @@ def main() -> int:
     write_zk_data()
     write_inner18_data()
     write_lookup_data()
+    write_batch_fri_data()
+    write_stark_recursion_data()
     return 0
 
 
