@@ -93,14 +93,13 @@ phase (`sizes_phase`: the bench_recursion chain at inner 2^SIZES_LOG, the
 middle layer's 28 queries on ExponentiationGate rows: each circuit built
 once, timed and split, each layer proved (a first call with the peak of
 allocated device memory, SIZES_PROVES timed proves of the inner and
-middle layers, one synchronised for the split, the inner one profiled)
-and verified, every verifier data and proof the reference's; then K3's
+middle layers, one synchronised for the split) and verified, every verifier data and proof the reference's; then K3's
 LDE x8 of [135, 2^18] and iFFT of [83, 2^18], K4's wires tree over 2^21
 leaves (each compared on a slice, timed whole) and K5's device grind at
 its transcript against their plain versions); runs the zk phase
 (`zk_phase`: the chain at inner 2^ZK_LOG under
 `standard_recursion_zk_config()` for every layer, as above with
-ZK_PROVES but no profile, its blinding rows counted, every hash the reference's; the
+ZK_PROVES, its blinding rows counted, every hash the reference's; the
 inner proof again on the host path to the same bytes; the middle layer's
 fused `prove(_defer=True)` with 0 host synchronisations before its fetch
 and nothing raised under "error"; `prove_many` of ZK_BATCH_K middle
@@ -111,8 +110,8 @@ compressed and decompressed to its bytes; then K3's LDE x8 of
 and K5's device grind at its transcript against their plain versions);
 runs the lookups phase (`lookups_phase`: the chains at inner 2^LOOKUP_LOG
 over the one-TIP5-lookup and the 515-lookup inner circuits, as above with
-LOOKUP_PROVES timed inner proves split with "compute lookup polys" (the
-515-lookup inner's profiled), the one-lookup chain's outer only built, every hash the reference's; the
+LOOKUP_PROVES timed inner proves split with "compute lookup polys", the
+one-lookup chain's outer only built, every hash the reference's; the
 515-lookup inner proved on the host path to the same bytes; its device
 lookup columns and LUT evaluations of one fused prove equal to the host
 recurrence on that prove's draws; 0 host synchronisations before the
@@ -133,7 +132,14 @@ verified in a circuit, built, proved STARK_WRAP_PROVES times after a
 first call and verified, and the variable-degree circuit (STARK_VAR) over
 FibonacciStark proofs of 2^14 and 2^17 rows made under its FRI params,
 every hash the reference's; `--phases batch_fri stark_recursion` runs
-these two alone);
+these two alone); runs the cross-table lookup phase (`ctl_phase`:
+`examples/multi_table.py`'s three tables at 2^20, 2^18 and 2^16 rows
+proved by prove_multi_table, split table by table, host syncs counted,
+profiled, verified on the host, table 1 shifted by 1 rejected by the
+whole verify_multi_table, and the circuit verifying the three proofs
+built, proved and verified, every hash the reference's; then K3's iFFT
+and LDEs and K4's trees at the new widths, K2's FRI re-LDE of table 0 and
+K5's device grind against their plain versions; `--phases ctl`);
 runs `commit_and_open`
 at the bench_recursion middle-circuit shapes (degree 2^13, oracles of
 85/135/20/16 polynomials; its FRI proof on the fused path) with the counts
@@ -166,7 +172,8 @@ a cyclic layer's, the Keccak wrap's build's and prove's, the 2^18
 chain's inner build's and prove's and middle build's and prove's, the zk
 chain's inner build's and prove's and middle prove's, the two lookup
 inners' builds' and proves', the batch FRI prove's, the Fibonacci 2^20
-wrap's and the variable-degree wrap's of 2^17 rows, and the headline's,
+wrap's and the variable-degree wrap's of 2^17 rows, the multi-table
+prove's and its circuit's build's and prove's, and the headline's,
 prove_many's and the new phases' numbers), the last line the ok JSON
 object. Every timing line names the
 card and its power limit. Any failed check exits non-zero and prints no
@@ -217,8 +224,15 @@ MIDDLE_PROVE_SHA256 = "0759dc2ebfa4f3097d596d1633f22fa013534b750fe1ba265a2fee160
 # KECCAK_PROVES 3 -> 2, BATCH_K 8 -> 4; the profiled runs of the host-path
 # middle prove, the inner 2^14 prove, the outer prove, the Starky 2^20
 # prove, the cyclic layer, the Keccak wrap and the zk and one-lookup
-# inners dropped: PERF.md keeps their earlier profiles), so that a slow
-# call on a loaded host stays well inside the script's time limit.
+# inners dropped: PERF.md keeps their earlier profiles), and again when
+# the cross-table lookup phase came (STARKY_PROVES, KECCAK_PROVES,
+# SIZES_PROVES, ZK_PROVES, LOOKUP_PROVES, BATCH_FRI_PROVES,
+# STARK_WRAP_PROVES 2 -> 1, ZK_BATCH_K 4 -> 2; the profiled runs of the
+# 2^18 inner, the lookup2 inner, the batch FRI prove and the 2^20 wrap
+# dropped: PERF.md keeps their earlier profiles), so that a slow call on
+# a loaded host stays well inside the script's time limit.
+# Every *_PROVES below is such a time-budget setting, not a sample size:
+# where it is 1, the "median" printed is that one run's wall.
 MIDDLE_PROVES = 2
 # the headline: bench_cache/inner14.proof.bin in the middle circuit's proof
 # targets, the rng seeded to 2026; the full witness and the proof that the
@@ -250,7 +264,7 @@ INNER_PROVES = 2
 STARKY_LOG_ROWS = 20
 FIB20_PROOF_SHA256 = "d0a5c168846f3ac76182eb10e06a66332b41fe3333db9d3e8757a68b103d47c2"
 LOOKUP20_PROOF_SHA256 = "165cc9881eed695f44a9a3fd7a4e89bc2c5c56d7f2a6ac87bb342726b9df588d"
-STARKY_PROVES = 2
+STARKY_PROVES = 1
 # the IVC hash chain of examples/cyclic_recursion.py under seed 2026
 # (tests/reference_prove_cyclic.py, the reference's): the fixpoint's and the
 # cyclic circuit's verifier bytes, then the base proof and each layer's
@@ -269,7 +283,7 @@ KECCAK_WRAP_PROOF_SHA256 = "743e8711e2acf31b92717b9d996c774807ea2015192247dde5b2
 KECCAK_WRAP_COMPRESSED_SHA256 = "db49d158afbc41f591cc9f5f8ec4b028f6248c27cd4d77ec503c7dbce0fb3d0e"
 KECCAK_HEADLINE_COMPRESSED_SHA256 = (
     "5b025c580d187f30086873ded6505a60ee9d5bcb42cd031d09c2953464cec444")
-KECCAK_PROVES = 2
+KECCAK_PROVES = 1
 # the sizes phase: the bench_recursion chain at inner 2^18 (the middle
 # layer's exp_from_bits on ExponentiationGate rows), each layer's verifier
 # data and its proof under seed 2026 as the reference makes them on the CPU
@@ -283,7 +297,7 @@ SIZES_PROOF_SHA256S = (
     "9a2307914d0c3be06cff3a846d99ffffa65747a1e5c84d347b4a742af6a88847",
     "61d95e18d1f88c7bfda381eb4275bab6ecc546bc91648bb7661f18ab7bb8db37",
     "0304b6d260f046ed93f1802490b012380adec3261d3c3eb965aec10aade2d4a2")
-SIZES_PROVES = 2
+SIZES_PROVES = 1
 # the zk phase: the chain at inner 2^14 under standard_recursion_zk_config()
 # for every layer (tests/reference_prove_zk.py), inner first
 ZK_LOG = 14
@@ -295,8 +309,8 @@ ZK_PROOF_SHA256S = (
     "281341165b89c2ca6ae96693a07c71748b8d39d11a458e414847e1cee841ce06",
     "0d81013f0230828d57daa03f2457481fc05f27dc3926efda53c974da537ee6ad",
     "273384706a5dd026b6a80c029553bd18a098bcdd4afe55a9110d13688ae05d84")
-ZK_PROVES = 2
-ZK_BATCH_K = 4
+ZK_PROVES = 1
+ZK_BATCH_K = 2
 # the bench_recursion chains over the two lookup inner circuits at 2^14
 # (lookup type 1: one TIP5 lookup, its input public; 2: 515 lookups), the
 # reference's verifier data and proofs per layer under seed 2026
@@ -318,7 +332,7 @@ LOOKUP_PROOF_SHA256S = {
         "fab4e31cff18f922990405be8a324dcc873e9e45367735223103d33f11cf0c41",
         "1996bf97c1bb62fdbcabb8e4b14e4cd91c6aec02d4644d94ae41a1592c878d4f"),
 }
-LOOKUP_PROVES = 2
+LOOKUP_PROVES = 1
 LOOKUP_BATCH_INPUTS = (2, 17, 100, 255)  # prove_many's lookup inputs, K = 4
 # the batch FRI phase: groups of 2^20, 2^16 and 2^12 coefficients (16, 8
 # and 4 polynomials, numpy seed 2026) under standard_fast_config's FRI
@@ -329,7 +343,7 @@ BATCH_FRI_PROOF_SHA256 = "4ccf65c4ce7803ece49b719140e1cbd0004a5e973c4308bb5a1ec3
 BATCH_FRI_VERIFIER_SHA256 = "607f2dcbc8210654c9967b8e18b67382c76620fb7b83e2e453795ada18ad1f42"
 BATCH_FRI_CIRCUIT_PROOF_SHA256 = (
     "e168ff9a54cdf27a91e38fb50f6b96653e1ba7129413379e8340beae5b1803e8")
-BATCH_FRI_PROVES = 2
+BATCH_FRI_PROVES = 1
 # the STARK recursion phase: the 2^20-row FibonacciStark and LookupTestStark
 # proofs (FIB20_PROOF_SHA256, LOOKUP20_PROOF_SHA256) each verified in a
 # circuit under standard_recursion_config(); the variable-degree circuit
@@ -345,7 +359,7 @@ STARK_WRAP_PROOF_SHA256S = {
     "fibonacci": "580afe02ed4557389cbd8e88c5827ada7b7e123524d5ecf791faadd9088d9dea",
     "lookup": "63728c5e0326326a483d12b255cc99c5f280fa15014dfad1a88e71baa38d1324",
 }
-STARK_WRAP_PROVES = 2
+STARK_WRAP_PROVES = 1
 STARK_VAR = (18, 12, 14, 17)  # max and min degree bits, the two proofs' degree bits
 STARK_VAR_VERIFIER_SHA256 = "e2a9c4221e7e8f912694021516d91ea6f6833edb22bdf81c490b6306cce5f972"
 STARK_VAR_PROOF_SHA256S = (  # the STARK proofs under fri_params(18)
@@ -354,6 +368,20 @@ STARK_VAR_PROOF_SHA256S = (  # the STARK proofs under fri_params(18)
 STARK_VAR_WRAP_SHA256S = (
     "4544b636c1e98e225caa8ecdb77797e0029e3ece72404d2a75a5cc6f951f2e7c",
     "c876f2bf4e922e3b11868286bea70b222ca42171df4edbf61aba8345c4c9e731")
+# the cross-table lookup phase: examples/multi_table.py's three tables
+# (CpuTable 35 columns, MemoryTable, StoreTable; traces from numpy seed
+# 2026) at CTL_LOG_ROWS under standard_fast_config, each table's proof of
+# prove_multi_table; the circuit verifying the three proofs and the CTL
+# sums (standard_recursion_config()): its verifier data and proof (seed
+# 2026), as the reference makes them on the CPU (tests/reference_prove_ctl.py)
+CTL_LOG_ROWS = (20, 18, 16)
+CTL_PROOF_SHA256S = (
+    "b988ec0fd535cf860c4e0f153fd8eb8b714b711182ebbeb767c7489bfe63b152",
+    "e941652bdb1199b31611eb0009527543f73994e1fcf2741face77dd36341b6ce",
+    "b526705f0580da77245cdb4a18ecb7b55c64ccef14fd256f0e844768c8ba18db")
+CTL_WRAP_VERIFIER_SHA256 = "59c3ca9efa498fc9c23a6fa4d08c0d76e81fd9c4835a9ed8cd930fcc1ca5d756"
+CTL_WRAP_PROOF_SHA256 = "be22072bad395c882249063ddb05bb5a5ca50d833f988664ec3cb2b685e00ae6"
+CTL_PROVES = 1
 
 
 def same_generators(a: list, b: list) -> bool:
@@ -476,11 +504,12 @@ def ptxas_lines(log: str) -> list[str]:
     return out
 
 
-def profiled(torch, run):
+def profiled(torch, run, warmup=None):
     """The CUDA kernels' key_averages of one `run()`, recorded after one
-    unrecorded warm-up `run()` in the same profiler session: a session that
-    starts recording at once lost its first kernels' records on the H100
-    once an earlier session had run in the process."""
+    unrecorded warm-up step in the same profiler session (`warmup()`, by
+    default `run()`): a session that starts recording at once lost its
+    first kernels' records on the H100 once an earlier session had run in
+    the process."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -491,19 +520,20 @@ def profiled(torch, run):
 
     with profile(activities=[ProfilerActivity.CUDA], on_trace_ready=ready,
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
-            run()
+        for step in (warmup or run, run):
+            step()
             torch.cuda.synchronize()
             prof.step()
     return kernels
 
 
-def profile_line(torch, run, wall_s: float, label: str) -> None:
-    """One run under the CUDA profiler (kernels only, no CPU-op recording):
-    the kernels' summed device time against the unprofiled wall time, the
-    number of kernel launches, the kernels with the most device time, and
-    each port kernel's device time and launches."""
-    kernels = profiled(torch, run)
+def profile_line(torch, run, wall_s: float, label: str, warmup=None) -> dict | None:
+    """One run under the CUDA profiler (kernels only, no CPU-op recording;
+    `warmup` as `profiled`'s): the kernels' summed device time against the
+    unprofiled wall time, the number of kernel launches, the kernels with
+    the most device time, and each port kernel's device time and launches.
+    Returns the first three (None where the profiler saw no kernels)."""
+    kernels = profiled(torch, run, warmup)
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", 0) or 0
@@ -528,6 +558,8 @@ def profile_line(torch, run, wall_s: float, label: str) -> None:
             ported[m.group(1)] = (ms + dev_us(e) / 1e3, n + e.count)
     print(f"profile {label}: port kernels' device time: " + ", ".join(
         f"{k} {ms:.3f} ms over {n} launches" for k, (ms, n) in sorted(ported.items())))
+    return dict(device_ms=device_ms, busy=device_ms / (wall_s * 1e3),
+                launches=sum(e.count for e in kernels))
 
 
 @contextlib.contextmanager
@@ -1225,8 +1257,7 @@ def keccak_phase(torch, dev, card, failures, middle, headline_bytes) -> dict:
 
 
 def chain_layers(torch, dev, card, failures, label, size, config, verifier_shas, proof_shas,
-                 proves, grind_inputs, lookup_type=0, prove_outer=True,
-                 profile_inner=True) -> list:
+                 proves, grind_inputs, lookup_type=0, prove_outer=True) -> list:
     """The bench_recursion chain at inner 2^size under `config` for every
     layer, as `examples/bench_recursion.py` `chain(size, config,
     lookup_type=lookup_type)` runs it (the inner circuit of noops, or the
@@ -1240,8 +1271,7 @@ def chain_layers(torch, dev, card, failures, label, size, config, verifier_shas,
     `proof_shas[i]`; one synchronised for the split) and verified by the
     port's verifier. The inner layer's first call records its device
     grind's inputs in `grind_inputs`. With `prove_outer` false the outer
-    layer is built and its verifier bytes checked, and not proved. With
-    `profile_inner` the inner prove is profiled once. Returns
+    layer is built and its verifier bytes checked, and not proved. Returns
     per proved layer a dict of its numbers, with "data", "proof" and
     "inputs" (the PartialWitness)."""
     from plonky2_torch import ops
@@ -1366,8 +1396,6 @@ def chain_layers(torch, dev, card, failures, label, size, config, verifier_shas,
               f"phase's start and end ({sync_wall:.4f} s wall): "
               + ", ".join(f"{k} {v:.4f}" for k, v in prove_split.items())
               + f"; outside the phases {sync_wall - sum(prove_split.values()):.4f}")
-        if i == 0 and profile_inner:
-            profile_line(torch, prove, wall, f"{label} inner prove")
         layers.append(dict(data=data, proof=proof, inputs=pw, prove=prove, build_s=build_s,
                            build_split=split, build_launches=build_launches,
                            exp_rows=exp_rows, blinding=(regular, pairs),
@@ -1421,8 +1449,8 @@ def sizes_phase(torch, dev, card, failures) -> dict:
     """The bench_recursion chain at inner 2^SIZES_LOG on the card
     (`chain_layers`: the inner circuit, the middle circuit over it, whose
     28 queries' exp_from_bits take ExponentiationGate rows, and the outer
-    one; SIZES_PROVES timed proves of the inner and middle layers, the
-    inner's profiled), every verifier data and proof the reference's
+    one; SIZES_PROVES timed proves of the inner and middle layers), every
+    verifier data and proof the reference's
     (SIZES_VERIFIER_SHA256S, SIZES_PROOF_SHA256S); then the new kernel
     shapes of the inner layer against their plain versions: K3's LDE x8 of
     the wires [135, 2^18] -> [135, 2^21] and the constants-sigmas iFFT
@@ -1547,8 +1575,7 @@ def zk_phase(torch, dev, card, failures) -> dict:
     grind_inputs = []
     layers = chain_layers(torch, dev, card, failures, "zk", ZK_LOG,
                           CircuitConfig.standard_recursion_zk_config(), ZK_VERIFIER_SHA256S,
-                          ZK_PROOF_SHA256S, (ZK_PROVES, ZK_PROVES, 0), grind_inputs,
-                          profile_inner=False)  # the time limit; PERF.md §5 keeps PR 12's
+                          ZK_PROOF_SHA256S, (ZK_PROVES, ZK_PROVES, 0), grind_inputs)
     inner, middle = layers[0], layers[1]
     want_inner = proof_to_bytes(inner["proof"])
     with fri_prover.force_host_path():
@@ -1706,7 +1733,7 @@ def lookups_phase(torch, dev, card, failures) -> dict:
     inner circuits (`chain_layers` with lookup type 1, then 2: each layer
     built once, timed and split; the inner proved as a first call and
     LOOKUP_PROVES timed proves, split with "compute lookup polys", its
-    peak memory and profile line; the middle and outer proved once and
+    peak memory; the middle and outer proved once and
     synchronised once, but the one-lookup chain's outer layer only built
     and its verifier bytes checked, for the script's time limit; every
     verifier data and proof the reference's, LOOKUP_VERIFIER_SHA256S and
@@ -1751,8 +1778,7 @@ def lookups_phase(torch, dev, card, failures) -> dict:
                               CircuitConfig.standard_recursion_config(),
                               LOOKUP_VERIFIER_SHA256S[lookup_type],
                               LOOKUP_PROOF_SHA256S[lookup_type], (LOOKUP_PROVES, 0, 0), [],
-                              lookup_type=lookup_type, prove_outer=lookup_type == 2,
-                              profile_inner=lookup_type == 2)
+                              lookup_type=lookup_type, prove_outer=lookup_type == 2)
         out[f"lookup{lookup_type}"] = layer_summary(layers)
         if "compute lookup polys" not in layers[0]["split"]:
             failures.append(f"the lookup{lookup_type} inner prove has no 'compute lookup "
@@ -1952,7 +1978,7 @@ def batch_fri_phase(torch, dev, card, failures) -> dict:
     as above, the peak of allocated device memory, each the reference's
     sha256), the host synchronisations before the fused proof's fetch, one
     prove on the host path (its bytes and challenger state the fused
-    one's), one profiled, the host verifier (a tampered opening refused),
+    one's), the host verifier (a tampered opening refused),
     then its verifier circuit under standard_recursion_config() built (a
     first call, split by scope; the reference's verifier bytes) and proved
     (a first call and BATCH_FRI_PROVES timed, each the reference's sha256,
@@ -2093,8 +2119,6 @@ def batch_fri_phase(torch, dev, card, failures) -> dict:
     for label, count in launches.items():
         if count == 0 and label != ops.K5_CHUNK.label:
             failures.append(f"{label} was not launched on the batch FRI prove")
-    profile_line(torch, lambda: bf.prove(groups, params, oracle=oracle), wall,
-                 "batch FRI prove")
 
     config = CircuitConfig.standard_recursion_config()
     ops.reset_launches()
@@ -2274,8 +2298,8 @@ def stark_recursion_phase(torch, dev, card, failures, proofs=None) -> dict:
     reference's verifier bytes), proved (a first call with the peak of
     allocated device memory, STARK_WRAP_PROVES timed proves, counts as
     above, each the reference's sha256; Fibonacci's one synchronised for
-    the split, one with its host synchronisations before the fetch
-    counted and one profiled) and verified, its public inputs the
+    the split and one with its host synchronisations before the fetch
+    counted) and verified, its public inputs the
     STARK's; then the variable-degree
     circuit (max 2^STARK_VAR[0], min 2^STARK_VAR[1], 84 queries) built
     once and timed, the FibonacciStark proofs of 2^STARK_VAR[2] and
@@ -2366,7 +2390,7 @@ def stark_recursion_phase(torch, dev, card, failures, proofs=None) -> dict:
             launches = ops.launch_counts()
             digest = pinned(proof, "timed prove")
         split, syncs = {}, None
-        if name == "fibonacci":  # the split, the syncs and the profile: one wrap's
+        if name == "fibonacci":  # the split and the syncs: one wrap's
             timing = TimingTree("prove", sync=torch.cuda.synchronize)
             pinned(prove(timing), "synchronised prove")
             split = timing.split()
@@ -2397,8 +2421,6 @@ def stark_recursion_phase(torch, dev, card, failures, proofs=None) -> dict:
         for label, count in launches.items():
             if count == 0 and label != ops.K5_CHUNK.label:
                 failures.append(f"{label} was not launched on the {name} wrap prove")
-        if name == "fibonacci":
-            profile_line(torch, prove, wall, f"stark wrap {name} prove")
         out[name] = dict(degree_bits=data.common.degree_bits, build_s=build_s,
                          build_split=build_split,
                          build_launches=build_launches, wall_s=wall, walls=walls,
@@ -2492,6 +2514,315 @@ def stark_recursion_phase(torch, dev, card, failures, proofs=None) -> dict:
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"stark recursion phase ({card}): {out['phase_s']:.1f} s")
+    return out
+
+
+def ctl_phase(torch, dev, card, failures) -> dict:
+    """Cross-table lookups (`examples/multi_table.py`): the three tables at
+    2^CTL_LOG_ROWS rows proved under one transcript by prove_multi_table (a
+    first call with the peak of allocated device memory, CTL_PROVES timed
+    proves with the counts set to 0 just before and read just after, each
+    table's proof the reference's sha256; one synchronised for the split by
+    the reference's scope names, table by table; one with its host
+    synchronisations counted, table by table; one profiled for the
+    device's busy share), verify_multi_table on the host, the system with
+    table 1's values shifted by 1 proved and rejected by verify_multi_table
+    (at its CTL sums); then the circuit
+    verifying the three proofs and the CTL sums built (a first call, split
+    by scope; the reference's verifier bytes), proved (a first call and a
+    warm prove, counts as above; the reference's sha256) and verified; then
+    the new kernel shapes of the path against their plain versions."""
+    import numpy as np
+
+    from plonky2_torch import ops
+    from plonky2_torch.examples import multi_table as mt
+    from plonky2_torch.field import goldilocks as g
+    from plonky2_torch.field import ntt
+    from plonky2_torch.field import scalar as fs
+    from plonky2_torch.fri import prover as fri_prover
+    from plonky2_torch.ops import ntt as kn
+    from plonky2_torch.ops import poseidon as kp
+    from plonky2_torch.plonk.circuit_serialization import verifier_data_to_bytes
+    from plonky2_torch.plonk.config import CircuitConfig
+    from plonky2_torch.plonk.serialization import proof_to_bytes
+    from plonky2_torch.starky import cross_table_lookup as ctl
+    from plonky2_torch.starky import prover as sp
+    from plonky2_torch.starky.config import StarkConfig
+    from plonky2_torch.starky.serialization import stark_proof_to_bytes
+    from plonky2_torch.util import TimingTree
+    from plonky2_torch.util import rng as prover_rng
+
+    def sha(b: bytes) -> str:
+        return hashlib.sha256(b).hexdigest()
+
+    t_phase = time.perf_counter()
+    config = StarkConfig.standard_fast_config()
+    starks, ctls = mt.system()
+    t0 = time.perf_counter()
+    traces, pis = mt.generate_traces(CTL_LOG_ROWS, seed=SEED)
+    traces_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctl.check_ctls(traces, ctls)
+    check_s = time.perf_counter() - t0
+    dev_traces = [g.tensor(t, dev) for t in traces]
+    torch.cuda.synchronize()
+
+    def prove(timing=None, tr=None):
+        return ctl.prove_multi_table(starks, config, tr or dev_traces, pis, ctls, device=dev,
+                                     timing=timing)[0]
+
+    def pinned(proofs, what, want=CTL_PROOF_SHA256S):
+        digests = [sha(stark_proof_to_bytes(p, config)) for p in proofs]
+        for i, (d, w) in enumerate(zip(digests, want)):
+            if d != w:
+                failures.append(f"{what}: the CTL table {i} proof's sha256 is {d}, not {w}")
+        return digests
+
+    grinds = []
+    grind_device = kp.grind_device
+
+    def recording_grind(state, pending, pow_bits):
+        grinds.append((state.clone(), pending.clone(), pow_bits))
+        return grind_device(state, pending, pow_bits)
+
+    torch.cuda.reset_peak_memory_stats()
+    kp.grind_device = recording_grind
+    t0 = time.perf_counter()
+    try:
+        proofs = prove()
+    finally:
+        kp.grind_device = grind_device
+    first_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    pinned(proofs, "first call")
+    walls = []
+    for _ in range(CTL_PROVES):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        proofs = prove()
+        walls.append(time.perf_counter() - t0)
+        launches = ops.launch_counts()
+        duplexes = ops.K5.batch1
+        digests = pinned(proofs, "timed prove")
+    wall = statistics.median(walls)
+    for label, count in launches.items():
+        if count == 0 and label != ops.K5_CHUNK.label:  # the host path's grind
+            failures.append(f"{label} was not launched on the multi-table prove")
+    if fri_prover._LAST_PATH != "fused":
+        failures.append(f"the last table's FRI took the {fri_prover._LAST_PATH} path")
+    timing = TimingTree("prove multi table", sync=torch.cuda.synchronize)
+    t0 = time.perf_counter()
+    pinned(prove(timing), "synchronised prove")
+    sync_wall = time.perf_counter() - t0
+    split = {c.name: (c.duration if not c.children else
+                      {k.name: k.duration for k in c.children}) for c in timing.children}
+    # the host synchronisations of one prove, table by table
+    per_table, real = [], sp.prove_with_commitment
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def counted(*a, **k):
+            before = len(caught)
+            out = real(*a, **k)
+            per_table.append(sum("synchronizing CUDA operation" in str(w.message)
+                                 for w in caught[before:]))
+            return out
+
+        sp.prove_with_commitment = counted
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            pinned(prove(), "sync-counted prove")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            sp.prove_with_commitment = real
+        total_syncs = sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+    # warmed up by a few small ops, not a second prove of ~450k launches
+    prof = profile_line(torch, prove, wall, "multi-table prove",
+                        warmup=lambda: [torch.ones(1, device=dev).add_(1) for _ in range(64)]
+                        ) or {}
+    t0 = time.perf_counter()
+    try:
+        ctl.verify_multi_table(starks, config, proofs, ctls)
+        accepted = True
+    except ValueError as e:
+        accepted = False
+        failures.append(f"the port's verify_multi_table rejects the proofs: {e}")
+    verify_s = time.perf_counter() - t0
+    # table 1 shifted by 1: each table's proof is valid on its own, so the
+    # whole verify_multi_table runs and its last step, the CTL sums, rejects
+    t0 = time.perf_counter()
+    bad = prove(tr=[g.tensor(t, dev) for t in mt.shifted_memory(traces)])
+    try:
+        ctl.verify_multi_table(starks, config, bad, ctls)
+        rejected = ""
+        failures.append("the port's verify_multi_table accepts table 1 shifted by 1")
+    except ValueError as e:
+        rejected = str(e)
+        if "Cross-table lookup 0" not in rejected:
+            failures.append(f"the shifted table 1 was rejected for another reason: {e}")
+    mismatch_s = time.perf_counter() - t0
+    del bad
+    sizes = [len(stark_proof_to_bytes(p, config)) for p in proofs]
+    print(f"ctl ({card}): tables 2^{CTL_LOG_ROWS} rows x {[s.COLUMNS for s in starks]} "
+          f"columns, constraint degree 3, {len(ctls)} CTLs (traces of {[t.nbytes for t in traces]} "
+          f"bytes made on the host in {traces_s:.2f} s, check_ctls {check_s:.2f} s); "
+          f"prove_multi_table {wall:.4f} s "
+          f"median of {[round(w, 4) for w in walls]} (first call {first_s:.3f} s; peak "
+          f"allocated {peak_gib:.2f} GiB), proof bytes {sizes}, sha256s {digests} (the "
+          f"reference's: {list(CTL_PROOF_SHA256S)}); launches {launches} (K5 permutes on one "
+          f"state: {duplexes}); device busy {prof.get('device_ms', 0):.1f} ms, "
+          f"{prof.get('busy', 0):.1%} of the wall; host synchronisations {total_syncs} "
+          f"(the table rounds: {per_table}); verify_multi_table {verify_s:.3f} s, accepted: "
+          f"{accepted}; table 1 shifted by 1, proved and verify_multi_table run in "
+          f"{mismatch_s:.3f} s: rejected with {rejected!r}")
+    print(f"ctl prove phases ({card}), s, the device synchronised at each phase's start and "
+          f"end ({sync_wall:.4f} s wall): " + "; ".join(
+              f"{k} {v:.4f}" if not isinstance(v, dict) else
+              f"{k}: " + ", ".join(f"{kk} {vv:.4f}" for kk, vv in v.items())
+              for k, v in split.items()))
+    out = dict(wall_s=wall, walls=walls, first_s=first_s, peak_gib=peak_gib, split=split,
+               sync_wall_s=sync_wall, launches=launches, duplexes=duplexes, sha256s=digests,
+               proof_bytes=sizes, syncs=total_syncs, syncs_per_table=per_table,
+               device_ms=prof.get("device_ms"), busy=prof.get("busy"),
+               profiled_launches=prof.get("launches"), verify_s=verify_s,
+               rejected=rejected, traces_s=traces_s)
+
+    # the circuit over the three proofs
+    circuit_config = CircuitConfig.standard_recursion_config()
+    ops.reset_launches()
+    timing = TimingTree("build", sync=torch.cuda.synchronize)
+    t0 = time.perf_counter()
+    data, pts = mt.wrap_circuit(starks, config, list(CTL_LOG_ROWS), ctls, circuit_config,
+                                device=dev, timing=timing)
+    build_s, build_split, build_launches = (time.perf_counter() - t0, timing.split(),
+                                            ops.launch_counts())
+    vd = sha(verifier_data_to_bytes(data.verifier_only, data.common))
+    if vd != CTL_WRAP_VERIFIER_SHA256:
+        failures.append(f"the multi-table circuit's verifier data sha256 is {vd}, not "
+                        f"{CTL_WRAP_VERIFIER_SHA256}")
+    pw = mt.wrap_inputs(pts, proofs)
+
+    def wrap_prove():
+        prover_rng.seed(SEED)
+        try:
+            return data.prove(pw, device=dev)
+        finally:
+            prover_rng.seed(None)
+
+    wrap_walls, wrap_digests = [], []
+    for _ in range(2):  # a first call, then a warm prove
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        wrap_proof = wrap_prove()
+        wrap_walls.append(time.perf_counter() - t0)
+        wrap_launches = ops.launch_counts()
+        wrap_digests.append(sha(proof_to_bytes(wrap_proof)))
+        if wrap_digests[-1] != CTL_WRAP_PROOF_SHA256:
+            failures.append(f"the multi-table circuit's proof sha256 is {wrap_digests[-1]}, "
+                            f"not {CTL_WRAP_PROOF_SHA256}")
+    for label, count in wrap_launches.items():
+        if count == 0 and label != ops.K5_CHUNK.label:
+            failures.append(f"{label} was not launched on the multi-table circuit's prove")
+    if wrap_proof.public_inputs != [v for p in proofs for v in p.public_inputs]:
+        failures.append("the multi-table circuit does not expose the tables' public inputs")
+    t0 = time.perf_counter()
+    try:
+        data.verify(wrap_proof)
+        wrap_ok = True
+    except ValueError as e:
+        wrap_ok = False
+        failures.append(f"the port's verifier rejects the multi-table circuit's proof: {e}")
+    wrap_verify_s = time.perf_counter() - t0
+    print(f"ctl circuit over the three proofs ({card}): degree "
+          f"2^{data.common.degree_bits}; build {build_s:.4f} s (a first call), verifier data "
+          f"sha256 {vd} (the reference's: {CTL_WRAP_VERIFIER_SHA256}); split: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in build_split.items())
+          + f"; build launches {build_launches}; prove (witness + fused prove) first call "
+          f"{wrap_walls[0]:.4f} s, warm {wrap_walls[1]:.4f} s, sha256s {wrap_digests} (the "
+          f"reference's: {CTL_WRAP_PROOF_SHA256}); launches {wrap_launches}; public inputs "
+          f"{wrap_proof.public_inputs}; the port's verifier {wrap_verify_s:.3f} s, accepted: "
+          f"{wrap_ok}")
+    out["circuit"] = dict(degree_bits=data.common.degree_bits,
+                          build_s=build_s, build_split=build_split,
+                          build_launches=build_launches, first_s=wrap_walls[0],
+                          wall_s=wrap_walls[1], launches=wrap_launches, sha256=wrap_digests[-1],
+                          verifier_sha256=vd, verify_s=wrap_verify_s)
+    del data, pts, pw, wrap_proof, proofs
+    torch.cuda.empty_cache()
+
+    # each new kernel shape of the path against its plain version: K3's
+    # table-0 trace iFFT [35, 2^20] and LDE x2 [35, 2^20] -> [35, 2^21], its
+    # auxiliary LDE [12, 2^20] (4 logUp, 4 CTL helper, 4 CTL Z columns) and
+    # quotient LDE [4, 2^20] (compared on two rows, timed whole); K4's trees
+    # of width 35 and 12 over 2^21 leaves (compared on the first 2^14
+    # leaves, timed whole); K2's re-LDE [2, 2^12] -> [2, 2^13] of table 0's
+    # second FRI fold (arity 16: the coset shift is gen^256); K5's device
+    # grind on table 0's transcript
+    rng = np.random.default_rng(SEED + 80)
+    lg = CTL_LOG_ROWS[0]
+    n = 1 << lg
+    gen = fs.MULTIPLICATIVE_GROUP_GENERATOR
+    tab = ntt._lde_coset_scale_table(gen, lg, 1, str(dev))
+    num_aux = (starks[0].num_lookup_helper_columns(config)
+               + mt.ctl_target_counts(starks, config, ctls)[0][0])
+
+    def rand(shape):
+        return g.tensor(rng.integers(0, fs.P, size=shape, dtype=np.uint64), dev)
+
+    def lde_shape(rows):
+        x = rand((rows, n))
+        part = x[:2].contiguous()
+        return (ops.K3, f"ctl_lde_{rows}x2_{lg}_x2",
+                lambda: kn.ntt_four_step(part, scale=tab, fan=2),
+                lambda: kn.ntt_four_step_plain(part, False, tab, 2),
+                8 * (x.numel() + tab.numel() + 2 * x.numel()),
+                OPS_PER_MODMUL * rows * 2 * ((n // 2) * lg + n),
+                lambda: kn.ntt_four_step(x, scale=tab, fan=2))
+
+    def tree_shape(width):
+        leaves = rand((width, 2 * n))
+        part = leaves[:, :1 << 14].contiguous()
+        levels = lg + 1 - 4
+        return (ops.K4, f"ctl_tree_{width}x2_{lg + 1}", lambda: kp.merkle_tree(part, 4, True),
+                lambda: kp.merkle_tree_plain(part, 4, True),
+                8 * (leaves.numel() + kp.tree_words(2 * n, levels)),
+                OPS_PER_PERMUTATION * (-(-width // 8) * 2 * n + (2 * n - (2 * n >> levels))),
+                lambda: kp.merkle_tree(leaves, 4, True))
+
+    x35 = rand((starks[0].COLUMNS, n))
+    x35_part = x35[:2].contiguous()
+    m12 = 1 << 12
+    fold12 = rand((2, m12))
+    tab12 = ntt._lde_coset_scale_table(fs.exp(gen, 1 << 8), 12, 1, str(dev))
+    shapes = [
+        (ops.K3, f"ctl_ifft_35x2_{lg}", lambda: kn.ntt_four_step(x35_part, inverse=True),
+         lambda: kn.ntt_four_step_plain(x35_part, inverse=True), 8 * 2 * x35.numel(),
+         OPS_PER_MODMUL * 35 * ((n // 2) * lg + n), lambda: kn.ntt_four_step(x35, inverse=True)),
+        lde_shape(starks[0].COLUMNS), lde_shape(num_aux), lde_shape(4),
+        tree_shape(starks[0].COLUMNS), tree_shape(num_aux),
+        (ops.K2, "ctl_fri_relde_2x2_12_x2", lambda: kn.ntt_rows(fold12, scale=tab12, fan=2),
+         lambda: kn.ntt_rows_plain(fold12, False, tab12, 2),
+         8 * (fold12.numel() + tab12.numel() + 2 * fold12.numel()),
+         OPS_PER_MODMUL * 2 * 2 * ((m12 // 2) * 12 + m12), None),
+    ]
+    if not grinds:
+        failures.append("the multi-table prove ran no device grind")
+    else:
+        state, pending, bits = grinds[0]
+        witness = g.u64(int(kp.grind_device(state, pending, bits)[0]))
+        shapes.append((ops.K5_DEVICE, "ctl_grind_device",
+                       lambda: kp.grind_device(state, pending, bits),
+                       lambda: kp.grind_device_plain(state, pending, bits, chunk=GRIND_CHUNK),
+                       8 * (12 + int(pending.shape[0]) + 1), OPS_PER_PERMUTATION * (witness + 1),
+                       None))
+        print(f"K5 device grind on the CTL table 0 transcript ({bits} bits, "
+              f"{int(pending.shape[0])} pending): witness {witness}")
+    out["shapes"] = shape_checks(torch, failures, shapes)
+    del shapes, x35, dev_traces
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"ctl phase ({card}): {out['phase_s']:.1f} s")
     return out
 
 
@@ -3278,6 +3609,9 @@ def main() -> int:
     # circuits, and the variable-degree wrap
     batch_fri = batch_fri_phase(torch, dev, card, failures)
     stark_wrap = stark_recursion_phase(torch, dev, card, failures, starky.pop("proofs"))
+    # three STARK tables linked by cross-table lookups, proved under one
+    # transcript, verified on the host and in one circuit
+    ctl = ctl_phase(torch, dev, card, failures)
 
     build_phase = dict(build_wall_s=build_wall, build_cold_s=builds[0][0],
                        build_outside_s=build_outside,
@@ -3642,7 +3976,7 @@ def main() -> int:
     if on_card != on_cpu:
         failures.append("degree-2^10 proof bytes differ between the card and the CPU")
 
-    for phase in (starky, sizes, zk, lookups, batch_fri):
+    for phase in (starky, sizes, zk, lookups, batch_fri, ctl):
         for label, shape_results in phase["shapes"].items():
             results[label].update(shape_results)
             results[label]["mismatches"] += sum(r["mismatches"] for r in shape_results.values())
@@ -3690,6 +4024,9 @@ def main() -> int:
                         "launches_stark_wrap20": stark_wrap["fibonacci"]["launches"][k.label],
                         "launches_stark_wrap_var": stark_wrap["variable"]["proofs"][
                             STARK_VAR[3]]["launches"][k.label],
+                        "launches_prove_ctl": ctl["launches"][k.label],
+                        "launches_build_ctl_wrap": ctl["circuit"]["build_launches"][k.label],
+                        "launches_prove_ctl_wrap": ctl["circuit"]["launches"][k.label],
                         **results[k.label], "library_ms": None})
     print(json.dumps({"kernels": kernels, "card": card, "headline": headline,
                       "prove_many": {"K": BATCH_K, "window": BATCH_WINDOW, "threads": batched,
@@ -3708,13 +4045,15 @@ def main() -> int:
                       "zk": {k: v for k, v in zk.items() if k != "shapes"},
                       "lookups": {k: v for k, v in lookups.items() if k != "shapes"},
                       "batch_fri": {k: v for k, v in batch_fri.items() if k != "shapes"},
-                      "stark_recursion": stark_wrap}))
+                      "stark_recursion": stark_wrap,
+                      "ctl": {k: v for k, v in ctl.items() if k != "shapes"}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
 
 
-PHASES = {"batch_fri": batch_fri_phase, "stark_recursion": stark_recursion_phase}
+PHASES = {"batch_fri": batch_fri_phase, "stark_recursion": stark_recursion_phase,
+          "ctl": ctl_phase}
 
 
 def phases_only(names: list) -> int:

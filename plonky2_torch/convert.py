@@ -1,9 +1,9 @@
 """Carry state into the port: numpy uint64 arrays <-> the port's int64
 tensors, and FRI parameters given by any object with the reference's field
 names (for example the reference package's FriConfig/FriParams) -> the
-port's dataclasses, the reference's StarkConfig and logUp lookups -> the
-port's, and the reference's gates, targets and circuit data -> the
-port's. Reads attributes only; imports nothing outside the port."""
+port's dataclasses, the reference's StarkConfig, logUp lookups and
+cross-table lookups -> the port's, and the reference's gates, targets and
+circuit data -> the port's. Reads attributes only; imports nothing outside the port."""
 
 from __future__ import annotations
 
@@ -44,16 +44,33 @@ def column(c):
                   constant=c.constant)
 
 
+def filter_(f):
+    """The port's starky Filter for a reference Filter."""
+    from plonky2_torch.starky.lookup import Filter
+
+    return Filter(products=[(column(a), column(b)) for a, b in f.products],
+                  constants=[column(c) for c in f.constants])
+
+
 def lookup(lk):
     """The port's starky Lookup for a reference Lookup."""
-    from plonky2_torch.starky.lookup import Filter, Lookup
+    from plonky2_torch.starky.lookup import Lookup
 
     return Lookup(columns=[column(c) for c in lk.columns],
                   table_column=column(lk.table_column),
                   frequencies_column=column(lk.frequencies_column),
-                  filter_columns=[Filter(products=[(column(a), column(b)) for a, b in f.products],
-                                         constants=[column(c) for c in f.constants])
-                                  for f in lk.filter_columns])
+                  filter_columns=[filter_(f) for f in lk.filter_columns])
+
+
+def cross_table_lookup(ctl):
+    """The port's CrossTableLookup for a reference CrossTableLookup."""
+    from plonky2_torch.starky.cross_table_lookup import CrossTableLookup, TableWithColumns
+
+    def table(t):
+        return TableWithColumns(t.table, [column(c) for c in t.columns], filter_(t.filter))
+
+    return CrossTableLookup(looking_tables=[table(t) for t in ctl.looking_tables],
+                            looked_table=table(ctl.looked_table))
 
 
 def fri_params(p) -> FriParams:

@@ -1,5 +1,6 @@
 """Starky: the FRI-based STARK prover and verifier for AIRs, with logUp
-lookups (counterpart of the reference package's `starky/`).
+lookups and cross-table lookups (counterpart of the reference package's
+`starky/`).
 
 An AIR (`stark.Stark`) writes its constraints once against the ops
 protocol of `gates/ops.py`; the prover evaluates them with `TorchBaseOps`
@@ -15,9 +16,14 @@ on the port's PCS (`fri/oracle.py`, `fri/prover.py`) and its kernels.
     serialization.stark_proof_to_bytes / stark_proof_from_bytes
     recursive_verifier.add_virtual_stark_proof_with_pis / verify_stark_proof_circuit
         / set_stark_proof_with_pis_target   (a STARK proof verified in a circuit)
+    cross_table_lookup.prove_multi_table(starks, config, traces, public_inputs,
+                                         ctls, device=None, timing=None)
+        / verify_multi_table / get_multi_proof_challenges / check_ctls
+        / verify_multi_table_circuit   (tables linked by cross-table lookups,
+                                        one transcript; CrossTableLookup,
+                                        TableWithColumns)
 
-The entry points load their module on first use. Cross-table lookups are
-not ported yet.
+The entry points load their module on first use.
 """
 
 import importlib
@@ -30,6 +36,13 @@ _EXPORTS = {
     "add_virtual_stark_proof_with_pis": "recursive_verifier",
     "verify_stark_proof_circuit": "recursive_verifier",
     "set_stark_proof_with_pis_target": "recursive_verifier",
+    "CrossTableLookup": "cross_table_lookup",
+    "TableWithColumns": "cross_table_lookup",
+    "prove_multi_table": "cross_table_lookup",
+    "verify_multi_table": "cross_table_lookup",
+    "get_multi_proof_challenges": "cross_table_lookup",
+    "check_ctls": "cross_table_lookup",
+    "verify_multi_table_circuit": "cross_table_lookup",
 }
 __all__ = list(_EXPORTS)
 

@@ -9,7 +9,9 @@ sums of filter / (column + χ), and the Z column accumulates
 
 The prover computes the helper and Z columns on the trace's device: a batch
 inverse per denominator column and the Z column as a modular prefix sum
-(the reference loops over the rows in Python).
+(the reference loops over the rows in Python). `get_helper_cols` and
+`eval_helper_columns` are the column-group helpers that the cross-table
+lookups share (`cross_table_lookup.py`).
 """
 
 from __future__ import annotations
@@ -122,12 +124,88 @@ def get_grand_product_challenge_set(challenger, num_challenges: int) -> GrandPro
     )
 
 
-def _inverse_or_raise(x: torch.Tensor) -> torch.Tensor:
-    """1 / x of an [n] column; raises as the reference does where a
+def _inverse_or_raise(x: torch.Tensor, error=ZeroDivisionError,
+                      message: str = "lookup denominator hit challenge") -> torch.Tensor:
+    """1 / x of an [n] column; raises `error` as the reference does where a
     denominator is zero (one host read)."""
     if bool((x == 0).any()):
-        raise ZeroDivisionError("lookup denominator hit challenge")
+        raise error(message)
     return g.inverse_vector(x)
+
+
+def _all_rows(trace: torch.Tensor):
+    """(ops, local, next, broadcast) to evaluate columns over every row of a
+    [cols, n] trace on its device; a constant column evaluates to a 0-d
+    tensor, which `broadcast` widens to [n]."""
+    n = trace.shape[1]
+    return (TorchBaseOps(trace.device), list(trace), [torch.roll(r, -1) for r in trace],
+            lambda v: torch.broadcast_to(v, (n,)))
+
+
+def get_helper_cols(trace: torch.Tensor, columns_filters: list, challenge,
+                    constraint_degree: int) -> list[torch.Tensor]:
+    """The helper columns of column groups (reference lookup.rs
+    get_helper_cols): chunks of `constraint_degree - 1` groups, each group
+    combined as Σ β^i c_i + γ, each helper the sum over its chunk of
+    filter / combination; [n] tensors on the trace's device.
+    columns_filters: [(list[Column], Filter)]."""
+    chunk_size = max(constraint_degree - 1, 1)
+    ops, local, nxt, all_rows = _all_rows(trace)
+    gamma = g.scalar_tensor(challenge.gamma, trace.device)
+    combined, filters = [], []
+    for cols, filt in columns_filters:
+        acc = torch.zeros(trace.shape[1], dtype=torch.int64, device=trace.device)
+        b_pow = 1
+        for col in cols:
+            acc = g.add(acc, g.mul_scalar(all_rows(col.eval(ops, local, nxt)), b_pow))
+            b_pow = fs.mul(b_pow, challenge.beta)
+        combined.append(g.add(acc, gamma))
+        filters.append(all_rows(filt.eval_filter(ops, local, nxt)))
+    helper_columns = []
+    for start in range(0, len(combined), chunk_size):
+        h = torch.zeros(trace.shape[1], dtype=torch.int64, device=trace.device)
+        for i in range(start, min(start + chunk_size, len(combined))):
+            inv = _inverse_or_raise(combined[i], AssertionError, "combine hit zero denominator")
+            h = g.add(h, g.mul(filters[i], inv))
+        helper_columns.append(h)
+    return helper_columns
+
+
+def eval_helper_columns(ops, filters, column_groups, local, nxt, helper_columns,
+                        constraint_degree: int, challenge, consumer) -> None:
+    """The helper columns' checks, shared by the CTLs' ops forms (reference
+    lookup.rs eval_helper_columns). column_groups: per group, its columns
+    already evaluated on `ops`; challenge: (β, γ) on `ops`."""
+    if not helper_columns:
+        return
+    beta, gamma = challenge
+    chunk_size = max(constraint_degree - 1, 1)
+
+    def combine(evals):
+        acc = ops.zero()
+        for e in reversed(evals):
+            acc = ops.add(ops.mul(beta, acc), e)
+        return ops.add(acc, gamma)
+
+    for ci, start in enumerate(range(0, len(column_groups), chunk_size)):
+        chunk = column_groups[start:start + chunk_size]
+        fil = filters[start:start + chunk_size]
+        h = helper_columns[ci]
+        if len(chunk) == 2:
+            combin0 = combine(chunk[0])
+            combin1 = combine(chunk[1])
+            f0 = fil[0].eval_filter(ops, local, nxt)
+            f1 = fil[1].eval_filter(ops, local, nxt)
+            consumer.constraint(ops.sub(
+                ops.mul(ops.mul(combin1, combin0), h),
+                ops.add(ops.mul(f0, combin1), ops.mul(f1, combin0)),
+            ))
+        elif len(chunk) == 1:
+            combin = combine(chunk[0])
+            f0 = fil[0].eval_filter(ops, local, nxt)
+            consumer.constraint(ops.sub(ops.mul(combin, h), f0))
+        else:
+            raise NotImplementedError("chunk sizes > 2")
 
 
 def lookup_helper_columns(lookup: Lookup, trace: torch.Tensor, challenge: int,
@@ -138,14 +216,7 @@ def lookup_helper_columns(lookup: Lookup, trace: torch.Tensor, challenge: int,
     if len(lookup.columns) != len(lookup.filter_columns):
         raise ValueError("a lookup needs one filter per looking column")
     chunk_size = max(constraint_degree - 1, 1)
-    n = trace.shape[1]
-    ops = TorchBaseOps(trace.device)
-    local = list(trace)
-    nxt = [torch.roll(r, -1) for r in trace]
-
-    def all_rows(v):  # a constant column evaluates to a 0-d tensor
-        return torch.broadcast_to(v, (n,))
-
+    ops, local, nxt, all_rows = _all_rows(trace)
     ch = g.scalar_tensor(challenge, trace.device)
     cols = [all_rows(c.eval(ops, local, nxt)) for c in lookup.columns]
     filters = [all_rows(f.eval_filter(ops, local, nxt)) for f in lookup.filter_columns]

@@ -62,3 +62,13 @@ class StarkProofChallenges:
     stark_alphas: list[int]
     stark_zeta: tuple
     fri_challenges: object
+
+
+@dataclass
+class MultiProofChallenges:
+    """The randomness of every STARK proof of a multi-table system
+    (reference starky/src/proof.rs:196-202): each table's challenges and the
+    CTL GrandProductChallengeSet that all tables share."""
+
+    stark_challenges: list  # [StarkProofChallenges], one per table
+    ctl_challenges: object  # GrandProductChallengeSet

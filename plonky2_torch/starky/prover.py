@@ -6,7 +6,9 @@ another):
 
   compute trace commitment      iFFT, ×2^rate coset LDE, Merkle tree (K2/K3, K4)
   auxiliary commitment          logUp helper and Z columns (batch inverses, a
-                                modular prefix sum), then as above
+                                modular prefix sum), then a multi-table
+                                proof's CTL helper and Z columns
+                                (cross_table_lookup.py), then as above
   compute quotient polys        every constraint over the 2^(degree bits +
                                 qd bits)-point coset (`TorchBaseOps`),
                                 α-combined, times Z_H^-1, one coset iFFT (K3)
@@ -31,8 +33,8 @@ from plonky2_torch.field import scalar as fs
 from plonky2_torch.fri.oracle import PolynomialBatch, _as_tensor, eval_polys_at
 from plonky2_torch.gates.ops import TorchBaseOps
 from plonky2_torch.iop.challenger import Challenger
-from plonky2_torch.plonk.prover import _ext_list
 from plonky2_torch.starky.constraint_consumer import ConstraintConsumer
+from plonky2_torch.starky.cross_table_lookup import CtlCheckVars, get_ctl_auxiliary_polys
 from plonky2_torch.starky.evaluation_frame import StarkFrame
 from plonky2_torch.starky.get_challenges import bind_constraints, unified_shape
 from plonky2_torch.starky.lookup import (
@@ -83,9 +85,10 @@ def prove_with_commitment(stark, config, trace, trace_commitment, challenger,
                           verifier_circuit_fri_params=None) -> StarkProofWithPublicInputs:
     """The rounds after the trace commitment. trace: [COLUMNS, n] int64
     tensor on the commitment's device; the challenger has observed the
-    public inputs, the config and the trace cap."""
-    if ctl_data is not None or ctl_challenges is not None:
-        raise NotImplementedError("cross-table lookups are not ported yet")
+    public inputs, the config and the trace cap. A table of a multi-table
+    proof passes its CtlData (`cross_table_lookup.get_ctl_data`, columns on
+    the trace's device) and the CTL challenges, which are then its logUp
+    challenges too (reference prover.py:97-98)."""
     timing = timing or TimingTree("starky prove")
     degree = trace.shape[-1]
     degree_bits = log2_strict(degree)
@@ -100,26 +103,36 @@ def prove_with_commitment(stark, config, trace, trace_commitment, challenger,
     auxiliary_polys_commitment = None
     num_auxiliary_polys = 0
     if stark.uses_lookups():
-        challenge_set = get_grand_product_challenge_set(challenger, config.num_challenges)
+        challenge_set = ctl_challenges
+        if challenge_set is None:
+            challenge_set = get_grand_product_challenge_set(challenger, config.num_challenges)
         lookup_challenges = [ch.beta for ch in challenge_set.challenges]
+    if stark.uses_lookups() or ctl_data is not None:
         # the helper columns are made inside the commitment's scope, so the
-        # scopes cover the whole prove
+        # scopes cover the whole prove; the CTL columns come after logUp's
         with timing.scope("compute auxiliary polynomials commitment"):
-            aux_cols = [col for lookup in stark.lookups() for challenge in lookup_challenges
+            aux_cols = [col for lookup in stark.lookups()
+                        for challenge in (lookup_challenges or [])
                         for col in lookup_helper_columns(lookup, trace, challenge,
                                                          constraint_degree)]
+            if ctl_data is not None:
+                aux_cols += get_ctl_auxiliary_polys(ctl_data)
             num_auxiliary_polys = len(aux_cols)
-            auxiliary_polys_commitment = PolynomialBatch.from_values(
-                torch.stack(aux_cols), rate_bits, False, cap_height)
-        challenger.observe_cap(auxiliary_polys_commitment.merkle_tree.cap)
+            if aux_cols:
+                auxiliary_polys_commitment = PolynomialBatch.from_values(
+                    torch.stack(aux_cols), rate_bits, False, cap_height)
+        if auxiliary_polys_commitment is not None:
+            challenger.observe_cap(auxiliary_polys_commitment.merkle_tree.cap)
 
+    num_ctl_polys = ctl_data.num_ctl_helper_polys() if ctl_data is not None else []
     alphas = bind_constraints(challenger, stark, config, public_inputs, degree_bits,
-                              num_auxiliary_polys, lookup_challenges)
+                              num_auxiliary_polys, lookup_challenges,
+                              None if ctl_data is None else ctl_data.zs_columns, num_ctl_polys)
 
     with timing.scope("compute quotient polys"):
         quotient_chunks = compute_quotient_polys(
             stark, config, trace_commitment, public_inputs, alphas, degree_bits,
-            auxiliary_polys_commitment, lookup_challenges)
+            auxiliary_polys_commitment, lookup_challenges, ctl_data)
 
     with timing.scope("compute quotient commitment"):
         quotient_commitment = PolynomialBatch.from_coeffs(quotient_chunks, rate_bits, False,
@@ -131,13 +144,16 @@ def prove_with_commitment(stark, config, trace, trace_commitment, challenger,
         raise ValueError("Opening point is in the subgroup.")
 
     g_root = fs.primitive_root_of_unity(degree_bits)
+    num_ctl_zs = [0] * len(ctl_data.zs_columns) if ctl_data is not None else []
     with timing.scope("openings"):
-        openings = opening_set(zeta, g_root, trace_commitment, quotient_commitment,
-                               auxiliary_polys_commitment)
+        openings = opening_set(
+            zeta, g_root, trace_commitment, quotient_commitment, auxiliary_polys_commitment,
+            ctl_zs_start=(None if ctl_data is None or auxiliary_polys_commitment is None
+                          else stark.num_lookup_helper_columns(config) + sum(num_ctl_polys)))
     for batch in openings.to_fri_openings().batches:
         challenger.observe_extension_elements(batch.values)
 
-    instance = stark.fri_instance(zeta, g_root, 0, [], config)
+    instance = stark.fri_instance(zeta, g_root, sum(num_ctl_polys), num_ctl_zs, config)
     oracles = [trace_commitment]
     if auxiliary_polys_commitment is not None:
         oracles.append(auxiliary_polys_commitment)
@@ -184,10 +200,12 @@ def quotient_tables(degree_bits: int, qd_bits: int, device: str) -> dict:
 
 def compute_quotient_polys(stark, config, trace_commitment, public_inputs, alphas,
                            degree_bits: int, auxiliary_polys_commitment=None,
-                           lookup_challenges=None) -> torch.Tensor:
+                           lookup_challenges=None, ctl_data=None) -> torch.Tensor:
     """The quotient chunks' coefficients [num_challenges · qdf, n]: every
     constraint over the quotient coset, α-combined per challenge, divided by
-    Z_H and taken back by one coset iFFT (reference prover.rs:488-670)."""
+    Z_H and taken back by one coset iFFT (reference prover.rs:488-670). The
+    CTL checks read the auxiliary LDE on the coset and its roll by one row
+    (reference prover.py:246-255)."""
     qdf = stark.quotient_degree_factor()
     qd_bits = (qdf - 1).bit_length()
     rate_bits = config.fri_config.rate_bits
@@ -206,12 +224,19 @@ def compute_quotient_polys(stark, config, trace_commitment, public_inputs, alpha
                        [g.scalar_tensor(pi, device) for pi in public_inputs])
     consumer = ConstraintConsumer(ops, [g.scalar_tensor(a, device) for a in alphas],
                                   t["z_last"], t["l_first"], t["l_last"])
-    lookup_vars = None
-    if stark.uses_lookups():
+    lookup_vars = ctl_vars = None
+    aux_local = aux_next = []  # a table with neither logUp nor a CTL commits no aux
+    if auxiliary_polys_commitment is not None:
         aux_q = auxiliary_polys_commitment.lde[:, ::step]
-        lookup_vars = LookupCheckVars(list(aux_q), [torch.roll(c, -next_step) for c in aux_q],
+        aux_local, aux_next = list(aux_q), [torch.roll(c, -next_step) for c in aux_q]
+    if stark.uses_lookups():
+        lookup_vars = LookupCheckVars(aux_local, aux_next,
                                       [g.scalar_tensor(c, device) for c in lookup_challenges])
-    eval_vanishing_poly(ops, stark, frame, consumer, lookup_vars)
+    if ctl_data is not None:
+        ctl_vars = CtlCheckVars.from_proof(ctl_data.zs_columns, aux_local, aux_next,
+                                           stark.num_lookup_helper_columns(config),
+                                           ctl_data.num_ctl_helper_polys())
+    eval_vanishing_poly(ops, stark, frame, consumer, lookup_vars, ctl_vars)
     evals = torch.stack([torch.broadcast_to(a, (Q,)) for a in consumer.accumulators()])
     return ntt.coset_ifft(g.mul(evals, t["z_h_inv"][None])).reshape(-1, n)
 
@@ -219,9 +244,12 @@ def compute_quotient_polys(stark, config, trace_commitment, public_inputs, alpha
 # -- openings --------------------------------------------------------------------
 
 def opening_set(zeta, g_root, trace_commitment, quotient_commitment,
-                auxiliary_polys_commitment=None) -> StarkOpeningSet:
-    """The trace, auxiliary and quotient polynomials at ζ, and the trace and
-    auxiliary polynomials at g·ζ; one fetch."""
+                auxiliary_polys_commitment=None, ctl_zs_start: int | None = None
+                ) -> StarkOpeningSet:
+    """The trace, auxiliary and quotient polynomials at ζ, the trace and
+    auxiliary polynomials at g·ζ, and, from auxiliary column ctl_zs_start
+    on (a table with CTLs), the CTL Zs at 1: the sums of their
+    coefficients (reference prover.py:362-368). One fetch."""
     zeta_next = fs.ext_scalar_mul(g_root, zeta)
     shifted = [trace_commitment.polynomials]
     if auxiliary_polys_commitment is not None:
@@ -229,7 +257,13 @@ def opening_set(zeta, g_root, trace_commitment, quotient_commitment,
     shifted = torch.cat(shifted)
     at_z = eval_polys_at(torch.cat([shifted, quotient_commitment.polynomials]), zeta)
     at_next = eval_polys_at(shifted, zeta_next)
-    values = _ext_list(torch.cat([at_z[0], at_next[0]]), torch.cat([at_z[1], at_next[1]]))
+    parts = [at_z[0], at_next[0], at_z[1], at_next[1]]
+    if ctl_zs_start is not None:
+        parts.append(g.sum_mod(auxiliary_polys_commitment.polynomials[ctl_zs_start:], 1))
+    flat = [int(v) for v in g.to_numpy(torch.cat(parts))]
+    m = at_z[0].shape[0] + at_next[0].shape[0]
+    values = list(zip(flat[:m], flat[m:2 * m]))
+    ctl_zs_first = flat[2 * m:] if ctl_zs_start is not None else None
     num_trace = trace_commitment.polynomials.shape[0]
     num_shifted = shifted.shape[0]
     at_z, at_next = values[:len(values) - num_shifted], values[len(values) - num_shifted:]
@@ -241,6 +275,6 @@ def opening_set(zeta, g_root, trace_commitment, quotient_commitment,
         next_values=at_next[:num_trace],
         auxiliary_polys=aux,
         auxiliary_polys_next=aux_next,
-        ctl_zs_first=None,
+        ctl_zs_first=ctl_zs_first,
         quotient_polys=at_z[num_shifted:],
     )

@@ -11,7 +11,9 @@ range: the proof then carries its degree bits as a target, the selectors,
 Z_H and the subgroup generator are computed from it in the circuit, and
 FRI runs `verify_fri_proof_with_multiple_degree_bits` (such proofs are made
 with `verifier_circuit_fri_params`, so that their transcript has the
-circuit's shape). Cross-table lookups are not ported yet.
+circuit's shape). A table of a multi-table proof is verified against
+challenges drawn on a shared transcript, with its CTL checks (`ctl_vars`)
+and its CTL Zs opened at 1 (`cross_table_lookup.verify_multi_table_circuit`).
 
     pt = add_virtual_stark_proof_with_pis(builder, stark, config, degree_bits)
     verify_stark_proof_circuit(builder, stark, pt, config, degree_bits)
@@ -47,8 +49,6 @@ from plonky2_torch.starky.constraint_consumer import ConstraintConsumer
 from plonky2_torch.starky.evaluation_frame import StarkFrame
 from plonky2_torch.starky.lookup import LookupCheckVars, eval_lookups
 
-_NO_CTL = "cross-table lookups are not ported yet"
-
 
 @dataclass
 class StarkOpeningSetTarget:
@@ -60,13 +60,19 @@ class StarkOpeningSetTarget:
     quotient_polys: list | None
 
     def to_fri_openings(self, builder=None) -> FriOpenings:
-        if self.ctl_zs_first is not None:
-            raise NotImplementedError(_NO_CTL)
-        return FriOpenings(batches=[
+        """The batches at ζ and g·ζ, and the CTL Zs at 1 lifted to the
+        extension (the builder lifts them)."""
+        batches = [
             FriOpeningBatch(values=(list(self.local_values) + list(self.auxiliary_polys or [])
                                     + list(self.quotient_polys or []))),
             FriOpeningBatch(values=list(self.next_values)
-                            + list(self.auxiliary_polys_next or []))])
+                            + list(self.auxiliary_polys_next or []))]
+        if self.ctl_zs_first is not None:
+            if builder is None:
+                raise ValueError("the CTL batch needs the builder to lift its targets")
+            batches.append(FriOpeningBatch(
+                values=[builder.convert_to_ext(t) for t in self.ctl_zs_first]))
+        return FriOpenings(batches=batches)
 
 
 @dataclass
@@ -94,11 +100,6 @@ class StarkProofChallengesTarget:
     lookup_challenge_set: list | None = None  # [(beta, gamma)] targets
 
 
-def _refuse_ctl(*counts) -> None:
-    if any(counts):
-        raise NotImplementedError(_NO_CTL)
-
-
 # -- the proof's targets and their witness ----------------------------------------
 
 def add_virtual_stark_proof_with_pis(builder, stark, config, degree_bits: int,
@@ -115,12 +116,13 @@ def add_virtual_stark_proof(builder, stark, config, degree_bits: int,
                             with_degree_target: bool = False, num_ctl_helper_zs: int = 0,
                             num_ctl_zs: int = 0) -> StarkProofTarget:
     """The targets of a STARK proof of 2^degree_bits rows, in the
-    reference's allocation order (recursive_verifier.rs:238-280)."""
-    _refuse_ctl(num_ctl_helper_zs, num_ctl_zs)
+    reference's allocation order (recursive_verifier.rs:238-280).
+    num_ctl_helper_zs (CTL helper and Z columns) and num_ctl_zs (CTL Zs)
+    size the CTL part of the auxiliary oracle and the openings at 1."""
     fri_params = config.fri_params(degree_bits)
     cap_height = fri_params.config.cap_height
     num_quotient = stark.num_quotient_polys(config)
-    num_aux = stark.num_lookup_helper_columns(config)
+    num_aux = stark.num_lookup_helper_columns(config) + num_ctl_helper_zs
     num_leaves_per_oracle = [stark.COLUMNS]
     if num_aux > 0:
         num_leaves_per_oracle.append(num_aux)
@@ -136,7 +138,7 @@ def add_virtual_stark_proof(builder, stark, config, degree_bits: int,
             auxiliary_polys=builder.add_virtual_extension_targets(num_aux) if num_aux else None,
             auxiliary_polys_next=(builder.add_virtual_extension_targets(num_aux)
                                   if num_aux else None),
-            ctl_zs_first=None,
+            ctl_zs_first=builder.add_virtual_targets(num_ctl_zs) if num_ctl_zs else None,
             quotient_polys=builder.add_virtual_extension_targets(num_quotient)),
         opening_proof=add_virtual_fri_proof(builder, num_leaves_per_oracle, fri_params),
         degree_bits=builder.add_virtual_target() if with_degree_target else None)
@@ -161,10 +163,13 @@ def set_stark_proof_with_pis_target(pw, proof_t: StarkProofWithPublicInputsTarge
     for targets, values in ((ot.local_values, o.local_values),
                             (ot.next_values, o.next_values),
                             (ot.auxiliary_polys or [], o.auxiliary_polys or []),
-                            (ot.auxiliary_polys_next or [], o.auxiliary_polys_next or []),
-                            (ot.quotient_polys or [], o.quotient_polys or [])):
+                            (ot.auxiliary_polys_next or [], o.auxiliary_polys_next or [])):
         for t, v in zip(targets, values):
             pw.set_extension_target(t, v)
+    if ot.ctl_zs_first is not None:
+        pw.set_targets(ot.ctl_zs_first, o.ctl_zs_first)
+    for t, v in zip(ot.quotient_polys or [], o.quotient_polys or []):
+        pw.set_extension_target(t, v)
     set_fri_proof_target(pw, proof_t.proof.opening_proof, proof.opening_proof)
 
 
@@ -233,9 +238,8 @@ def compute_eval_vanishing_poly_circuit(builder, stark, openings_t, public_input
                                         ctl_vars=None) -> list:
     """The α-combined constraints at ζ in the circuit (reference
     vanishing_poly.rs:194+), one per α; with degree_bits_target the
-    selectors and Z_H take the degree the proof carries."""
-    if ctl_vars is not None:
-        raise NotImplementedError(_NO_CTL)
+    selectors and Z_H take the degree the proof carries; ctl_vars: the
+    table's CtlCheckVars on these targets."""
     ops = CircuitOps(builder)
     one = builder.one_extension()
     if degree_bits_target is None:
@@ -271,14 +275,23 @@ def compute_eval_vanishing_poly_circuit(builder, stark, openings_t, public_input
             (openings_t.auxiliary_polys_next or [])[:num_lookup_columns],
             [builder.convert_to_ext(c) for c in lookup_challenges_t])
         eval_lookups(ops, stark, frame, lookup_vars, consumer)
+    if ctl_vars is not None:
+        from plonky2_torch.starky.cross_table_lookup import eval_cross_table_lookup_checks
+
+        eval_cross_table_lookup_checks(ops, frame, ctl_vars, consumer, stark.constraint_degree())
     return consumer.accumulators()
 
 
 def _get_challenges_target(builder, stark, proof_with_pis_t, config, degree_bits: int,
                            degree_bits_target=None, challenger=None,
-                           observe_instance: bool = True) -> StarkProofChallengesTarget:
+                           observe_instance: bool = True, ctl_challenge_set=None,
+                           ctl_zs_data=None,
+                           num_ctl_helpers_per_z=None) -> StarkProofChallengesTarget:
     """The proof's transcript replayed by a `RecursiveChallenger`, in the
-    host's `get_challenges` order (the lookup challenge sets included)."""
+    host's `get_challenges` order (the lookup challenge sets included); a
+    table of a multi-table proof replays on the shared challenger with the
+    CTL challenge set (a GrandProductChallengeSet of targets) and its
+    CtlZData shapes, as the host's does."""
     proof_t = proof_with_pis_t.proof
     nc = config.num_challenges
     challenger = challenger or RecursiveChallenger(builder)
@@ -287,10 +300,13 @@ def _get_challenges_target(builder, stark, proof_with_pis_t, config, degree_bits
         _observe_stark_config(builder, challenger, config)
         challenger.observe_cap(proof_t.trace_cap)
     lookup_challenge_set = lookup_betas = None
+    if ctl_challenge_set is not None:
+        lookup_challenge_set = [(ch.beta, ch.gamma) for ch in ctl_challenge_set.challenges]
     num_lookup_columns = stark.num_lookup_helper_columns(config)
     if stark.uses_lookups():
-        lookup_challenge_set = [(challenger.get_challenge(), challenger.get_challenge())
-                                for _ in range(nc)]
+        if lookup_challenge_set is None:
+            lookup_challenge_set = [(challenger.get_challenge(), challenger.get_challenge())
+                                    for _ in range(nc)]
         lookup_betas = [beta for beta, _ in lookup_challenge_set]
     if proof_t.auxiliary_polys_cap is not None:
         challenger.observe_cap(proof_t.auxiliary_polys_cap)
@@ -301,10 +317,18 @@ def _get_challenges_target(builder, stark, proof_with_pis_t, config, degree_bits
                                          len(proof_t.openings.auxiliary_polys or []),
                                          pow_degree)
     zeta_prime = challenger.get_extension_challenge()
+    dummy_ctl_vars = None
+    if ctl_zs_data is not None:
+        from plonky2_torch.starky.cross_table_lookup import CtlCheckVars
+
+        dummy_ctl_vars = CtlCheckVars.from_proof(
+            ctl_zs_data, poly_evals.auxiliary_polys, poly_evals.auxiliary_polys_next,
+            num_lookup_columns, num_ctl_helpers_per_z)
     constraint_evals = compute_eval_vanishing_poly_circuit(
         builder, stark, poly_evals, proof_with_pis_t.public_inputs, stark_alphas_prime,
         zeta_prime, degree_bits, lookup_challenges_t=lookup_betas,
-        num_lookup_columns=num_lookup_columns, degree_bits_target=degree_bits_target)
+        num_lookup_columns=num_lookup_columns, degree_bits_target=degree_bits_target,
+        ctl_vars=dummy_ctl_vars)
     challenger.observe_extension_elements(constraint_evals)
 
     stark_alphas = challenger.get_n_challenges(nc)
@@ -331,13 +355,16 @@ def _get_challenges_target(builder, stark, proof_with_pis_t, config, degree_bits
         lookup_challenge_set=lookup_challenge_set)
 
 
-def _fri_instance_target(builder, stark, zeta_t, g, config) -> FriInstanceInfo:
-    """The FRI instance at ζ and g·ζ; g is the subgroup generator, a
-    constant, or an ExtensionTarget in the variable-degree mode."""
+def _fri_instance_target(builder, stark, zeta_t, g, config, num_ctl_helpers: int = 0,
+                         num_ctl_zs: int = 0) -> FriInstanceInfo:
+    """The FRI instance at ζ and g·ζ, and, with CTLs, the CTL Zs at 1; g is
+    the subgroup generator, a constant, or an ExtensionTarget in the
+    variable-degree mode."""
     oracles = [FriOracleInfo(stark.COLUMNS, False)]
     trace_info = FriPolynomialInfo.from_range(0, range(stark.COLUMNS))
     aux_info = quotient_info = []
-    num_aux = stark.num_lookup_helper_columns(config)
+    num_lookup = stark.num_lookup_helper_columns(config)
+    num_aux = num_lookup + num_ctl_helpers + num_ctl_zs
     if num_aux > 0:
         aux_info = FriPolynomialInfo.from_range(len(oracles), range(num_aux))
         oracles.append(FriOracleInfo(num_aux, False))
@@ -349,7 +376,12 @@ def _fri_instance_target(builder, stark, zeta_t, g, config) -> FriInstanceInfo:
     zeta_next = (builder.mul_const_extension(g, zeta_t) if isinstance(g, int)
                  else builder.mul_extension(g, zeta_t))
     zeta_next_batch = FriBatchInfo(point=zeta_next, polynomials=trace_info + aux_info)
-    return FriInstanceInfo(oracles=oracles, batches=[zeta_batch, zeta_next_batch])
+    batches = [zeta_batch, zeta_next_batch]
+    if num_ctl_zs > 0:
+        ctl_zs_info = FriPolynomialInfo.from_range(
+            1, range(num_lookup + num_ctl_helpers, num_aux))
+        batches.append(FriBatchInfo(point=builder.one_extension(), polynomials=ctl_zs_info))
+    return FriInstanceInfo(oracles=oracles, batches=batches)
 
 
 # -- verification ----------------------------------------------------------------------
@@ -382,9 +414,8 @@ def verify_stark_proof_with_challenges_circuit(builder, stark, proof_t, public_i
                                                min_degree_bits_to_support: int | None = None
                                                ) -> None:
     """The checks against challenge targets already drawn: the quotient
-    at ζ, then FRI (reference verify_stark_proof_with_challenges_circuit)."""
-    if ctl_vars is not None:
-        raise NotImplementedError(_NO_CTL)
+    at ζ (with the table's CTL checks, ctl_vars), then FRI (reference
+    verify_stark_proof_with_challenges_circuit)."""
     dynamic = min_degree_bits_to_support is not None
     degree_bits_t = proof_t.degree_bits if dynamic else None
     if dynamic:
@@ -398,7 +429,7 @@ def verify_stark_proof_with_challenges_circuit(builder, stark, proof_t, public_i
         builder, stark, proof_t.openings, public_inputs_t, challenges.stark_alphas, zeta,
         degree_bits, lookup_challenges_t=lookup_betas,
         num_lookup_columns=stark.num_lookup_helper_columns(inner_config),
-        degree_bits_target=degree_bits_t)
+        degree_bits_target=degree_bits_t, ctl_vars=ctl_vars)
 
     if dynamic:
         degree, _, zeta_pow_deg, z_h_zeta, g = _variable_degree_data(builder, degree_bits,
@@ -421,7 +452,10 @@ def verify_stark_proof_with_challenges_circuit(builder, stark, proof_t, public_i
         merkle_caps.append(proof_t.auxiliary_polys_cap)
     if proof_t.quotient_polys_cap is not None:
         merkle_caps.append(proof_t.quotient_polys_cap)
-    fri_instance = _fri_instance_target(builder, stark, zeta, g, inner_config)
+    num_ctl_helpers = sum(len(v.helper_columns) for v in ctl_vars) if ctl_vars else 0
+    num_ctl_zs = len(ctl_vars) if ctl_vars else 0
+    fri_instance = _fri_instance_target(builder, stark, zeta, g, inner_config,
+                                        num_ctl_helpers, num_ctl_zs)
     openings = proof_t.openings.to_fri_openings(builder)
     params = inner_config.fri_params(degree_bits)
     if dynamic:

@@ -11,14 +11,17 @@ from plonky2_torch.starky.lookup import LookupCheckVars, eval_lookups
 from plonky2_torch.starky.proof import StarkOpeningSet
 
 
-def eval_vanishing_poly(ops, stark, frame, consumer, lookup_vars=None,
-                        ctl_vars=None) -> None:
-    """The table's constraints, then its logUp lookups when present."""
-    if ctl_vars is not None:
-        raise NotImplementedError("cross-table lookups are not ported yet")
+def eval_vanishing_poly(ops, stark, frame, consumer, lookup_vars=None, ctl_vars=None) -> None:
+    """The table's constraints, then its logUp lookups and its CTL checks
+    when present, the CTL helpers chunked by the table's own degree
+    (reference vanishing.py:13-30)."""
     stark.eval(ops, frame, consumer)
     if lookup_vars is not None:
         eval_lookups(ops, stark, frame, lookup_vars, consumer)
+    if ctl_vars is not None:
+        from plonky2_torch.starky.cross_table_lookup import eval_cross_table_lookup_checks
+
+        eval_cross_table_lookup_checks(ops, frame, ctl_vars, consumer, stark.constraint_degree())
 
 
 def eval_l_0_and_l_last(log_n: int, x: tuple) -> tuple[tuple, tuple]:
@@ -66,10 +69,10 @@ def get_dummy_polys(challenger, num_trace_polys: int, num_aux_polys: int,
 
 def compute_eval_vanishing_poly(stark, opening_set, public_inputs, alphas, zeta,
                                 degree_bits: int, lookup_challenges=None,
-                                num_lookup_columns: int = 0) -> list[tuple]:
+                                num_lookup_columns: int = 0, ctl_vars=None) -> list[tuple]:
     """The α-combined constraints at the extension point ζ on the host, one
     per alpha (reference vanishing_poly.rs:109-172): the constraint binding
-    and the verifier."""
+    and the verifier. ctl_vars: the table's CtlCheckVars on these openings."""
     ops = HostExtOps()
     l_0, l_last = eval_l_0_and_l_last(degree_bits, zeta)
     last = fs.inverse(fs.primitive_root_of_unity(degree_bits))
@@ -88,5 +91,5 @@ def compute_eval_vanishing_poly(stark, opening_set, public_inputs, alphas, zeta,
             (opening_set.auxiliary_polys_next or [])[:num_lookup_columns],
             [fs.ext_from_base(c, 2) for c in lookup_challenges],
         )
-    eval_vanishing_poly(ops, stark, frame, consumer, lookup_vars)
+    eval_vanishing_poly(ops, stark, frame, consumer, lookup_vars, ctl_vars)
     return consumer.accumulators()

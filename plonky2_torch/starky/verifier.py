@@ -10,15 +10,18 @@ from plonky2_torch.starky.proof import StarkProofWithPublicInputs
 from plonky2_torch.starky.vanishing import compute_eval_vanishing_poly
 
 
-def validate_proof_shape(stark, proof, public_inputs, config) -> None:
+def validate_proof_shape(stark, proof, public_inputs, config, num_ctl_aux: int = 0,
+                         num_ctl_zs: int = 0) -> None:
     if len(public_inputs) != stark.PUBLIC_INPUTS:
         raise ValueError("Wrong number of public inputs")
     o = proof.openings
     if len(o.local_values) != stark.COLUMNS or len(o.next_values) != stark.COLUMNS:
         raise ValueError("Wrong number of trace openings")
-    num_aux = stark.num_lookup_helper_columns(config)
+    num_aux = stark.num_lookup_helper_columns(config) + num_ctl_aux
     if len(o.auxiliary_polys or []) != num_aux or len(o.auxiliary_polys_next or []) != num_aux:
         raise ValueError("Wrong number of auxiliary openings")
+    if len(o.ctl_zs_first or []) != num_ctl_zs:
+        raise ValueError("Wrong number of CTL Z openings")
     if len(o.quotient_polys or []) != stark.num_quotient_polys(config):
         raise ValueError("Wrong number of quotient openings")
     cap_len = 1 << config.fri_config.cap_height
@@ -41,9 +44,12 @@ def verify_stark_proof(stark, proof_with_pis: StarkProofWithPublicInputs, config
 
 def verify_stark_proof_with_challenges(stark, proof, challenges, public_inputs, config,
                                        ctl_vars=None) -> None:
-    if ctl_vars is not None:
-        raise NotImplementedError("cross-table lookups are not ported yet")
-    validate_proof_shape(stark, proof, public_inputs, config)
+    """ctl_vars: a table's CtlCheckVars on its openings, in a multi-table
+    proof (`cross_table_lookup.verify_multi_table`)."""
+    num_ctl_helpers = sum(len(v.helper_columns) for v in ctl_vars) if ctl_vars else 0
+    num_ctl_zs = [0] * len(ctl_vars) if ctl_vars else []
+    validate_proof_shape(stark, proof, public_inputs, config,
+                         num_ctl_helpers + len(num_ctl_zs), len(num_ctl_zs))
     degree_bits = proof.recover_degree_bits(config)
 
     lookup_challenges = None
@@ -54,6 +60,7 @@ def verify_stark_proof_with_challenges(stark, proof, challenges, public_inputs, 
         challenges.stark_zeta, degree_bits,
         lookup_challenges=lookup_challenges,
         num_lookup_columns=stark.num_lookup_helper_columns(config),
+        ctl_vars=ctl_vars,
     )
 
     # vanishing(ζ) == Z_H(ζ) · t(ζ) per challenge
@@ -79,7 +86,8 @@ def verify_stark_proof_with_challenges(stark, proof, challenges, public_inputs, 
 
     g_root = fs.primitive_root_of_unity(degree_bits)
     verify_fri_proof(
-        stark.fri_instance(challenges.stark_zeta, g_root, 0, [], config),
+        stark.fri_instance(challenges.stark_zeta, g_root, num_ctl_helpers, num_ctl_zs,
+                           config),
         proof.openings.to_fri_openings(),
         challenges.fri_challenges,
         merkle_caps,

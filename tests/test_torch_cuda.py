@@ -640,3 +640,47 @@ def test_variable_degree_stark_wrap_on_the_card_gives_the_reference_bytes(dev):
         rng.seed(None)
     assert proof_to_bytes(proof) == read("stark_wrap_var10_4_7.proof.bin")
     data.verify(proof)
+
+
+def test_multi_table_on_the_card_gives_the_reference_bytes(dev):
+    """The CPU tests' three CTL-linked tables (2^8, 2^7, 2^6 rows, one
+    query, 8 PoW bits) proved on the card by prove_multi_table, and their
+    verifier circuit built and proved there: the reference's bytes."""
+    import dataclasses
+    import os
+
+    from plonky2_torch.examples import multi_table as mt
+    from plonky2_torch.plonk.circuit_serialization import verifier_data_to_bytes
+    from plonky2_torch.plonk.config import CircuitConfig
+    from plonky2_torch.plonk.serialization import proof_to_bytes
+    from plonky2_torch.starky.config import StarkConfig
+    from plonky2_torch.starky.cross_table_lookup import prove_multi_table, verify_multi_table
+    from plonky2_torch.starky.serialization import stark_proof_to_bytes
+    from plonky2_torch.util import rng
+    from torch_make_data import CTL_LOG_ROWS, CTL_POW_BITS, CTL_QUERIES, DATA
+
+    base = StarkConfig.standard_fast_config()
+    config = dataclasses.replace(base, fri_config=dataclasses.replace(
+        base.fri_config, num_query_rounds=CTL_QUERIES, proof_of_work_bits=CTL_POW_BITS))
+
+    def read(name):
+        with open(os.path.join(DATA, name), "rb") as f:
+            return f.read()
+
+    starks, ctls = mt.system()
+    traces, pis = mt.generate_traces(CTL_LOG_ROWS)
+    proofs, _ = prove_multi_table(starks, config, traces, pis, ctls, device=dev)
+    for i, proof in enumerate(proofs):
+        assert stark_proof_to_bytes(proof, config) == read(f"ctl_table{i}.stark_proof.bin")
+    verify_multi_table(starks, config, proofs, ctls)
+    data, pts = mt.wrap_circuit(starks, config, list(CTL_LOG_ROWS), ctls,
+                                CircuitConfig.standard_recursion_config(), device=dev)
+    assert verifier_data_to_bytes(data.verifier_only, data.common) == read(
+        "ctl_wrap.verifier.bin")
+    rng.seed(2026)
+    try:
+        proof = data.prove(mt.wrap_inputs(pts, proofs), device=dev)
+    finally:
+        rng.seed(None)
+    assert proof_to_bytes(proof) == read("ctl_wrap.proof.bin")
+    data.verify(proof)

@@ -247,8 +247,15 @@ def test_recursive_verifier_refuses_what_is_not_ported(no_commitment):
 
     stark = FibonacciStark(1 << 5)
     b = CircuitBuilder(OUTER)
-    with pytest.raises(NotImplementedError):
-        tsrv.add_virtual_stark_proof_with_pis(b, stark, SMALL, 5, num_ctl_zs=1)
+    # a table of a multi-table proof: its CTL helper and Z column in the
+    # auxiliary oracle, its Z opened at 1, which only a builder lifts
+    ctl_pt = tsrv.add_virtual_stark_proof_with_pis(b, stark, SMALL, 5, num_ctl_helper_zs=1,
+                                                   num_ctl_zs=1)
+    assert len(ctl_pt.proof.openings.auxiliary_polys) == 1
+    assert len(ctl_pt.proof.openings.ctl_zs_first) == 1
+    with pytest.raises(ValueError):
+        ctl_pt.proof.openings.to_fri_openings()
+    assert len(ctl_pt.proof.openings.to_fri_openings(b).batches) == 3
     pt = tsrv.add_virtual_stark_proof_with_pis(b, stark, SMALL, 5)
     with pytest.raises(ValueError):  # a variable degree needs the degree target
         tsrv.verify_stark_proof_circuit(b, stark, pt, SMALL, 5, min_degree_bits_to_support=4)

@@ -373,6 +373,16 @@ def test_entry_point_refuses_what_it_does_not_do():
     with open(os.path.join(ROOT, "plonky2_torch", "data", "stark_var10_5.stark_proof.bin"),
               "rb") as f:
         assert stark_proof_to_bytes(proof, small) == f.read()
-    with pytest.raises(NotImplementedError):
-        tprover.prove_with_commitment(stark, CONFIG, tg.tensor(trace, "cpu"), None,
-                                      Challenger(), pis, ctl_data=object())
+    # cross-table lookups whose column groups the CTL data would chunk
+    # otherwise than a table's own checks: refused before any work
+    from plonky2_torch.examples import multi_table as mt
+    from plonky2_torch.starky.cross_table_lookup import prove_multi_table
+
+    class Degree2(mt.CpuTable):
+        def constraint_degree(self):
+            return 2
+
+    starks, ctls = mt.system()
+    with pytest.raises(ValueError, match="constraint degree 2"):
+        prove_multi_table([Degree2()] + starks[1:], CONFIG, [None] * 3, [[1], [], []], ctls,
+                          device="cpu")

@@ -99,6 +99,7 @@ files equal to what this makes.
     JAX_PLATFORMS=cpu python tests/torch_make_data.py --lookups
     JAX_PLATFORMS=cpu python tests/torch_make_data.py --batch-fri
     JAX_PLATFORMS=cpu python tests/torch_make_data.py --stark-recursion
+    JAX_PLATFORMS=cpu python tests/torch_make_data.py --ctl
 
 `--batch-fri` (~8 min, most of it compiling) writes
   plonky2_torch/data/batch_merkle.npz
@@ -121,7 +122,13 @@ stark_var10_*), so that `tests/test_torch_batch_fri.py` and
 `tests/test_torch_stark_recursion.py` hold the port to the reference
 without running it. `tests/reference_prove_batch_fri.py` and
 `tests/reference_prove_stark_recursion.py` run the same at chip_smoke's
-sizes.
+sizes. `--ctl` (~15 min) writes the cross-table lookups of
+`plonky2_torch/examples/multi_table.py` at CTL_LOG_ROWS (`write_ctl_data`:
+plonky2_torch/data/ctl_table{0,1,2}.stark_proof.bin, ctl_wrap.{verifier,
+proof}.bin, ctl.npz, and ctl4_table{0,1,2,3}.stark_proof.bin with a fourth
+table outside every CTL) for `tests/test_torch_ctl.py` and
+`tests/test_torch_ctl_prove.py`; `tests/reference_prove_ctl.py` runs it at
+chip_smoke's sizes.
 """
 
 import lzma
@@ -583,6 +590,45 @@ def write_stark_recursion_data() -> None:
         write(f"stark_wrap_var10_4_{lg}.proof.bin", pb)
 
 
+CTL_LOG_ROWS = (8, 7, 6)  # the CPU tests' sizes of examples/multi_table.py's tables
+CTL_QUERIES, CTL_POW_BITS = 1, 8  # their config: standard_fast_config otherwise
+CTL_STANDALONE_LOG_ROWS = 5  # a fourth table outside every CTL, beside the three
+
+
+def write_ctl_data() -> None:
+    """The reference's multi-table proofs of examples/multi_table.py's
+    system at CTL_LOG_ROWS under reference_prove_ctl.stark_config(CTL_QUERIES,
+    CTL_POW_BITS), its verdicts on table 1 shifted by 1 (new Stark objects,
+    and the first prove's), and the circuit that verifies the three proofs
+    (`verify_multi_table_circuit` under standard_recursion_config()) with
+    its proof (rng seed 2026); then the four proofs of the three tables
+    beside a Fibonacci table of 2^CTL_STANDALONE_LOG_ROWS rows outside every
+    CTL (ctl4_table{0,1,2,3}.stark_proof.bin)."""
+    import reference_prove_ctl as rpc
+
+    os.makedirs(DATA, exist_ok=True)
+    out = rpc.run(CTL_LOG_ROWS, rpc.stark_config(CTL_QUERIES, CTL_POW_BITS))
+
+    def write(name, blob):
+        with open(os.path.join(DATA, name), "wb") as f:
+            f.write(blob)
+        print(f"wrote {name}: {len(blob)} bytes", flush=True)
+
+    for i, blob in enumerate(out["proofs"]):
+        write(f"ctl_table{i}.stark_proof.bin", blob)
+    write("ctl_wrap.verifier.bin", out["verifier"])
+    write("ctl_wrap.proof.bin", out["proof"])
+    np.savez(os.path.join(DATA, "ctl.npz"),
+             challenges=np.asarray(out["challenges"], dtype=np.uint64),
+             **{k: np.asarray(out[k]) for k in ("rejected", "rejected_same_objects",
+                                                "reproved_same_objects")})
+    print("wrote ctl.npz", flush=True)
+    config = rpc.stark_config(CTL_QUERIES, CTL_POW_BITS)
+    blobs = rpc.run_with_standalone(CTL_LOG_ROWS, CTL_STANDALONE_LOG_ROWS, config)
+    for i, blob in enumerate(blobs):
+        write(f"ctl4_table{i}.stark_proof.bin", blob)
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, ROOT)
@@ -611,6 +657,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--stark-recursion"]:
         write_stark_recursion_data()
+        return 0
+    if sys.argv[1:] == ["--ctl"]:
+        write_ctl_data()
         return 0
 
     prover_bytes, _, witness, public_inputs, pi_hash, pw = factorial_data()
@@ -644,6 +693,7 @@ def main() -> int:
     write_lookup_data()
     write_batch_fri_data()
     write_stark_recursion_data()
+    write_ctl_data()
     return 0
 
 
