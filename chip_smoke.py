@@ -140,7 +140,21 @@ whole verify_multi_table, and the circuit verifying the three proofs
 built, proved and verified, every hash the reference's; then K3's iFFT
 and LDEs and K4's trees at the new widths, K2's FRI re-LDE of table 0 and
 K5's device grind against their plain versions; `--phases ctl`);
-runs `commit_and_open`
+runs the Keccak Starky phase (`stark_keccak_phase`: FibonacciStark and
+LookupTestStark at 2^STARKY_LOG_ROWS rows under `KeccakHasher`, the LDEs
+on the card and the trees and grind on the host, a first call,
+STARK_KECCAK_PROVES timed proves synchronised at their phases, the host
+trees' seconds apart, each proof's field-by-field walk digest the
+reference's, accepted by the port's Keccak verifier and refused by a
+Poseidon one; then every K2/K3 call of the path against its plain
+version) and the gadgets phase (`gadgets_phase`: `examples/gadgets.py`'s
+circuit over the builder's whole gadget surface built and proved on the
+card to the reference's bytes, verified by the port's Python verifier and
+its native binary; `--phases stark_keccak gadgets`); the port's native
+verifier (`native.verifier_binary()`, built with g++ after the kernels)
+also checks the headline, the Keccak wrap, the CTL circuit's proof and the
+2^20 FibonacciStark proof, each time printed beside the Python
+verifier's; runs `commit_and_open`
 at the bench_recursion middle-circuit shapes (degree 2^13, oracles of
 85/135/20/16 polynomials; its FRI proof on the fused path) with the counts
 set to 0 just before and read just after each of its runs and its pinned
@@ -173,7 +187,8 @@ chain's inner build's and prove's and middle build's and prove's, the zk
 chain's inner build's and prove's and middle prove's, the two lookup
 inners' builds' and proves', the batch FRI prove's, the Fibonacci 2^20
 wrap's and the variable-degree wrap's of 2^17 rows, the multi-table
-prove's and its circuit's build's and prove's, and the headline's,
+prove's and its circuit's build's and prove's, the two 2^20 Keccak
+Starky proves' and the gadgets prove's, and the headline's,
 prove_many's and the new phases' numbers), the last line the ok JSON
 object. Every timing line names the
 card and its power limit. Any failed check exits non-zero and prints no
@@ -382,6 +397,17 @@ CTL_PROOF_SHA256S = (
 CTL_WRAP_VERIFIER_SHA256 = "59c3ca9efa498fc9c23a6fa4d08c0d76e81fd9c4835a9ed8cd930fcc1ca5d756"
 CTL_WRAP_PROOF_SHA256 = "be22072bad395c882249063ddb05bb5a5ca50d833f988664ec3cb2b685e00ae6"
 CTL_PROVES = 1
+# the Keccak-hashed Starky proves (FibonacciStark and LookupTestStark at
+# 2^STARKY_LOG_ROWS rows, standard_fast_config, KeccakHasher): the digest of
+# each proof's field-by-field walk (`proof_walk_digest`; the reference
+# writes no bytes for such a proof), tests/reference_prove_stark_keccak.py
+STARK_KECCAK_FIB20_DIGEST = "f67ae6d2cbdd78ab56e7a83a27aa6be00690d60ec870b7c0735a639bc57adbb9"
+STARK_KECCAK_LOOKUP20_DIGEST = "2c75b1344ed23bd4482ba8293d65405a00fdd288f2b67575e942c6cde81ce4a2"
+STARK_KECCAK_PROVES = 1
+# the circuit of plonky2_torch/examples/gadgets.py at standard_recursion_config,
+# built and proved (rng seed 2026) by the reference: tests/reference_prove_gadgets.py
+GADGETS_VERIFIER_SHA256 = "4f7785bb527d424884e1367411446e6fee6e659d9c70387a8f3ec67cb8fb938a"
+GADGETS_PROOF_SHA256 = "83b9fa1378839631d0fa70e4d7d138bfd046d9554633c8453be44464ba5d5455"
 
 
 def same_generators(a: list, b: list) -> bool:
@@ -773,6 +799,11 @@ def starky_phase(torch, dev, card, failures, root) -> dict:
         first_s = time.perf_counter() - t0
         pinned(proof, "first call")
         accepted, verify_s = verified(stark, proof, f"{name} 2^{STARKY_LOG_ROWS}")
+        if name == "fibonacci":
+            out["native"] = native_verify(card, failures,
+                                          f"FibonacciStark 2^{STARKY_LOG_ROWS} proof",
+                                          ["--stark=fibonacci"],
+                                          [stark_proof_to_bytes(proof, config)], verify_s)
         walls = []
         for _ in range(STARKY_PROVES):
             ops.reset_launches()
@@ -1211,6 +1242,9 @@ def keccak_phase(torch, dev, card, failures, middle, headline_bytes) -> dict:
     t0 = time.perf_counter()
     data.verify(proof)
     verify_s = time.perf_counter() - t0
+    native = native_verify(card, failures, "Keccak wrap's proof", ["--keccak"],
+                           [verifier_data_to_bytes(data.verifier_only, data.common),
+                            proof_to_bytes(proof)], verify_s)
     t0 = time.perf_counter()
     compressed = compressed_proof_to_bytes(compress(proof, data.verifier_only, data.common),
                                            data.common)
@@ -1250,7 +1284,7 @@ def keccak_phase(torch, dev, card, failures, middle, headline_bytes) -> dict:
                split=split, sync_wall_s=sync_wall, sync_host_trees=sync_trees,
                verify_s=verify_s, compressed_bytes=len(compressed),
                proof_bytes=len(proof_to_bytes(proof)), decompress_s=decompress_s,
-               verify_compressed_s=verify_compressed_s,
+               verify_compressed_s=verify_compressed_s, native=native,
                phase_s=time.perf_counter() - t_phase)
     print(f"keccak phase ({card}): {out['phase_s']:.1f} s")
     return out
@@ -1443,6 +1477,70 @@ def shape_checks(torch, failures, shapes) -> dict:
         if mism:
             failures.append(f"{kernel.label} disagrees with its plain version at {key}")
     return out
+
+
+def proof_walk_digest(x) -> str:
+    """The sha256 of a proof object's field-by-field walk (a copy of
+    tests/torch_proof_walk.py's `walk`): a dataclass's fields in order under
+    their names, byte digests as bytes, ints as 8 little-endian bytes,
+    lists with their lengths, each with a type tag."""
+    import dataclasses
+
+    h = hashlib.sha256()
+
+    def walk(v):
+        if v is None:
+            h.update(b"N")
+        elif isinstance(v, (bytes, bytearray)):
+            h.update(b"B" + len(v).to_bytes(4, "little") + bytes(v))
+        elif dataclasses.is_dataclass(v):
+            h.update(b"D")
+            for f in dataclasses.fields(v):
+                h.update(b"F" + len(f.name).to_bytes(4, "little") + f.name.encode())
+                walk(getattr(v, f.name))
+        elif isinstance(v, (list, tuple)):
+            h.update(b"L" + len(v).to_bytes(4, "little"))
+            for item in v:
+                walk(item)
+        elif hasattr(v, "tolist"):
+            walk(v.tolist())
+        elif isinstance(v, int):
+            h.update(b"I" + (int(v) % (1 << 64)).to_bytes(8, "little"))
+        else:
+            raise TypeError(f"no walk of {type(v).__name__}")
+
+    walk(x)
+    return h.hexdigest()
+
+
+def native_verify(card, failures, what, flags, blobs, python_s) -> dict:
+    """The port's `plonky2_verify` (plonky2_torch/native/src/verifier.cc) on
+    `blobs` (verifier data and proof, or one STARK proof) under `flags`,
+    timed as one process, its start included, beside the Python verifier's
+    `python_s` on the same proof. Both are host times."""
+    import tempfile
+
+    from plonky2_torch import native
+
+    binary = native.verifier_binary()
+    with tempfile.TemporaryDirectory(dir=native.BUILD_ROOT) as d:
+        paths = []
+        for i, blob in enumerate(blobs):
+            paths.append(os.path.join(d, f"{i}.bin"))
+            with open(paths[-1], "wb") as f:
+                f.write(blob)
+        t0 = time.perf_counter()
+        run = subprocess.run([binary, *flags, *paths], capture_output=True, text=True,
+                             timeout=600)
+        native_s = time.perf_counter() - t0
+    ok = run.returncode == 0 and run.stdout.strip() == "OK"
+    if not ok:
+        failures.append(f"the port's native verifier refuses the {what}: rc {run.returncode} "
+                        f"{run.stderr.strip()}")
+    print(f"native verifier on the {what} ({' '.join(flags) or 'Poseidon'}; host of {card}): "
+          f"{native_s:.4f} s, accepted: {ok}; the Python verifier on the same proof "
+          f"{python_s:.4f} s")
+    return dict(native_s=native_s, python_s=python_s, accepted=ok)
 
 
 def sizes_phase(torch, dev, card, failures) -> dict:
@@ -2743,11 +2841,14 @@ def ctl_phase(torch, dev, card, failures) -> dict:
           f"reference's: {CTL_WRAP_PROOF_SHA256}); launches {wrap_launches}; public inputs "
           f"{wrap_proof.public_inputs}; the port's verifier {wrap_verify_s:.3f} s, accepted: "
           f"{wrap_ok}")
+    native = native_verify(card, failures, "multi-table circuit's proof", [],
+                           [verifier_data_to_bytes(data.verifier_only, data.common),
+                            proof_to_bytes(wrap_proof)], wrap_verify_s)
     out["circuit"] = dict(degree_bits=data.common.degree_bits,
                           build_s=build_s, build_split=build_split,
                           build_launches=build_launches, first_s=wrap_walls[0],
                           wall_s=wrap_walls[1], launches=wrap_launches, sha256=wrap_digests[-1],
-                          verifier_sha256=vd, verify_s=wrap_verify_s)
+                          verifier_sha256=vd, verify_s=wrap_verify_s, native=native)
     del data, pts, pw, wrap_proof, proofs
     torch.cuda.empty_cache()
 
@@ -2826,6 +2927,273 @@ def ctl_phase(torch, dev, card, failures) -> dict:
     return out
 
 
+def recorded_ntt_shapes(kn, calls):
+    """Wrap K2's and K3's wrappers so that each distinct call (kernel,
+    input shape, arguments) keeps a copy of its first inputs in `calls`.
+    Returns the function that restores the wrappers."""
+    import inspect
+
+    originals = {"ntt_rows": kn.ntt_rows, "ntt_four_step": kn.ntt_four_step}
+
+    def recording(name, fn):
+        sig = inspect.signature(fn)
+
+        def run(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            a = dict(bound.arguments)
+            key = (name, tuple(a["x"].shape)) + tuple(
+                (k, tuple(v.shape) if hasattr(v, "shape") else v)
+                for k, v in a.items() if k != "x")
+            if key not in calls:
+                calls[key] = {k: (v.clone() if hasattr(v, "clone") else v)
+                              for k, v in a.items()}
+            return fn(*args, **kwargs)
+        return run
+
+    for name, fn in originals.items():
+        setattr(kn, name, recording(name, fn))
+
+    def restore():
+        for name, fn in originals.items():
+            setattr(kn, name, fn)
+    return restore
+
+
+def ntt_shape_checks(torch, failures, kn, ops, calls, prefix) -> dict:
+    """Each recorded K2/K3 call against its plain version (`shape_checks`),
+    with the bound of its work: each input and output word moved once, and
+    the butterflies' and scalings' modular multiplications."""
+    shapes = []
+    for (name, shape, *_), a in sorted(calls.items(), key=lambda kv: str(kv[0])):
+        b, m = shape
+        lg_m = m.bit_length() - 1
+        rb = a.get("repeat_bits", 0)
+        lg = lg_m + rb
+        big = 1 << lg
+        fan = a["fan"]
+        scale = a["scale"]
+        n_bytes = 8 * (b * m + b * big * fan + (0 if scale is None else scale.numel()))
+        n_ops = OPS_PER_MODMUL * b * fan * (big // 2 * lg + big + (0 if scale is None else m))
+        key = (f"{prefix}_{'k3' if name == 'ntt_four_step' else 'k2'}_{b}x2^{lg_m}"
+               + ("_inv" if a["inverse"] else "") + (f"_fan{fan}" if fan > 1 else "")
+               + (f"_r{rb}" if rb else "") + ("" if scale is None else "_scaled"))
+        kernel = ops.K3 if name == "ntt_four_step" else ops.K2
+        fn, plain = ((kn.ntt_four_step, kn.ntt_four_step_plain) if kernel is ops.K3
+                     else (kn.ntt_rows, kn.ntt_rows_plain))
+        shapes.append((kernel, key, lambda fn=fn, a=a: fn(**a), lambda plain=plain, a=a: plain(**a),
+                       n_bytes, n_ops, None))
+    return shape_checks(torch, failures, shapes)
+
+
+def stark_keccak_phase(torch, dev, card, failures) -> dict:
+    """The Keccak-hashed Starky on the card: FibonacciStark and
+    LookupTestStark at 2^STARKY_LOG_ROWS rows under `KeccakHasher`
+    (standard_fast_config). The LDEs and iFFTs run on the card (K3, and K2
+    for FRI's small re-LDEs); each commitment's leaves come to the host,
+    whose trees and grind are Keccak (`hash/merkle.py` KeccakMerkleTree,
+    the host FRI path). Each a first call (its K2/K3 calls recorded), its
+    proof verified by the port's Keccak verifier and refused by a Poseidon
+    one, STARK_KECCAK_PROVES timed proves (the counts set to 0 just before
+    each and read just after, the host trees' seconds apart), one
+    synchronised for the split; every proof's walk digest the reference's.
+    Then each K2/K3 shape of the path against its plain version, timed."""
+    from plonky2_torch import ops
+    from plonky2_torch.field import goldilocks as g
+    from plonky2_torch.fri import prover as fri_prover
+    from plonky2_torch.hash import merkle
+    from plonky2_torch.hash.hashers import KeccakHasher
+    from plonky2_torch.ops import ntt as kn
+    from plonky2_torch.starky import prover as sp
+    from plonky2_torch.starky.config import StarkConfig
+    from plonky2_torch.starky.fibonacci_stark import FibonacciStark, fibonacci
+    from plonky2_torch.starky.test_starks import LookupTestStark
+    from plonky2_torch.starky.verifier import verify_stark_proof
+    from plonky2_torch.util import TimingTree
+
+    config = StarkConfig.standard_fast_config()
+    n = 1 << STARKY_LOG_ROWS
+    t_phase = time.perf_counter()
+
+    def fib_case():
+        stark = FibonacciStark(n)
+        pis = [0, 1, fibonacci(n - 1, 0, 1)]
+        return stark, stark.generate_trace(pis[0], pis[1]), pis
+
+    def lookup_case():
+        stark = LookupTestStark(n)
+        return stark, stark.generate_trace(), []
+
+    calls = {}
+    out = {}
+    for name, make, want in (("fibonacci", fib_case, STARK_KECCAK_FIB20_DIGEST),
+                             ("lookup", lookup_case, STARK_KECCAK_LOOKUP20_DIGEST)):
+        stark, trace, pis = make()
+        trace_dev = g.tensor(trace, dev)
+
+        def prove(timing=None, stark=stark, trace_dev=trace_dev, pis=pis):
+            return sp.prove(stark, config, trace_dev, pis, device=dev, timing=timing,
+                            hasher=KeccakHasher)
+
+        def pinned(proof, what, name=name, want=want):
+            digest = proof_walk_digest(proof)
+            if digest != want:
+                failures.append(f"{what}: the Keccak starky {name} 2^{STARKY_LOG_ROWS} proof's "
+                                f"walk digest is {digest}, not {want}")
+            return digest
+
+        restore = recorded_ntt_shapes(kn, calls)
+        t0 = time.perf_counter()
+        try:
+            proof = prove()
+        finally:
+            restore()
+        first_s = time.perf_counter() - t0
+        pinned(proof, "first call")
+        t0 = time.perf_counter()
+        try:
+            verify_stark_proof(stark, proof, config, hasher=KeccakHasher)
+            accepted = True
+        except ValueError as e:
+            accepted = False
+            failures.append(f"the port's Keccak verifier rejects the {name} proof: {e}")
+        verify_s = time.perf_counter() - t0
+        try:
+            verify_stark_proof(stark, proof, config)
+            failures.append(f"a Poseidon verifier accepts the Keccak {name} proof")
+            poseidon_refuses = False
+        except ValueError:
+            poseidon_refuses = True
+        # the path is bound by the host's trees, whose leaf copies wait for
+        # the LDEs anyway: each timed prove is the synchronised one
+        walls = []
+        for _ in range(STARK_KECCAK_PROVES):
+            timing = TimingTree("starky prove", sync=torch.cuda.synchronize)
+            merkle.reset_host_trees()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            proof = prove(timing)
+            walls.append(time.perf_counter() - t0)
+            launches = ops.launch_counts()
+            trees = dict(merkle.HOST_TREES)
+            split = timing.split()
+            digest = pinned(proof, "timed prove")
+            if fri_prover._LAST_PATH != "host":
+                failures.append(f"the Keccak starky {name} prove's FRI took the "
+                                f"{fri_prover._LAST_PATH} path")
+        for kernel in (ops.K2, ops.K3):
+            if launches[kernel.label] == 0:
+                failures.append(f"{kernel.label} was not launched on the Keccak starky {name} "
+                                "prove")
+        wall = statistics.median(walls)
+        print(f"keccak starky {name} prove (2^{STARKY_LOG_ROWS} rows, {stark.COLUMNS} columns; "
+              f"{card}): {wall:.4f} s median of {[round(w, 4) for w in walls]} (first call "
+              f"{first_s:.3f} s), the host trees {trees['trees']}: leaves to the host "
+              f"{trees['copy_s']:.4f} s, Keccak hashing {trees['hash_s']:.4f} s; walk digest "
+              f"{digest} (the reference's: {want}); FRI on the {fri_prover._LAST_PATH} path; "
+              f"launches {launches}; the port's Keccak verifier {verify_s:.3f} s, accepted: "
+              f"{accepted}; a Poseidon verifier refuses it: {poseidon_refuses}")
+        print(f"keccak starky {name} prove phases ({card}), s, the last timed prove, the device "
+              f"synchronised at each phase's start and end: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f"; outside the phases {walls[-1] - sum(split.values()):.4f}")
+        out[name] = dict(wall_s=wall, walls=walls, first_s=first_s, split=split,
+                         launches=launches, host_trees=trees, verify_s=verify_s,
+                         poseidon_refuses=poseidon_refuses, digest=digest)
+        del trace_dev
+    print(f"keccak starky: {len(calls)} distinct K2/K3 calls on the path")
+    out["shapes"] = ntt_shape_checks(torch, failures, kn, ops, calls, "stark_keccak")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"stark_keccak phase ({card}): {out['phase_s']:.1f} s")
+    return out
+
+
+def gadgets_phase(torch, dev, card, failures) -> dict:
+    """One circuit over the builder's whole gadget surface
+    (`examples/gadgets.py`: boolean logic, the extension algebra,
+    polynomial evaluation, Frobenius, random access over verifier data,
+    base-B splits, `split_low_high` beside the other witness families) at
+    the full 135-wire standard_recursion_config: built on the card (its
+    verifier bytes the reference's), proved with the fused prove (rng seed
+    2026; a first call, then one with the counts set to 0 just before and
+    read just after; the reference's bytes), verified by the port's Python
+    verifier and by its native binary."""
+    from plonky2_torch import ops
+    from plonky2_torch.examples import gadgets
+    from plonky2_torch.plonk import prover as tp
+    from plonky2_torch.plonk.circuit_serialization import verifier_data_to_bytes
+    from plonky2_torch.plonk.serialization import proof_to_bytes
+    from plonky2_torch.util import rng as prover_rng
+
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    data, pw = gadgets.circuit(dev)
+    build_s = time.perf_counter() - t0
+    build_launches = ops.launch_counts()
+    vd = verifier_data_to_bytes(data.verifier_only, data.common)
+    vd_sha = hashlib.sha256(vd).hexdigest()
+    if vd_sha != GADGETS_VERIFIER_SHA256:
+        failures.append(f"the gadgets circuit's verifier data is {vd_sha}, not "
+                        f"{GADGETS_VERIFIER_SHA256}")
+
+    def prove():
+        prover_rng.seed(SEED)
+        try:
+            return data.prove(pw, device=dev)
+        finally:
+            prover_rng.seed(None)
+
+    t0 = time.perf_counter()
+    first = proof_to_bytes(prove())
+    first_s = time.perf_counter() - t0
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    proof = prove()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    transcript = tp._LAST_TRANSCRIPT
+    proof_bytes = proof_to_bytes(proof)
+    digest = hashlib.sha256(proof_bytes).hexdigest()
+    if digest != GADGETS_PROOF_SHA256 or first != proof_bytes:
+        failures.append(f"the gadgets proof is {digest} (first call "
+                        f"{hashlib.sha256(first).hexdigest()}), not {GADGETS_PROOF_SHA256}")
+    if transcript != "fused":
+        failures.append(f"the gadgets prove took the {transcript} transcript")
+    for label, count in launches.items():
+        # every transform of a 2^7-row circuit fits K2's 2^13 points: no K3
+        if count == 0 and label not in (ops.K3.label, ops.K5_CHUNK.label):
+            failures.append(f"{label} was not launched on the gadgets prove")
+    # the inverse and equality hints run in Python on both engines; the
+    # LowHighGenerator of split_low_high runs on the plan's opcode
+    plan = data.prover_only.cache("host")["last_plan"]
+    if plan is None or "LowHighGenerator" in plan.fallbacks:
+        failures.append(f"the gadgets witness did not run LowHighGenerator on the native "
+                        f"plan: {None if plan is None else plan.fallbacks}")
+    t0 = time.perf_counter()
+    try:
+        data.verify(proof)
+        accepted = True
+    except ValueError as e:
+        accepted = False
+        failures.append(f"the port's verifier rejects the gadgets proof: {e}")
+    verify_s = time.perf_counter() - t0
+    print(f"gadgets circuit ({card}): 2^{data.common.degree_bits} rows, "
+          f"{len(data.common.gates)} gate kinds, {len(proof.public_inputs)} public inputs; "
+          f"built in {build_s:.3f} s (launches {build_launches}), verifier sha256 {vd_sha} "
+          f"(the reference's: {GADGETS_VERIFIER_SHA256}); proved in {wall:.4f} s (first call "
+          f"{first_s:.3f} s) on the {transcript} transcript, sha256 {digest} (the reference's: "
+          f"{GADGETS_PROOF_SHA256}); launches {launches}; the witness on the native plan, "
+          f"generators run in Python: {plan.fallbacks or 'none'}; the port's "
+          f"verifier {verify_s:.4f} s, accepted: {accepted}")
+    native = native_verify(card, failures, "gadgets proof", [], [vd, proof_bytes], verify_s)
+    out = dict(build_s=build_s, build_launches=build_launches, wall_s=wall, first_s=first_s,
+               launches=launches, verify_s=verify_s, native=native, sha256=digest,
+               verifier_sha256=vd_sha, phase_s=time.perf_counter() - t_phase)
+    print(f"gadgets phase ({card}): {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2883,6 +3251,10 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds} s)")
     for src, log in build.ptxas_log.items():
         print(f"ptxas {src}: " + "; ".join(ptxas_lines(log)))
+    t0 = time.perf_counter()
+    print(f"native verifier: {native.verifier_binary()} built (g++) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    native_lines = {}
 
     rng = np.random.default_rng(SEED)
 
@@ -3169,6 +3541,15 @@ def main() -> int:
 
     headline_bytes = headline_prove()
     headline_pinned(headline_bytes, "headline warm-up")
+    t0 = time.perf_counter()
+    try:
+        verify(proof_from_bytes(headline_bytes, common), verifier_only, common)
+    except ValueError as e:
+        failures.append(f"the port's verifier rejects the headline proof: {e}")
+    native_lines["headline"] = native_verify(
+        card, failures, "headline proof", [],
+        [verifier_data_to_bytes(verifier_only, common), headline_bytes],
+        time.perf_counter() - t0)
     # each timed headline prove is paired with the random-witness fused
     # prove, from its witness on the card and from the host matrix (its
     # pinned upload), so that a drift of the shared host's load shows in
@@ -3612,6 +3993,12 @@ def main() -> int:
     # three STARK tables linked by cross-table lookups, proved under one
     # transcript, verified on the host and in one circuit
     ctl = ctl_phase(torch, dev, card, failures)
+    # the Keccak-hashed Starky at 2^STARKY_LOG_ROWS rows, and one circuit
+    # over the builder's whole gadget surface
+    stark_keccak = stark_keccak_phase(torch, dev, card, failures)
+    gadgets_out = gadgets_phase(torch, dev, card, failures)
+    native_lines.update(keccak_wrap=keccak["native"], ctl_circuit=ctl["circuit"]["native"],
+                        starky_fibonacci20=starky["native"], gadgets=gadgets_out["native"])
 
     build_phase = dict(build_wall_s=build_wall, build_cold_s=builds[0][0],
                        build_outside_s=build_outside,
@@ -3976,7 +4363,7 @@ def main() -> int:
     if on_card != on_cpu:
         failures.append("degree-2^10 proof bytes differ between the card and the CPU")
 
-    for phase in (starky, sizes, zk, lookups, batch_fri, ctl):
+    for phase in (starky, sizes, zk, lookups, batch_fri, ctl, stark_keccak):
         for label, shape_results in phase["shapes"].items():
             results[label].update(shape_results)
             results[label]["mismatches"] += sum(r["mismatches"] for r in shape_results.values())
@@ -4027,6 +4414,11 @@ def main() -> int:
                         "launches_prove_ctl": ctl["launches"][k.label],
                         "launches_build_ctl_wrap": ctl["circuit"]["build_launches"][k.label],
                         "launches_prove_ctl_wrap": ctl["circuit"]["launches"][k.label],
+                        "launches_prove_stark_keccak20":
+                            stark_keccak["fibonacci"]["launches"][k.label],
+                        "launches_prove_stark_keccak20_lookup":
+                            stark_keccak["lookup"]["launches"][k.label],
+                        "launches_prove_gadgets": gadgets_out["launches"][k.label],
                         **results[k.label], "library_ms": None})
     print(json.dumps({"kernels": kernels, "card": card, "headline": headline,
                       "prove_many": {"K": BATCH_K, "window": BATCH_WINDOW, "threads": batched,
@@ -4046,14 +4438,16 @@ def main() -> int:
                       "lookups": {k: v for k, v in lookups.items() if k != "shapes"},
                       "batch_fri": {k: v for k, v in batch_fri.items() if k != "shapes"},
                       "stark_recursion": stark_wrap,
-                      "ctl": {k: v for k, v in ctl.items() if k != "shapes"}}))
+                      "ctl": {k: v for k, v in ctl.items() if k != "shapes"},
+                      "stark_keccak": {k: v for k, v in stark_keccak.items() if k != "shapes"},
+                      "gadgets": gadgets_out, "native_verifier": native_lines}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
 
 
 PHASES = {"batch_fri": batch_fri_phase, "stark_recursion": stark_recursion_phase,
-          "ctl": ctl_phase}
+          "ctl": ctl_phase, "stark_keccak": stark_keccak_phase, "gadgets": gadgets_phase}
 
 
 def phases_only(names: list) -> int:

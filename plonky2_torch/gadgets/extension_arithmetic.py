@@ -161,6 +161,9 @@ class ExtensionArithmeticMixin:
     def mul_add_extension(self, a, b, c) -> ExtensionTarget:
         return self.arithmetic_extension(1, 1, a, b, c)
 
+    def mul_sub_extension(self, a, b, c) -> ExtensionTarget:
+        return self.arithmetic_extension(1, fs.P - 1, a, b, c)
+
     def add_const_extension(self, x, c: int) -> ExtensionTarget:
         return self.add_extension(x, self.constant_extension(c % fs.P))
 

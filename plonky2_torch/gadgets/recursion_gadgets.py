@@ -127,6 +127,10 @@ class RecursionGadgetsMixin:
         self.connect(claimed, Wire(row, gate.wire_claimed_element(copy)))
         return claimed
 
+    def random_access_hash(self, access_index: Target, v: list) -> list[Target]:
+        """v: 4-target digests."""
+        return [self.random_access(access_index, [h[i] for h in v]) for i in range(4)]
+
     def random_access_extension(self, access_index: Target, v: list) -> ExtensionTarget:
         v = _pad_to_power_of_two(list(v))
         return ExtensionTarget(tuple(self.random_access(access_index, [et.parts[i] for et in v])

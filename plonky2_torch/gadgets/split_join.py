@@ -33,6 +33,28 @@ class WireSplitGenerator(SimpleGenerator):
             raise ValueError(f"Integer too large to fit in {len(self.gates)} limb gates")
 
 
+class LowHighGenerator(SimpleGenerator):
+    """low = x mod 2^n_log, high = x >> n_log (reference
+    gadgets/range_check.rs:56-100)."""
+
+    def __init__(self, integer: Target, n_log: int, low: Target, high: Target):
+        self.integer = integer
+        self.n_log = n_log
+        self.low = low
+        self.high = high
+
+    def dependencies(self):
+        return [self.integer]
+
+    def outputs(self):
+        return [self.low, self.high]
+
+    def run_once(self, witness, out):
+        v = witness.get_target(self.integer)
+        out.set_target(self.low, v & ((1 << self.n_log) - 1))
+        out.set_target(self.high, v >> self.n_log)
+
+
 def split_le(builder, integer: Target, num_bits: int) -> list[BoolTarget]:
     """Little-endian bits of `integer` on BaseSum<2> gates (reference
     gadgets/split_join.rs:25-59; the reference package's
@@ -63,3 +85,17 @@ def low_bits(builder, x: Target, num_low_bits: int, num_bits: int) -> list[BoolT
     """The low `num_low_bits` of the `num_bits`-bit split of x (all
     `num_bits` are allocated and checked)."""
     return split_le(builder, x, num_bits)[:num_low_bits]
+
+
+def split_low_high(builder, x: Target, n_log: int, num_bits: int) -> tuple[Target, Target]:
+    """(low, high) with x = low + 2^n_log · high, low < 2^n_log and
+    high < 2^(num_bits - n_log) (reference gadgets/range_check.rs:35-53)."""
+    low = builder.add_virtual_target()
+    high = builder.add_virtual_target()
+    builder.add_simple_generator(LowHighGenerator(x, n_log, low, high))
+    range_check(builder, low, n_log)
+    range_check(builder, high, num_bits - n_log)
+    pow2 = builder.constant(1 << n_log)
+    comp_x = builder.mul_add(high, pow2, low)
+    builder.connect(x, comp_x)
+    return low, high

@@ -1,4 +1,5 @@
-"""Poseidon-Goldilocks permutation: host scalar version and the batched
+"""Poseidon-Goldilocks permutation: the host version (the native library's
+`poseidon_permute`, with `permute_py` its Python twin) and the batched
 device version (kernel K5 on CUDA, its plain version on the CPU).
 
 The round schedule is the straightforward one (constant layer, S-box layer,
@@ -8,6 +9,9 @@ the fast-partial-round decomposition, so outputs are bit-exact.
 
 from __future__ import annotations
 
+import numpy as np
+
+from plonky2_torch import native
 from plonky2_torch.field import scalar as fs
 from plonky2_torch.hash.poseidon_constants import (
     ALL_ROUND_CONSTANTS,
@@ -38,7 +42,13 @@ def _sbox(x: int) -> int:
 
 
 def permute(state) -> list[int]:
-    """One full 30-round permutation over 12 canonical ints (host)."""
+    """One full 30-round permutation over 12 canonical ints, on the native
+    library. Raises where the library cannot be built or loaded."""
+    return native.poseidon_permute(np.asarray(state, np.uint64)).tolist()
+
+
+def permute_py(state) -> list[int]:
+    """The permutation in Python ints: the native call's tested twin."""
     s = list(state)
     for rnd in range(N_ROUNDS):
         full = rnd < HALF_N_FULL_ROUNDS or rnd >= HALF_N_FULL_ROUNDS + N_PARTIAL_ROUNDS
@@ -58,18 +68,18 @@ def permute_dev_sm(state):
 
 def hash_n_to_m_no_pad(inputs: list[int], num_outputs: int) -> list[int]:
     """Host sponge: absorb in rate-8 chunks (overwrite), squeeze num_outputs."""
-    state = [0] * W
+    state = np.zeros(W, np.uint64)
     for i in range(0, len(inputs), SPONGE_RATE):
         chunk = inputs[i:i + SPONGE_RATE]
         state[:len(chunk)] = chunk
-        state = permute(state)
+        state = native.poseidon_permute(state)
     outputs = []
     while True:
-        for x in state[:SPONGE_RATE]:
+        for x in state[:SPONGE_RATE].tolist():
             outputs.append(x)
             if len(outputs) == num_outputs:
                 return outputs
-        state = permute(state)
+        state = native.poseidon_permute(state)
 
 
 def hash_no_pad(inputs: list[int]) -> list[int]:
@@ -85,5 +95,8 @@ def hash_or_noop(inputs: list[int]) -> list[int]:
 
 
 def two_to_one(left: list[int], right: list[int]) -> list[int]:
-    """Compress two 4-felt digests."""
-    return hash_no_pad(list(left) + list(right))
+    """Compress two 4-felt digests: one permutation of [left, right, 0, 0, 0, 0]."""
+    state = np.zeros(W, np.uint64)
+    state[:4] = left
+    state[4:8] = right
+    return native.poseidon_permute(state)[:4].tolist()

@@ -37,6 +37,7 @@ _INTERPOLATION = 9
 _QUOTIENT_EXT = 10
 _BASE_SPLIT = 11
 _WIRE_SPLIT = 12
+_LOW_HIGH = 13
 _NONZERO = 16
 _EXP = 17
 _CONSTANT = 18
@@ -61,7 +62,7 @@ def _compilers():
     """class -> (opcode, aux). The ops read and write the representatives
     in the order of the generator's dependencies() and outputs()."""
     from plonky2_torch.gadgets.extension_arithmetic import QuotientGeneratorExtension
-    from plonky2_torch.gadgets.split_join import WireSplitGenerator
+    from plonky2_torch.gadgets.split_join import LowHighGenerator, WireSplitGenerator
     from plonky2_torch.gates.arithmetic_extension import (
         ArithmeticExtensionGenerator,
         MulExtensionGenerator,
@@ -94,6 +95,7 @@ def _compilers():
         QuotientGeneratorExtension: (_QUOTIENT_EXT, _no_aux),
         BaseSplitGenerator: (_BASE_SPLIT, lambda g: (g.base,)),
         WireSplitGenerator: (_WIRE_SPLIT, lambda g: (g.num_limbs,)),
+        LowHighGenerator: (_LOW_HIGH, lambda g: (g.n_log,)),
         NonzeroTestGenerator: (_NONZERO, _no_aux),
         ExponentiationGenerator: (_EXP, _no_aux),
         ConstantGenerator: (_CONSTANT, lambda g: (g.constant,)),

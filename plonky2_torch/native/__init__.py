@@ -11,6 +11,11 @@ the source and of the Poseidon tables, which are generated into the build
 from the port's own constants (`hash/poseidon_constants.py`,
 `hash/poseidon_fast_partial.py`). A failed build or load raises: nothing
 falls back to the Python engine.
+
+`verifier_binary()` builds the standalone verifier `src/verifier.cc`
+(`plonky2_verify`, a second implementation of the verifier in C++) the same
+way, into `plonky2_torch/build/verifier-<hash>/`, and raises where it
+cannot.
 """
 
 from __future__ import annotations
@@ -25,8 +30,10 @@ from pathlib import Path
 import numpy as np
 
 SRC = Path(__file__).resolve().parent / "src" / "plonky2_native.cc"
+VERIFIER_SRC = Path(__file__).resolve().parent / "src" / "verifier.cc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build"
 FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+VERIFIER_FLAGS = ("-O2", "-std=c++17")
 
 _lock = threading.Lock()
 _lib = None
@@ -69,25 +76,44 @@ def _tables_inc() -> str:
     ]) + "\n"
 
 
-def _build() -> Path:
+def _compile(src: Path, flags, kind: str, target: str, what: str) -> Path:
+    """g++ `src` with the Poseidon tables into build/<kind>-<hash>/<target>,
+    keyed on the source, the tables and the flags; written through a
+    pid-named temporary file, so concurrent builders do not collide."""
     inc = _tables_inc()
-    h = hashlib.sha256(SRC.read_bytes() + inc.encode() + " ".join(FLAGS).encode())
-    out_dir = BUILD_ROOT / f"native-{h.hexdigest()[:16]}"
-    so = out_dir / "libplonky2_torch_native.so"
-    if so.exists():
-        return so
+    h = hashlib.sha256(src.read_bytes() + inc.encode() + " ".join(flags).encode())
+    out_dir = BUILD_ROOT / f"{kind}-{h.hexdigest()[:16]}"
+    out = out_dir / target
+    if out.exists():
+        return out
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "poseidon_tables.inc").write_text(inc)
-    tmp = out_dir / f"{so.name}.{os.getpid()}.tmp"
+    inc_path = out_dir / "poseidon_tables.inc"
+    inc_tmp = out_dir / f"poseidon_tables.inc.{os.getpid()}.tmp"
+    inc_tmp.write_text(inc)
+    os.replace(inc_tmp, inc_path)
+    tmp = out_dir / f"{target}.{os.getpid()}.tmp"
     try:
-        subprocess.run(["g++", *FLAGS, f"-I{out_dir}", str(SRC), "-o", str(tmp)],
+        subprocess.run(["g++", *flags, f"-I{out_dir}", str(src), "-o", str(tmp)],
                        check=True, capture_output=True, text=True, timeout=300)
     except FileNotFoundError as e:
-        raise RuntimeError("g++ not found: the native witness executor cannot be built") from e
+        raise RuntimeError(f"g++ not found: {what} cannot be built") from e
     except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"building the native witness executor failed:\n{e.stderr}") from e
-    os.replace(tmp, so)
-    return so
+        raise RuntimeError(f"building {what} failed:\n{e.stderr}") from e
+    os.replace(tmp, out)
+    return out
+
+
+def _build() -> Path:
+    return _compile(SRC, FLAGS, "native", "libplonky2_torch_native.so",
+                    "the native witness executor")
+
+
+def verifier_binary() -> str:
+    """The path of the port's `plonky2_verify` binary (src/verifier.cc),
+    built with g++ at first use. Raises where it cannot be built."""
+    with _lock:
+        return str(_compile(VERIFIER_SRC, VERIFIER_FLAGS, "verifier", "plonky2_verify",
+                            "the native verifier"))
 
 
 def library() -> ctypes.CDLL:

@@ -10,7 +10,8 @@ the circuit digest. `build` commits the constants and sigmas on the build's
 device (CUDA unless the caller asks for another) and keeps that commitment
 for the proves there. The gadgets of the in-circuit verifier are mixed in
 from `gadgets/`: the extension arithmetic, the extension algebra and the
-recursion gadgets. A builder of a cyclic circuit carries its own verifier
+recursion gadgets, and the rest of the reference's gadget surface
+(`gadgets/algebra_gadgets.py`). A builder of a cyclic circuit carries its own verifier
 data's public-input targets (`verifier_data_public_input`) and the common
 data its build must give (`goal_common_data`, checked at the end of
 `build`). Lookups come from `gadgets/lookup.py` (LUTs, lookups into them);
@@ -28,6 +29,7 @@ from plonky2_torch import resolve_device
 from plonky2_torch.field import goldilocks as g
 from plonky2_torch.field import scalar as fs
 from plonky2_torch.fri.oracle import PolynomialBatch
+from plonky2_torch.gadgets.algebra_gadgets import AlgebraGadgetsMixin
 from plonky2_torch.gadgets.extension_arithmetic import ExtensionArithmeticMixin
 from plonky2_torch.gadgets.lookup import LookupMixin
 from plonky2_torch.gadgets.recursion_gadgets import RecursionGadgetsMixin
@@ -69,7 +71,8 @@ class GateInstance:
         self.constants = constants
 
 
-class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin, LookupMixin):
+class CircuitBuilder(ExtensionArithmeticMixin, AlgebraGadgetsMixin, RecursionGadgetsMixin,
+                     LookupMixin):
     def __init__(self, config: CircuitConfig | None = None, gc=None):
         self.gc = pcfg.check_generic_config(gc)
         self.config = config or CircuitConfig.standard_recursion_config()
@@ -94,6 +97,7 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin, LookupMixi
         self.luts: list = []
         self.lookup_rows: list = []
         self.lut_to_lookups: list = []
+        self.domain_separator = None
 
     # -- targets --------------------------------------------------------------
 
@@ -206,6 +210,34 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin, LookupMixi
     def neg_one(self) -> Target:
         return self.constant(fs.P - 1)
 
+    def constants(self, cs) -> list[Target]:
+        return [self.constant(c) for c in cs]
+
+    def constant_bool(self, b: bool) -> BoolTarget:
+        return BoolTarget(self.one() if b else self.zero())
+
+    def constant_hash(self, digest) -> list[Target]:
+        return [self.constant(int(v)) for v in digest]
+
+    def constant_merkle_cap(self, cap) -> list[list[Target]]:
+        return [self.constant_hash(d) for d in cap]
+
+    def constant_verifier_data(self, verifier_only):
+        """The verifier data as constant targets (reference
+        circuit_builder.rs constant_verifier_data)."""
+        from plonky2_torch.recursion.recursive_verifier import VerifierCircuitTarget
+
+        return VerifierCircuitTarget(
+            constants_sigmas_cap=self.constant_merkle_cap(verifier_only.constants_sigmas_cap),
+            circuit_digest=self.constant_hash(verifier_only.circuit_digest))
+
+    def set_domain_separator(self, separator: list[int]) -> None:
+        """Field elements that enter the circuit digest, so otherwise equal
+        circuits get distinct digests (reference circuit_builder.rs:262-266)."""
+        if self.domain_separator is not None:
+            raise ValueError("the domain separator is already set")
+        self.domain_separator = list(separator)
+
     def _false(self) -> BoolTarget:
         return BoolTarget(self.zero())
 
@@ -228,8 +260,19 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin, LookupMixi
         self.register_public_inputs(ts)
         return ts
 
+    def add_virtual_hash_public_input(self) -> list[Target]:
+        h = self.add_virtual_hash()
+        self.register_public_inputs(h)
+        return h
+
     def num_public_inputs(self) -> int:
         return len(self.public_inputs)
+
+    def connect_array(self, xs, ys) -> None:
+        if len(xs) != len(ys):
+            raise ValueError("connect_array of arrays of different lengths")
+        for x, y in zip(xs, ys):
+            self.connect(x, y)
 
     def connect_hashes(self, a, b) -> None:
         for x, y in zip(a, b):
@@ -298,11 +341,25 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin, LookupMixi
     def add(self, x: Target, y: Target) -> Target:
         return self.arithmetic(1, 1, x, self.one(), y)
 
+    def add_many(self, ts) -> Target:
+        ts = list(ts)
+        acc = ts[0]
+        for t in ts[1:]:
+            acc = self.add(acc, t)
+        return acc
+
     def sub(self, x: Target, y: Target) -> Target:
         return self.arithmetic(1, fs.P - 1, x, self.one(), y)
 
     def mul(self, x: Target, y: Target) -> Target:
         return self.arithmetic(1, 0, x, y, self.zero())
+
+    def mul_many(self, ts) -> Target:
+        ts = list(ts)
+        acc = ts[0]
+        for t in ts[1:]:
+            acc = self.mul(acc, t)
+        return acc
 
     def mul_add(self, x: Target, y: Target, z: Target) -> Target:
         return self.arithmetic(1, 1, x, y, z)
@@ -324,6 +381,19 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin, LookupMixi
 
     def square(self, x: Target) -> Target:
         return self.mul(x, x)
+
+    def exp_u64(self, base: Target, exponent: int) -> Target:
+        """base^exponent for a constant exponent (square-and-multiply)."""
+        result = self.one()
+        b = base
+        e = exponent
+        while e > 0:
+            if e & 1:
+                result = self.mul(result, b)
+            e >>= 1
+            if e:
+                b = self.square(b)
+        return result
 
     def inverse(self, x: Target) -> Target:
         """1 / x, held by x · x_inv = 1 (`gadgets/inverse.py`)."""
@@ -355,6 +425,11 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin, LookupMixi
         from plonky2_torch.gadgets.split_join import split_le
 
         return split_le(self, integer, num_bits)
+
+    def split_low_high(self, x: Target, n_log: int, num_bits: int) -> tuple[Target, Target]:
+        from plonky2_torch.gadgets.split_join import split_low_high
+
+        return split_low_high(self, x, n_log, num_bits)
 
     def range_check(self, x: Target, n_log: int) -> None:
         from plonky2_torch.gadgets.split_join import range_check
@@ -509,6 +584,19 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin, LookupMixi
                  for k in range(len(groups))]
         return polys, SelectorsInfo(group_of, groups)
 
+    def build_prover(self, device=None):
+        """Proving-only circuit data (reference circuit_builder.rs:1336-1340)."""
+        return self.build(device).prover_data()
+
+    def build_verifier(self, device=None):
+        """Verification-only circuit data (reference circuit_builder.rs:1343-1347)."""
+        return self.build(device).verifier_data()
+
+    def mock_build(self, device=None):
+        """Witness-generation-only circuit data (reference
+        circuit_builder.rs:1328-1334)."""
+        return self.build(device).mock()
+
     def build(self, device=None, timing: TimingTree | None = None) -> CircuitData:
         """The reference's build (circuit_builder.py:613-795), step by step.
         The constants-sigmas commitment runs on `device` (CUDA unless the
@@ -593,11 +681,12 @@ class CircuitBuilder(ExtensionArithmeticMixin, RecursionGadgetsMixin, LookupMixi
                        for rep, v in watches.items()}
 
         # the circuit digest (reference circuit_builder.rs:1252-1264), with
-        # the digest of an empty domain separator, under the config's hasher
+        # the digest of the domain separator, under the config's hasher
         hasher = self.gc.hasher
         circuit_digest = hasher.hash_no_pad(
             [x for h in cap for x in hasher.digest_to_felts(h)]
-            + hasher.digest_to_felts(hasher.hash_pad([])) + [degree_bits])
+            + hasher.digest_to_felts(hasher.hash_pad(self.domain_separator or []))
+            + [degree_bits])
 
         common = CommonCircuitData(
             gc=self.gc, config=config, fri_params=fri_params, gates=gates,

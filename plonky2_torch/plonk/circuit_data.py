@@ -211,6 +211,32 @@ class VerifierCircuitData:
 
         verify(proof_with_pis, self.verifier_only, self.common)
 
+    def to_bytes(self) -> bytes:
+        from plonky2_torch.plonk.circuit_serialization import verifier_data_to_bytes
+
+        return verifier_data_to_bytes(self.verifier_only, self.common)
+
+    @staticmethod
+    def from_bytes(data: bytes, gc=None) -> "VerifierCircuitData":
+        from plonky2_torch.plonk.circuit_serialization import verifier_data_from_bytes
+
+        return VerifierCircuitData(*verifier_data_from_bytes(data, gc))
+
+
+@dataclass
+class MockCircuitData:
+    """Witness-generation-only circuit data (reference
+    plonk/circuit_data.rs:145)."""
+
+    prover_only: ProverOnlyCircuitData
+    common: CommonCircuitData
+
+    def generate_witness(self, inputs):
+        """The PartialWitness that `inputs` generate."""
+        from plonky2_torch.iop.generator import generate_partial_witness
+
+        return generate_partial_witness(inputs, self.prover_only, self.common)
+
 
 @dataclass
 class CircuitData:
@@ -229,6 +255,9 @@ class CircuitData:
 
     def verifier_data(self) -> VerifierCircuitData:
         return VerifierCircuitData(self.verifier_only, self.common)
+
+    def mock(self) -> MockCircuitData:
+        return MockCircuitData(self.prover_only, self.common)
 
     def prove(self, inputs, device=None, timing=None):
         """Prove from `inputs` (a PartialWitness) on `device` (CUDA unless

@@ -1,4 +1,5 @@
-"""Verifier circuit data to and from the reference's bytes (reference
+"""Verifier circuit data, and common circuit data alone, to and from the
+reference's bytes (reference
 util/serialization/mod.rs:1623-1960; the reference package's
 plonk/circuit_serialization.py:56-362): the verifier-only data (cap
 height, constants-sigmas cap, circuit digest), then the common data. The
@@ -37,3 +38,20 @@ def verifier_data_from_bytes(data: bytes, gc=None
     r.finish()
     return verifier_only, common
 
+
+
+def common_data_to_bytes(common: CommonCircuitData) -> bytes:
+    """The common data alone (reference plonk/circuit_serialization.py:331)."""
+    w = CircuitWriter()
+    w.write_common_circuit_data(common)
+    return bytes(w.buf)
+
+
+def common_data_from_bytes(data: bytes, gc=None) -> CommonCircuitData:
+    """`common_data_to_bytes`' inverse; `gc` as in `verifier_data_from_bytes`."""
+    gc = None if gc is None else pcfg.check_generic_config(gc)
+    r = Reader(data, None if gc is None else gc.hasher)
+    common = r.common_circuit_data()
+    common.gc = gc
+    r.finish()
+    return common

@@ -36,7 +36,7 @@ from plonky2_torch.fri.config import FriConfig, FriParams, FriReductionStrategy
 from plonky2_torch.fri.serialization import Writer
 from plonky2_torch.gadgets.lookup import LookupWire
 from plonky2_torch.gadgets.extension_arithmetic import QuotientGeneratorExtension
-from plonky2_torch.gadgets.split_join import WireSplitGenerator
+from plonky2_torch.gadgets.split_join import LowHighGenerator, WireSplitGenerator
 from plonky2_torch.gates.arithmetic_base import ArithmeticGate
 from plonky2_torch.gates.arithmetic_extension import (
     ArithmeticExtensionGate,
@@ -118,7 +118,8 @@ GENERATOR_TAGS = [
     ("InterpolationGenerator", lambda r: _interpolation_generator(r)),
     ("LookupGenerator", lambda r: _lookup_generator(r)),
     ("LookupTableGenerator", lambda r: _lookup_table_generator(r)),
-    ("LowHighGenerator", None),
+    ("LowHighGenerator", lambda r: LowHighGenerator(r.target(), r.usize(), r.target(),
+                                                    r.target())),
     ("MulExtensionGenerator", lambda r: MulExtensionGenerator(r.usize(), r.field(), r.usize())),
     ("NonzeroTestGenerator", lambda r: NonzeroTestGenerator(r.target(), r.target())),
     ("PoseidonGenerator", lambda r: PoseidonGenerator(r.usize())),
@@ -151,7 +152,8 @@ def default_registry() -> list:
         ArithmeticBaseGenerator, ArithmeticExtensionGenerator, BaseSplitGenerator,
         ConstantGenerator, CopyGenerator, DummyProofGenerator, inv.EqualityGenerator,
         ExponentiationGenerator, InterpolationGenerator, LookupGenerator,
-        LookupTableGenerator, MulExtensionGenerator, NonzeroTestGenerator, PoseidonGenerator,
+        LookupTableGenerator, LowHighGenerator, MulExtensionGenerator, NonzeroTestGenerator,
+        PoseidonGenerator,
         PoseidonMdsGenerator, QuotientGeneratorExtension, RandomAccessGenerator,
         RandomValueGenerator,
         ReducingGenerator, ReducingExtensionGenerator, WireSplitGenerator,
@@ -682,6 +684,11 @@ def _write_generator_payload(w: ProverWriter, gen) -> None:
         weights = gen._gate().barycentric_weights
         w.write_usize(len(weights))
         w.write_field_vec(weights)
+    elif name == "LowHighGenerator":
+        w.write_target(gen.integer)
+        w.write_usize(gen.n_log)
+        w.write_target(gen.low)
+        w.write_target(gen.high)
     elif name == "MulExtensionGenerator":
         w.write_usize(gen.row)
         w.write_field(gen.const_0)

@@ -55,18 +55,19 @@ def unified_shape(verifier_circuit_fri_params) -> dict:
 def get_challenges(stark, proof_with_pis: StarkProofWithPublicInputs, config,
                    verifier_circuit_fri_params=None, challenger: Challenger | None = None,
                    observe_instance: bool = True, ctl_challenge_set=None, ctl_zs_data=None,
-                   num_ctl_helpers_per_z=None) -> StarkProofChallenges:
+                   num_ctl_helpers_per_z=None, hasher=None) -> StarkProofChallenges:
     """The proof's challenges; with verifier_circuit_fri_params, its FRI
     transcript in the shape of those params (reference
     get_challenges.rs:73-90). A table of a multi-table proof replays on the
     shared `challenger` (observe_instance=False: its public inputs and trace
     cap were observed before the CTL challenges) with the CTL challenge set
-    (its logUp challenges, where it has lookups) and its CtlZData shapes."""
+    (its logUp challenges, where it has lookups) and its CtlZData shapes.
+    hasher: the transcript's (Poseidon by default)."""
     proof = proof_with_pis.proof
     public_inputs = proof_with_pis.public_inputs
     degree_bits = proof.recover_degree_bits(config)
 
-    challenger = challenger or Challenger()
+    challenger = challenger or Challenger(hasher)
     if observe_instance:
         challenger.observe_elements(public_inputs)
         config.observe(challenger)

@@ -16,8 +16,9 @@ another):
   openings, FRI opening proof   fri/oracle.py, fri/prover.py (K2-K5)
 
 The transcript is the host `Challenger` up to FRI; the FRI argument takes
-the port's fused device transcript whenever it has a fold step, and the
-host one otherwise, with the same bytes. The prover draws no randomness.
+the port's fused device transcript whenever it has a fold step under
+Poseidon, and the host one otherwise (no fold step, or `KeccakHasher`,
+whose trees are hashed on the host), with the same bytes. The prover draws no randomness.
 """
 
 from __future__ import annotations
@@ -49,13 +50,15 @@ from plonky2_torch.util import TimingTree, log2_strict
 
 def prove(stark, config, trace_poly_values, public_inputs, device=None,
           timing: TimingTree | None = None,
-          verifier_circuit_fri_params=None) -> StarkProofWithPublicInputs:
+          verifier_circuit_fri_params=None, hasher=None) -> StarkProofWithPublicInputs:
     """Prove that `trace_poly_values` ([COLUMNS, n] u64 values, or that
     matrix as an int64 tensor already on `device`) satisfies `stark` with
     `public_inputs`, on `device` (CUDA unless the caller asks for another).
     verifier_circuit_fri_params: the FRI params of the largest degree that
     a variable-degree recursion circuit verifies; the FRI transcript then
-    takes their shape (`fri.prover.fri_proof`)."""
+    takes their shape (`fri.prover.fri_proof`). hasher: the commitments'
+    and the transcript's (Poseidon by default); under `KeccakHasher` the
+    trees are hashed on the host and FRI takes the host path."""
     device = resolve_device(device)
     timing = timing or TimingTree("starky prove")
     trace = _as_tensor(trace_poly_values, device)
@@ -67,22 +70,25 @@ def prove(stark, config, trace_poly_values, public_inputs, device=None,
         raise ValueError("the FRI arities fold below the Merkle cap")
 
     with timing.scope("compute trace commitment"):
-        trace_commitment = PolynomialBatch.from_values(trace, rate_bits, False, cap_height)
+        trace_commitment = PolynomialBatch.from_values(trace, rate_bits, False, cap_height,
+                                                       hasher=hasher)
 
-    challenger = Challenger()
+    challenger = Challenger(hasher)
     challenger.observe_elements(public_inputs)
     config.observe(challenger)
     challenger.observe_cap(trace_commitment.merkle_tree.cap)
 
     return prove_with_commitment(stark, config, trace, trace_commitment, challenger,
                                  public_inputs, timing,
-                                 verifier_circuit_fri_params=verifier_circuit_fri_params)
+                                 verifier_circuit_fri_params=verifier_circuit_fri_params,
+                                 hasher=hasher)
 
 
 def prove_with_commitment(stark, config, trace, trace_commitment, challenger,
                           public_inputs, timing: TimingTree | None = None,
                           ctl_data=None, ctl_challenges=None,
-                          verifier_circuit_fri_params=None) -> StarkProofWithPublicInputs:
+                          verifier_circuit_fri_params=None,
+                          hasher=None) -> StarkProofWithPublicInputs:
     """The rounds after the trace commitment. trace: [COLUMNS, n] int64
     tensor on the commitment's device; the challenger has observed the
     public inputs, the config and the trace cap. A table of a multi-table
@@ -120,7 +126,7 @@ def prove_with_commitment(stark, config, trace, trace_commitment, challenger,
             num_auxiliary_polys = len(aux_cols)
             if aux_cols:
                 auxiliary_polys_commitment = PolynomialBatch.from_values(
-                    torch.stack(aux_cols), rate_bits, False, cap_height)
+                    torch.stack(aux_cols), rate_bits, False, cap_height, hasher=hasher)
         if auxiliary_polys_commitment is not None:
             challenger.observe_cap(auxiliary_polys_commitment.merkle_tree.cap)
 
@@ -136,7 +142,7 @@ def prove_with_commitment(stark, config, trace, trace_commitment, challenger,
 
     with timing.scope("compute quotient commitment"):
         quotient_commitment = PolynomialBatch.from_coeffs(quotient_chunks, rate_bits, False,
-                                                          cap_height)
+                                                          cap_height, hasher=hasher)
     challenger.observe_cap(quotient_commitment.merkle_tree.cap)
 
     zeta = challenger.get_extension_challenge(2)
@@ -160,7 +166,7 @@ def prove_with_commitment(stark, config, trace, trace_commitment, challenger,
     oracles.append(quotient_commitment)
     with timing.scope("FRI opening proof"):
         opening_proof = PolynomialBatch.prove_openings(
-            instance, oracles, challenger, fri_params,
+            instance, oracles, challenger, fri_params, hasher=hasher,
             **unified_shape(verifier_circuit_fri_params))
 
     proof = StarkProof(

@@ -31,19 +31,20 @@ def validate_proof_shape(stark, proof, public_inputs, config, num_ctl_aux: int =
 
 
 def verify_stark_proof(stark, proof_with_pis: StarkProofWithPublicInputs, config,
-                       verifier_circuit_fri_params=None) -> None:
+                       verifier_circuit_fri_params=None, hasher=None) -> None:
     """Raises ValueError where the proof does not verify.
     verifier_circuit_fri_params: those the proof was made with, if any (its
-    transcript's unified shape)."""
+    transcript's unified shape). hasher: the proof's (Poseidon by default)."""
     if len(proof_with_pis.public_inputs) != stark.PUBLIC_INPUTS:
         raise ValueError("Wrong number of public inputs")
-    challenges = get_challenges(stark, proof_with_pis, config, verifier_circuit_fri_params)
+    challenges = get_challenges(stark, proof_with_pis, config, verifier_circuit_fri_params,
+                                hasher=hasher)
     verify_stark_proof_with_challenges(stark, proof_with_pis.proof, challenges,
-                                       proof_with_pis.public_inputs, config)
+                                       proof_with_pis.public_inputs, config, hasher=hasher)
 
 
 def verify_stark_proof_with_challenges(stark, proof, challenges, public_inputs, config,
-                                       ctl_vars=None) -> None:
+                                       ctl_vars=None, hasher=None) -> None:
     """ctl_vars: a table's CtlCheckVars on its openings, in a multi-table
     proof (`cross_table_lookup.verify_multi_table`)."""
     num_ctl_helpers = sum(len(v.helper_columns) for v in ctl_vars) if ctl_vars else 0
@@ -93,4 +94,5 @@ def verify_stark_proof_with_challenges(stark, proof, challenges, public_inputs, 
         merkle_caps,
         proof.opening_proof,
         config.fri_params(degree_bits),
+        hasher,
     )

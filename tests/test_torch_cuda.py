@@ -684,3 +684,56 @@ def test_multi_table_on_the_card_gives_the_reference_bytes(dev):
         rng.seed(None)
     assert proof_to_bytes(proof) == read("ctl_wrap.proof.bin")
     data.verify(proof)
+
+
+def test_keccak_starky_prove_on_the_card_equals_its_cpu_proof(dev):
+    """FibonacciStark and LookupTestStark at 2^7 under KeccakHasher: the
+    card's proof (LDEs on the card, trees and grind on the host) equals the
+    CPU's field by field, and the Keccak verifier accepts it."""
+    from plonky2_torch.hash.hashers import KeccakHasher
+    from plonky2_torch.starky.config import StarkConfig
+    from plonky2_torch.starky.fibonacci_stark import FibonacciStark, fibonacci
+    from plonky2_torch.starky.prover import prove
+    from plonky2_torch.starky.test_starks import LookupTestStark
+    from plonky2_torch.starky.verifier import verify_stark_proof
+    from torch_proof_walk import field_digests
+
+    config = StarkConfig.standard_fast_config()
+    n = 1 << 7
+    fib = FibonacciStark(n)
+    pis = [0, 1, fibonacci(n - 1, 0, 1)]
+    lookup = LookupTestStark(n)
+    for stark, trace, p in ((fib, fib.generate_trace(0, 1), pis),
+                            (lookup, lookup.generate_trace(), [])):
+        card = prove(stark, config, trace, p, device=dev, hasher=KeccakHasher)
+        cpu = prove(stark, config, trace, p, device="cpu", hasher=KeccakHasher)
+        assert field_digests(card) == field_digests(cpu)
+        verify_stark_proof(stark, card, config, hasher=KeccakHasher)
+
+
+def test_gadgets_circuit_on_the_card_gives_the_reference_bytes(dev):
+    """plonky2_torch/examples/gadgets.py's circuit built and proved on the
+    card (rng seed 2026): the reference's verifier data and proof
+    (plonky2_torch/data/gadgets.*.bin), accepted by the port's verifier."""
+    import os
+
+    from plonky2_torch.examples import gadgets
+    from plonky2_torch.plonk.circuit_serialization import verifier_data_to_bytes
+    from plonky2_torch.plonk.serialization import proof_to_bytes
+    from plonky2_torch.util import rng
+    from torch_make_data import DATA
+
+    def read(name):
+        with open(os.path.join(DATA, name), "rb") as f:
+            return f.read()
+
+    data, pw = gadgets.circuit(dev)
+    assert verifier_data_to_bytes(data.verifier_only, data.common) == read(
+        "gadgets.verifier.bin")
+    rng.seed(2026)
+    try:
+        proof = data.prove(pw, device=dev)
+    finally:
+        rng.seed(None)
+    assert proof_to_bytes(proof) == read("gadgets.proof.bin")
+    data.verify(proof)

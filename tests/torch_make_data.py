@@ -128,7 +128,21 @@ plonky2_torch/data/ctl_table{0,1,2}.stark_proof.bin, ctl_wrap.{verifier,
 proof}.bin, ctl.npz, and ctl4_table{0,1,2,3}.stark_proof.bin with a fourth
 table outside every CTL) for `tests/test_torch_ctl.py` and
 `tests/test_torch_ctl_prove.py`; `tests/reference_prove_ctl.py` runs it at
-chip_smoke's sizes.
+chip_smoke's sizes. `--stark-keccak` (~1 min) proves FibonacciStark and
+LookupTestStark at 2^5 under `KeccakHasher` (standard_fast_config) and
+writes their field-by-field walks (tests/torch_proof_walk.py: the digest
+and each field's sha256), with no byte format for such proofs, to
+  plonky2_torch/data/stark_keccak.json
+for `tests/test_torch_starky_keccak.py`; `tests/reference_prove_stark_keccak.py`
+runs it at chip_smoke's 2^20. `--gadgets` (~2 min) builds the gadgets
+circuit of `plonky2_torch/examples/gadgets.py` with the reference's builder
+and proves it (rng seed 2026; `tests/reference_prove_gadgets.py`):
+  plonky2_torch/data/gadgets.verifier.bin   verifier_data_to_bytes
+  plonky2_torch/data/gadgets.proof.bin      proof_to_bytes
+for the card's test in `tests/test_torch_cuda.py`.
+
+    JAX_PLATFORMS=cpu python tests/torch_make_data.py --stark-keccak
+    JAX_PLATFORMS=cpu python tests/torch_make_data.py --gadgets
 """
 
 import lzma
@@ -263,6 +277,62 @@ def write_starky_data() -> None:
         with open(os.path.join(DATA, f"starky_{name}{log_rows}.proof.bin"), "wb") as f:
             f.write(blob)
         print(f"wrote starky_{name}{log_rows}: proof {len(blob)} bytes")
+
+
+STARK_KECCAK_LOG_ROWS = 5  # tests/test_starky.py:test_fibonacci_stark_keccak_hasher
+
+
+def stark_keccak_proof(name: str, log_rows: int):
+    """The reference's proof of FibonacciStark or LookupTestStark at
+    2^log_rows rows under KeccakHasher (standard_fast_config), verified by
+    its Keccak verifier."""
+    from plonky2_tpu.hash.hashers import KeccakHasher
+    from plonky2_tpu.starky.config import StarkConfig
+    from plonky2_tpu.starky.fibonacci_stark import FibonacciStark, fibonacci
+    from plonky2_tpu.starky.prover import prove
+    from plonky2_tpu.starky.test_starks import LookupTestStark
+    from plonky2_tpu.starky.verifier import verify_stark_proof
+
+    n = 1 << log_rows
+    config = StarkConfig.standard_fast_config()
+    if name == "fibonacci":
+        stark = FibonacciStark(n)
+        pis = [0, 1, fibonacci(n - 1, 0, 1)]
+        trace = stark.generate_trace(pis[0], pis[1])
+    else:
+        stark = LookupTestStark(n)
+        pis = []
+        trace = stark.generate_trace()
+    proof = prove(stark, config, trace, pis, hasher=KeccakHasher)
+    verify_stark_proof(stark, proof, config, hasher=KeccakHasher)
+    return proof
+
+
+def write_stark_keccak_data() -> None:
+    import json
+
+    from torch_proof_walk import digest, field_digests
+
+    out = {}
+    for name in ("fibonacci", "lookup"):
+        proof = stark_keccak_proof(name, STARK_KECCAK_LOG_ROWS)
+        out[f"{name}{STARK_KECCAK_LOG_ROWS}"] = {"digest": digest(proof),
+                                                 "fields": field_digests(proof)}
+        print(f"{name} 2^{STARK_KECCAK_LOG_ROWS} Keccak: digest {digest(proof)}")
+    with open(os.path.join(DATA, "stark_keccak.json"), "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+
+
+def write_gadgets_data() -> None:
+    import reference_prove_gadgets
+
+    verifier_bytes, proof_bytes = reference_prove_gadgets.reference_gadgets()
+    for suffix, blob in (("verifier", verifier_bytes), ("proof", proof_bytes)):
+        with open(os.path.join(DATA, f"gadgets.{suffix}.bin"), "wb") as f:
+            f.write(blob)
+    print(f"wrote gadgets: verifier data {len(verifier_bytes)} bytes, proof "
+          f"{len(proof_bytes)} bytes")
 
 
 def write_cyclic_data() -> None:
@@ -661,6 +731,12 @@ def main() -> int:
     if sys.argv[1:] == ["--ctl"]:
         write_ctl_data()
         return 0
+    if sys.argv[1:] == ["--stark-keccak"]:
+        write_stark_keccak_data()
+        return 0
+    if sys.argv[1:] == ["--gadgets"]:
+        write_gadgets_data()
+        return 0
 
     prover_bytes, _, witness, public_inputs, pi_hash, pw = factorial_data()
     os.makedirs(DATA, exist_ok=True)
@@ -694,6 +770,8 @@ def main() -> int:
     write_batch_fri_data()
     write_stark_recursion_data()
     write_ctl_data()
+    write_stark_keccak_data()
+    write_gadgets_data()
     return 0
 
 
