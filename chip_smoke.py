@@ -5,6 +5,8 @@
     python3 chip_smoke.py --times DIR     # only K3's and K5's timings, on the
                                           # checkout at DIR (e.g. the parent commit)
     python3 chip_smoke.py --phases NAME.. # only the named phases (PHASES)
+    python3 chip_smoke.py --phases multigpu  # the prove over every card (one
+                                          # process a card, NCCL), beside one card's
 
 In order: prints the card's name and power limit; builds the CUDA kernels
 from `plonky2_torch/csrc/` (timed); proves the factorial circuit on the card
@@ -177,7 +179,14 @@ wires tree and each of its launches, K3 at [2, 2^16], [16, 2^16] and
 [1, 2^20], K5's bare grind launch (no candidate passing, and 16 bits), its
 `grind_chunk` wrapper, its permute mode and its device grind; runs
 `commit_and_open` at degree 2^10 on the card and on the CPU (plain
-versions) and requires identical proof bytes. The line before the last is
+versions) and requires identical proof bytes; last, the multigpu phase
+as a group of one in this process over NCCL (`multigpu_phase(in_process=
+True)`: the middle circuit's random-witness prove on both paths and the
+headline, each to its pin, with 0 host syncs before the fused fetch;
+`--phases multigpu` runs it over every card, beside the same proves on
+one card, with each rank's K3 sub-LDE and K4 local tree against their
+plain versions and `sharded_prover_step` against the reference's). The
+line before the last is
 the `kernels` JSON object (launches: the headline prove's, the chunk
 grind's from the host-path prove; beside them the inner build's and
 prove's, the middle and outer builds', the outer prove's and the two 2^20
@@ -188,7 +197,8 @@ chain's inner build's and prove's and middle prove's, the two lookup
 inners' builds' and proves', the batch FRI prove's, the Fibonacci 2^20
 wrap's and the variable-degree wrap's of 2^17 rows, the multi-table
 prove's and its circuit's build's and prove's, the two 2^20 Keccak
-Starky proves' and the gadgets prove's, and the headline's,
+Starky proves', the gadgets prove's and the headline prove's under a
+group of one (`launches_prove_multigpu`), and the headline's,
 prove_many's and the new phases' numbers), the last line the ok JSON
 object. Every timing line names the
 card and its power limit. Any failed check exits non-zero and prints no
@@ -408,6 +418,16 @@ STARK_KECCAK_PROVES = 1
 # built and proved (rng seed 2026) by the reference: tests/reference_prove_gadgets.py
 GADGETS_VERIFIER_SHA256 = "4f7785bb527d424884e1367411446e6fee6e659d9c70387a8f3ec67cb8fb938a"
 GADGETS_PROOF_SHA256 = "83b9fa1378839631d0fa70e4d7d138bfd046d9554633c8453be44464ba5d5455"
+# the multigpu phase: the proves over a process group of every card (--phases
+# multigpu), or of one in this process (the whole run), each beside one
+# card's; the reference's multi-chip dry-run step (`sharded_prover_step`,
+# its cap and Z as u64 bytes) from tests/reference_prover_step.py
+MULTIGPU_CASES = ("middle fused", "middle host", "headline", "inner18", "zk inner",
+                  "lookup1 inner")
+MULTIGPU_IN_PROCESS = ("middle fused", "middle host", "headline")
+MULTIGPU_PROVES = 3
+MULTIGPU_PROFILED = ("headline", "inner18")  # profiled on one card and on every rank
+PROVER_STEP_SHA256 = "a5494b24073cd19d1dd5d5dbd7d5d40619829cc287c0d0e80da40469ea8fac88"
 
 
 def same_generators(a: list, b: list) -> bool:
@@ -3194,6 +3214,300 @@ def gadgets_phase(torch, dev, card, failures) -> dict:
     return out
 
 
+# -- the multigpu phase -----------------------------------------------------------
+
+def multigpu_cases(torch, dev, names) -> dict:
+    """The proves of the multigpu phase on `dev`, built or read here: name
+    -> (prove(timing) -> proof bytes, the pinned sha256, the transcript
+    path). "middle fused"/"middle host": the middle circuit's seed-2026
+    random-witness prove on each path (MIDDLE_PROVE_SHA256); "headline":
+    witness + prove from `bench_cache/inner14.proof.bin`
+    (HEADLINE_PROOF_SHA256); "inner18", "zk inner", "lookup1 inner": the
+    first layers of the sizes, zk and lookup chains (SIZES_PROOF_SHA256S,
+    ZK_PROOF_SHA256S, LOOKUP_PROOF_SHA256S). Every prove seeds the rng to
+    2026; under a process group it runs over the group."""
+    from plonky2_torch.examples import bench_recursion as br
+    from plonky2_torch.field import goldilocks as g
+    from plonky2_torch.fri import prover as fri_prover
+    from plonky2_torch.iop.witness import PartialWitness
+    from plonky2_torch.plonk import prover as tp
+    from plonky2_torch.plonk.circuit_builder import CircuitBuilder
+    from plonky2_torch.plonk.circuit_serialization import verifier_data_from_bytes
+    from plonky2_torch.plonk.config import CircuitConfig
+    from plonky2_torch.plonk.prover_serialization import read_circuit_data
+    from plonky2_torch.plonk.serialization import proof_from_bytes, proof_to_bytes
+    from plonky2_torch.recursion import recursive_verifier as rv
+    from plonky2_torch.util import rng as prover_rng
+
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def read(*parts) -> bytes:
+        with open(os.path.join(root, *parts), "rb") as f:
+            return f.read()
+
+    def seeded(run, host=False):
+        def prove(timing=None):
+            prover_rng.seed(SEED)
+            try:
+                with fri_prover.force_host_path() if host else contextlib.nullcontext():
+                    return proof_to_bytes(run(timing))
+            finally:
+                prover_rng.seed(None)
+        return prove
+
+    cases = {}
+    if any(n.startswith("middle") or n == "headline" for n in names):
+        prover_only, common, _ = read_circuit_data(read("bench_cache", "middle14.circuit.bin"))
+        witness, pis, pi_hash = tp.random_witness(common, SEED)
+        prepared = (g.tensor(witness, dev), pis, pi_hash)
+        for path in ("fused", "host"):
+            cases[f"middle {path}"] = (seeded(lambda timing: tp.prove(
+                prover_only, common, None, device=dev, timing=timing, _prepared=prepared),
+                host=path == "host"), MIDDLE_PROVE_SHA256, path)
+        inner_vo, inner_common = verifier_data_from_bytes(read("bench_cache",
+                                                               "inner14.verifier.bin"))
+        builder = CircuitBuilder()
+        proof_t = rv.add_virtual_proof_with_pis(builder, inner_common)
+        vd_t = rv.add_virtual_verifier_data(builder, inner_common.config.fri_config.cap_height)
+        pw = PartialWitness()
+        rv.set_proof_with_pis_target(pw, proof_t, proof_from_bytes(
+            read("bench_cache", "inner14.proof.bin"), inner_common))
+        rv.set_verifier_data_target(pw, vd_t, inner_vo)
+        cases["headline"] = (seeded(lambda timing, pw=pw: tp.prove(
+            prover_only, common, pw, device=dev, timing=timing)), HEADLINE_PROOF_SHA256,
+            "fused")
+    chains = {"inner18": (lambda: (br.dummy_circuit(
+                  CircuitConfig.standard_recursion_config(), SIZES_LOG, device=dev),
+                  PartialWitness()), SIZES_PROOF_SHA256S[0]),
+              "zk inner": (lambda: (br.dummy_circuit(
+                  CircuitConfig.standard_recursion_zk_config(), ZK_LOG, device=dev),
+                  PartialWitness()), ZK_PROOF_SHA256S[0]),
+              "lookup1 inner": (lambda: br.lookup_circuit(
+                  CircuitConfig.standard_recursion_config(), LOOKUP_LOG, 1, device=dev),
+                  LOOKUP_PROOF_SHA256S[1][0])}
+    for name, (build, pin) in chains.items():
+        if name in names:
+            data, pw = build()
+            cases[name] = (seeded(lambda timing, data=data, pw=pw: data.prove(
+                pw, device=dev, timing=timing)), pin, "fused")
+    return {n: cases[n] for n in names}
+
+
+def multigpu_measure(torch, cases, proves: int, group=None, profiled=()) -> dict:
+    """Each case proved once (the first call, with the peak of allocated
+    memory), `proves` times timed end to end (the launch counts and the
+    collectives set to 0 just before each and read just after), once with
+    every phase synchronised (the split), on the fused path once with its
+    host synchronisations counted, and, for the cases named in `profiled`,
+    once under the CUDA profiler (`profile_line`: device busy against the
+    median wall); under `group` if given. Returns name -> numbers and
+    every proof's sha256."""
+    from plonky2_torch import ops, parallel
+    from plonky2_torch.plonk import prover as tp
+    from plonky2_torch.util import TimingTree
+
+    out = {}
+    for name, (prove, pin, path) in cases.items():
+        with parallel.use_mesh(group):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_gib = torch.cuda.memory_allocated() / 2**30  # the other cases' circuits
+            t0 = time.perf_counter()
+            shas = [hashlib.sha256(prove()).hexdigest()]
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            walls = []
+            for _ in range(proves):
+                ops.reset_launches()
+                parallel.Collectives.reset()
+                t0 = time.perf_counter()
+                shas.append(hashlib.sha256(prove()).hexdigest())
+                walls.append(time.perf_counter() - t0)
+                launches = ops.launch_counts()
+                collectives = (parallel.Collectives.count, parallel.Collectives.bytes)
+                transcript = tp._LAST_TRANSCRIPT
+            timing = TimingTree("prove", sync=torch.cuda.synchronize)
+            t0 = time.perf_counter()
+            shas.append(hashlib.sha256(prove(timing)).hexdigest())
+            sync_wall = time.perf_counter() - t0
+            syncs = None
+            if path == "fused":
+                caught, proof = count_syncs_before_fetch(torch, prove)
+                syncs = None if caught is None else len(caught)
+                shas.append(hashlib.sha256(proof).hexdigest())
+            profile = None
+            if name in profiled:
+                who = "one card" if group is None else f"rank {group.rank} of {group.world}"
+                profile = profile_line(torch, prove, statistics.median(walls),
+                                       f"multigpu {name}, {who}")
+        out[name] = dict(first_s=first_s, walls=walls, wall_s=statistics.median(walls),
+                         sync_wall_s=sync_wall, split=timing.split(), launches=launches,
+                         collectives=collectives[0], collective_bytes=collectives[1],
+                         peak_gib=peak_gib, base_gib=base_gib, syncs_before_fetch=syncs,
+                         transcript=transcript, profile=profile,
+                         path=path, pinned=pin, shas=sorted(set(shas)))
+    return out
+
+
+def multigpu_kernel_checks(torch, group) -> dict:
+    """On the rank's own columns of the 2^18 inner circuit's wires (random
+    [135, 2^18] coefficients, the same on every rank): K3's sub-LDE (the
+    LDE at rate 3 - lg world on the rank's coset, `ntt.coset_lde_part`) of
+    two rows against `ntt_four_step_plain` and against the rank's columns
+    of the whole LDE x8, and K4's local tree (cap height 4) over 2^15 of the
+    rank's columns of all 135 wires against `merkle_tree_plain`, level by
+    level; then `parallel.sharded_prover_step` against PROVER_STEP_SHA256."""
+    import numpy as np
+
+    from plonky2_torch import parallel
+    from plonky2_torch.field import goldilocks as g
+    from plonky2_torch.field import ntt
+    from plonky2_torch.field import scalar as fs
+    from plonky2_torch.ops import ntt as kn
+    from plonky2_torch.ops import poseidon as kp
+
+    dev, k, r = group.device, group.world, group.rank
+    rng = np.random.default_rng(SEED + 40)
+    wires = g.tensor(rng.integers(0, fs.P, size=(135, 1 << SIZES_LOG), dtype=np.uint64), dev)
+    x = wires[:2].contiguous()
+    rate = 3 - group.lg
+    shift = fs.mul(fs.MULTIPLICATIVE_GROUP_GENERATOR,
+                   fs.exp(fs.primitive_root_of_unity(SIZES_LOG + 3), r))
+    table = ntt._lde_coset_scale_table(shift, SIZES_LOG, rate, str(dev))
+    sub = ntt.coset_lde_part(x, 3, r, k)
+    k3 = (compare(sub, kn.ntt_four_step_plain(x, False, table, 1 << rate))[0],
+          compare(sub, ntt.coset_lde(x, 3)[:, r::k])[0])
+    local = ntt.coset_lde_part(wires, 3, r, k)[:, :1 << 15].contiguous()
+    got, want = kp.merkle_tree(local, 4, True), kp.merkle_tree_plain(local, 4, True)
+    torch.cuda.synchronize()
+    k4 = int(len(got) != len(want)) + sum(compare(a, b)[0] for a, b in zip(got, want))
+    cap, z = parallel.sharded_prover_step(group)
+    step = hashlib.sha256(g.to_numpy(cap).tobytes() + g.to_numpy(z).tobytes()).hexdigest()
+    return dict(k3_sub_lde_mismatches=k3[0], k3_vs_whole_lde_mismatches=k3[1],
+                k3_shape=[2, 1 << SIZES_LOG, 1 << rate], k4_local_tree_mismatches=k4,
+                k4_shape=list(local.shape), prover_step_sha256=step)
+
+
+def multigpu_rank(group, names) -> dict:
+    """A rank of the multigpu phase: the kernels load (built by the parent),
+    the circuits are read and built whole on the rank's card outside the
+    group, then proved over it (`multigpu_measure`), and the rank's kernel
+    checks run."""
+    import torch
+
+    from plonky2_torch.ops import build
+
+    build.build_all()
+    t0 = time.perf_counter()
+    cases = multigpu_cases(torch, group.device, names)
+    setup_s = time.perf_counter() - t0
+    out = dict(rank=group.rank, setup_s=setup_s, threads=torch.get_num_threads(),
+               cases=multigpu_measure(torch, cases, MULTIGPU_PROVES, group,
+                                      MULTIGPU_PROFILED))
+    del cases
+    torch.cuda.empty_cache()
+    out["kernels"] = multigpu_kernel_checks(torch, group)
+    return out
+
+
+def multigpu_phase(torch, dev, card, failures, in_process: bool = False) -> dict:
+    """The PLONK prove over a process group (`plonky2_torch.parallel`), one
+    rank a card over NCCL. in_process (the one-card run of the whole
+    script): a group of one in this process, no spawn, the middle circuit's
+    proves on both paths and the headline, each to its pin. Otherwise (the
+    `--phases multigpu` run) a world of every card: first each case of
+    `multigpu_cases` on one card here, with no group, then `multigpu_rank`
+    on every card; every rank's proofs must be the pinned ones, the fused
+    proves must make no host synchronisation before their fetch, and each
+    rank's kernel checks must show no mismatch. Prints each case's median
+    wall on one card and on the group, its split, the collectives and
+    their bytes a prove, rank 0's launches and every rank's peak memory;
+    writes the whole record to chiprun_out/multigpu.json."""
+    from plonky2_torch import parallel
+
+    t_phase = time.perf_counter()
+    world = 1 if in_process else torch.cuda.device_count()
+    print(f"multigpu: world {world}{' (a group of one in this process)' if in_process else ''}")
+    names = (MULTIGPU_IN_PROCESS if in_process else MULTIGPU_CASES)
+
+    def check_case(who, name, m):
+        bad = [s for s in m["shas"] if s != m["pinned"]]
+        if bad:
+            failures.append(f"multigpu {who} {name}: proof sha256 {bad}, not {m['pinned']}")
+        if m["transcript"] != m["path"]:
+            failures.append(f"multigpu {who} {name}: took the {m['transcript']} path")
+        if m["path"] == "fused" and m["syncs_before_fetch"] != 0:
+            failures.append(f"multigpu {who} {name}: {m['syncs_before_fetch']} host syncs "
+                            "before the fetch")
+
+    def line(m):
+        split = ", ".join(f"{k} {v:.4f}" for k, v in m["split"].items())
+        return (f"{m['wall_s']:.4f} s median of {[round(w, 4) for w in m['walls']]} (first "
+                f"call {m['first_s']:.3f} s), peak {m['peak_gib']:.2f} GiB allocated ("
+                f"{m['base_gib']:.2f} before it), syncs before the fetch "
+                f"{m['syncs_before_fetch']}; split ({m['sync_wall_s']:.4f} s "
+                f"synchronised): {split}")
+
+    if in_process:
+        cases = multigpu_cases(torch, dev, names)
+        with parallel.local_group("nccl") as group:
+            result = multigpu_measure(torch, cases, 1, group)
+        del cases
+        for name, m in result.items():
+            check_case("group of one", name, m)
+            print(f"multigpu {name} ({card}; a group of one, NCCL): {line(m)}; "
+                  f"collectives {m['collectives']} a prove, {m['collective_bytes']} bytes; "
+                  f"launches {m['launches']}; sha256 {m['shas']}")
+        out = dict(world=1, cases=result, launches=result["headline"]["launches"])
+    else:
+        t0 = time.perf_counter()
+        cases = multigpu_cases(torch, dev, names)
+        print(f"multigpu one card ({card}): circuits read and built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        one = multigpu_measure(torch, cases, MULTIGPU_PROVES, profiled=MULTIGPU_PROFILED)
+        del cases
+        torch.cuda.empty_cache()
+        for name, m in one.items():
+            check_case("one card", name, m)
+        t0 = time.perf_counter()
+        ranks = parallel.run_on_group(multigpu_rank, world, "nccl", names, timeout_s=1500)
+        group_s = time.perf_counter() - t0
+        for r in ranks:
+            for name, m in r["cases"].items():
+                check_case(f"rank {r['rank']}", name, m)
+            kc = r["kernels"]
+            if kc["k3_sub_lde_mismatches"] or kc["k3_vs_whole_lde_mismatches"] or kc[
+                    "k4_local_tree_mismatches"]:
+                failures.append(f"multigpu rank {r['rank']}: kernel checks {kc}")
+            if kc["prover_step_sha256"] != PROVER_STEP_SHA256:
+                failures.append(f"multigpu rank {r['rank']}: sharded_prover_step "
+                                f"{kc['prover_step_sha256']}, not {PROVER_STEP_SHA256}")
+            print(f"multigpu rank {r['rank']}: circuits read and built in {r['setup_s']:.1f} "
+                  f"s ({r['threads']} intra-op threads); K3 sub-LDE {kc['k3_shape']} {kc['k3_sub_lde_mismatches']} mismatches "
+                  f"against its plain version, {kc['k3_vs_whole_lde_mismatches']} against its "
+                  f"columns of the whole LDE; K4 local tree {kc['k4_shape']} "
+                  f"{kc['k4_local_tree_mismatches']} mismatches; sharded_prover_step sha256 "
+                  f"{kc['prover_step_sha256']}")
+        for name in names:
+            m1, m0 = one[name], ranks[0]["cases"][name]
+            print(f"multigpu {name}, one card ({card}): {line(m1)}")
+            print(f"multigpu {name}, {world} cards, rank 0: {line(m0)}; collectives "
+                  f"{m0['collectives']} a prove, {m0['collective_bytes']} bytes; launches "
+                  f"{m0['launches']} (one card: {m1['launches']}); every rank's median "
+                  f"{[round(r['cases'][name]['wall_s'], 4) for r in ranks]} s, peak "
+                  f"{[round(r['cases'][name]['peak_gib'], 2) for r in ranks]} GiB; sha256 "
+                  f"{m0['shas']}")
+        out = dict(world=world, one_card=one, ranks=ranks, group_s=group_s)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"multigpu{'_one' if in_process else ''}.json"), "w") as f:
+        json.dump(dict(card=card, **out), f, indent=1, default=str)
+    print(f"multigpu phase ({card}): {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4363,6 +4677,9 @@ def main() -> int:
     if on_card != on_cpu:
         failures.append("degree-2^10 proof bytes differ between the card and the CPU")
 
+    # the PLONK prove over a process group of one, NCCL, in this process
+    multigpu = multigpu_phase(torch, dev, card, failures, in_process=True)
+
     for phase in (starky, sizes, zk, lookups, batch_fri, ctl, stark_keccak):
         for label, shape_results in phase["shapes"].items():
             results[label].update(shape_results)
@@ -4419,6 +4736,7 @@ def main() -> int:
                         "launches_prove_stark_keccak20_lookup":
                             stark_keccak["lookup"]["launches"][k.label],
                         "launches_prove_gadgets": gadgets_out["launches"][k.label],
+                        "launches_prove_multigpu": multigpu["launches"][k.label],
                         **results[k.label], "library_ms": None})
     print(json.dumps({"kernels": kernels, "card": card, "headline": headline,
                       "prove_many": {"K": BATCH_K, "window": BATCH_WINDOW, "threads": batched,
@@ -4440,14 +4758,19 @@ def main() -> int:
                       "stark_recursion": stark_wrap,
                       "ctl": {k: v for k, v in ctl.items() if k != "shapes"},
                       "stark_keccak": {k: v for k, v in stark_keccak.items() if k != "shapes"},
-                      "gadgets": gadgets_out, "native_verifier": native_lines}))
+                      "gadgets": gadgets_out, "native_verifier": native_lines,
+                      "multigpu": {name: {k: m[k] for k in ("wall_s", "first_s", "collectives",
+                                                            "collective_bytes", "launches",
+                                                            "syncs_before_fetch")}
+                                   for name, m in multigpu["cases"].items()}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
 
 
 PHASES = {"batch_fri": batch_fri_phase, "stark_recursion": stark_recursion_phase,
-          "ctl": ctl_phase, "stark_keccak": stark_keccak_phase, "gadgets": gadgets_phase}
+          "ctl": ctl_phase, "stark_keccak": stark_keccak_phase, "gadgets": gadgets_phase,
+          "multigpu": multigpu_phase}
 
 
 def phases_only(names: list) -> int:
@@ -4464,12 +4787,16 @@ def phases_only(names: list) -> int:
     sys.path.insert(0, here)
     from plonky2_torch.ops import build
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          timeout=60).stdout.strip()
-    print(card)
+    cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True, text=True,
+                           timeout=60).stdout.strip().splitlines()
+    if not cards:
+        return fail("nvidia-smi gave no card name and power limit")
+    for i, line in enumerate(cards):  # every card's, one line each
+        print(line if len(cards) == 1 else f"card {i}: {line}")
+    card = cards[0]
     t0 = time.perf_counter()
-    build.build_all()
+    build.build_all()  # once, before any phase spawns its ranks
     print(f"build: {time.perf_counter() - t0:.1f} s")
     failures = []
     for name in names:

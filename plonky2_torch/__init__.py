@@ -19,3 +19,12 @@ def resolve_device(device=None) -> torch.device:
                 "no CUDA device; pass device='cpu' to run the plain PyTorch path")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def device_key(device) -> torch.device:
+    """`device` with its index: a card named without one ("cuda") is the
+    current card, so per-device caches keep one entry a card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device

@@ -19,6 +19,7 @@ import functools
 import numpy as np
 import torch
 
+from plonky2_torch import device_key
 from plonky2_torch.field import scalar
 
 MASK64 = (1 << 64) - 1
@@ -159,7 +160,7 @@ def constant(values, device) -> torch.Tensor:
     copies nothing from the host. The values are u64 (or nonnegative
     indices)."""
     arr = np.ascontiguousarray(np.asarray(values, dtype=np.uint64))
-    key = (arr.tobytes(), arr.shape, str(torch.device(device)))
+    key = (arr.tobytes(), arr.shape, str(device_key(device)))
     t = _CONSTANTS.get(key)
     if t is None:
         t = _CONSTANTS[key] = tensor(arr, device)
@@ -199,6 +200,24 @@ def cumprod(x, dim: int = 0):
         x = torch.cat([x[:k], mul(x[k:], x[:-k])])
         k <<= 1
     return x.movedim(0, dim)
+
+
+def cumprod_across(x, group=None):
+    """Inclusive modular prefix products along the first axis of a vector
+    split into contiguous blocks over `group`'s ranks (rank r holds block
+    r; `parallel.shard_lanes`): the local scan times the product of the
+    lower ranks' block totals, which come from an all-gather of one total a
+    rank (a collective never reduces a field value). Returns (this block's
+    products, the carry: the product of every element before the block; 1
+    on rank 0 and without a group)."""
+    incl = cumprod(x, 0)
+    if group is None:
+        return incl, torch.ones_like(incl[0])
+    totals = group.all_gather(incl[-1])  # [world, ...], every rank takes part
+    if group.rank == 0:
+        return incl, torch.ones_like(incl[0])
+    carry = cumprod(totals[:group.rank], 0)[-1]
+    return mul(incl, carry), carry
 
 
 def cumsum(x, dim: int = 0):

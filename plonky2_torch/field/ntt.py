@@ -121,3 +121,21 @@ def lde_fft(coeffs, rate_bits: int, shift: int | None = None):
 def coset_lde(coeffs, rate_bits: int):
     """LDE onto the g-shifted coset (the FRI evaluation domain)."""
     return lde_fft(coeffs, rate_bits, shift=fs.MULTIPLICATIVE_GROUP_GENERATOR)
+
+
+def coset_lde_part(coeffs, rate_bits: int, part: int, parts: int):
+    """The natural columns c = part (mod parts) of `coset_lde(coeffs,
+    rate_bits)`, [..., N / parts] with local column i the global column
+    part + parts i: the points g w_N^(part + parts i) = (g w_N^part)
+    w_(N / parts)^i, so the LDE at rate_bits - lg parts on the coset
+    shifted by g w_N^part (in the interleaved form, the scale table's rows
+    part::parts and a fan of 2^rate_bits / parts). `parts` (a power of two)
+    must divide 2^rate_bits."""
+    lg_parts = log2_strict(parts)
+    if lg_parts > rate_bits or not 0 <= part < parts:
+        raise ValueError(f"part {part} of {parts}: the parts must divide 2^rate_bits = "
+                         f"{1 << rate_bits}")
+    lg_n = log2_strict(coeffs.shape[-1]) + rate_bits
+    shift = fs.mul(fs.MULTIPLICATIVE_GROUP_GENERATOR,
+                   fs.exp(fs.primitive_root_of_unity(lg_n), part))
+    return lde_fft(coeffs, rate_bits - lg_parts, shift=shift)

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from plonky2_torch import parallel
 from plonky2_torch.field import goldilocks as g
 from plonky2_torch.field import ntt
 from plonky2_torch.field import scalar as fs
@@ -54,6 +55,7 @@ class BatchFriOracle:
     on `device` (CUDA unless the caller asks for another)."""
 
     def __init__(self, poly_groups: list, rate_bits: int, cap_height: int, device=None):
+        parallel.refuse("a batch FRI oracle")
         self.polynomial_groups = [_as_tensor(p, device) for p in poly_groups]
         self.degree_bits = [log2_strict(p.shape[-1]) for p in self.polynomial_groups]
         if any(a <= b for a, b in zip(self.degree_bits, self.degree_bits[1:])):
@@ -78,6 +80,7 @@ def batch_fri_proof(batch_trees: list, composition_coeffs: list, challenger, fri
     "batch_fused" or "batch_host"."""
     from plonky2_torch.hash.hashers import PoseidonHasher
 
+    parallel.refuse("the batch FRI prove")
     if (not fp._FORCE_HOST and getattr(hasher, "algebraic", True)
             and challenger.hasher is PoseidonHasher and fri_params.reduction_arity_bits):
         fp._LAST_PATH = "batch_fused"

@@ -14,6 +14,13 @@ SALT_SIZE · N draws, so `salt_stream` makes either layout from it.
 `prove_openings` forms the batch quotients by evaluating on the LDE domain
 and dividing by (x - z) pointwise, then one coset iFFT, and hands the
 result to the FRI prover.
+
+Under a process group (`plonky2_torch.parallel`; Poseidon only) a batch
+keeps its coefficients whole and holds rank r's LDE columns c = r (mod k)
+and their `ShardedMerkleTree`: `from_values` runs the iFFT poly-sharded
+and all-gathers the coefficients, `_commit` computes the rank's columns
+alone (`ntt.coset_lde_part`) and takes its columns of the salt rows, and
+`part` slices the local form out of a batch committed whole.
 """
 
 from __future__ import annotations
@@ -23,13 +30,13 @@ import functools
 import numpy as np
 import torch
 
-from plonky2_torch import resolve_device
+from plonky2_torch import parallel, resolve_device
 from plonky2_torch.field import goldilocks as g
 from plonky2_torch.field import ntt
 from plonky2_torch.field import scalar as fs
 from plonky2_torch.fri.proof import SALT_SIZE
 from plonky2_torch.fri.prover import fri_proof
-from plonky2_torch.hash.merkle import KeccakMerkleTree, NaturalMerkleTree
+from plonky2_torch.hash.merkle import KeccakMerkleTree, NaturalMerkleTree, ShardedMerkleTree
 from plonky2_torch.util import log2_strict, reverse_bits, rng
 
 def _as_tensor(x, device):
@@ -57,31 +64,47 @@ class PolynomialBatch:
     """A batch of committed polynomials sharing one Merkle-cap tree."""
 
     def __init__(self, coeffs, lde, merkle_tree, degree_log: int, rate_bits: int,
-                 blinding: bool):
-        self.polynomials = coeffs  # [num_polys, n] coefficients
-        self.lde = lde  # [num_polys, N] natural-order coset-LDE values
+                 blinding: bool, group=None):
+        self.polynomials = coeffs  # [num_polys, n] coefficients, whole
+        # [num_polys, N] natural-order coset-LDE values; under a group the
+        # rank's columns c = rank (mod world), [num_polys, N / world]
+        self.lde = lde
         self.merkle_tree = merkle_tree
         self.degree_log = degree_log
         self.rate_bits = rate_bits
         self.blinding = blinding
+        self.group = group
 
     @staticmethod
     def from_values(values, rate_bits: int, blinding: bool, cap_height: int,
                     device=None, hasher=None, salt=None) -> "PolynomialBatch":
         """salt: a blinding batch's salt stream (`salt_stream`, on the host
         or the device), else drawn here."""
-        values = _as_tensor(values, device)
-        coeffs = ntt.ifft(values)
-        return PolynomialBatch._commit(coeffs, rate_bits, blinding, cap_height, hasher, salt)
+        group = parallel.active_mesh()
+        if group is None:
+            coeffs = ntt.ifft(_as_tensor(values, device))
+        else:
+            local, num_polys = parallel.pad_shard_polys(
+                _as_tensor(values, group.device if device is None else device), group)
+            coeffs = parallel.gather_polys(ntt.ifft(local), group)[:num_polys]
+        return PolynomialBatch._commit(coeffs, rate_bits, blinding, cap_height, hasher, salt,
+                                       group)
 
     @staticmethod
     def from_coeffs(coeffs, rate_bits: int, blinding: bool, cap_height: int,
                     device=None, hasher=None, salt=None) -> "PolynomialBatch":
+        group = parallel.active_mesh()
+        if group is not None and device is None:
+            device = group.device
         coeffs = _as_tensor(coeffs, device)
-        return PolynomialBatch._commit(coeffs, rate_bits, blinding, cap_height, hasher, salt)
+        return PolynomialBatch._commit(coeffs, rate_bits, blinding, cap_height, hasher, salt,
+                                       group)
 
     @staticmethod
-    def _commit(coeffs, rate_bits, blinding, cap_height, hasher, salt=None):
+    def _commit(coeffs, rate_bits, blinding, cap_height, hasher, salt=None, group=None):
+        if group is not None:
+            return PolynomialBatch._commit_part(coeffs, rate_bits, blinding, cap_height, hasher,
+                                                salt, group)
         lde = ntt.coset_lde(coeffs, rate_bits)
         n_lde = lde.shape[-1]
         if blinding:
@@ -96,6 +119,33 @@ class PolynomialBatch:
             tree = KeccakMerkleTree(leaves, cap_height)
         return PolynomialBatch(coeffs, lde, tree, log2_strict(coeffs.shape[-1]),
                                rate_bits, blinding)
+
+    @staticmethod
+    def _commit_part(coeffs, rate_bits, blinding, cap_height, hasher, salt, group):
+        """`_commit` of the rank's LDE columns and their local tree."""
+        if not getattr(hasher, "algebraic", True):
+            raise parallel.not_ported("a Keccak commitment")
+        lde = ntt.coset_lde_part(coeffs, rate_bits, group.rank, group.world)
+        n_lde = lde.shape[-1] * group.world
+        cols = lde
+        if blinding:
+            salt = _as_tensor(salt_stream(n_lde) if salt is None else salt, lde.device)
+            cols = torch.cat([lde, parallel.shard_columns(salt.reshape(SALT_SIZE, n_lde),
+                                                          group)])
+        tree = ShardedMerkleTree(cols.contiguous(), cap_height, group)
+        return PolynomialBatch(coeffs, lde, tree, log2_strict(coeffs.shape[-1]), rate_bits,
+                               blinding, group)
+
+    def part(self, group) -> "PolynomialBatch":
+        """Rank group.rank's local form of this batch committed whole (the
+        constants-sigmas batch of the circuit data): the coefficients, the
+        rank's LDE columns and `NaturalMerkleTree.part`, with no rehash."""
+        if not isinstance(self.merkle_tree, NaturalMerkleTree):
+            raise parallel.not_ported("a Keccak commitment")
+        return PolynomialBatch(self.polynomials,
+                               parallel.shard_columns(self.lde, group).contiguous(),
+                               self.merkle_tree.part(group), self.degree_log, self.rate_bits,
+                               self.blinding, group)
 
     @property
     def device(self):
@@ -114,6 +164,10 @@ class PolynomialBatch:
         if isinstance(self.merkle_tree, KeccakMerkleTree):
             leaf = self.merkle_tree.leaf(reverse_bits(i, self.lde_bits))
             return leaf[:len(leaf) - (SALT_SIZE if self.blinding else 0)]
+        if self.group is not None:  # from the owner rank: the others add zeros
+            k = self.group.world
+            col = self.lde[:, i // k] * int(i % k == self.group.rank)
+            return [int(v) for v in g.to_numpy(self.group.all_reduce_disjoint(col))]
         return [int(v) for v in g.to_numpy(self.lde[:, i])]
 
     # -- batch opening proof ------------------------------------------------

@@ -16,6 +16,13 @@
 Folding, re-LDEs and Merkle builds run on the device on both. Coefficient
 tensors are kept trimmed to their nonzero prefix (folding the zero tail
 yields zeros, so results are identical).
+
+Under a process group (`plonky2_torch.parallel`) FRI runs whole on every
+rank; the initial oracles' openings come from their owner ranks inside
+their trees' `gather` (`hash/merkle.py` `ShardedMerkleTree`). The host
+path's chunked grind is split over the ranks (`_lowest_witness`), and
+so is the fused path's grind on the CPU, where the plain grind is the
+prove's cost; K5's device grind on the card runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import contextlib
 import numpy as np
 import torch
 
+from plonky2_torch import parallel
 from plonky2_torch.field import goldilocks as g
 from plonky2_torch.field import ntt
 from plonky2_torch.field import scalar as fs
@@ -192,19 +200,57 @@ def fri_proof_of_work(challenger, config, device) -> int:
             intermediate[i] = x
         threshold = 1 << (64 - pow_bits)
         chunk = GRIND_CHUNK_CUDA if torch.device(device).type == "cuda" else GRIND_CHUNK_CPU
-        start = 0
-        while True:
-            witness = kp.grind_chunk(intermediate, pos, start, chunk, threshold, device)
-            if witness is not None:
-                break
-            start += chunk
-            if start >= fs.P:
-                raise RuntimeError("proof of work failed (searched the entire field)")
+        witness = _lowest_witness(
+            lambda start: kp.grind_chunk(intermediate, pos, start, chunk, threshold, device),
+            chunk, parallel.active_mesh())
     challenger.observe_element(witness)
     response = challenger.get_challenge()
     if response >= 1 << (64 - pow_bits):
         raise RuntimeError("proof-of-work witness does not meet the threshold")
     return witness
+
+
+def _lowest_witness(search, chunk: int, group=None) -> int:
+    """The lowest valid witness over the chunks [j chunk, (j + 1) chunk)
+    (`search(start)`: a chunk's lowest valid candidate or None), in order;
+    under a group the chunks are dealt out to the ranks in turn (in round
+    t rank r searches chunk t k + r) and one all-gather of each rank's find
+    ends the first round where any rank found one, with the least of the
+    finds (every candidate below it lies in a chunk some rank searched)."""
+    world, rank = (1, 0) if group is None else (group.world, group.rank)
+    t = 0
+    while True:
+        start = (t * world + rank) * chunk
+        found = search(start) if start < fs.P else None
+        if group is None:
+            finds = [] if found is None else [found]
+        else:
+            mine = torch.full((1,), -1 if found is None else g.i64(found), dtype=torch.int64,
+                              device=group.device)
+            finds = [g.u64(v) for v in group.all_gather(mine).reshape(-1).tolist() if v != -1]
+        if finds:
+            return min(finds)
+        t += 1
+        if t * world * chunk >= fs.P:
+            raise RuntimeError("proof of work failed (searched the entire field)")
+
+
+def _device_grind(state, pending, pow_bits: int):
+    """The fused transcript's grind: K5's device grind (every rank runs it
+    whole on the card), or on the CPU under a group the plain grind's
+    chunks dealt out over the ranks (`_lowest_witness`)."""
+    group = parallel.active_mesh()
+    if group is None or state.is_cuda or pow_bits == 0:
+        return kp.grind_device(state, pending, pow_bits)
+    inter = [int(v) for v in g.to_numpy(state)]
+    k = int(pending.shape[0])
+    inter[:k] = [int(v) for v in g.to_numpy(pending)]
+    threshold = 1 << (64 - pow_bits)
+    witness = _lowest_witness(
+        lambda start: kp.grind_chunk_plain(inter, k, start, GRIND_CHUNK_CPU, threshold,
+                                           state.device),
+        GRIND_CHUNK_CPU, group)
+    return torch.full((1,), g.i64(witness), dtype=torch.int64, device=state.device)
 
 
 GRIND_CHUNK_HOST = 1 << 14
@@ -326,7 +372,7 @@ def _final_pow_queries(dc, coeffs, fri_params, pads=(0, 0)):
     dc.observe_elements(torch.stack(coeffs, dim=-1))
     if pads[1]:
         dc.observe_elements(zeros(2 * pads[1]))
-    witness = kp.grind_device(dc.state, dc.pending(), config.proof_of_work_bits)
+    witness = _device_grind(dc.state, dc.pending(), config.proof_of_work_bits)
     dc.observe_elements(witness)
     pow_response = dc.get_challenge()
     idx = torch.stack(dc.get_n_challenges(config.num_query_rounds)) & (fri_params.lde_size - 1)

@@ -12,6 +12,10 @@ and pairs adjacent rows (the FRI fold trees). Layers stay on the device as
 views of the tree's buffer; query openings are gathered on the device at
 device indices (`gather`) and leave it in one packed copy.
 
+`ShardedMerkleTree` is one rank's part of a natural tree over a process
+group (`plonky2_torch.parallel`): the rank's columns and their subtrees,
+the cap gathered whole, openings from the owner rank.
+
 `KeccakMerkleTree` is the tree of `KeccakGoldilocksConfig`, over byte
 digests of `KeccakHasher.HASH_SIZE`: its row leaves come to the host in one
 copy and every level is hashed there in one batch (reference
@@ -68,7 +72,13 @@ def gather_openings_cols(cols, layers, idx, lg_n: int, shift_bits: int = 0):
     flipped."""
     from plonky2_torch.ops.ntt import bit_reverse_index
 
-    r = bit_reverse_index(lg_n, cols.device)[idx >> shift_bits]
+    return _gather_natural(cols, layers, bit_reverse_index(lg_n, cols.device)[idx >> shift_bits],
+                           lg_n)
+
+
+def _gather_natural(cols, layers, r, lg_n: int):
+    """`gather_openings_cols` at natural columns r: the leaf column r, and
+    at level k the sibling (r mod 2^(lg_n - k)) ^ 2^(lg_n - k - 1)."""
     sibs = [layer[:, (r & ((1 << (lg_n - k)) - 1)) ^ (1 << (lg_n - k - 1))].T
             for k, layer in enumerate(layers)]
     return cols[:, r].T, _stack_sibs(sibs, r.shape[0], cols.device)
@@ -146,6 +156,92 @@ class NaturalMerkleTree:
 
     def open_many(self, indices: list[int]):
         return open_many_packed([self], [indices])[0]
+
+    def part(self, group) -> "ShardedMerkleTree":
+        """Rank group.rank's part of this tree over a group (layout:
+        `plonky2_torch.parallel`): its columns c = rank (mod world) and the
+        global levels' digests at the same residues, sliced out of this
+        whole tree with no rehash; the levels above the local roots (where
+        the world exceeds 2^cap_height) and the cap stay whole."""
+        k, r = group.world, group.rank
+        local_cap = max(self.cap_height - group.lg, 0)
+        levels = self._lg_n - group.lg - local_cap
+        return ShardedMerkleTree(
+            self._cols[:, r::k].contiguous(), self.cap_height, group,
+            layers=[layer[:, r::k].contiguous() for layer in self._layers[:levels + 1]],
+            top=self._layers[levels:-1] if group.lg > self.cap_height else [],
+            cap_dev=self._layers[-1])
+
+
+class ShardedMerkleTree(NaturalMerkleTree):
+    """One rank's part of a natural tree over [width, N] split over a group
+    of k ranks (`plonky2_torch.parallel`): the columns c = rank (mod k) as
+    [width, N / k] and their local natural tree, cut at cap height
+    cap_height - lg k, whose level-l digest i is the global level-l digest
+    rank + k i. The cap is all-gathered (where k > 2^cap_height, the k local
+    roots are, and the levels above them are hashed whole on every rank):
+    `cap_dev` and `cap` are the whole tree's. `gather` opens reference
+    indices: the rank owning a query's natural column gathers its leaf and
+    path, the others zeros, and one SUM all-reduce gives every rank all of
+    them."""
+
+    def __init__(self, cols, cap_height: int, group, layers=None, top=None, cap_dev=None):
+        self.group = group
+        self.cap_height = cap_height
+        self._cols = cols
+        lg_local = int(cols.shape[1]).bit_length() - 1
+        self._lg_n = lg_local + group.lg
+        local_cap = max(cap_height - group.lg, 0)
+        if local_cap > lg_local:
+            raise ValueError("cap height exceeds the tree height")
+        self._layers = (layers if layers is not None
+                        else kp.merkle_tree(cols, local_cap, natural=True))
+        self._top = list(top or [])
+        if cap_dev is None:
+            roots = group.all_gather(self._layers[-1])  # [k, 4, 2^local_cap]
+            layer = roots.permute(1, 2, 0).reshape(4, -1).contiguous()  # global order
+            if group.lg > cap_height:
+                top_layers = kp.merkle_tree(layer, cap_height, natural=True)
+                self._top, cap_dev = top_layers[:-1], top_layers[-1]
+            else:
+                cap_dev = layer
+        self._cap_dev = cap_dev
+        self._cap = None
+
+    @property
+    def cap_dev(self):
+        """The whole cap layer, [4, 2^cap_height] (column rev(c) is the
+        reference's digest c)."""
+        return self._cap_dev
+
+    @property
+    def cap(self) -> list[list[int]]:
+        if self._cap is None:
+            cap = g.to_numpy(self._cap_dev)
+            self._cap = [[int(v) for v in cap[:, reverse_bits(c, self.cap_height)]]
+                         for c in range(1 << self.cap_height)]
+        return self._cap
+
+    def gather(self, idx, shift_bits: int = 0):
+        """(leaves [q, width], siblings [q, levels, 4]) at device reference
+        indices, whole on every rank."""
+        from plonky2_torch.ops.ntt import bit_reverse_index
+
+        group = self.group
+        c = bit_reverse_index(self._lg_n, self._cols.device)[idx >> shift_bits]
+        own = (c & (group.world - 1)) == group.rank
+        leaves, sibs = _gather_natural(self._cols, self._layers[:-1], c >> group.lg,
+                                       self._lg_n - group.lg)
+        flat = group.all_reduce_disjoint(torch.cat([
+            torch.where(own[:, None], leaves, 0).reshape(-1),
+            torch.where(own[:, None, None], sibs, 0).reshape(-1)]))
+        leaves = flat[:leaves.numel()].reshape(leaves.shape)
+        sibs = flat[leaves.numel():].reshape(sibs.shape)
+        if self._top:  # the whole levels above the local roots
+            top = [layer[:, (c & (layer.shape[1] - 1)) ^ (layer.shape[1] >> 1)].T
+                   for layer in self._top]
+            sibs = torch.cat([sibs, torch.stack(top, dim=1)], dim=1)
+        return leaves, sibs
 
 
 def _stack_sibs(sibs, q, device):

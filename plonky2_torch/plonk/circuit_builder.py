@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from plonky2_torch import resolve_device
+from plonky2_torch import parallel, resolve_device
 from plonky2_torch.field import goldilocks as g
 from plonky2_torch.field import scalar as fs
 from plonky2_torch.fri.oracle import PolynomialBatch
@@ -602,7 +602,9 @@ class CircuitBuilder(ExtensionArithmeticMixin, AlgebraGadgetsMixin, RecursionGad
         The constants-sigmas commitment runs on `device` (CUDA unless the
         caller asks for another); `timing` gets the scopes "selectors and
         constants", "forest and sigmas", "constants-sigmas commitment" and
-        "generators and watch index"."""
+        "generators and watch index". Each rank of a process group builds
+        its circuits whole, outside the group."""
+        parallel.refuse("a circuit build")
         device = resolve_device(device)
         config = self.config
         timing = timing or TimingTree("build")

@@ -13,6 +13,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from plonky2_torch import device_key
 from plonky2_torch.fri.config import FriParams
 from plonky2_torch.fri.structure import (
     FriBatchInfo,
@@ -157,7 +158,11 @@ class ProverOnlyCircuitData:
     caches: dict = field(default_factory=dict, repr=False, compare=False)
 
     def cache(self, device) -> dict:
-        return self.caches.setdefault(str(device), {})
+        """The tables of `device` ("host": the witness engines'); a card
+        named without its index is the current one, so "cuda" and
+        "cuda:0" share one entry."""
+        key = device if device == "host" else str(device_key(device))
+        return self.caches.setdefault(key, {})
 
     def commitment(self, common: CommonCircuitData, device):
         """The constants-sigmas PolynomialBatch on `device` (built once)."""

@@ -45,6 +45,17 @@ under Keccak, as the reference routes it) reads each cap and draw back to
 the host between the rounds; under Keccak the commitments' trees and the
 grind are the host's too (`fri/oracle.py`, `fri/prover.py`). The field
 work between the kernels is plain PyTorch on the same device.
+
+Under a process group (`plonky2_torch.parallel.use_mesh`) `prove` runs on
+the group's device on every rank and gives the single device's proof
+bytes on each, on both transcript paths: the witness, the coefficients,
+the openings, FRI and the transcript are whole on every rank; each
+commitment holds the rank's LDE columns and their part of the tree, the
+constants-sigmas batch is sliced out of the one committed whole
+(`_constants_part`), round 2 scans contiguous blocks of the points with a
+cross-rank carry and gathers its values, and the quotient evaluates the
+rank's own columns and gathers its values before the coset iFFT
+(`_check_group` says which configs it takes).
 """
 
 from __future__ import annotations
@@ -56,7 +67,7 @@ import threading
 import numpy as np
 import torch
 
-from plonky2_torch import resolve_device
+from plonky2_torch import parallel, resolve_device
 from plonky2_torch.field import goldilocks as g
 from plonky2_torch.field import ntt
 from plonky2_torch.field import scalar as fs
@@ -339,7 +350,12 @@ def prove(prover_data, common, inputs, device=None, timing: TimingTree | None = 
     call; a host-path prove completes and returns a closure over its
     proof."""
     global _LAST_TRANSCRIPT
-    device = resolve_device(device)
+    group = parallel.active_mesh()
+    if group is None:
+        device = resolve_device(device)
+    else:
+        _check_group(common, group, device)
+        device = group.device
     timing = timing or TimingTree("prove")
     if _prepared is None:
         _prepared = prepare_witness(prover_data, common, inputs, timing)
@@ -356,7 +372,8 @@ def prove(prover_data, common, inputs, device=None, timing: TimingTree | None = 
         return PolynomialBatch.from_values(values, rate_bits, salt is not None, cap_height,
                                            hasher=hasher, salt=salt)
 
-    constants_sigmas = prover_data.commitment(common, device)
+    constants_sigmas = (prover_data.commitment(common, device) if group is None
+                        else _constants_part(prover_data, common, group))
     challenger = Challenger(hasher)
     common.fri_params.observe(challenger)
     challenger.observe_hash(prover_data.circuit_digest)
@@ -439,18 +456,62 @@ def prove(prover_data, common, inputs, device=None, timing: TimingTree | None = 
     return (lambda: done) if _defer else done
 
 
+# -- under a process group ------------------------------------------------------
+
+def _check_group(common, group, device) -> None:
+    """The configs a prove under a group takes: Poseidon (the Keccak config
+    raises NotImplementedError), a world dividing 2^rate_bits (each rank's
+    LDE columns are a coset LDE of their own), and above a world of 1 a
+    quotient domain equal to the LDE domain (each rank's quotient points
+    are then its own LDE columns, Z(g x) among them); `device`, where
+    given, must be the group's kind of device."""
+    if not getattr(common.generic_config().hasher, "algebraic", True):
+        parallel.refuse("the Keccak config's prove")
+    if device is not None and torch.device(device).type != group.device.type:
+        raise ValueError(f"device={device} under a group on {group.device}")
+    rate_bits = common.config.fri_config.rate_bits
+    k = group.world
+    if (1 << rate_bits) % k:
+        raise ValueError(f"a world of {k} does not divide 2^rate_bits = {1 << rate_bits} "
+                         f"of the config {common.config}")
+    lg_qdf = log2_strict(common.quotient_degree_factor)
+    if k > 1 and rate_bits != lg_qdf:
+        raise ValueError(f"the config {common.config} evaluates the quotient on every "
+                         f"{1 << (rate_bits - lg_qdf)}-th LDE point: not local to a rank of "
+                         f"{k} ({parallel.ROADMAP_ITEM})")
+
+
+def _constants_part(prover_data, common, group):
+    """The rank's local form of the constants-sigmas batch, sliced out of
+    the batch committed whole on the group's device (built once a circuit,
+    its local form once a rank and world)."""
+    cache = prover_data.cache(group.device)
+    key = ("constants_sigmas", group.rank, group.world)
+    if key not in cache:
+        with parallel.use_mesh(None):
+            whole = prover_data.commitment(common, group.device)
+        cache[key] = whole.part(group)
+    return cache[key]
+
+
+def _group_key(name: str, group):
+    return name if group is None else (name, group.rank, group.world)
+
+
 # -- round 2: the permutation argument's partial products and Zs ---------------
 
-def _round2_tables(prover_data, common, device) -> dict:
+def _round2_tables(prover_data, common, device, group=None) -> dict:
     """Sigmas and the identity permutation's values k_i · g^j on `device`,
-    once per circuit."""
+    once per circuit; under a group the rank's block of the points."""
     cache = prover_data.cache(device)
-    if "round2" not in cache:
+    key = _group_key("round2", group)
+    if key not in cache:
         k_is = g.tensor(common.k_is[:common.config.num_routed_wires], device)
-        subgroup = g.tensor(prover_data.subgroup, device)
-        cache["round2"] = {"sigmas": g.tensor(prover_data.sigmas, device),
-                           "s_id": g.mul(k_is[:, None], subgroup[None, :])}
-    return cache["round2"]
+        subgroup = g.tensor(parallel.shard_lanes(prover_data.subgroup, group), device)
+        cache[key] = {"sigmas": g.tensor(parallel.shard_lanes(prover_data.sigmas, group),
+                                         device),
+                      "s_id": g.mul(k_is[:, None], subgroup[None, :])}
+    return cache[key]
 
 
 def _chunk_products(x, qdf: int):
@@ -467,49 +528,62 @@ def _chunk_products(x, qdf: int):
     return prod
 
 
-def _round2_one_challenge(wires_routed, sigmas, s_id, beta, gamma, qdf: int):
+def _round2_one_challenge(wires_routed, sigmas, s_id, beta, gamma, qdf: int, group=None):
     """One challenge's Z [n] and partial products [num_chunks - 1, n].
 
     Per row the quotient of the identity and σ terms; their qdf-row chunk
     products; the inclusive prefix products of those down the chunks; and Z
     as the exclusive prefix product of the rows' totals over the points,
     Z(g^0) = 1 (the reference's sequential loop, plonk/prover.rs:365-449,
-    as modular prefix-product scans)."""
+    as modular prefix-product scans). Under a group the inputs are the
+    rank's block of the points, and so are Z and the partial products: Z's
+    scan carries the lower ranks' products in (`g.cumprod_across`)."""
     numer = g.add(wires_routed, g.add(g.mul(beta, s_id), gamma))
     denom = g.add(wires_routed, g.add(g.mul(beta, sigmas), gamma))
     quot = g.mul(numer, g.inverse_rows(denom))
     cumprods = g.cumprod(_chunk_products(quot, qdf), 0)
-    z_incl = g.cumprod(cumprods[-1], 0)
-    z = torch.cat([torch.ones_like(z_incl[:1]), z_incl[:-1]])
+    z_incl, carry = g.cumprod_across(cumprods[-1], group)
+    z = torch.cat([carry.reshape(1), z_incl[:-1]])
     return z, g.mul(z[None, :], cumprods[:-1])
 
 
 def all_partial_products_and_zs(wires_routed, prover_data, common, betas, gammas):
     """[num_challenges * (1 + num_partial_products), degree] values: every
-    challenge's Z first, then each challenge's partial products."""
+    challenge's Z first, then each challenge's partial products. Under a
+    group each rank computes its block of the points and the blocks are
+    gathered, so the values are whole on every rank."""
     device = wires_routed.device
-    t = _round2_tables(prover_data, common, device)
+    group = parallel.active_mesh()
+    t = _round2_tables(prover_data, common, device, group)
+    wires_routed = parallel.shard_lanes(wires_routed, group)
     zs, pps = [], []
     for beta, gamma in zip(betas, gammas):
         z, pp = _round2_one_challenge(wires_routed, t["sigmas"], t["s_id"],
                                       g.scalar_tensor(beta, device),
                                       g.scalar_tensor(gamma, device),
-                                      common.quotient_degree_factor)
+                                      common.quotient_degree_factor, group)
         zs.append(z)
         pps.append(pp)
-    return torch.cat([torch.stack(zs)] + pps)
+    return parallel.gather_lanes(torch.cat([torch.stack(zs)] + pps), group)
 
 
 # -- round 3: the quotient polynomials -----------------------------------------
 
-def _quotient_tables(prover_data, common, device) -> dict:
+def _quotient_tables(prover_data, common, device, group=None) -> dict:
     """On the quotient domain's points x = shift · v^j (v of order
     Q = qdf · degree): Z_H(x)^-1 (period qdf), L_0(x) = Z_H(x) / (n (x - 1))
     and the identity permutation's values k_i · x, on `device`, once per
-    circuit."""
+    circuit; under a group the rank's points j = rank (mod world)."""
     cache = prover_data.cache(device)
-    if "quotient" in cache:
-        return cache["quotient"]
+    key = _group_key("quotient", group)
+    if key not in cache:
+        whole = _quotient_tables_whole(common, device)
+        cache[key] = {name: parallel.shard_columns(t, group).contiguous()
+                      for name, t in whole.items()}
+    return cache[key]
+
+
+def _quotient_tables_whole(common, device) -> dict:
     qdf, n = common.quotient_degree_factor, common.degree
     lg_q = log2_strict(qdf) + common.degree_bits
     v = fs.primitive_root_of_unity(lg_q)
@@ -524,9 +598,8 @@ def _quotient_tables(prover_data, common, device) -> dict:
     den = g.mul_scalar(g.sub(xs, g.scalar_tensor(1, device)), n % fs.P)
     den_inv = g.inverse_vector(den)
     k_is = g.tensor(common.k_is[:common.config.num_routed_wires], device)
-    cache["quotient"] = {"z_h_inv": z_h_inv, "l_0": g.mul(z_h, den_inv),
-                         "s_id": g.mul(k_is[:, None], xs[None, :])}
-    return cache["quotient"]
+    return {"z_h_inv": z_h_inv, "l_0": g.mul(z_h, den_inv),
+            "s_id": g.mul(k_is[:, None], xs[None, :])}
 
 
 def _gate_constraints(common, wires_q, constants_q, public_inputs_hash):
@@ -570,14 +643,19 @@ def compute_quotient_polys(prover_data, common, constants_sigmas, wires, zs_pp,
     challenge's lookup checks (with LUTs: `deltas` [4 · num_challenges] and
     `lut_re_evals` [num_challenges, num_luts] on the device), then the
     filtered gate constraints; challenge i reduces them by powers of α_i,
-    divides by Z_H and takes the coset iFFT."""
+    divides by Z_H and takes the coset iFFT. Under a group each rank
+    evaluates its own LDE columns (the quotient domain is then the LDE
+    domain, `_check_group`), where Z(g·x) is qdf / world local columns on,
+    and the reduced values are gathered before the iFFT."""
     device = wires.device
     config = common.config
+    group = parallel.active_mesh()
     qdf, n = common.quotient_degree_factor, common.degree
     num_routed, nc = config.num_routed_wires, config.num_challenges
     num_prods = common.num_partial_products
     step = 1 << (config.fri_config.rate_bits - log2_strict(qdf))
-    t = _quotient_tables(prover_data, common, device)
+    next_row = qdf // (1 if group is None else group.world)  # g·x, in local columns
+    t = _quotient_tables(prover_data, common, device, group)
     # natural-order LDEs, subsampled to the Q-point quotient domain
     cs_q = constants_sigmas.lde[:, ::step]
     wires_q = wires.lde[:, ::step]
@@ -591,7 +669,7 @@ def compute_quotient_polys(prover_data, common, constants_sigmas, wires, zs_pp,
         beta = g.scalar_tensor(betas[i], device)
         gamma = g.scalar_tensor(gammas[i], device)
         z_x = zs_q[common.zs_range()[i]]
-        z_gx = torch.roll(z_x, -qdf)  # Z(g·x): g is qdf steps of the Q-point coset
+        z_gx = torch.roll(z_x, -next_row)  # Z(g·x): g is qdf steps of the Q-point coset
         z1_terms.append(g.mul(t["l_0"], g.sub(z_x, one))[None])
         num_prod = _chunk_products(g.add(wires_routed, g.add(g.mul(beta, t["s_id"]), gamma)),
                                    qdf)
@@ -609,7 +687,7 @@ def compute_quotient_polys(prover_data, common, constants_sigmas, wires, zs_pp,
         for i in range(nc):
             local = zs_q[lk + nlp * i:lk + nlp * (i + 1)]
             lookup_terms.append(check_lookup_constraints_device(
-                common, wires_q, lookup_selectors, local, torch.roll(local, -qdf, 1), d[i],
+                common, wires_q, lookup_selectors, local, torch.roll(local, -next_row, 1), d[i],
                 lut_re_evals[i]))
     all_terms = torch.cat(z1_terms + pp_terms + lookup_terms
                           + [_gate_constraints(common, wires_q, cs_q, public_inputs_hash)])
@@ -619,7 +697,7 @@ def compute_quotient_polys(prover_data, common, constants_sigmas, wires, zs_pp,
         g.sum_mod(g.mul(g.powers(a, all_terms.shape[0], device)[:, None],
                         all_terms), 0)
         for a in alphas])
-    quotient_values = g.mul(vanishing, t["z_h_inv"][None, :])
+    quotient_values = parallel.gather_columns(g.mul(vanishing, t["z_h_inv"][None, :]), group)
     return ntt.coset_ifft(quotient_values).reshape(-1, n)
 
 
@@ -851,6 +929,7 @@ def prove_many(prover_data, common, inputs_list, device=None,
     stream, so the per-circuit tables exist before other streams read
     them. `_LAST_MAX_IN_FLIGHT` holds the most proofs in flight."""
     global _LAST_MAX_IN_FLIGHT, _LAST_PROVE_MANY_MODE
+    parallel.refuse("prove_many")
     device = resolve_device(device)
     if window < 1 or threads < 1:
         raise ValueError("window and threads must be at least 1")

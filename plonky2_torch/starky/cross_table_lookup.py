@@ -28,7 +28,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from plonky2_torch import resolve_device
+from plonky2_torch import parallel, resolve_device
 from plonky2_torch.field import goldilocks as g
 from plonky2_torch.field import scalar as fs
 from plonky2_torch.starky.lookup import (
@@ -343,6 +343,7 @@ def prove_multi_table(starks, config, traces, public_inputs_per_table, cross_tab
     ctl_challenges). timing: a TimingTree whose top-level scopes are
     "compute trace commitments", "compute CTL data" and "table i", each
     table's holding the reference's prover scopes."""
+    parallel.refuse("the multi-table prove")
     from plonky2_torch.fri.oracle import PolynomialBatch, _as_tensor
     from plonky2_torch.iop.challenger import Challenger
     from plonky2_torch.starky.prover import prove_with_commitment

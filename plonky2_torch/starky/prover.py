@@ -27,7 +27,7 @@ import functools
 
 import torch
 
-from plonky2_torch import resolve_device
+from plonky2_torch import parallel, resolve_device
 from plonky2_torch.field import goldilocks as g
 from plonky2_torch.field import ntt
 from plonky2_torch.field import scalar as fs
@@ -59,6 +59,7 @@ def prove(stark, config, trace_poly_values, public_inputs, device=None,
     takes their shape (`fri.prover.fri_proof`). hasher: the commitments'
     and the transcript's (Poseidon by default); under `KeccakHasher` the
     trees are hashed on the host and FRI takes the host path."""
+    parallel.refuse("the Starky prove")
     device = resolve_device(device)
     timing = timing or TimingTree("starky prove")
     trace = _as_tensor(trace_poly_values, device)

@@ -182,6 +182,29 @@ def test_factorial_host_path_prove_on_the_card_equals_the_fixture(dev):
     assert proof_to_bytes(pwp) == fixture
 
 
+@pytest.mark.parametrize("host", [False, True], ids=["fused", "host"])
+def test_factorial_under_an_nccl_group_of_one_equals_the_fixture(dev, host):
+    """The prove over a process group of one in this process, NCCL
+    (`plonky2_torch.parallel`): the bytes of fixtures/factorial.proof.bin on
+    both transcript paths, through the group's commitments, gathers and
+    owner-rank openings."""
+    import contextlib
+
+    from plonky2_torch import parallel
+    from plonky2_torch.fri.prover import force_host_path
+    from plonky2_torch.plonk import prover as tp
+    from plonky2_torch.plonk.serialization import proof_to_bytes
+
+    args, fixture = _factorial(dev)
+    force = force_host_path() if host else contextlib.nullcontext()
+    with parallel.local_group("nccl") as group, parallel.use_mesh(group), force:
+        parallel.Collectives.reset()
+        pwp = tp.prove(args[0], args[1], None, _prepared=args[2:])
+    assert tp._LAST_TRANSCRIPT == ("host" if host else "fused")
+    assert parallel.Collectives.count > 0
+    assert proof_to_bytes(pwp) == fixture
+
+
 @pytest.mark.parametrize("pow_bits", [0, 1, 8, 12])
 def test_k5_grind_device_matches_plain(dev, pow_bits):
     from plonky2_torch import ops
