@@ -7,6 +7,8 @@
     python3 chip_smoke.py --phases NAME.. # only the named phases (PHASES)
     python3 chip_smoke.py --phases multigpu  # the prove over every card (one
                                           # process a card, NCCL), beside one card's
+    python3 chip_smoke.py --phases multigpu --cases NAME..  # only the named
+                                          # cases of it (MULTIGPU_CASES)
 
 In order: prints the card's name and power limit; builds the CUDA kernels
 from `plonky2_torch/csrc/` (timed); proves the factorial circuit on the card
@@ -182,10 +184,13 @@ wires tree and each of its launches, K3 at [2, 2^16], [16, 2^16] and
 versions) and requires identical proof bytes; last, the multigpu phase
 as a group of one in this process over NCCL (`multigpu_phase(in_process=
 True)`: the middle circuit's random-witness prove on both paths and the
-headline, each to its pin, with 0 host syncs before the fused fetch;
-`--phases multigpu` runs it over every card, beside the same proves on
-one card, with each rank's K3 sub-LDE and K4 local tree against their
-plain versions and `sharded_prover_step` against the reference's). The
+headline, each to its pin, with 0 host syncs before the fused fetch, and
+one run of each other path under the group: the 2^20 Starky and Keccak
+Starky, the multi-table prove, batch FRI, the Keccak wrap, prove_many
+and the middle build, each to its pin; `--phases multigpu` runs it over
+every card, beside the same proves on one card, with each rank's K3
+sub-LDE and K4 local tree against their plain versions and
+`sharded_prover_step` against the reference's). The
 line before the last is
 the `kernels` JSON object (launches: the headline prove's, the chunk
 grind's from the host-path prove; beside them the inner build's and
@@ -422,10 +427,21 @@ GADGETS_PROOF_SHA256 = "83b9fa1378839631d0fa70e4d7d138bfd046d9554633c8453be44464
 # multigpu), or of one in this process (the whole run), each beside one
 # card's; the reference's multi-chip dry-run step (`sharded_prover_step`,
 # its cap and Z as u64 bytes) from tests/reference_prover_step.py
+# the paths that run under a group besides the PLONK prove: Starky (Poseidon
+# and Keccak) at 2^STARKY_LOG_ROWS, the multi-table prove at CTL_LOG_ROWS,
+# batch FRI, the Keccak wrap of the headline proof, prove_many of the middle
+# circuit (MULTIGPU_BATCH_K proofs of the headline's inputs over every card,
+# BATCH_K in the group of one; window BATCH_WINDOW, threads 1: under a group
+# prove_many refuses dispatch threads) and the middle circuit's build
+MULTIGPU_PATHS = ("starky fibonacci", "starky lookup", "multi-table", "batch FRI",
+                  "keccak wrap", "keccak starky fibonacci", "prove_many", "middle build")
 MULTIGPU_CASES = ("middle fused", "middle host", "headline", "inner18", "zk inner",
-                  "lookup1 inner")
-MULTIGPU_IN_PROCESS = ("middle fused", "middle host", "headline")
+                  "lookup1 inner") + MULTIGPU_PATHS
+MULTIGPU_IN_PROCESS = ("middle fused", "middle host", "headline") + MULTIGPU_PATHS
+# one timed run and nothing else, after the cases before them warmed their circuit
+MULTIGPU_ONCE = ("prove_many", "middle build")
 MULTIGPU_PROVES = 3
+MULTIGPU_BATCH_K = 16
 MULTIGPU_PROFILED = ("headline", "inner18")  # profiled on one card and on every rank
 PROVER_STEP_SHA256 = "a5494b24073cd19d1dd5d5dbd7d5d40619829cc287c0d0e80da40469ea8fac88"
 
@@ -3216,7 +3232,7 @@ def gadgets_phase(torch, dev, card, failures) -> dict:
 
 # -- the multigpu phase -----------------------------------------------------------
 
-def multigpu_cases(torch, dev, names) -> dict:
+def multigpu_cases(torch, dev, names, batch_k: int = MULTIGPU_BATCH_K) -> dict:
     """The proves of the multigpu phase on `dev`, built or read here: name
     -> (prove(timing) -> proof bytes, the pinned sha256, the transcript
     path). "middle fused"/"middle host": the middle circuit's seed-2026
@@ -3224,8 +3240,9 @@ def multigpu_cases(torch, dev, names) -> dict:
     witness + prove from `bench_cache/inner14.proof.bin`
     (HEADLINE_PROOF_SHA256); "inner18", "zk inner", "lookup1 inner": the
     first layers of the sizes, zk and lookup chains (SIZES_PROOF_SHA256S,
-    ZK_PROOF_SHA256S, LOOKUP_PROOF_SHA256S). Every prove seeds the rng to
-    2026; under a process group it runs over the group."""
+    ZK_PROOF_SHA256S, LOOKUP_PROOF_SHA256S); and `multigpu_path_cases`'
+    MULTIGPU_PATHS (prove_many of `batch_k` proofs). Every prove seeds the
+    rng to 2026; under a process group it runs over the group."""
     from plonky2_torch.examples import bench_recursion as br
     from plonky2_torch.field import goldilocks as g
     from plonky2_torch.fri import prover as fri_prover
@@ -3256,8 +3273,10 @@ def multigpu_cases(torch, dev, names) -> dict:
         return prove
 
     cases = {}
-    if any(n.startswith("middle") or n == "headline" for n in names):
-        prover_only, common, _ = read_circuit_data(read("bench_cache", "middle14.circuit.bin"))
+    if any(n.startswith("middle") or n in ("headline", "keccak wrap", "prove_many")
+           for n in names):
+        prover_only, common, verifier_only = read_circuit_data(
+            read("bench_cache", "middle14.circuit.bin"))
         witness, pis, pi_hash = tp.random_witness(common, SEED)
         prepared = (g.tensor(witness, dev), pis, pi_hash)
         for path in ("fused", "host"):
@@ -3276,6 +3295,7 @@ def multigpu_cases(torch, dev, names) -> dict:
         cases["headline"] = (seeded(lambda timing, pw=pw: tp.prove(
             prover_only, common, pw, device=dev, timing=timing)), HEADLINE_PROOF_SHA256,
             "fused")
+        middle = (prover_only, common, verifier_only, inner_vo, inner_common, pw)
     chains = {"inner18": (lambda: (br.dummy_circuit(
                   CircuitConfig.standard_recursion_config(), SIZES_LOG, device=dev),
                   PartialWitness()), SIZES_PROOF_SHA256S[0]),
@@ -3290,21 +3310,157 @@ def multigpu_cases(torch, dev, names) -> dict:
             data, pw = build()
             cases[name] = (seeded(lambda timing, data=data, pw=pw: data.prove(
                 pw, device=dev, timing=timing)), pin, "fused")
+    if any(n in MULTIGPU_PATHS for n in names):
+        cases.update(multigpu_path_cases(torch, dev, names, read,
+                                         middle if "headline" in cases else None, batch_k))
     return {n: cases[n] for n in names}
 
 
-def multigpu_measure(torch, cases, proves: int, group=None, profiled=()) -> dict:
-    """Each case proved once (the first call, with the peak of allocated
-    memory), `proves` times timed end to end (the launch counts and the
-    collectives set to 0 just before each and read just after), once with
-    every phase synchronised (the split), on the fused path once with its
-    host synchronisations counted, and, for the cases named in `profiled`,
-    once under the CUDA profiler (`profile_line`: device busy against the
-    median wall); under `group` if given. Returns name -> numbers and
-    every proof's sha256."""
+def multigpu_path_cases(torch, dev, names, read, middle, batch_k) -> dict:
+    """The MULTIGPU_PATHS cases of `multigpu_cases`, name -> (prove(timing)
+    -> proof bytes or a digest, the pin, None: no PLONK transcript to
+    check). "starky fibonacci"/"starky lookup": FIB20_PROOF_SHA256,
+    LOOKUP20_PROOF_SHA256; "multi-table": the three tables' sha256s
+    (CTL_PROOF_SHA256S, comma-joined); "batch FRI": BATCH_FRI_PROOF_SHA256;
+    "keccak wrap": the Keccak outer layer over the headline proof (made
+    here, outside any group), KECCAK_WRAP_PROOF_SHA256 (its path "host");
+    "keccak starky fibonacci": the walk digest STARK_KECCAK_FIB20_DIGEST;
+    "prove_many": `batch_k` proofs of the headline's inputs, each the
+    sequential prove's on `dev` (made here; the first is
+    HEADLINE_PROOF_SHA256), and at most BATCH_WINDOW in flight; "middle
+    build": the middle circuit's verifier bytes, those of
+    bench_cache/middle14.circuit.bin. middle: (prover data, common and
+    verifier data of the middle circuit, the inner verifier data and
+    common, the headline's PartialWitness)."""
+    from plonky2_torch.examples import batch_fri as bf
+    from plonky2_torch.examples import bench_recursion as br
+    from plonky2_torch.examples import multi_table as mt
+    from plonky2_torch.field import goldilocks as g
+    from plonky2_torch.hash.hashers import KeccakHasher
+    from plonky2_torch.iop.witness import PartialWitness
+    from plonky2_torch.plonk import prover as tp
+    from plonky2_torch.plonk.circuit_builder import CircuitBuilder
+    from plonky2_torch.plonk.circuit_serialization import verifier_data_to_bytes
+    from plonky2_torch.plonk.config import CircuitConfig, keccak_goldilocks_config
+    from plonky2_torch.plonk.serialization import proof_from_bytes, proof_to_bytes
+    from plonky2_torch.recursion import recursive_verifier as rv
+    from plonky2_torch.starky import cross_table_lookup as ctl
+    from plonky2_torch.starky import prover as sp
+    from plonky2_torch.starky.config import StarkConfig
+    from plonky2_torch.starky.fibonacci_stark import FibonacciStark, fibonacci
+    from plonky2_torch.starky.serialization import stark_proof_to_bytes
+    from plonky2_torch.starky.test_starks import LookupTestStark
+    from plonky2_torch.util import rng as prover_rng
+
+    def sha(b: bytes) -> str:
+        return hashlib.sha256(b).hexdigest()
+
+    def seeded(run):
+        prover_rng.seed(SEED)
+        try:
+            return run()
+        finally:
+            prover_rng.seed(None)
+
+    config = StarkConfig.standard_fast_config()
+    n = 1 << STARKY_LOG_ROWS
+    cases = {}
+    for name, pin, make, hasher in (
+            ("starky fibonacci", FIB20_PROOF_SHA256, FibonacciStark, None),
+            ("starky lookup", LOOKUP20_PROOF_SHA256, LookupTestStark, None),
+            ("keccak starky fibonacci", STARK_KECCAK_FIB20_DIGEST, FibonacciStark,
+             KeccakHasher)):
+        if name not in names:
+            continue
+        stark = make(n)
+        pis = [0, 1, fibonacci(n - 1, 0, 1)] if make is FibonacciStark else []
+        trace = g.tensor(stark.generate_trace(*pis[:2]), dev)
+
+        def prove(timing=None, stark=stark, trace=trace, pis=pis, hasher=hasher):
+            proof = sp.prove(stark, config, trace, pis, device=dev, timing=timing,
+                             hasher=hasher)
+            return (proof_walk_digest(proof) if hasher is not None
+                    else stark_proof_to_bytes(proof, config))
+        cases[name] = (prove, pin, None)
+    if "multi-table" in names:
+        starks, ctls = mt.system()
+        traces, ctl_pis = mt.generate_traces(CTL_LOG_ROWS, seed=SEED)
+        traces = [g.tensor(t, dev) for t in traces]
+
+        def prove_tables(timing=None):
+            proofs = ctl.prove_multi_table(starks, config, traces, ctl_pis, ctls, device=dev,
+                                           timing=timing)[0]
+            return ",".join(sha(stark_proof_to_bytes(p, config)) for p in proofs)
+        cases["multi-table"] = (prove_tables, ",".join(CTL_PROOF_SHA256S), None)
+    if "batch FRI" in names:
+        params = config.fri_config.fri_params(bf.BITS[0], False)
+        groups = [g.tensor(c, dev) for c in bf.random_groups(seed=SEED)]
+
+        def prove_batch(timing=None):
+            return bf.proof_bytes(bf.prove(groups, params, dev).proof)
+        cases["batch FRI"] = (prove_batch, BATCH_FRI_PROOF_SHA256, None)
+    if middle is not None:
+        prover_only, common, verifier_only, inner_vo, inner_common, pw = middle
+    if "keccak wrap" in names:
+        headline = proof_from_bytes(proof_to_bytes(seeded(
+            lambda: tp.prove(prover_only, common, pw, device=dev))), common)
+        builder = CircuitBuilder(CircuitConfig.standard_recursion_config(),
+                                 gc=keccak_goldilocks_config())
+        pt = rv.add_virtual_proof_with_pis(builder, common)
+        vdt = rv.add_virtual_verifier_data(builder, common.config.fri_config.cap_height)
+        rv.verify_proof(builder, pt, vdt, common)
+        builder.register_public_inputs(pt.public_inputs)
+        wrap = builder.build(device=dev)
+        wrap_pw = PartialWitness()
+        rv.set_proof_with_pis_target(wrap_pw, pt, headline)
+        rv.set_verifier_data_target(wrap_pw, vdt, verifier_only)
+        cases["keccak wrap"] = (lambda timing=None: proof_to_bytes(seeded(
+            lambda: wrap.prove(wrap_pw, device=dev, timing=timing))),
+            KECCAK_WRAP_PROOF_SHA256, "host")
+    if "prove_many" in names:
+        sequential = seeded(lambda: [sha(proof_to_bytes(tp.prove(
+            prover_only, common, pw, device=dev))) for _ in range(batch_k)])
+
+        def prove_batch_many(timing=None):
+            proofs = seeded(lambda: tp.prove_many(
+                prover_only, common, [pw] * batch_k, device=dev, timing=timing,
+                window=BATCH_WINDOW, threads=1))
+            if tp._LAST_MAX_IN_FLIGHT > BATCH_WINDOW:
+                return f"{tp._LAST_MAX_IN_FLIGHT} proofs in flight, above {BATCH_WINDOW}"
+            return ",".join(sha(proof_to_bytes(p)) for p in proofs)
+        pin = ",".join(sequential)
+        if sequential[0] != HEADLINE_PROOF_SHA256:
+            pin = "the first sequential proof is not the headline's"
+        cases["prove_many"] = (prove_batch_many, pin, None)
+    if "middle build" in names:
+        def build_middle(timing=None):
+            data = br.recursion_circuit(inner_common, CircuitConfig.standard_recursion_config(),
+                                        device=dev, timing=timing)[0]
+            return verifier_data_to_bytes(data.verifier_only, data.common)
+        cases["middle build"] = (build_middle,
+                                 sha(verifier_data_to_bytes(verifier_only, common)), None)
+    return cases
+
+
+def multigpu_measure(torch, cases, proves: int, group=None, profiled=(), once=()) -> dict:
+    """Each case proved once (the first call), `proves` times timed end to
+    end (the launch counts, the collectives and the Keccak host trees set
+    to 0 just before each and read just after), once with every phase
+    synchronised (the split) and on the fused path once with its host
+    synchronisations counted, and, for the cases named in `profiled`, once
+    under the CUDA profiler (`profile_line`: device busy against the median
+    wall); a case named in `once`, whose circuit the cases before it
+    warmed, is proved once, timed, and nothing else. Under `group` if
+    given, with the peak of allocated memory over the first call and the
+    timed ones. A prove gives bytes (their sha256 is compared with the pin)
+    or a digest. Returns name -> numbers and every run's digest."""
     from plonky2_torch import ops, parallel
+    from plonky2_torch.hash import merkle
     from plonky2_torch.plonk import prover as tp
     from plonky2_torch.util import TimingTree
+
+    def digest(got) -> str:
+        return got if isinstance(got, str) else hashlib.sha256(got).hexdigest()
 
     out = {}
     for name, (prove, pin, path) in cases.items():
@@ -3312,40 +3468,47 @@ def multigpu_measure(torch, cases, proves: int, group=None, profiled=()) -> dict
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base_gib = torch.cuda.memory_allocated() / 2**30  # the other cases' circuits
-            t0 = time.perf_counter()
-            shas = [hashlib.sha256(prove()).hexdigest()]
-            torch.cuda.synchronize()
-            first_s = time.perf_counter() - t0
-            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            shas, first_s = [], None
+            if name not in once:
+                t0 = time.perf_counter()
+                shas.append(digest(prove()))
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
             walls = []
-            for _ in range(proves):
+            for _ in range(1 if name in once else proves):
                 ops.reset_launches()
                 parallel.Collectives.reset()
+                merkle.reset_host_trees()
                 t0 = time.perf_counter()
-                shas.append(hashlib.sha256(prove()).hexdigest())
+                shas.append(digest(prove()))
                 walls.append(time.perf_counter() - t0)
                 launches = ops.launch_counts()
                 collectives = (parallel.Collectives.count, parallel.Collectives.bytes)
+                host_trees = dict(merkle.HOST_TREES)
                 transcript = tp._LAST_TRANSCRIPT
-            timing = TimingTree("prove", sync=torch.cuda.synchronize)
-            t0 = time.perf_counter()
-            shas.append(hashlib.sha256(prove(timing)).hexdigest())
-            sync_wall = time.perf_counter() - t0
-            syncs = None
-            if path == "fused":
-                caught, proof = count_syncs_before_fetch(torch, prove)
-                syncs = None if caught is None else len(caught)
-                shas.append(hashlib.sha256(proof).hexdigest())
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            first_s = walls[0] if first_s is None else first_s
+            split, sync_wall, syncs = {}, None, None
+            if name not in once:
+                timing = TimingTree("prove", sync=torch.cuda.synchronize)
+                t0 = time.perf_counter()
+                shas.append(digest(prove(timing)))
+                sync_wall = time.perf_counter() - t0
+                split = timing.split()
+                if path == "fused":
+                    caught, proof = count_syncs_before_fetch(torch, prove)
+                    syncs = None if caught is None else len(caught)
+                    shas.append(digest(proof))
             profile = None
             if name in profiled:
                 who = "one card" if group is None else f"rank {group.rank} of {group.world}"
                 profile = profile_line(torch, prove, statistics.median(walls),
                                        f"multigpu {name}, {who}")
         out[name] = dict(first_s=first_s, walls=walls, wall_s=statistics.median(walls),
-                         sync_wall_s=sync_wall, split=timing.split(), launches=launches,
+                         sync_wall_s=sync_wall, split=split, launches=launches,
                          collectives=collectives[0], collective_bytes=collectives[1],
-                         peak_gib=peak_gib, base_gib=base_gib, syncs_before_fetch=syncs,
-                         transcript=transcript, profile=profile,
+                         host_trees=host_trees, peak_gib=peak_gib, base_gib=base_gib,
+                         syncs_before_fetch=syncs, transcript=transcript, profile=profile,
                          path=path, pinned=pin, shas=sorted(set(shas)))
     return out
 
@@ -3404,23 +3567,28 @@ def multigpu_rank(group, names) -> dict:
     setup_s = time.perf_counter() - t0
     out = dict(rank=group.rank, setup_s=setup_s, threads=torch.get_num_threads(),
                cases=multigpu_measure(torch, cases, MULTIGPU_PROVES, group,
-                                      MULTIGPU_PROFILED))
+                                      MULTIGPU_PROFILED, MULTIGPU_ONCE))
     del cases
     torch.cuda.empty_cache()
     out["kernels"] = multigpu_kernel_checks(torch, group)
     return out
 
 
-def multigpu_phase(torch, dev, card, failures, in_process: bool = False) -> dict:
-    """The PLONK prove over a process group (`plonky2_torch.parallel`), one
+def multigpu_phase(torch, dev, card, failures, in_process: bool = False,
+                   names=None) -> dict:
+    """The proves over a process group (`plonky2_torch.parallel`), one
     rank a card over NCCL. in_process (the one-card run of the whole
     script): a group of one in this process, no spawn, the middle circuit's
-    proves on both paths and the headline, each to its pin. Otherwise (the
+    proves on both paths and the headline, each to its pin, and one run
+    of each of MULTIGPU_PATHS (Starky, the multi-table prove, batch FRI,
+    the Keccak wrap and Keccak Starky, prove_many, the middle build), each
+    to its pin. Otherwise (the
     `--phases multigpu` run) a world of every card: first each case of
     `multigpu_cases` on one card here, with no group, then `multigpu_rank`
     on every card; every rank's proofs must be the pinned ones, the fused
     proves must make no host synchronisation before their fetch, and each
-    rank's kernel checks must show no mismatch. Prints each case's median
+    rank's kernel checks must show no mismatch; `names` picks some of
+    MULTIGPU_CASES there (all by default). Prints each case's median
     wall on one card and on the group, its split, the collectives and
     their bytes a prove, rank 0's launches and every rank's peak memory;
     writes the whole record to chiprun_out/multigpu.json."""
@@ -3429,13 +3597,13 @@ def multigpu_phase(torch, dev, card, failures, in_process: bool = False) -> dict
     t_phase = time.perf_counter()
     world = 1 if in_process else torch.cuda.device_count()
     print(f"multigpu: world {world}{' (a group of one in this process)' if in_process else ''}")
-    names = (MULTIGPU_IN_PROCESS if in_process else MULTIGPU_CASES)
+    names = MULTIGPU_IN_PROCESS if in_process else names or MULTIGPU_CASES
 
     def check_case(who, name, m):
         bad = [s for s in m["shas"] if s != m["pinned"]]
         if bad:
             failures.append(f"multigpu {who} {name}: proof sha256 {bad}, not {m['pinned']}")
-        if m["transcript"] != m["path"]:
+        if m["path"] is not None and m["transcript"] != m["path"]:
             failures.append(f"multigpu {who} {name}: took the {m['transcript']} path")
         if m["path"] == "fused" and m["syncs_before_fetch"] != 0:
             failures.append(f"multigpu {who} {name}: {m['syncs_before_fetch']} host syncs "
@@ -3443,16 +3611,21 @@ def multigpu_phase(torch, dev, card, failures, in_process: bool = False) -> dict
 
     def line(m):
         split = ", ".join(f"{k} {v:.4f}" for k, v in m["split"].items())
+        trees = m["host_trees"]
         return (f"{m['wall_s']:.4f} s median of {[round(w, 4) for w in m['walls']]} (first "
                 f"call {m['first_s']:.3f} s), peak {m['peak_gib']:.2f} GiB allocated ("
                 f"{m['base_gib']:.2f} before it), syncs before the fetch "
-                f"{m['syncs_before_fetch']}; split ({m['sync_wall_s']:.4f} s "
-                f"synchronised): {split}")
+                f"{m['syncs_before_fetch']}; Keccak host trees {trees['trees']} (leaves to "
+                f"the host {trees['copy_s']:.4f} s, hashed {trees['hash_s']:.4f} s); split ("
+                f"{m['sync_wall_s'] or 0:.4f} s synchronised): {split}")
 
     if in_process:
-        cases = multigpu_cases(torch, dev, names)
+        cases = multigpu_cases(torch, dev, names, BATCH_K)
         with parallel.local_group("nccl") as group:
-            result = multigpu_measure(torch, cases, 1, group)
+            # one prove of each path under a group, warm: the earlier phases
+            # (and the headline, for prove_many and the Keccak wrap) proved
+            # their circuits and shapes on this card before
+            result = multigpu_measure(torch, cases, 1, group, once=MULTIGPU_PATHS)
         del cases
         for name, m in result.items():
             check_case("group of one", name, m)
@@ -3465,7 +3638,8 @@ def multigpu_phase(torch, dev, card, failures, in_process: bool = False) -> dict
         cases = multigpu_cases(torch, dev, names)
         print(f"multigpu one card ({card}): circuits read and built in "
               f"{time.perf_counter() - t0:.1f} s")
-        one = multigpu_measure(torch, cases, MULTIGPU_PROVES, profiled=MULTIGPU_PROFILED)
+        one = multigpu_measure(torch, cases, MULTIGPU_PROVES, profiled=MULTIGPU_PROFILED,
+                               once=MULTIGPU_ONCE)
         del cases
         torch.cuda.empty_cache()
         for name, m in one.items():
@@ -3496,8 +3670,10 @@ def multigpu_phase(torch, dev, card, failures, in_process: bool = False) -> dict
                   f"{m0['collectives']} a prove, {m0['collective_bytes']} bytes; launches "
                   f"{m0['launches']} (one card: {m1['launches']}); every rank's median "
                   f"{[round(r['cases'][name]['wall_s'], 4) for r in ranks]} s, peak "
-                  f"{[round(r['cases'][name]['peak_gib'], 2) for r in ranks]} GiB; sha256 "
-                  f"{m0['shas']}")
+                  f"{[round(r['cases'][name]['peak_gib'], 2) for r in ranks]} GiB, Keccak "
+                  f"host trees hashed (s) "
+                  f"{[round(r['cases'][name]['host_trees']['hash_s'], 4) for r in ranks]}; "
+                  f"sha256 {m0['shas']}")
         out = dict(world=world, one_card=one, ranks=ranks, group_s=group_s)
     out["phase_s"] = time.perf_counter() - t_phase
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
@@ -4773,16 +4949,21 @@ PHASES = {"batch_fri": batch_fri_phase, "stark_recursion": stark_recursion_phase
           "multigpu": multigpu_phase}
 
 
-def phases_only(names: list) -> int:
+def phases_only(names: list, cases=None) -> int:
     """Only the named phases (of PHASES), after the kernels' build: a quick
-    check of a new path on the card. Prints what each phase prints, then
-    the failures; exits non-zero on any."""
+    check of a new path on the card; `cases`, only those of the multigpu
+    phase (of MULTIGPU_CASES). Prints what each phase prints, then the
+    failures; exits non-zero on any."""
     import torch
 
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false")
     if not names or any(n not in PHASES for n in names):
         return fail(f"usage: chip_smoke.py --phases {' '.join(PHASES)}")
+    if cases is not None and (names != ["multigpu"] or not cases
+                              or any(c not in MULTIGPU_CASES for c in cases)):
+        return fail(f"usage: chip_smoke.py --phases multigpu --cases "
+                    f"{' '.join(repr(c) for c in MULTIGPU_CASES)}")
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     from plonky2_torch.ops import build
@@ -4800,7 +4981,10 @@ def phases_only(names: list) -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s")
     failures = []
     for name in names:
-        PHASES[name](torch, torch.device("cuda"), card, failures)
+        if cases is None:
+            PHASES[name](torch, torch.device("cuda"), card, failures)
+        else:
+            multigpu_phase(torch, torch.device("cuda"), card, failures, names=tuple(cases))
     for f in failures:
         print(f"chip_smoke: {f}", file=sys.stderr)
     return 1 if failures else 0
@@ -4810,7 +4994,12 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--times":
         sys.exit(times_only(sys.argv[2]))
     if len(sys.argv) >= 2 and sys.argv[1] == "--phases":
-        sys.exit(phases_only(sys.argv[2:]))
+        args = sys.argv[2:]
+        if "--cases" in args:
+            i = args.index("--cases")
+            sys.exit(phases_only(args[:i], args[i + 1:]))
+        sys.exit(phases_only(args))
     if len(sys.argv) != 1:
-        sys.exit(fail("usage: chip_smoke.py [--times DIR | --phases NAME ...]"))
+        sys.exit(fail("usage: chip_smoke.py [--times DIR | --phases NAME ... [--cases "
+                      "NAME ...]]"))
     sys.exit(main())

@@ -126,16 +126,27 @@ def coset_lde(coeffs, rate_bits: int):
 def coset_lde_part(coeffs, rate_bits: int, part: int, parts: int):
     """The natural columns c = part (mod parts) of `coset_lde(coeffs,
     rate_bits)`, [..., N / parts] with local column i the global column
-    part + parts i: the points g w_N^(part + parts i) = (g w_N^part)
-    w_(N / parts)^i, so the LDE at rate_bits - lg parts on the coset
-    shifted by g w_N^part (in the interleaved form, the scale table's rows
-    part::parts and a fan of 2^rate_bits / parts). `parts` (a power of two)
-    must divide 2^rate_bits."""
+    part + parts i: the points a w_(N / parts)^i with a = g w_N^part, a
+    coset of the subgroup of order M = N / parts. Where `parts` (a power
+    of two) divides 2^rate_bits that is the LDE at rate_bits - lg parts on
+    the coset a (in the interleaved form, the scale table's rows part::parts
+    and a fan of 2^rate_bits / parts); above, M is below the degree n, and
+    the coefficients are first reduced mod x^M - a^M (the sum of their n / M
+    slices of M, slice s times a^(M s)), whose values on the coset are the
+    same, and take the plain coset NTT of M points."""
     lg_parts = log2_strict(parts)
-    if lg_parts > rate_bits or not 0 <= part < parts:
-        raise ValueError(f"part {part} of {parts}: the parts must divide 2^rate_bits = "
-                         f"{1 << rate_bits}")
-    lg_n = log2_strict(coeffs.shape[-1]) + rate_bits
+    if not 0 <= part < parts:
+        raise ValueError(f"part {part} of {parts}")
+    lg_m = log2_strict(coeffs.shape[-1])
+    lg_n = lg_m + rate_bits
+    if lg_parts > lg_n:
+        raise ValueError(f"{parts} parts of a {1 << lg_n}-point LDE")
     shift = fs.mul(fs.MULTIPLICATIVE_GROUP_GENERATOR,
                    fs.exp(fs.primitive_root_of_unity(lg_n), part))
-    return lde_fft(coeffs, rate_bits - lg_parts, shift=shift)
+    if lg_parts <= rate_bits:
+        return lde_fft(coeffs, rate_bits - lg_parts, shift=shift)
+    m = 1 << (lg_n - lg_parts)
+    slices = coeffs.reshape(tuple(coeffs.shape[:-1]) + (-1, m))
+    weights = g.powers(fs.exp(shift, m), slices.shape[-2], coeffs.device)
+    folded = g.sum_mod(g.mul(slices, weights[:, None]), -2)
+    return lde_fft(folded, 0, shift=shift)

@@ -52,10 +52,11 @@ class BatchFriOracle:
     """Polynomial groups of strictly decreasing degrees committed under one
     batch Merkle cap (reference batch_fri/oracle.rs:30-123). poly_groups:
     [num_polys, n_k] coefficients per group, u64 matrices or int64 tensors,
-    on `device` (CUDA unless the caller asks for another)."""
+    on `device` (CUDA unless the caller asks for another; under a process
+    group the group's device, the oracle whole on every rank)."""
 
     def __init__(self, poly_groups: list, rate_bits: int, cap_height: int, device=None):
-        parallel.refuse("a batch FRI oracle")
+        device = _device(device)
         self.polynomial_groups = [_as_tensor(p, device) for p in poly_groups]
         self.degree_bits = [log2_strict(p.shape[-1]) for p in self.polynomial_groups]
         if any(a <= b for a, b in zip(self.degree_bits, self.degree_bits[1:])):
@@ -67,8 +68,16 @@ class BatchFriOracle:
 
     @staticmethod
     def from_values(value_groups: list, rate_bits: int, cap_height: int, device=None):
+        device = _device(device)
         return BatchFriOracle([ntt.ifft(_as_tensor(v, device)) for v in value_groups],
-                              rate_bits, cap_height)
+                              rate_bits, cap_height, device)
+
+
+def _device(device):
+    """`device`, or under a process group the group's (which a given device
+    must agree with): batch FRI runs whole on every rank, as the reference
+    runs it unsharded under a mesh."""
+    return device if parallel.active_mesh() is None else parallel.placement(device)[1]
 
 
 def batch_fri_proof(batch_trees: list, composition_coeffs: list, challenger, fri_params,
@@ -77,10 +86,16 @@ def batch_fri_proof(batch_trees: list, composition_coeffs: list, challenger, fri
     coefficient tensors (c0, c1) of its α-combined quotient polynomial
     (reference batch_fri/prover.rs:25-148). The fold trees are `hasher`'s
     (Poseidon by default); `fri.prover._LAST_PATH` records the path,
-    "batch_fused" or "batch_host"."""
+    "batch_fused" or "batch_host". Under a process group it runs whole on
+    every rank with the group suspended."""
+    with parallel.use_mesh(None):
+        return _batch_fri_proof(batch_trees, composition_coeffs, challenger, fri_params,
+                                hasher)
+
+
+def _batch_fri_proof(batch_trees, composition_coeffs, challenger, fri_params, hasher):
     from plonky2_torch.hash.hashers import PoseidonHasher
 
-    parallel.refuse("the batch FRI prove")
     if (not fp._FORCE_HOST and getattr(hasher, "algebraic", True)
             and challenger.hasher is PoseidonHasher and fri_params.reduction_arity_bits):
         fp._LAST_PATH = "batch_fused"

@@ -15,12 +15,14 @@ SALT_SIZE · N draws, so `salt_stream` makes either layout from it.
 and dividing by (x - z) pointwise, then one coset iFFT, and hands the
 result to the FRI prover.
 
-Under a process group (`plonky2_torch.parallel`; Poseidon only) a batch
-keeps its coefficients whole and holds rank r's LDE columns c = r (mod k)
-and their `ShardedMerkleTree`: `from_values` runs the iFFT poly-sharded
-and all-gathers the coefficients, `_commit` computes the rank's columns
-alone (`ntt.coset_lde_part`) and takes its columns of the salt rows, and
-`part` slices the local form out of a batch committed whole.
+Under a process group (`plonky2_torch.parallel`) a batch keeps its
+coefficients whole and holds rank r's LDE columns c = r (mod k) and their
+part of the tree (`ShardedMerkleTree`, or under Keccak
+`ShardedKeccakMerkleTree` over the rank's block of row leaves):
+`from_values` runs the iFFT poly-sharded and all-gathers the coefficients,
+`_commit` computes the rank's columns alone (`ntt.coset_lde_part`) and
+takes its columns (or rows) of the salt, and `part` slices the local form
+out of a batch committed whole.
 """
 
 from __future__ import annotations
@@ -36,7 +38,12 @@ from plonky2_torch.field import ntt
 from plonky2_torch.field import scalar as fs
 from plonky2_torch.fri.proof import SALT_SIZE
 from plonky2_torch.fri.prover import fri_proof
-from plonky2_torch.hash.merkle import KeccakMerkleTree, NaturalMerkleTree, ShardedMerkleTree
+from plonky2_torch.hash.merkle import (
+    KeccakMerkleTree,
+    NaturalMerkleTree,
+    ShardedKeccakMerkleTree,
+    ShardedMerkleTree,
+)
 from plonky2_torch.util import log2_strict, reverse_bits, rng
 
 def _as_tensor(x, device):
@@ -122,26 +129,33 @@ class PolynomialBatch:
 
     @staticmethod
     def _commit_part(coeffs, rate_bits, blinding, cap_height, hasher, salt, group):
-        """`_commit` of the rank's LDE columns and their local tree."""
-        if not getattr(hasher, "algebraic", True):
-            raise parallel.not_ported("a Keccak commitment")
+        """`_commit` of the rank's LDE columns and their part of the tree."""
         lde = ntt.coset_lde_part(coeffs, rate_bits, group.rank, group.world)
         n_lde = lde.shape[-1] * group.world
-        cols = lde
         if blinding:
             salt = _as_tensor(salt_stream(n_lde) if salt is None else salt, lde.device)
-            cols = torch.cat([lde, parallel.shard_columns(salt.reshape(SALT_SIZE, n_lde),
-                                                          group)])
-        tree = ShardedMerkleTree(cols.contiguous(), cap_height, group)
+        if getattr(hasher, "algebraic", True):
+            cols = lde
+            if blinding:
+                cols = torch.cat([lde, parallel.shard_columns(salt.reshape(SALT_SIZE, n_lde),
+                                                              group)])
+            tree = ShardedMerkleTree(cols.contiguous(), cap_height, group)
+        else:  # the rank's block of row leaves, salted with the same rows of the salt
+            leaves = _lde_leaves(lde)
+            if blinding:
+                m = leaves.shape[0]
+                j = reverse_bits(group.rank, group.lg)
+                leaves = torch.cat([leaves, salt.reshape(n_lde, SALT_SIZE)[j * m:(j + 1) * m]],
+                                   dim=1)
+            tree = ShardedKeccakMerkleTree(leaves, cap_height, group)
         return PolynomialBatch(coeffs, lde, tree, log2_strict(coeffs.shape[-1]), rate_bits,
                                blinding, group)
 
     def part(self, group) -> "PolynomialBatch":
         """Rank group.rank's local form of this batch committed whole (the
         constants-sigmas batch of the circuit data): the coefficients, the
-        rank's LDE columns and `NaturalMerkleTree.part`, with no rehash."""
-        if not isinstance(self.merkle_tree, NaturalMerkleTree):
-            raise parallel.not_ported("a Keccak commitment")
+        rank's LDE columns and its part of the tree (`NaturalMerkleTree.part`
+        or `KeccakMerkleTree.part`), with no rehash."""
         return PolynomialBatch(self.polynomials,
                                parallel.shard_columns(self.lde, group).contiguous(),
                                self.merkle_tree.part(group), self.degree_log, self.rate_bits,

@@ -19,8 +19,11 @@ the cap gathered whole, openings from the owner rank.
 `KeccakMerkleTree` is the tree of `KeccakGoldilocksConfig`, over byte
 digests of `KeccakHasher.HASH_SIZE`: its row leaves come to the host in one
 copy and every level is hashed there in one batch (reference
-hash/merkle.py:415-460). `HOST_TREES` adds up the seconds of those copies
-and of the hashing, for a prove's phase split.
+hash/merkle.py:415-460). `ShardedKeccakMerkleTree` is one rank's part of
+it over a group: the rank's contiguous block of row leaves and its
+subtree, hashed on the rank's host, the cap gathered whole, openings from
+the owner rank. `HOST_TREES` adds up this process's seconds of those
+copies and of the hashing, for a prove's phase split.
 """
 
 from __future__ import annotations
@@ -346,6 +349,92 @@ class KeccakMerkleTree:
         return [([int(v) for v in leaves[qi]],
                  MerkleProof([bytes(level[qi]) for level in sibs]))
                 for qi in range(len(indices))]
+
+    def part(self, group) -> "ShardedKeccakMerkleTree":
+        """Rank group.rank's part of this tree over a group, sliced out with
+        no rehash: its block of row leaves, the same block of each level
+        up to the local cap, the whole levels above the local roots (where
+        the world exceeds 2^cap_height) and the whole cap."""
+        lg_m = int(self.leaves.shape[0]).bit_length() - 1 - group.lg
+        j = reverse_bits(group.rank, group.lg)  # the rank's block of row leaves
+        local_cap = max(self.cap_height - group.lg, 0)
+        layers = [layer[(j << lg_m) >> l:((j + 1) << lg_m) >> l]
+                  for l, layer in enumerate(self._layers[:lg_m - local_cap + 1])]
+        return ShardedKeccakMerkleTree(
+            self.leaves[j << lg_m:(j + 1) << lg_m], self.cap_height, group,
+            layers=layers, top=self._layers[lg_m:-1] if group.lg > self.cap_height else [],
+            cap=self.cap)
+
+
+class ShardedKeccakMerkleTree(KeccakMerkleTree):
+    """One rank's part of a Keccak tree over row leaves [N, width] split over
+    a group of k ranks: the rank's natural LDE columns c = rank (mod k)
+    are the row leaves [j N / k, (j + 1) N / k) with j = rev_{lg k}(rank),
+    and `leaves` are those, [N / k, width] (the bit-reversed rows of the
+    rank's columns, `fri.oracle._lde_leaves` of its LDE). The rank hashes
+    their subtree on its host up to cap height cap_height - lg k; the k
+    local caps are all-gathered as digests into the whole cap in block
+    order (where k > 2^cap_height the k roots are, and the levels above
+    them are hashed whole on every rank). `open_many` opens reference
+    indices: the owner of each index's block gathers its leaf and path,
+    the others zeros, and one SUM all-reduce gives every rank all of them."""
+
+    def __init__(self, leaves, cap_height: int, group, layers=None, top=None, cap=None):
+        from plonky2_torch.hash.hashers import KeccakHasher
+
+        self.group = group
+        lg_m = int(leaves.shape[0]).bit_length() - 1
+        local_cap = max(cap_height - group.lg, 0)
+        if local_cap > lg_m:
+            raise ValueError("cap height exceeds the tree height")
+        if layers is None:
+            super().__init__(leaves, local_cap)
+        else:
+            self.leaves = np.ascontiguousarray(leaves, dtype=np.uint64)
+            self._layers = list(layers)
+        self.cap_height = cap_height
+        self._top = list(top or [])
+        if cap is None:
+            local = torch.from_numpy(np.ascontiguousarray(self._layers[-1])).to(group.device)
+            caps = group.all_gather(local).cpu().numpy()  # [k, 2^local_cap, HASH_SIZE]
+            order = [reverse_bits(j, group.lg) for j in range(group.world)]  # block j's rank
+            layer = caps[order].reshape(-1, KeccakHasher.HASH_SIZE)
+            t0 = time.perf_counter()
+            for _ in range(group.lg - cap_height):
+                self._top.append(layer)
+                layer = KeccakHasher.compress_batch(layer)
+            HOST_TREES["hash_s"] += time.perf_counter() - t0
+            cap = [bytes(row) for row in layer]
+        self.cap = cap
+
+    def open_many(self, indices: list[int]):
+        """(leaf values, MerkleProof) at each reference index, whole on
+        every rank."""
+        group = self.group
+        idx = np.asarray(indices, dtype=np.int64)
+        lg_m = int(self.leaves.shape[0]).bit_length() - 1
+        t = idx & ((1 << lg_m) - 1)
+        own = (idx >> lg_m) == reverse_bits(group.rank, group.lg)
+        leaves = np.where(own[:, None], self.leaves[t], np.uint64(0))
+        sibs = np.zeros((len(idx), len(self._layers) - 1, self._layers[0].shape[1]), np.int64)
+        for k, layer in enumerate(self._layers[:-1]):
+            sibs[:, k] = np.where(own[:, None], layer[(t >> k) ^ 1], 0)
+        flat = torch.from_numpy(np.concatenate([leaves.view(np.int64).reshape(-1),
+                                                sibs.reshape(-1)])).to(group.device)
+        flat = group.all_reduce_disjoint(flat).cpu().numpy()
+        leaves = flat[:leaves.size].view(np.uint64).reshape(leaves.shape)
+        sibs = flat[leaves.size:].astype(np.uint8).reshape(sibs.shape)
+        top = [layer[(idx >> (lg_m + m)) ^ 1] for m, layer in enumerate(self._top)]
+        return [([int(v) for v in leaves[qi]],
+                 MerkleProof([bytes(level) for level in sibs[qi]]
+                             + [bytes(level[qi]) for level in top]))
+                for qi in range(len(indices))]
+
+    def leaf(self, leaf_index: int) -> list[int]:
+        return self.open_many([leaf_index])[0][0]
+
+    def prove(self, leaf_index: int) -> MerkleProof:
+        return self.open_many([leaf_index])[0][1]
 
 
 def make_merkle_tree(leaves, cap_height: int, hasher=None):

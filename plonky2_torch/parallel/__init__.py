@@ -6,53 +6,79 @@ The reference places its inputs on a device mesh and lets XLA insert the
 collectives (GSPMD). The port writes its SPMD out: every rank runs the
 same Python on the same inputs, holds the same values wherever the layout
 below says "whole", and exchanges the rest by the collectives of `Group`.
-Under a group the PLONK prove (`plonk/prover.py` `prove`, both transcript
-paths, zero knowledge and lookups included) gives the single device's
-proof bytes on every rank; with no group active (`active_mesh()` is None)
-every module runs its single-device path, launch for launch.
+Under a group every prover path gives the single device's proof bytes on
+every rank: the PLONK prove (both transcript paths, zero knowledge,
+lookups and the Keccak config), `prove_many`, circuit builds, the Starky
+prove (Poseidon or Keccak), the multi-table prove with its cross-table
+lookups, and batch FRI. With no group active (`active_mesh()` is None)
+every module runs its single-device path, launch for launch. The world is
+any power of two; nothing else constrains it.
 
-The layout. Only two things are held in part on each rank:
+The layout. Only three things are held in part on each rank:
 
 - the LDE values of each committed batch: rank r of k holds the
   natural-order LDE columns c = r (mod k), as [num_polys, N / k] with local
-  column i the global column r + k i (`fri/oracle.py`). The LDE is the
-  interleaved coset form of `field/ntt.py`, so these columns are the LDE at
-  rate_bits - lg k on the coset shift * w_N^r (`ntt.coset_lde_part`), and
-  k must divide 2^rate_bits;
+  column i the global column r + k i (`fri/oracle.py`). These are the
+  points shift w_N^r w_(N/k)^i: a coset of the subgroup of order N / k, so
+  the rank computes them alone (`ntt.coset_lde_part`): the LDE at rate
+  rate_bits - lg k on that coset while k divides 2^rate_bits, and for
+  k > 2^rate_bits (N / k < n points) the coefficients folded first, mod
+  x^(N/k) - (shift w_N^r)^(N/k), which is a weighted sum of their n k / N
+  slices, and then the plain NTT of N / k points;
 - the Merkle tree below the cap: the natural tree pairs (j, j + (N >> l)),
   so digest j of level l covers the columns = j (mod N >> l), and rank r's
   columns form whole subtrees; its local natural tree over [width, N / k],
   cut at cap height cap_height - lg k, holds the global level-l digests
   r + k i (`hash/merkle.py` `ShardedMerkleTree`). Where k > 2^cap_height
-  the k local roots are all-gathered and the top levels hashed whole.
+  the k local roots are all-gathered and the top levels hashed whole. A
+  Keccak tree hashes bit-reversed row leaves on the host: rank r's columns
+  are the contiguous block rev_{lg k}(r) of N / k row leaves, so each rank
+  hashes its own subtree on its own host core and only the k local caps
+  (or roots) are all-gathered (`ShardedKeccakMerkleTree`);
+- the quotient's points (`QuotientPoints`). The quotient is evaluated on
+  the Q = n 2^qd_bits points shift w_Q^j, which are the LDE columns
+  c = j step with step = 2^(rate_bits - qd_bits). Rank r holds such
+  columns only if r = 0 (mod min(step, k)), and those ranks, the holders,
+  evaluate their points: holder h of K = k / min(step, k) holds the
+  points j = h (mod K), every (step / k)-th of its local columns (every
+  one where step <= k). The next row, g x, is point j + 2^qd_bits: while
+  K divides 2^qd_bits it lies on the same holder, 2^qd_bits / K local
+  points on; otherwise on holder h + 2^qd_bits (mod K), which sends it
+  in one all-to-all a batch where each holder moves its values to one
+  other and every rank takes part (`Group.exchange`; NCCL runs it on the
+  group's own communicator). The ranks that hold no point (with step > 1
+  and k > 1) skip the evaluation and add zeros to the all-gather of the
+  holders' values. The alternative,
+  spreading the points evenly over the ranks, would first move every
+  batch's quotient columns through an all-to-all; PERF.md records the
+  choice.
 
 Everything else is whole on every rank: the witness, the coefficients (an
 iFFT from values runs poly-sharded and its coefficients are all-gathered),
 round 2's values after their gather, the quotient values after their
-gather, the openings, FRI, and the transcript. The reference gives its
-rank r' the bit-reversed leaves [r' N / k, (r' + 1) N / k), which are the
-natural columns whose low lg k bits are rev_{lg k}(r'): the same column
-sets, so the port's rank r holds what the reference's rank rev_{lg k}(r)
-holds. The cap is all-gathered and put in the reference's order; a query's
-leaf and Merkle path lie on the rank that owns its natural column, which
-gathers them into zeros, and one SUM all-reduce gives every rank every
-opening exactly (each value is added to zeros only). No other field value
-passes through a reducing collective: the integer SUM of NCCL and gloo
-wraps mod 2^64, not mod p, so field values are all-gathered and then
-reduced with the field's own arithmetic.
+gather, the logUp and CTL columns of a Starky, the openings, FRI, batch
+FRI (run whole with the group suspended, as the reference runs it
+unsharded), and the transcript. The reference gives its rank r' the
+bit-reversed leaves [r' N / k, (r' + 1) N / k), which are the natural
+columns whose low lg k bits are rev_{lg k}(r'): the same column sets, so
+the port's rank r holds what the reference's rank rev_{lg k}(r) holds. The
+cap is all-gathered and put in the reference's order; a query's leaf and
+Merkle path lie on the rank that owns its natural column, which gathers
+them into zeros, and one SUM all-reduce gives every rank every opening
+exactly (each value is added to zeros only). No other field value passes
+through a reducing collective: the integer SUM of NCCL and gloo wraps mod
+2^64, not mod p, so field values are all-gathered and then reduced with
+the field's own arithmetic.
 
 The round-2 scans run over contiguous blocks of the n points (`shard_lanes`)
-with a cross-rank carry (`field/goldilocks.py` `cumprod_across`); the
-quotient evaluates each rank's own LDE columns (Z(g x) is column
-c + 2^rate_bits, on the same rank), so a config whose quotient domain is a
-strict subset of the LDE domain (rate_bits > log2 of the quotient degree
-factor) raises under a world above 1.
+with a cross-rank carry (`field/goldilocks.py` `cumprod_across`).
+`prove_many` under a group dispatches its proofs from one thread, so every
+rank issues their collectives in the same order; with dispatch threads it
+raises (their collectives would leave several threads at once).
 
-Nothing falls back: a world that is not a power of two raises, a failed
-collective raises, and a rank that fails fails `run_on_group`. The paths
-not yet brought under a group (the Keccak config, Starky, the multi-table
-prove, batch FRI, `prove_many` and circuit builds) raise
-NotImplementedError (`refuse`).
+Nothing falls back: a world that is not a power of two raises (GSPMD pads
+such a world; this layout does not), a failed collective raises, and a
+rank that fails fails `run_on_group`.
 """
 
 from __future__ import annotations
@@ -71,8 +97,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-# the ROADMAP item that lists the paths still to bring under a group
-ROADMAP_ITEM = "ROADMAP item 16b"
 DEFAULT_TIMEOUT_S = 600.0
 
 
@@ -131,6 +155,22 @@ class Group:
         Collectives.add(x)
         return x
 
+    def exchange(self, x, send_to, recv_from):
+        """Send x to rank `send_to` and return what rank `recv_from` sends
+        (a tensor of x's shape). Every rank calls it, as one all-to-all
+        whose other pairs move nothing; a rank outside the pairing passes
+        x = None and gets None."""
+        sends, recvs = [0] * self.world, [0] * self.world
+        if x is None:
+            send = out = torch.empty((0,), dtype=torch.int64, device=self.device)
+        else:
+            send = x.contiguous()
+            out = torch.empty_like(send)
+            sends[send_to] = recvs[recv_from] = send.numel()
+        dist.all_to_all_single(out.reshape(-1), send.reshape(-1), recvs, sends)
+        Collectives.add(out)
+        return None if x is None else out
+
 
 # -- the active group ----------------------------------------------------------
 
@@ -157,21 +197,72 @@ def active_mesh() -> Group | None:
     return _ACTIVE[-1] if _ACTIVE else None
 
 
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} under a process group is not ported yet "
-                               f"({ROADMAP_ITEM})")
+def placement(device=None):
+    """(the active group, the device an entry point runs on): with no group
+    `resolve_device(device)`; under a group its device, which a given
+    device must agree with in kind."""
+    from plonky2_torch import resolve_device
 
-
-def refuse(what: str) -> None:
-    """Raise `not_ported(what)` when a group is active: for a path not yet
-    brought under a group."""
-    if active_mesh() is not None:
-        raise not_ported(what)
+    group = active_mesh()
+    if group is None:
+        return None, resolve_device(device)
+    if device is not None and torch.device(device).type != group.device.type:
+        raise ValueError(f"device={device} under a group on {group.device}")
+    return group, group.device
 
 
 def check_world(world: int) -> None:
     if world < 1 or world & (world - 1):
         raise ValueError(f"a world of {world} ranks: it must be a power of two")
+
+
+class QuotientPoints:
+    """The quotient points a rank evaluates (the layout's third item). The
+    quotient domain has 2^qd_bits points a row and is every `step`-th LDE
+    column; with no group the one rank holds every point."""
+
+    def __init__(self, group: Group | None, rate_bits: int, qd_bits: int):
+        k, r = (1, 0) if group is None else (group.world, group.rank)
+        step = 1 << (rate_bits - qd_bits)
+        self.group = group
+        self.spacing = min(step, k)  # the holders are the ranks = 0 (mod spacing)
+        self.holds = r % self.spacing == 0
+        self.holders = k // self.spacing
+        self.index = r // self.spacing  # this rank's place among the holders
+        self.stride = max(step // k, 1)  # over the holder's local LDE columns
+        self.next = 1 << qd_bits  # g x is this many points on
+
+    def points(self, lde):
+        """The rank's LDE columns [..., N / k] -> its quotient points."""
+        return lde[..., ::self.stride]
+
+    def table(self, whole):
+        """The rank's points of a table over the whole domain [..., Q]."""
+        return whole[..., self.index::self.holders]
+
+    def next_rows(self, x):
+        """x at the rank's points [..., Q / K] -> x at their next rows (None
+        on a rank holding no point): this holder's own values, or those of
+        holder index + next (mod K), rolled where the next rows wrap past
+        the last local point. Every rank calls it: the exchange, where the
+        next rows lie on other holders (K > next, the same on every rank),
+        is a collective."""
+        K, a = self.holders, self.index
+        src, shift = (a + self.next) % K, (a + self.next) // K
+        if K > self.next:
+            x = self.group.exchange(x if self.holds else None,
+                                    ((a - self.next) % K) * self.spacing, src * self.spacing)
+        return torch.roll(x, -shift, dims=-1) if self.holds else None
+
+    def gather(self, values, shape):
+        """The holders' values [c, Q / K] (None on a rank holding no point,
+        which adds zeros of `shape`) -> [c, Q], whole on every rank."""
+        if self.group is None:
+            return values
+        if values is None:
+            values = torch.zeros(shape, dtype=torch.int64, device=self.group.device)
+        parts = self.group.all_gather(values)[::self.spacing]  # [K, c, Q / K]
+        return torch.movedim(parts, 0, -1).reshape(values.shape[0], -1)
 
 
 # -- placements, each beside the gather that undoes it ---------------------------

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from plonky2_torch import parallel, resolve_device
+from plonky2_torch import parallel
 from plonky2_torch.field import goldilocks as g
 from plonky2_torch.field import scalar as fs
 from plonky2_torch.fri.oracle import PolynomialBatch
@@ -602,10 +602,11 @@ class CircuitBuilder(ExtensionArithmeticMixin, AlgebraGadgetsMixin, RecursionGad
         The constants-sigmas commitment runs on `device` (CUDA unless the
         caller asks for another); `timing` gets the scopes "selectors and
         constants", "forest and sigmas", "constants-sigmas commitment" and
-        "generators and watch index". Each rank of a process group builds
-        its circuits whole, outside the group."""
-        parallel.refuse("a circuit build")
-        device = resolve_device(device)
+        "generators and watch index". Under a process group the commitment
+        runs over the group: every rank gets the one-device circuit, and
+        its prover data keeps the rank's part of the batch for proves under
+        a group of this rank and world (`plonk.prover._constants_part`)."""
+        group, device = parallel.placement(device)
         config = self.config
         timing = timing or TimingTree("build")
         fri = config.fri_config
@@ -708,7 +709,8 @@ class CircuitBuilder(ExtensionArithmeticMixin, AlgebraGadgetsMixin, RecursionGad
             public_inputs=self.public_inputs, representative_map=parents,
             lookup_rows=list(self.lookup_rows),
             lut_to_lookups=[list(lookups) for lookups in self.lut_to_lookups])
-        prover_only.cache(device)["constants_sigmas"] = commitment
+        prover_only.cache(device)["constants_sigmas" if group is None else (
+            "constants_sigmas", group.rank, group.world)] = commitment
         verifier_only = VerifierOnlyCircuitData(constants_sigmas_cap=cap,
                                                 circuit_digest=circuit_digest)
         if self.goal_common_data is not None and common != self.goal_common_data:

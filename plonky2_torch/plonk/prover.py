@@ -46,16 +46,18 @@ the host between the rounds; under Keccak the commitments' trees and the
 grind are the host's too (`fri/oracle.py`, `fri/prover.py`). The field
 work between the kernels is plain PyTorch on the same device.
 
-Under a process group (`plonky2_torch.parallel.use_mesh`) `prove` runs on
-the group's device on every rank and gives the single device's proof
-bytes on each, on both transcript paths: the witness, the coefficients,
-the openings, FRI and the transcript are whole on every rank; each
-commitment holds the rank's LDE columns and their part of the tree, the
-constants-sigmas batch is sliced out of the one committed whole
-(`_constants_part`), round 2 scans contiguous blocks of the points with a
-cross-rank carry and gathers its values, and the quotient evaluates the
-rank's own columns and gathers its values before the coset iFFT
-(`_check_group` says which configs it takes).
+Under a process group (`plonky2_torch.parallel.use_mesh`) `prove` and
+`prove_many` run on the group's device on every rank and give the single
+device's proof bytes on each, on both transcript paths and under either
+hasher: the witness, the coefficients, the openings, FRI and the
+transcript are whole on every rank; each commitment holds the rank's LDE
+columns and their part of the tree, the constants-sigmas batch is the
+part a build under the group left or is sliced out of the one committed
+whole (`_constants_part`), round 2 scans contiguous blocks of the points
+with a cross-rank carry and gathers its values, and the ranks holding
+quotient points evaluate them and gather the values before the coset iFFT
+(`parallel.QuotientPoints`). Any power-of-two world whose ranks split the
+n rows takes any config.
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ import threading
 import numpy as np
 import torch
 
-from plonky2_torch import parallel, resolve_device
+from plonky2_torch import parallel
 from plonky2_torch.field import goldilocks as g
 from plonky2_torch.field import ntt
 from plonky2_torch.field import scalar as fs
@@ -350,12 +352,8 @@ def prove(prover_data, common, inputs, device=None, timing: TimingTree | None = 
     call; a host-path prove completes and returns a closure over its
     proof."""
     global _LAST_TRANSCRIPT
-    group = parallel.active_mesh()
-    if group is None:
-        device = resolve_device(device)
-    else:
-        _check_group(common, group, device)
-        device = group.device
+    group, device = parallel.placement(device)
+    _check_group(common, group)
     timing = timing or TimingTree("prove")
     if _prepared is None:
         _prepared = prepare_witness(prover_data, common, inputs, timing)
@@ -392,8 +390,8 @@ def prove(prover_data, common, inputs, device=None, timing: TimingTree | None = 
         _LAST_TRANSCRIPT = "fused"
         out = _prove_fused(prover_data, common, constants_sigmas, wires, witness_dev,
                            transcript, public_inputs, pi_hash_dev, timing, _defer, salts)
-        if not _defer:  # every per-circuit table of this device now exists
-            prover_data.cache(device)["warm"] = True
+        if not _defer:  # every per-circuit table of this device (and group) now exists
+            prover_data.cache(device)[_group_key("warm", group)] = True
         return out
     _LAST_TRANSCRIPT = "host"
     challenger.observe_cap(wires.merkle_tree.cap)
@@ -452,39 +450,24 @@ def prove(prover_data, common, inputs, device=None, timing: TimingTree | None = 
                   quotient_polys_cap=quotient.merkle_tree.cap,
                   openings=openings, opening_proof=opening_proof)
     done = ProofWithPublicInputs(proof=proof, public_inputs=list(public_inputs))
-    prover_data.cache(device)["warm"] = True
+    prover_data.cache(device)[_group_key("warm", group)] = True
     return (lambda: done) if _defer else done
 
 
 # -- under a process group ------------------------------------------------------
 
-def _check_group(common, group, device) -> None:
-    """The configs a prove under a group takes: Poseidon (the Keccak config
-    raises NotImplementedError), a world dividing 2^rate_bits (each rank's
-    LDE columns are a coset LDE of their own), and above a world of 1 a
-    quotient domain equal to the LDE domain (each rank's quotient points
-    are then its own LDE columns, Z(g x) among them); `device`, where
-    given, must be the group's kind of device."""
-    if not getattr(common.generic_config().hasher, "algebraic", True):
-        parallel.refuse("the Keccak config's prove")
-    if device is not None and torch.device(device).type != group.device.type:
-        raise ValueError(f"device={device} under a group on {group.device}")
-    rate_bits = common.config.fri_config.rate_bits
-    k = group.world
-    if (1 << rate_bits) % k:
-        raise ValueError(f"a world of {k} does not divide 2^rate_bits = {1 << rate_bits} "
-                         f"of the config {common.config}")
-    lg_qdf = log2_strict(common.quotient_degree_factor)
-    if k > 1 and rate_bits != lg_qdf:
-        raise ValueError(f"the config {common.config} evaluates the quotient on every "
-                         f"{1 << (rate_bits - lg_qdf)}-th LDE point: not local to a rank of "
-                         f"{k} ({parallel.ROADMAP_ITEM})")
+def _check_group(common, group) -> None:
+    """Under a group the circuit's n rows must split over the world (round
+    2's blocks)."""
+    if group is not None and common.degree % group.world:
+        raise ValueError(f"{common.degree} rows do not split over {group.world} ranks")
 
 
 def _constants_part(prover_data, common, group):
-    """The rank's local form of the constants-sigmas batch, sliced out of
-    the batch committed whole on the group's device (built once a circuit,
-    its local form once a rank and world)."""
+    """The rank's local form of the constants-sigmas batch: the one a build
+    under a group of this rank and world left, or else sliced out of the
+    batch committed whole on the group's device (built once a circuit, its
+    local form once a rank and world); its collectives over `group`."""
     cache = prover_data.cache(group.device)
     key = ("constants_sigmas", group.rank, group.world)
     if key not in cache:
@@ -569,17 +552,17 @@ def all_partial_products_and_zs(wires_routed, prover_data, common, betas, gammas
 
 # -- round 3: the quotient polynomials -----------------------------------------
 
-def _quotient_tables(prover_data, common, device, group=None) -> dict:
+def _quotient_tables(prover_data, common, device, points) -> dict:
     """On the quotient domain's points x = shift · v^j (v of order
     Q = qdf · degree): Z_H(x)^-1 (period qdf), L_0(x) = Z_H(x) / (n (x - 1))
     and the identity permutation's values k_i · x, on `device`, once per
-    circuit; under a group the rank's points j = rank (mod world)."""
+    circuit; under a group the rank's points (`points`, a
+    `parallel.QuotientPoints`)."""
     cache = prover_data.cache(device)
-    key = _group_key("quotient", group)
+    key = _group_key("quotient", points.group)
     if key not in cache:
         whole = _quotient_tables_whole(common, device)
-        cache[key] = {name: parallel.shard_columns(t, group).contiguous()
-                      for name, t in whole.items()}
+        cache[key] = {name: points.table(t).contiguous() for name, t in whole.items()}
     return cache[key]
 
 
@@ -643,23 +626,46 @@ def compute_quotient_polys(prover_data, common, constants_sigmas, wires, zs_pp,
     challenge's lookup checks (with LUTs: `deltas` [4 · num_challenges] and
     `lut_re_evals` [num_challenges, num_luts] on the device), then the
     filtered gate constraints; challenge i reduces them by powers of α_i,
-    divides by Z_H and takes the coset iFFT. Under a group each rank
-    evaluates its own LDE columns (the quotient domain is then the LDE
-    domain, `_check_group`), where Z(g·x) is qdf / world local columns on,
-    and the reduced values are gathered before the iFFT."""
+    divides by Z_H and takes the coset iFFT. Under a group the ranks that
+    hold quotient points evaluate them (`parallel.QuotientPoints`: Z(g·x)
+    and the lookup columns' next rows from the same rank or, where the
+    next rows lie on another, one exchange), and the reduced values are
+    gathered before the iFFT."""
     device = wires.device
     config = common.config
-    group = parallel.active_mesh()
     qdf, n = common.quotient_degree_factor, common.degree
+    nc = config.num_challenges
+    points = parallel.QuotientPoints(parallel.active_mesh(), config.fri_config.rate_bits,
+                                     log2_strict(qdf))
+    # the Zs' and the lookup columns' values at g·x, in one exchange where
+    # they lie on another rank (every rank takes part)
+    zs, lk = common.zs_range(), common.lookup_range()
+    zs_q = points.points(zs_pp.lde)
+    shifted = points.next_rows(torch.cat([zs_q[zs.start:zs.stop], zs_q[lk.start:lk.stop]]))
+    vanishing = None
+    if points.holds:
+        vanishing = _vanishing_at_points(
+            prover_data, common, points, constants_sigmas, wires, zs_q, shifted,
+            public_inputs_hash, betas, gammas, alphas, deltas, lut_re_evals)
+    quotient_values = points.gather(vanishing, (nc, (qdf * n) // points.holders))
+    return ntt.coset_ifft(quotient_values).reshape(-1, n)
+
+
+def _vanishing_at_points(prover_data, common, points, constants_sigmas, wires, zs_q, shifted,
+                         public_inputs_hash, betas, gammas, alphas, deltas, lut_re_evals):
+    """The α-reduced terms over Z_H at the rank's quotient points,
+    [num_challenges, points]. zs_q: the Zs-partial-products batch at the
+    points; shifted: its Zs, then its lookup columns, at the next rows."""
+    device = wires.device
+    config = common.config
+    qdf = common.quotient_degree_factor
     num_routed, nc = config.num_routed_wires, config.num_challenges
     num_prods = common.num_partial_products
-    step = 1 << (config.fri_config.rate_bits - log2_strict(qdf))
-    next_row = qdf // (1 if group is None else group.world)  # g·x, in local columns
-    t = _quotient_tables(prover_data, common, device, group)
-    # natural-order LDEs, subsampled to the Q-point quotient domain
-    cs_q = constants_sigmas.lde[:, ::step]
-    wires_q = wires.lde[:, ::step]
-    zs_q = zs_pp.lde[:, ::step]
+    t = _quotient_tables(prover_data, common, device, points)
+    # natural-order LDEs at the quotient domain's points
+    cs_q = points.points(constants_sigmas.lde)
+    wires_q = points.points(wires.lde)
+    zs, lk = common.zs_range(), common.lookup_range()
 
     z1_terms, pp_terms = [], []
     one = g.scalar_tensor(1, device)
@@ -668,27 +674,25 @@ def compute_quotient_polys(prover_data, common, constants_sigmas, wires, zs_pp,
     for i in range(nc):
         beta = g.scalar_tensor(betas[i], device)
         gamma = g.scalar_tensor(gammas[i], device)
-        z_x = zs_q[common.zs_range()[i]]
-        z_gx = torch.roll(z_x, -next_row)  # Z(g·x): g is qdf steps of the Q-point coset
+        z_x = zs_q[zs[i]]
         z1_terms.append(g.mul(t["l_0"], g.sub(z_x, one))[None])
         num_prod = _chunk_products(g.add(wires_routed, g.add(g.mul(beta, t["s_id"]), gamma)),
                                    qdf)
         den_prod = _chunk_products(g.add(wires_routed, g.add(g.mul(beta, sigmas_q), gamma)),
                                    qdf)
         pp = common.partial_products_range()[i * num_prods:(i + 1) * num_prods]
-        accs = torch.cat([z_x[None], zs_q[pp.start:pp.stop], z_gx[None]])
+        accs = torch.cat([z_x[None], zs_q[pp.start:pp.stop], shifted[i][None]])
         pp_terms.append(g.sub(g.mul(accs[1:], den_prod), g.mul(accs[:-1], num_prod)))
     lookup_terms = []
     if common.num_lookup_polys:
         num_sel, nlp = common.selectors_info.num_selectors, common.num_lookup_polys
         lookup_selectors = cs_q[num_sel:num_sel + common.num_lookup_selectors]
-        lk = common.lookup_range().start
         d = deltas.reshape(nc, NUM_COINS_LOOKUP)
         for i in range(nc):
-            local = zs_q[lk + nlp * i:lk + nlp * (i + 1)]
+            local = zs_q[lk.start + nlp * i:lk.start + nlp * (i + 1)]
             lookup_terms.append(check_lookup_constraints_device(
-                common, wires_q, lookup_selectors, local, torch.roll(local, -next_row, 1), d[i],
-                lut_re_evals[i]))
+                common, wires_q, lookup_selectors, local,
+                shifted[len(zs) + nlp * i:len(zs) + nlp * (i + 1)], d[i], lut_re_evals[i]))
     all_terms = torch.cat(z1_terms + pp_terms + lookup_terms
                           + [_gate_constraints(common, wires_q, cs_q, public_inputs_hash)])
     del z1_terms, pp_terms, lookup_terms
@@ -697,8 +701,7 @@ def compute_quotient_polys(prover_data, common, constants_sigmas, wires, zs_pp,
         g.sum_mod(g.mul(g.powers(a, all_terms.shape[0], device)[:, None],
                         all_terms), 0)
         for a in alphas])
-    quotient_values = parallel.gather_columns(g.mul(vanishing, t["z_h_inv"][None, :]), group)
-    return ntt.coset_ifft(quotient_values).reshape(-1, n)
+    return g.mul(vanishing, t["z_h_inv"][None, :])
 
 
 # -- openings --------------------------------------------------------------------
@@ -925,16 +928,25 @@ def prove_many(prover_data, common, inputs_list, device=None,
     for the GIL over ~10^5 launches a proof, and on one H100 two and three
     gave fewer proofs/s than one (chip_smoke's prove_many line, PERF.md).
     Until a prove of the circuit has completed on the device (its
-    per-device cache's "warm"), the first proof runs alone on the caller's
+    per-device cache's "warm", under a group its rank's and world's), the
+    first proof runs alone on the caller's
     stream, so the per-circuit tables exist before other streams read
-    them. `_LAST_MAX_IN_FLIGHT` holds the most proofs in flight."""
+    them. `_LAST_MAX_IN_FLIGHT` holds the most proofs in flight.
+
+    Under a process group every rank issues the same collectives in the
+    same order: the caller's thread dispatches the proofs in order, so
+    threads >= 2 raises there (dispatch threads would issue the collectives
+    of several proofs at once, in an order that may differ between
+    ranks)."""
     global _LAST_MAX_IN_FLIGHT, _LAST_PROVE_MANY_MODE
-    parallel.refuse("prove_many")
-    device = resolve_device(device)
+    group, device = parallel.placement(device)
+    _check_group(common, group)
     if window < 1 or threads < 1:
         raise ValueError("window and threads must be at least 1")
     if common.config.zero_knowledge:
         threads = 1
+    if group is not None and threads > 1:
+        raise ValueError(f"prove_many under a process group takes threads=1, not {threads}")
     _LAST_PROVE_MANY_MODE = "single-stream" if threads == 1 else "threads"
     timing = timing or TimingTree("prove_many")
     cuda = device.type == "cuda"
@@ -950,7 +962,7 @@ def prove_many(prover_data, common, inputs_list, device=None,
     def on(stream):
         return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
 
-    if cuda and not cache.get("warm") and todo:
+    if cuda and not cache.get(_group_key("warm", group)) and todo:
         i, inputs = todo.pop(0)
         prepared = prepare(i, inputs)
         with timing.scope(f"dispatch proof {i}"), in_flight:

@@ -28,7 +28,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from plonky2_torch import parallel, resolve_device
+from plonky2_torch import parallel
 from plonky2_torch.field import goldilocks as g
 from plonky2_torch.field import scalar as fs
 from plonky2_torch.starky.lookup import (
@@ -342,14 +342,15 @@ def prove_multi_table(starks, config, traces, public_inputs_per_table, cross_tab
     matrices, or int64 tensors on `device`. Returns (proofs,
     ctl_challenges). timing: a TimingTree whose top-level scopes are
     "compute trace commitments", "compute CTL data" and "table i", each
-    table's holding the reference's prover scopes."""
-    parallel.refuse("the multi-table prove")
+    table's holding the reference's prover scopes. Under a process group
+    each table's batches are committed over the group (as the Starky
+    prove's) and the CTL columns are whole on every rank."""
     from plonky2_torch.fri.oracle import PolynomialBatch, _as_tensor
     from plonky2_torch.iop.challenger import Challenger
     from plonky2_torch.starky.prover import prove_with_commitment
     from plonky2_torch.util import TimingTree
 
-    device = resolve_device(device)
+    device = parallel.placement(device)[1]
     timing = timing or TimingTree("prove multi table")
     rate_bits = config.fri_config.rate_bits
     cap_height = config.fri_config.cap_height

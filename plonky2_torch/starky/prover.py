@@ -19,6 +19,14 @@ The transcript is the host `Challenger` up to FRI; the FRI argument takes
 the port's fused device transcript whenever it has a fold step under
 Poseidon, and the host one otherwise (no fold step, or `KeccakHasher`,
 whose trees are hashed on the host), with the same bytes. The prover draws no randomness.
+
+Under a process group (`plonky2_torch.parallel.use_mesh`) the trace,
+auxiliary and quotient batches are committed in the group's layout (each
+rank its LDE columns and its part of the tree; under Keccak its own
+subtree, hashed on its host) and the ranks holding quotient points
+evaluate them; the logUp and CTL columns, the openings, FRI and the
+transcript are whole on every rank, and every rank's proof is the single
+device's.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ import functools
 
 import torch
 
-from plonky2_torch import parallel, resolve_device
+from plonky2_torch import parallel
 from plonky2_torch.field import goldilocks as g
 from plonky2_torch.field import ntt
 from plonky2_torch.field import scalar as fs
@@ -58,9 +66,9 @@ def prove(stark, config, trace_poly_values, public_inputs, device=None,
     a variable-degree recursion circuit verifies; the FRI transcript then
     takes their shape (`fri.prover.fri_proof`). hasher: the commitments'
     and the transcript's (Poseidon by default); under `KeccakHasher` the
-    trees are hashed on the host and FRI takes the host path."""
-    parallel.refuse("the Starky prove")
-    device = resolve_device(device)
+    trees are hashed on the host and FRI takes the host path. Under a
+    process group it runs on the group's device over the group."""
+    device = parallel.placement(device)[1]
     timing = timing or TimingTree("starky prove")
     trace = _as_tensor(trace_poly_values, device)
     degree_bits = log2_strict(trace.shape[-1])
@@ -212,30 +220,50 @@ def compute_quotient_polys(stark, config, trace_commitment, public_inputs, alpha
     constraint over the quotient coset, α-combined per challenge, divided by
     Z_H and taken back by one coset iFFT (reference prover.rs:488-670). The
     CTL checks read the auxiliary LDE on the coset and its roll by one row
-    (reference prover.py:246-255)."""
+    (reference prover.py:246-255). Under a group the ranks holding quotient
+    points evaluate them (`parallel.QuotientPoints`: the trace's and the
+    auxiliary columns' next rows from the same rank or, where they lie on
+    another, one exchange a batch) and the values are gathered before the
+    iFFT."""
     qdf = stark.quotient_degree_factor()
     qd_bits = (qdf - 1).bit_length()
     rate_bits = config.fri_config.rate_bits
     if qd_bits > rate_bits:
         raise ValueError("Having constraints of degree higher than the rate is not supported yet.")
-    device = trace_commitment.device
     n = 1 << degree_bits
-    Q = n << qd_bits
-    step = 1 << (rate_bits - qd_bits)
-    next_step = 1 << qd_bits  # g is 2^qd_bits steps of the Q-point coset
-    t = quotient_tables(degree_bits, qd_bits, str(device))
+    points = parallel.QuotientPoints(parallel.active_mesh(), rate_bits, qd_bits)
+    # each batch at the points and at their next rows (every rank takes part
+    # in the exchange)
+    batches = [trace_commitment] + ([auxiliary_polys_commitment]
+                                    if auxiliary_polys_commitment is not None else [])
+    at_points = [points.points(b.lde) for b in batches]
+    at_next = [points.next_rows(x) for x in at_points]
+    evals = None
+    if points.holds:
+        evals = _vanishing_at_points(stark, config, points, trace_commitment.device, at_points,
+                                     at_next, public_inputs, alphas, degree_bits, qd_bits,
+                                     lookup_challenges, ctl_data)
+    evals = points.gather(evals, (len(alphas), (n << qd_bits) // points.holders))
+    return ntt.coset_ifft(evals).reshape(-1, n)
 
+
+def _vanishing_at_points(stark, config, points, device, at_points, at_next, public_inputs,
+                         alphas, degree_bits, qd_bits, lookup_challenges, ctl_data):
+    """The α-combined constraints over Z_H at the rank's quotient points,
+    [num_challenges, points]. at_points, at_next: the trace's (and the
+    auxiliary batch's) values at the points and at their next rows."""
+    t = {name: points.table(v) for name, v in
+         quotient_tables(degree_bits, qd_bits, str(device)).items()}
     ops = TorchBaseOps(device)
-    trace_q = trace_commitment.lde[:, ::step]
-    frame = StarkFrame(list(trace_q), [torch.roll(c, -next_step) for c in trace_q],
+    trace_q = at_points[0]
+    frame = StarkFrame(list(trace_q), list(at_next[0]),
                        [g.scalar_tensor(pi, device) for pi in public_inputs])
     consumer = ConstraintConsumer(ops, [g.scalar_tensor(a, device) for a in alphas],
                                   t["z_last"], t["l_first"], t["l_last"])
     lookup_vars = ctl_vars = None
     aux_local = aux_next = []  # a table with neither logUp nor a CTL commits no aux
-    if auxiliary_polys_commitment is not None:
-        aux_q = auxiliary_polys_commitment.lde[:, ::step]
-        aux_local, aux_next = list(aux_q), [torch.roll(c, -next_step) for c in aux_q]
+    if len(at_points) > 1:
+        aux_local, aux_next = list(at_points[1]), list(at_next[1])
     if stark.uses_lookups():
         lookup_vars = LookupCheckVars(aux_local, aux_next,
                                       [g.scalar_tensor(c, device) for c in lookup_challenges])
@@ -244,8 +272,9 @@ def compute_quotient_polys(stark, config, trace_commitment, public_inputs, alpha
                                            stark.num_lookup_helper_columns(config),
                                            ctl_data.num_ctl_helper_polys())
     eval_vanishing_poly(ops, stark, frame, consumer, lookup_vars, ctl_vars)
-    evals = torch.stack([torch.broadcast_to(a, (Q,)) for a in consumer.accumulators()])
-    return ntt.coset_ifft(g.mul(evals, t["z_h_inv"][None])).reshape(-1, n)
+    q = trace_q.shape[-1]
+    evals = torch.stack([torch.broadcast_to(a, (q,)) for a in consumer.accumulators()])
+    return g.mul(evals, t["z_h_inv"][None])
 
 
 # -- openings --------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port's multi-GPU path (`plonky2_torch.parallel`) on the CPU: one gloo
 spawn of 4 ranks (one intra-op thread each) runs `tests/torch_parallel_ranks.py`
 `four_ranks`, whose results are held here, rank by rank, to the reference
-package and to one device (computed here while the ranks run).
+package, to the committed reference bytes and to one device (computed here
+while the ranks run).
 
 - factorial (`plonky2_torch/data/factorial.prover.bin` and its witness)
   proved under the group on the fused and on the host transcript path,
@@ -19,13 +20,23 @@ package and to one device (computed here while the ranks run).
 - cap heights 0 and 1 (below lg 4) and 4: the cap and openings of a batch
   committed under the group and of a tree sliced out of a whole one
   (`NaturalMerkleTree.part`), and `get_lde_values`, equal to one device's;
-- refusals: a world of 3, a world not dividing 2^rate_bits, a quotient off
-  the LDE domain, the Keccak config, prove_many, Starky, the multi-table
-  prove, batch FRI and a circuit build under a group; and a collective
-  that a rank leaves raises on the rank that waits in it, which fails
-  `run_on_group` (a second spawn, of 2 ranks).
+- every other path under the group, to the reference's bytes: the Starky
+  proves of FibonacciStark and LookupTestStark at 2^7 (rate 1, so the world
+  of 4 exceeds 2^rate_bits and FibonacciStark's quotient lies on every
+  other LDE point), the Keccak Starky at 2^5 (field digests), the three CTL
+  tables, batch FRI, the Keccak factorial built and proved under the group,
+  factorial built under the group (verifier bytes and fixture proof), and
+  `prove_many` equal to the reference's sequential proves (one dispatch
+  thread under the group; two, which the group refuses, on one device); the low-degree circuit at three (rate, quotient
+  degree) configs (a world above 2^rate_bits, the quotient on every 4th and
+  every other LDE point) equal to the reference's proof (these five proofs
+  from tests/torch_make_data.py --parallel, each also one device's);
+- a world of 3 raises, and a collective that a rank leaves raises on the
+  rank that waits in it, which fails `run_on_group` (a second spawn, of 2
+  ranks).
 """
 
+import json
 import os
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -41,13 +52,20 @@ from plonky2_tpu.parallel import sharded_prover_step as reference_prover_step
 from plonky2_torch import parallel
 from plonky2_torch.field import goldilocks as g
 from plonky2_torch.fri.oracle import PolynomialBatch
+from plonky2_torch.fri import prover as fri_prover
 from plonky2_torch.plonk import prover as tp
+from plonky2_torch.plonk.serialization import proof_to_bytes
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_parallel_ranks as ranks  # noqa: E402
 
 WORLD = 4
 FIXTURE = os.path.join(ranks.ROOT, "fixtures", "factorial.proof.bin")
+
+
+def _read(*parts) -> bytes:
+    with open(os.path.join(ranks.ROOT, *parts), "rb") as f:
+        return f.read()
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -66,7 +84,8 @@ def _one_device(values, cap_height):
 def _references() -> dict:
     """What the ranks' results are held to: the reference package's
     sharded commit and prover step on the 8-device mesh, and one device's
-    batches, Z scan, caps and openings."""
+    batches, Z scan, caps and openings, and its proofs of the circuits of
+    `ranks.reference_proof_names()`."""
     values = np.random.default_rng(7).integers(0, (1 << 64) - (1 << 32), size=(8, 64),
                                                dtype=np.uint64)
     out = {"sharded_commit": tuple(np.asarray(x) for x in reference_sharded_commit(
@@ -85,6 +104,19 @@ def _references() -> dict:
         out["caps"][cap_height] = dict(
             opened=(whole.merkle_tree.cap, ranks._openings(whole.merkle_tree)),
             lde_values=[whole.get_lde_values(i) for i in (0, 5, 511)])
+    # one device's proofs of the circuits whose reference proofs --parallel wrote
+    out["one device"] = []
+    with parallel.use_mesh(None), fri_prover.force_host_path():
+        for rate_bits, qdf in ranks.PLONK_CONFIGS:
+            builder, pw = ranks.low_degree_circuit(rate_bits, qdf)
+            data = builder.build(device="cpu")
+            with ranks.seeded():
+                out["one device"].append(proof_to_bytes(data.prove(pw, device="cpu")))
+        builder, inputs = ranks.prove_many_circuit()
+        data = builder.build(device="cpu")
+        with ranks.seeded():
+            out["one device"] += [proof_to_bytes(tp.prove(data.prover_only, data.common, pw,
+                                                          device="cpu")) for pw in inputs]
     return out
 
 
@@ -173,19 +205,98 @@ def test_cap_and_openings_equal_one_device(four, refs, cap_height):
         assert got["lde_values"] == want["lde_values"]
 
 
-@pytest.mark.parametrize("name", [
-    "rate_bits below lg world", "quotient on every other LDE point"])
-def test_configs_off_the_layout_raise(four, name):
+@pytest.mark.parametrize("name", ["fibonacci", "lookup"])
+def test_starky_proves_to_the_reference_bytes_on_every_rank(four, name):
+    want = _read("plonky2_torch", "data", f"starky_{name}{ranks.STARKY_LOG_ROWS}.proof.bin")
     for r in four:
-        assert r["refusals"][name] == "ValueError"
+        assert r["paths"][f"starky {name}"] == want, f"rank {r['rank']}"
 
 
-@pytest.mark.parametrize("name", [
-    "Keccak prove", "prove_many", "Starky prove", "multi-table prove", "batch FRI oracle",
-    "batch FRI prove", "circuit build"])
-def test_paths_not_under_a_group_raise(four, name):
+@pytest.mark.parametrize("name", ["fibonacci", "lookup"])
+def test_keccak_starky_equals_the_reference_field_by_field_on_every_rank(four, name):
+    """Each rank hashed its own subtrees: the trace's, the quotient's (and
+    the auxiliary batch's) and the FRI fold trees'."""
+    with open(os.path.join(ranks.DATA, "stark_keccak.json")) as f:
+        want = json.load(f)[f"{name}{ranks.STARK_KECCAK_LOG_ROWS}"]
     for r in four:
-        assert r["refusals"][name] == "NotImplementedError"
+        fields, digest, trees = r["paths"][f"keccak starky {name}"]
+        assert fields == want["fields"] and digest == want["digest"], f"rank {r['rank']}"
+        assert trees > 0
+
+
+@pytest.mark.parametrize("table", range(3))
+def test_multi_table_proves_to_the_reference_bytes_on_every_rank(four, table):
+    want = _read("plonky2_torch", "data", f"ctl_table{table}.stark_proof.bin")
+    for r in four:
+        assert r["paths"]["multi-table"][table] == want, f"rank {r['rank']}"
+
+
+def test_batch_fri_equals_the_reference_on_every_rank(four):
+    """The proof and the challenger's state after it (the oracle's cap
+    observed first)."""
+    with np.load(os.path.join(ranks.DATA, "batch_fri_9_7.npz")) as z:
+        proof = z["proof"].tobytes()
+        state = tuple([int(v) for v in z[k]] for k in ("sponge", "inputs", "outputs"))
+    for r in four:
+        got_proof, got_state = r["paths"]["batch FRI"]
+        assert got_proof == proof and tuple(got_state) == state, f"rank {r['rank']}"
+
+
+def test_keccak_factorial_builds_and_proves_to_the_fixture_on_every_rank(four):
+    """Built and proved under the group, and built whole outside it (its
+    host tree then sliced to each rank's part, `KeccakMerkleTree.part`)
+    and proved under it."""
+    verifier = _read("fixtures", "keccak_factorial.verifier.bin")
+    proof = _read("fixtures", "keccak_factorial.proof.bin")
+    for r in four:
+        assert r["paths"]["keccak factorial"] == (verifier, proof, "host"), f"rank {r['rank']}"
+        assert r["paths"]["keccak factorial, built whole"] == proof, f"rank {r['rank']}"
+
+
+def _reference_proofs(refs, names) -> list[bytes]:
+    """The reference's proofs (tests/torch_make_data.py --parallel) of
+    `names`, each first held equal to one device's proof here."""
+    every = ranks.reference_proof_names()
+    want = [_read("plonky2_torch", "data", name) for name in names]
+    assert want == [refs["one device"][every.index(name)] for name in names]
+    return want
+
+
+@pytest.mark.parametrize("threads", [1, 2])
+def test_prove_many_equals_sequential_one_device_proves_on_every_rank(four, refs, threads):
+    """One device's sequential proves, and the reference's: one dispatch
+    thread under the group; two, which the group refuses (they would issue
+    the collectives of several proofs at once), on the rank's
+    single-device path."""
+    want = _reference_proofs(refs, ranks.reference_proof_names()[len(ranks.PLONK_CONFIGS):])
+    for r in four:
+        proofs, in_flight, *refused = r["paths"][f"prove_many threads {threads}"]
+        assert proofs == want, f"rank {r['rank']}"
+        assert 1 <= in_flight <= 2  # the window
+        if threads == 2:
+            assert refused == ["prove_many under a process group takes threads=1, not 2"]
+
+
+def test_build_under_the_group_gives_the_fixture_on_every_rank(four):
+    """The build's verifier bytes, the fixture proof from its prover data
+    under the group, and the parts it left: the rank's part for the group,
+    and outside it the whole batch with the verifier's cap."""
+    verifier, proof = _read("fixtures", "factorial.verifier.bin"), _read(FIXTURE)
+    for r in four:
+        assert r["paths"]["factorial build"] == (verifier, proof), f"rank {r['rank']}"
+        assert r["paths"]["factorial build, parts"] == (True, True)
+
+
+@pytest.mark.parametrize("config", ranks.PLONK_CONFIGS,
+                         ids=lambda c: f"rate{c[0]}-qdf{c[1]}")
+def test_plonk_at_any_rate_and_quotient_domain_equals_one_device(four, refs, config):
+    """Rate 1 under a world of 4 (the fold, and Z(g x) on another rank), and
+    quotients on every 4th and every other LDE point: one device's proof,
+    and the reference's."""
+    i = ranks.PLONK_CONFIGS.index(config)
+    want, = _reference_proofs(refs, [ranks.reference_proof_names()[i]])
+    for r in four:
+        assert r["paths"][f"plonk rate {config[0]} qdf {config[1]}"] == want, f"rank {r['rank']}"
 
 
 def test_a_world_of_three_raises():

@@ -139,10 +139,18 @@ circuit of `plonky2_torch/examples/gadgets.py` with the reference's builder
 and proves it (rng seed 2026; `tests/reference_prove_gadgets.py`):
   plonky2_torch/data/gadgets.verifier.bin   verifier_data_to_bytes
   plonky2_torch/data/gadgets.proof.bin      proof_to_bytes
-for the card's test in `tests/test_torch_cuda.py`.
+for the card's test in `tests/test_torch_cuda.py`. `--parallel` proves
+tests/torch_parallel_ranks.py's circuits with the reference (rng seed 2026):
+  plonky2_torch/data/low_degree_rate{1,3,4}_qdf{2,2,8}.proof.bin
+      the low-degree circuit at each of its PLONK_CONFIGS
+  plonky2_torch/data/prove_many_factorial{1,2,3}.proof.bin
+      prove_many's factorial circuit (8 PoW bits) proved sequentially at
+      each of its inputs
+for `tests/test_torch_parallel.py`.
 
     JAX_PLATFORMS=cpu python tests/torch_make_data.py --stark-keccak
     JAX_PLATFORMS=cpu python tests/torch_make_data.py --gadgets
+    JAX_PLATFORMS=cpu python tests/torch_make_data.py --parallel
 """
 
 import lzma
@@ -699,6 +707,32 @@ def write_ctl_data() -> None:
         write(f"ctl4_table{i}.stark_proof.bin", blob)
 
 
+def write_parallel_data() -> None:
+    """The reference's proofs of tests/torch_parallel_ranks.py's circuits
+    (rng seed 2026): the low-degree circuit at each of its PLONK_CONFIGS, and
+    prove_many's factorial circuit proved sequentially at each input."""
+    import torch_parallel_ranks as ranks
+    from plonky2_tpu.plonk.serialization import proof_to_bytes
+    from plonky2_tpu.util import rng
+
+    proofs = []
+    for rate_bits, qdf in ranks.PLONK_CONFIGS:
+        builder, pw = ranks.low_degree_circuit(rate_bits, qdf, "plonky2_tpu")
+        data = builder.build()
+        rng.seed(SEED)
+        proofs.append(data.prove(pw))
+    builder, inputs = ranks.prove_many_circuit("plonky2_tpu")
+    data = builder.build()
+    rng.seed(SEED)
+    proofs += [data.prove(pw) for pw in inputs]
+    rng.seed(None)
+    for name, proof in zip(ranks.reference_proof_names(), proofs):
+        blob = proof_to_bytes(proof)
+        with open(os.path.join(DATA, name), "wb") as f:
+            f.write(blob)
+        print(f"wrote {name}: {len(blob)} bytes", flush=True)
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, ROOT)
@@ -737,6 +771,9 @@ def main() -> int:
     if sys.argv[1:] == ["--gadgets"]:
         write_gadgets_data()
         return 0
+    if sys.argv[1:] == ["--parallel"]:
+        write_parallel_data()
+        return 0
 
     prover_bytes, _, witness, public_inputs, pi_hash, pw = factorial_data()
     os.makedirs(DATA, exist_ok=True)
@@ -772,6 +809,7 @@ def main() -> int:
     write_ctl_data()
     write_stark_keccak_data()
     write_gadgets_data()
+    write_parallel_data()
     return 0
 
 
