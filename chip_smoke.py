@@ -431,17 +431,27 @@ GADGETS_PROOF_SHA256 = "83b9fa1378839631d0fa70e4d7d138bfd046d9554633c8453be44464
 # and Keccak) at 2^STARKY_LOG_ROWS, the multi-table prove at CTL_LOG_ROWS,
 # batch FRI, the Keccak wrap of the headline proof, prove_many of the middle
 # circuit (MULTIGPU_BATCH_K proofs of the headline's inputs over every card,
-# BATCH_K in the group of one; window BATCH_WINDOW, threads 1: under a group
-# prove_many refuses dispatch threads) and the middle circuit's build
+# BATCH_K / 2 in the group of one; window BATCH_WINDOW, threads 1), the middle
+# circuit's build, and prove_many at two dispatch threads (each slot on its
+# own communicator; run in the group of one and on one card only: under an
+# NCCL group of more ranks prove_many refuses dispatch threads)
 MULTIGPU_PATHS = ("starky fibonacci", "starky lookup", "multi-table", "batch FRI",
-                  "keccak wrap", "keccak starky fibonacci", "prove_many", "middle build")
+                  "keccak wrap", "keccak starky fibonacci", "prove_many", "middle build",
+                  "prove_many threads 2")
 MULTIGPU_CASES = ("middle fused", "middle host", "headline", "inner18", "zk inner",
                   "lookup1 inner") + MULTIGPU_PATHS
 MULTIGPU_IN_PROCESS = ("middle fused", "middle host", "headline") + MULTIGPU_PATHS
 # one timed run and nothing else, after the cases before them warmed their circuit
-MULTIGPU_ONCE = ("prove_many", "middle build")
+MULTIGPU_ONCE = ("prove_many", "middle build", "prove_many threads 2")
 MULTIGPU_PROVES = 3
 MULTIGPU_BATCH_K = 16
+# the one-card parts check: every rank of these worlds played on the one
+# card (8 parts for 3 ranks, 16 for 6), its part LDEs and subtrees against
+# the whole LDE's columns and the whole tree's digests, at these (polynomials,
+# lg degree) shapes at rate 3: K3 (2^16 coefficients) and K2 (2^10)
+PARTS_WORLDS = (3, 6)
+PARTS_SHAPES = ((8, 16), (8, 10))
+PARTS_CAP_HEIGHT = 4
 MULTIGPU_PROFILED = ("headline", "inner18")  # profiled on one card and on every rank
 PROVER_STEP_SHA256 = "a5494b24073cd19d1dd5d5dbd7d5d40619829cc287c0d0e80da40469ea8fac88"
 
@@ -3273,8 +3283,8 @@ def multigpu_cases(torch, dev, names, batch_k: int = MULTIGPU_BATCH_K) -> dict:
         return prove
 
     cases = {}
-    if any(n.startswith("middle") or n in ("headline", "keccak wrap", "prove_many")
-           for n in names):
+    if any(n.startswith("middle") or n in ("headline", "keccak wrap", "prove_many",
+                                            "prove_many threads 2") for n in names):
         prover_only, common, verifier_only = read_circuit_data(
             read("bench_cache", "middle14.circuit.bin"))
         witness, pis, pi_hash = tp.random_witness(common, SEED)
@@ -3417,21 +3427,22 @@ def multigpu_path_cases(torch, dev, names, read, middle, batch_k) -> dict:
         cases["keccak wrap"] = (lambda timing=None: proof_to_bytes(seeded(
             lambda: wrap.prove(wrap_pw, device=dev, timing=timing))),
             KECCAK_WRAP_PROOF_SHA256, "host")
-    if "prove_many" in names:
+    if "prove_many" in names or "prove_many threads 2" in names:
         sequential = seeded(lambda: [sha(proof_to_bytes(tp.prove(
             prover_only, common, pw, device=dev))) for _ in range(batch_k)])
-
-        def prove_batch_many(timing=None):
-            proofs = seeded(lambda: tp.prove_many(
-                prover_only, common, [pw] * batch_k, device=dev, timing=timing,
-                window=BATCH_WINDOW, threads=1))
-            if tp._LAST_MAX_IN_FLIGHT > BATCH_WINDOW:
-                return f"{tp._LAST_MAX_IN_FLIGHT} proofs in flight, above {BATCH_WINDOW}"
-            return ",".join(sha(proof_to_bytes(p)) for p in proofs)
         pin = ",".join(sequential)
         if sequential[0] != HEADLINE_PROOF_SHA256:
             pin = "the first sequential proof is not the headline's"
-        cases["prove_many"] = (prove_batch_many, pin, None)
+        for name, threads in (("prove_many", 1), ("prove_many threads 2", 2)):
+            def prove_batch_many(timing=None, threads=threads):
+                proofs = seeded(lambda: tp.prove_many(
+                    prover_only, common, [pw] * batch_k, device=dev, timing=timing,
+                    window=BATCH_WINDOW, threads=threads))
+                if tp._LAST_MAX_IN_FLIGHT > BATCH_WINDOW:
+                    return f"{tp._LAST_MAX_IN_FLIGHT} proofs in flight, above {BATCH_WINDOW}"
+                return ",".join(sha(proof_to_bytes(p)) for p in proofs)
+            if name in names:
+                cases[name] = (prove_batch_many, pin, None)
     if "middle build" in names:
         def build_middle(timing=None):
             data = br.recursion_circuit(inner_common, CircuitConfig.standard_recursion_config(),
@@ -3513,43 +3524,138 @@ def multigpu_measure(torch, cases, proves: int, group=None, profiled=(), once=()
     return out
 
 
+def lde_parts_plain(torch, x, rate_bits: int, own, count: int):
+    """`ntt.coset_lde_parts` by the plain versions of K2 and K3 on x's
+    device: each part v of `own` (of `count`) on its own, the LDE at rate
+    rate_bits - lg count on the coset g w_N^v while count divides
+    2^rate_bits, else the fold and a plain coset NTT."""
+    from plonky2_torch.field import goldilocks as g
+    from plonky2_torch.field import ntt
+    from plonky2_torch.field import scalar as fs
+    from plonky2_torch.ops import ntt as kn
+
+    lg_m, lg_count = x.shape[-1].bit_length() - 1, count.bit_length() - 1
+    lg_n = lg_m + rate_bits
+    out = []
+    for v in own:
+        shift = fs.mul(fs.MULTIPLICATIVE_GROUP_GENERATOR,
+                       fs.exp(fs.primitive_root_of_unity(lg_n), v))
+        if lg_count <= rate_bits:
+            rate = rate_bits - lg_count
+            y, scale, fan = x, ntt._lde_coset_scale_table(shift, lg_m, rate, str(x.device)), 1 << rate
+        else:
+            m = 1 << (lg_n - lg_count)
+            slices = x.reshape(x.shape[0], -1, m)
+            weights = g.powers(fs.exp(shift, m), slices.shape[1], x.device)
+            y = g.sum_mod(g.mul(slices, weights[:, None]), 1)
+            scale, fan = ntt.shift_powers(shift, m, x.device).reshape(1, m), 1
+        lg = y.shape[-1].bit_length() - 1
+        plain = kn.ntt_rows_plain if lg <= kn.MAX_SMEM_LG else kn.ntt_four_step_plain
+        out.append(plain(y.contiguous(), False, scale, fan))
+    return torch.stack(out)
+
+
 def multigpu_kernel_checks(torch, group) -> dict:
-    """On the rank's own columns of the 2^18 inner circuit's wires (random
-    [135, 2^18] coefficients, the same on every rank): K3's sub-LDE (the
-    LDE at rate 3 - lg world on the rank's coset, `ntt.coset_lde_part`) of
-    two rows against `ntt_four_step_plain` and against the rank's columns
-    of the whole LDE x8, and K4's local tree (cap height 4) over 2^15 of the
-    rank's columns of all 135 wires against `merkle_tree_plain`, level by
-    level; then `parallel.sharded_prover_step` against PROVER_STEP_SHA256."""
+    """On the rank's parts of the 2^18 inner circuit's wires (random
+    [135, 2^18] coefficients, the same on every rank): K3's part LDEs
+    (`ntt.coset_lde_parts`: one interleaved launch over the parts' fan
+    rows while P divides 2^3, else the fold a part) of two rows against
+    their plain version (`lde_parts_plain`) and against the parts' columns
+    of the whole LDE x8, and K4's local tree (cap height 4) over 2^15 of
+    the first part's columns of all 135 wires against `merkle_tree_plain`,
+    level by level; then `parallel.sharded_prover_step` against
+    PROVER_STEP_SHA256."""
     import numpy as np
 
     from plonky2_torch import parallel
     from plonky2_torch.field import goldilocks as g
     from plonky2_torch.field import ntt
     from plonky2_torch.field import scalar as fs
-    from plonky2_torch.ops import ntt as kn
     from plonky2_torch.ops import poseidon as kp
 
-    dev, k, r = group.device, group.world, group.rank
+    dev, count, own = group.device, group.parts, group.own_parts
     rng = np.random.default_rng(SEED + 40)
     wires = g.tensor(rng.integers(0, fs.P, size=(135, 1 << SIZES_LOG), dtype=np.uint64), dev)
     x = wires[:2].contiguous()
-    rate = 3 - group.lg
-    shift = fs.mul(fs.MULTIPLICATIVE_GROUP_GENERATOR,
-                   fs.exp(fs.primitive_root_of_unity(SIZES_LOG + 3), r))
-    table = ntt._lde_coset_scale_table(shift, SIZES_LOG, rate, str(dev))
-    sub = ntt.coset_lde_part(x, 3, r, k)
-    k3 = (compare(sub, kn.ntt_four_step_plain(x, False, table, 1 << rate))[0],
-          compare(sub, ntt.coset_lde(x, 3)[:, r::k])[0])
-    local = ntt.coset_lde_part(wires, 3, r, k)[:, :1 << 15].contiguous()
+    sub = ntt.coset_lde_parts(x, 3, own, count)
+    whole = ntt.coset_lde(x, 3)
+    k3 = (compare(sub, lde_parts_plain(torch, x, 3, own, count))[0],
+          compare(sub, torch.stack([whole[:, v::count] for v in own]))[0])
+    del whole
+    local = ntt.coset_lde_parts(wires, 3, own, count)[0][:, :1 << 15].contiguous()
     got, want = kp.merkle_tree(local, 4, True), kp.merkle_tree_plain(local, 4, True)
     torch.cuda.synchronize()
     k4 = int(len(got) != len(want)) + sum(compare(a, b)[0] for a, b in zip(got, want))
     cap, z = parallel.sharded_prover_step(group)
     step = hashlib.sha256(g.to_numpy(cap).tobytes() + g.to_numpy(z).tobytes()).hexdigest()
     return dict(k3_sub_lde_mismatches=k3[0], k3_vs_whole_lde_mismatches=k3[1],
-                k3_shape=[2, 1 << SIZES_LOG, 1 << rate], k4_local_tree_mismatches=k4,
-                k4_shape=list(local.shape), prover_step_sha256=step)
+                k3_shape=list(sub.shape), parts=list(own), of=count,
+                k4_local_tree_mismatches=k4, k4_shape=list(local.shape),
+                prover_step_sha256=step)
+
+
+def parts_check(torch, dev, card, failures) -> dict:
+    """Every rank of the worlds PARTS_WORLDS played on this card: for each
+    rank its parts' LDEs (`ntt.coset_lde_parts`, K3 or K2 by size: one
+    launch a rank where the parts divide 2^3, else the fold a part) and
+    each part's local K4 subtree (cap height PARTS_CAP_HEIGHT - p), held to
+    the columns c = v (mod P) of the whole LDE and the digests at the same
+    residues of the whole tree's levels; then the cap rebuilt from every
+    part's root against the whole tree's. Prints the mismatches (0
+    expected) and the launches a rank, at each of PARTS_SHAPES."""
+    import numpy as np
+
+    from plonky2_torch import ops, parallel
+    from plonky2_torch.field import goldilocks as g
+    from plonky2_torch.field import ntt
+    from plonky2_torch.field import scalar as fs
+    from plonky2_torch.ops import poseidon as kp
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 41)
+    out = {}
+    for polys, lg in PARTS_SHAPES:
+        x = g.tensor(rng.integers(0, fs.P, size=(polys, 1 << lg), dtype=np.uint64), dev)
+        whole = ntt.coset_lde(x, 3)
+        tree = kp.merkle_tree(whole, PARTS_CAP_HEIGHT, True)
+        for k in PARTS_WORLDS:
+            count = parallel.parts_count(k)
+            p = count.bit_length() - 1
+            local_cap = max(PARTS_CAP_HEIGHT - p, 0)
+            levels = lg + 3 - p - local_cap
+            lde_bad = tree_bad = 0
+            roots, launches = [None] * count, []
+            for rank in range(k):
+                own = tuple(range(rank, count, k))
+                ops.reset_launches()
+                parts = ntt.coset_lde_parts(x, 3, own, count)
+                lde_launches = ops.launch_counts()
+                for t, v in enumerate(own):
+                    lde_bad += compare(parts[t], whole[:, v::count])[0]
+                    layers = kp.merkle_tree(parts[t].contiguous(), local_cap, True)
+                    tree_bad += int(len(layers) != levels + 1) + sum(
+                        compare(layers[l], tree[l][:, v::count].contiguous())[0]
+                        for l in range(min(len(layers), levels + 1)))
+                    roots[v] = layers[-1]
+                launches.append({key: n for key, n in lde_launches.items() if n})
+            layer = torch.stack(roots).permute(1, 2, 0).reshape(4, -1).contiguous()
+            cap = (kp.merkle_tree(layer, PARTS_CAP_HEIGHT, True)[-1] if p > PARTS_CAP_HEIGHT
+                   else layer)
+            cap_bad = compare(cap, tree[-1])[0]
+            kernel = "/".join(sorted({key.split()[0] for n in launches for key in n}))
+            out[f"{k} ranks, [{polys}, 2^{lg}]"] = dict(
+                parts=count, lde_mismatches=lde_bad, tree_mismatches=tree_bad,
+                cap_mismatches=cap_bad, lde_launches_by_rank=launches)
+            print(f"parts check ({card}): a world of {k} ({count} parts) on one card, LDE x8 of "
+                  f"[{polys}, 2^{lg}] ({kernel}) and its trees: LDE {lde_bad} mismatches, "
+                  f"subtrees {tree_bad}, cap {cap_bad}; each rank's LDE launches {launches}")
+            if lde_bad or tree_bad or cap_bad:
+                failures.append(f"parts check, {k} ranks, [{polys}, 2^{lg}]: {lde_bad} LDE, "
+                                f"{tree_bad} subtree, {cap_bad} cap mismatches")
+        del whole, tree
+    out["seconds"] = time.perf_counter() - t0
+    print(f"parts check ({card}): {out['seconds']:.1f} s")
+    return out
 
 
 def multigpu_rank(group, names) -> dict:
@@ -3575,7 +3681,7 @@ def multigpu_rank(group, names) -> dict:
 
 
 def multigpu_phase(torch, dev, card, failures, in_process: bool = False,
-                   names=None) -> dict:
+                   names=None, world=None) -> dict:
     """The proves over a process group (`plonky2_torch.parallel`), one
     rank a card over NCCL. in_process (the one-card run of the whole
     script): a group of one in this process, no spawn, the middle circuit's
@@ -3583,7 +3689,8 @@ def multigpu_phase(torch, dev, card, failures, in_process: bool = False,
     of each of MULTIGPU_PATHS (Starky, the multi-table prove, batch FRI,
     the Keccak wrap and Keccak Starky, prove_many, the middle build), each
     to its pin. Otherwise (the
-    `--phases multigpu` run) a world of every card: first each case of
+    `--phases multigpu` run) a world of every card, or of the first `world`
+    cards (`--world N`, any N from 1 to the cards there are): first each case of
     `multigpu_cases` on one card here, with no group, then `multigpu_rank`
     on every card; every rank's proofs must be the pinned ones, the fused
     proves must make no host synchronisation before their fetch, and each
@@ -3595,7 +3702,10 @@ def multigpu_phase(torch, dev, card, failures, in_process: bool = False,
     from plonky2_torch import parallel
 
     t_phase = time.perf_counter()
-    world = 1 if in_process else torch.cuda.device_count()
+    world = 1 if in_process else world or torch.cuda.device_count()
+    if not 1 <= world <= torch.cuda.device_count():
+        failures.append(f"multigpu: a world of {world} on {torch.cuda.device_count()} cards")
+        return {}
     print(f"multigpu: world {world}{' (a group of one in this process)' if in_process else ''}")
     names = MULTIGPU_IN_PROCESS if in_process else names or MULTIGPU_CASES
 
@@ -3620,7 +3730,7 @@ def multigpu_phase(torch, dev, card, failures, in_process: bool = False,
                 f"{m['sync_wall_s'] or 0:.4f} s synchronised): {split}")
 
     if in_process:
-        cases = multigpu_cases(torch, dev, names, BATCH_K)
+        cases = multigpu_cases(torch, dev, names, BATCH_K // 2)
         with parallel.local_group("nccl") as group:
             # one prove of each path under a group, warm: the earlier phases
             # (and the headline, for prove_many and the Keccak wrap) proved
@@ -3634,6 +3744,10 @@ def multigpu_phase(torch, dev, card, failures, in_process: bool = False,
                   f"launches {m['launches']}; sha256 {m['shas']}")
         out = dict(world=1, cases=result, launches=result["headline"]["launches"])
     else:
+        if world > 1 and "prove_many threads 2" in names:
+            names = tuple(n for n in names if n != "prove_many threads 2")
+            print(f"multigpu prove_many threads 2 on {world} cards: not run; prove_many "
+                  "refuses dispatch threads under an NCCL group of more than one rank")
         t0 = time.perf_counter()
         cases = multigpu_cases(torch, dev, names)
         print(f"multigpu one card ({card}): circuits read and built in "
@@ -3658,7 +3772,8 @@ def multigpu_phase(torch, dev, card, failures, in_process: bool = False,
                 failures.append(f"multigpu rank {r['rank']}: sharded_prover_step "
                                 f"{kc['prover_step_sha256']}, not {PROVER_STEP_SHA256}")
             print(f"multigpu rank {r['rank']}: circuits read and built in {r['setup_s']:.1f} "
-                  f"s ({r['threads']} intra-op threads); K3 sub-LDE {kc['k3_shape']} {kc['k3_sub_lde_mismatches']} mismatches "
+                  f"s ({r['threads']} intra-op threads); K3 part LDEs {kc['k3_shape']} (parts "
+                  f"{kc['parts']} of {kc['of']}) {kc['k3_sub_lde_mismatches']} mismatches "
                   f"against its plain version, {kc['k3_vs_whole_lde_mismatches']} against its "
                   f"columns of the whole LDE; K4 local tree {kc['k4_shape']} "
                   f"{kc['k4_local_tree_mismatches']} mismatches; sharded_prover_step sha256 "
@@ -4854,6 +4969,7 @@ def main() -> int:
         failures.append("degree-2^10 proof bytes differ between the card and the CPU")
 
     # the PLONK prove over a process group of one, NCCL, in this process
+    parts = parts_check(torch, dev, card, failures)
     multigpu = multigpu_phase(torch, dev, card, failures, in_process=True)
 
     for phase in (starky, sizes, zk, lookups, batch_fri, ctl, stark_keccak):
@@ -4935,6 +5051,7 @@ def main() -> int:
                       "ctl": {k: v for k, v in ctl.items() if k != "shapes"},
                       "stark_keccak": {k: v for k, v in stark_keccak.items() if k != "shapes"},
                       "gadgets": gadgets_out, "native_verifier": native_lines,
+                      "parts_check": parts,
                       "multigpu": {name: {k: m[k] for k in ("wall_s", "first_s", "collectives",
                                                             "collective_bytes", "launches",
                                                             "syncs_before_fetch")}
@@ -4946,21 +5063,22 @@ def main() -> int:
 
 PHASES = {"batch_fri": batch_fri_phase, "stark_recursion": stark_recursion_phase,
           "ctl": ctl_phase, "stark_keccak": stark_keccak_phase, "gadgets": gadgets_phase,
-          "multigpu": multigpu_phase}
+          "parts": parts_check, "multigpu": multigpu_phase}
 
 
-def phases_only(names: list, cases=None) -> int:
+def phases_only(names: list, cases=None, world=None) -> int:
     """Only the named phases (of PHASES), after the kernels' build: a quick
     check of a new path on the card; `cases`, only those of the multigpu
-    phase (of MULTIGPU_CASES). Prints what each phase prints, then the
-    failures; exits non-zero on any."""
+    phase (of MULTIGPU_CASES); `world`, the multigpu phase's ranks (every
+    card by default). Prints what each phase prints, then the failures;
+    exits non-zero on any."""
     import torch
 
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false")
     if not names or any(n not in PHASES for n in names):
         return fail(f"usage: chip_smoke.py --phases {' '.join(PHASES)}")
-    if cases is not None and (names != ["multigpu"] or not cases
+    if cases is not None and ("multigpu" not in names or not cases
                               or any(c not in MULTIGPU_CASES for c in cases)):
         return fail(f"usage: chip_smoke.py --phases multigpu --cases "
                     f"{' '.join(repr(c) for c in MULTIGPU_CASES)}")
@@ -4981,10 +5099,11 @@ def phases_only(names: list, cases=None) -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s")
     failures = []
     for name in names:
-        if cases is None:
-            PHASES[name](torch, torch.device("cuda"), card, failures)
+        if name == "multigpu":
+            multigpu_phase(torch, torch.device("cuda"), card, failures,
+                           names=None if cases is None else tuple(cases), world=world)
         else:
-            multigpu_phase(torch, torch.device("cuda"), card, failures, names=tuple(cases))
+            PHASES[name](torch, torch.device("cuda"), card, failures)
     for f in failures:
         print(f"chip_smoke: {f}", file=sys.stderr)
     return 1 if failures else 0
@@ -4994,12 +5113,18 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--times":
         sys.exit(times_only(sys.argv[2]))
     if len(sys.argv) >= 2 and sys.argv[1] == "--phases":
-        args = sys.argv[2:]
+        args, world, cases = sys.argv[2:], None, None
         if "--cases" in args:
             i = args.index("--cases")
-            sys.exit(phases_only(args[:i], args[i + 1:]))
-        sys.exit(phases_only(args))
+            args, cases = args[:i], args[i + 1:]
+        if "--world" in args:
+            i = args.index("--world")
+            if i + 1 >= len(args) or not args[i + 1].isdigit() or "multigpu" not in args:
+                sys.exit(fail("usage: chip_smoke.py --phases multigpu --world N"))
+            world = int(args[i + 1])
+            args = args[:i] + args[i + 2:]
+        sys.exit(phases_only(args, cases, world))
     if len(sys.argv) != 1:
-        sys.exit(fail("usage: chip_smoke.py [--times DIR | --phases NAME ... [--cases "
-                      "NAME ...]]"))
+        sys.exit(fail("usage: chip_smoke.py [--times DIR | --phases NAME ... [--world N] "
+                      "[--cases NAME ...]]"))
     sys.exit(main())

@@ -204,20 +204,31 @@ def cumprod(x, dim: int = 0):
 
 def cumprod_across(x, group=None):
     """Inclusive modular prefix products along the first axis of a vector
-    split into contiguous blocks over `group`'s ranks (rank r holds block
-    r; `parallel.shard_lanes`): the local scan times the product of the
-    lower ranks' block totals, which come from an all-gather of one total a
-    rank (a collective never reduces a field value). Returns (this block's
-    products, the carry: the product of every element before the block; 1
-    on rank 0 and without a group)."""
-    incl = cumprod(x, 0)
+    split into P contiguous blocks over `group`'s ranks (the rank's blocks
+    side by side, `parallel.shard_lanes`): each block's local scan times the
+    product of every block before it, from an all-gather of one total a
+    block (a collective never reduces a field value). Returns (this rank's
+    products, the carries [L, ...]: each block's product of every element
+    before it; 1 without a group)."""
     if group is None:
-        return incl, torch.ones_like(incl[0])
-    totals = group.all_gather(incl[-1])  # [world, ...], every rank takes part
-    if group.rank == 0:
-        return incl, torch.ones_like(incl[0])
-    carry = cumprod(totals[:group.rank], 0)[-1]
-    return mul(incl, carry), carry
+        incl = cumprod(x, 0)
+        return incl, torch.ones_like(incl[:1])
+    L = len(group.own_parts)
+    blocks = x.reshape((L, -1) + tuple(x.shape[1:]))
+    incl = cumprod(blocks, 1)
+    totals = group.gather_parts(incl[:, -1])  # [P, ...], every rank takes part
+    before = torch.cat([torch.ones_like(totals[:1]), cumprod(totals[:-1], 0)])
+    own = group.own_parts
+    carry = (before[own[0]:own[0] + 1] if L == 1
+             else torch.stack([before[v] for v in own]))
+    return mul(incl, carry[:, None]).reshape(x.shape), carry
+
+
+def exclusive_blocks(incl, carry):
+    """The exclusive prefix products of `cumprod_across`'s blocks: each
+    block's carry, then its inclusive products but the last."""
+    blocks = incl.reshape((carry.shape[0], -1) + tuple(incl.shape[1:]))
+    return torch.cat([carry[:, None], blocks[:, :-1]], dim=1).reshape(incl.shape)
 
 
 def cumsum(x, dim: int = 0):

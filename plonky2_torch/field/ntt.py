@@ -150,3 +150,42 @@ def coset_lde_part(coeffs, rate_bits: int, part: int, parts: int):
     weights = g.powers(fs.exp(shift, m), slices.shape[-2], coeffs.device)
     folded = g.sum_mod(g.mul(slices, weights[:, None]), -2)
     return lde_fft(folded, 0, shift=shift)
+
+
+@functools.lru_cache(maxsize=None)
+def _parts_scale_table(lg_m: int, rate_bits: int, rows: tuple, device: str):
+    """The rows `rows` of the coset LDE's scale table (`_lde_coset_scale_table`
+    at the field generator), [len(rows), m]."""
+    whole = _lde_coset_scale_table(fs.MULTIPLICATIVE_GROUP_GENERATOR, lg_m, rate_bits, device)
+    return whole[list(rows)].contiguous()
+
+
+def coset_lde_parts(coeffs, rate_bits: int, parts: tuple, count: int):
+    """`coset_lde_part` of each of `parts` (of `count`), stacked:
+    [len(parts), ..., N / count]. One part is `coset_lde_part` itself.
+    Where `count` divides 2^rate_bits, part v is the fan rows j = v (mod
+    count) of the interleaved LDE (out[s 2^rate + j] = F_j[s]), so the
+    parts are one LDE launch over those rows of the scale table, in part
+    order: local column s (2^rate / count) + u of part v is fan row
+    v + count u at point s. K2 takes a power-of-two fan, so there the rows
+    are padded with copies of the first and the copies dropped. Above
+    2^rate_bits each part is folded and transformed on its own."""
+    if len(parts) == 1:
+        return coset_lde_part(coeffs, rate_bits, parts[0], count)[None]
+    lg_count = log2_strict(count)
+    lg_m = log2_strict(coeffs.shape[-1])
+    if lg_count > lg_m + rate_bits:
+        raise ValueError(f"{count} parts of a {1 << (lg_m + rate_bits)}-point LDE")
+    if lg_count > rate_bits:
+        return torch.stack([coset_lde_part(coeffs, rate_bits, v, count) for v in parts])
+    x, batch = _rows(coeffs)
+    fan = 1 << (rate_bits - lg_count)
+    rows = [v + count * u for v in parts for u in range(fan)]
+    padded = rows
+    if lg_m <= kn.MAX_SMEM_LG and len(rows) & (len(rows) - 1):
+        padded = rows + [rows[0]] * ((1 << len(rows).bit_length()) - len(rows))
+    table = _parts_scale_table(lg_m, rate_bits, tuple(padded), str(x.device))
+    out = transform(x, scale=table, fan=len(padded))  # [B, m * len(padded)]
+    out = out.reshape(x.shape[0], x.shape[-1], len(padded))[..., :len(rows)]
+    out = out.reshape(x.shape[0], x.shape[-1], len(parts), fan).permute(2, 0, 1, 3)
+    return out.reshape((len(parts),) + batch + (x.shape[-1] * fan,))

@@ -16,13 +16,14 @@ and dividing by (x - z) pointwise, then one coset iFFT, and hands the
 result to the FRI prover.
 
 Under a process group (`plonky2_torch.parallel`) a batch keeps its
-coefficients whole and holds rank r's LDE columns c = r (mod k) and their
-part of the tree (`ShardedMerkleTree`, or under Keccak
-`ShardedKeccakMerkleTree` over the rank's block of row leaves):
-`from_values` runs the iFFT poly-sharded and all-gathers the coefficients,
-`_commit` computes the rank's columns alone (`ntt.coset_lde_part`) and
-takes its columns (or rows) of the salt, and `part` slices the local form
-out of a batch committed whole.
+coefficients whole and holds the rank's parts of the LDE (part v the
+columns c = v (mod P), `lde_parts` [L, num_polys, N / P]) and their part
+of the tree (`ShardedMerkleTree`, or under Keccak `ShardedKeccakMerkleTree`
+over the parts' blocks of row leaves): `from_values` runs the iFFT
+poly-sharded and all-gathers the coefficients, `_commit` computes the
+rank's parts alone (`ntt.coset_lde_parts`) and takes their columns (or
+rows) of the salt, and `part` slices the local form out of a batch
+committed whole.
 """
 
 from __future__ import annotations
@@ -74,8 +75,8 @@ class PolynomialBatch:
                  blinding: bool, group=None):
         self.polynomials = coeffs  # [num_polys, n] coefficients, whole
         # [num_polys, N] natural-order coset-LDE values; under a group the
-        # rank's columns c = rank (mod world), [num_polys, N / world]
-        self.lde = lde
+        # rank's parts, [L, num_polys, N / P] (`lde_parts`)
+        self._lde = lde
         self.merkle_tree = merkle_tree
         self.degree_log = degree_log
         self.rate_bits = rate_bits
@@ -129,24 +130,27 @@ class PolynomialBatch:
 
     @staticmethod
     def _commit_part(coeffs, rate_bits, blinding, cap_height, hasher, salt, group):
-        """`_commit` of the rank's LDE columns and their part of the tree."""
-        lde = ntt.coset_lde_part(coeffs, rate_bits, group.rank, group.world)
-        n_lde = lde.shape[-1] * group.world
+        """`_commit` of the rank's parts of the LDE and their part of the tree."""
+        group.check_parts(coeffs.shape[-1] << rate_bits, "LDE points")
+        lde = ntt.coset_lde_parts(coeffs, rate_bits, group.own_parts, group.parts)
+        n_lde = lde.shape[-1] * group.parts
         if blinding:
             salt = _as_tensor(salt_stream(n_lde) if salt is None else salt, lde.device)
         if getattr(hasher, "algebraic", True):
             cols = lde
             if blinding:
-                cols = torch.cat([lde, parallel.shard_columns(salt.reshape(SALT_SIZE, n_lde),
-                                                              group)])
+                cols = torch.cat([lde, parallel.shard_parts(salt.reshape(SALT_SIZE, n_lde),
+                                                            group)], dim=1)
             tree = ShardedMerkleTree(cols.contiguous(), cap_height, group)
-        else:  # the rank's block of row leaves, salted with the same rows of the salt
-            leaves = _lde_leaves(lde)
+        else:  # each part's block of row leaves, salted with the same rows of the salt
+            blocks = [_lde_leaves(part) for part in lde]
             if blinding:
-                m = leaves.shape[0]
-                j = reverse_bits(group.rank, group.lg)
-                leaves = torch.cat([leaves, salt.reshape(n_lde, SALT_SIZE)[j * m:(j + 1) * m]],
-                                   dim=1)
+                m = blocks[0].shape[0]
+                rows = salt.reshape(n_lde, SALT_SIZE)
+                blocks = [torch.cat([leaves, rows[j * m:(j + 1) * m]], dim=1)
+                          for leaves, j in zip(blocks, (reverse_bits(v, group.lg_parts)
+                                                        for v in group.own_parts))]
+            leaves = blocks[0] if len(blocks) == 1 else torch.cat(blocks)
             tree = ShardedKeccakMerkleTree(leaves, cap_height, group)
         return PolynomialBatch(coeffs, lde, tree, log2_strict(coeffs.shape[-1]), rate_bits,
                                blinding, group)
@@ -154,12 +158,31 @@ class PolynomialBatch:
     def part(self, group) -> "PolynomialBatch":
         """Rank group.rank's local form of this batch committed whole (the
         constants-sigmas batch of the circuit data): the coefficients, the
-        rank's LDE columns and its part of the tree (`NaturalMerkleTree.part`
-        or `KeccakMerkleTree.part`), with no rehash."""
+        rank's parts of the LDE and its part of the tree
+        (`NaturalMerkleTree.part` or `KeccakMerkleTree.part`), with no
+        rehash."""
         return PolynomialBatch(self.polynomials,
-                               parallel.shard_columns(self.lde, group).contiguous(),
+                               parallel.shard_parts(self.lde, group).contiguous(),
                                self.merkle_tree.part(group), self.degree_log, self.rate_bits,
                                self.blinding, group)
+
+    @property
+    def lde_parts(self):
+        """Under a group the rank's parts of the LDE, [L, num_polys, N / P]."""
+        if self.group is None:
+            raise ValueError("a batch committed with no group has no parts")
+        return self._lde
+
+    @property
+    def lde(self):
+        """The natural-order LDE [num_polys, N]; under a group the rank's
+        parts side by side, [num_polys, L N / P] (`parallel.shard_columns`'
+        layout: a view at one part, else a copy)."""
+        if self.group is None:
+            return self._lde
+        if self._lde.shape[0] == 1:
+            return self._lde[0]
+        return torch.movedim(self._lde, 0, -2).reshape(self._lde.shape[1], -1)
 
     @property
     def device(self):
@@ -179,9 +202,11 @@ class PolynomialBatch:
             leaf = self.merkle_tree.leaf(reverse_bits(i, self.lde_bits))
             return leaf[:len(leaf) - (SALT_SIZE if self.blinding else 0)]
         if self.group is not None:  # from the owner rank: the others add zeros
-            k = self.group.world
-            col = self.lde[:, i // k] * int(i % k == self.group.rank)
-            return [int(v) for v in g.to_numpy(self.group.all_reduce_disjoint(col))]
+            group = parallel.communicator(self.group)
+            v, k = i % group.parts, group.world
+            col = self._lde[v // k if v % k == group.rank else 0][:, i // group.parts]
+            col = col * int(v % k == group.rank)
+            return [int(x) for x in g.to_numpy(group.all_reduce_disjoint(col))]
         return [int(v) for v in g.to_numpy(self.lde[:, i])]
 
     # -- batch opening proof ------------------------------------------------

@@ -13,15 +13,15 @@ views of the tree's buffer; query openings are gathered on the device at
 device indices (`gather`) and leave it in one packed copy.
 
 `ShardedMerkleTree` is one rank's part of a natural tree over a process
-group (`plonky2_torch.parallel`): the rank's columns and their subtrees,
+group (`plonky2_torch.parallel`): its parts' columns and their subtrees,
 the cap gathered whole, openings from the owner rank.
 
 `KeccakMerkleTree` is the tree of `KeccakGoldilocksConfig`, over byte
 digests of `KeccakHasher.HASH_SIZE`: its row leaves come to the host in one
 copy and every level is hashed there in one batch (reference
 hash/merkle.py:415-460). `ShardedKeccakMerkleTree` is one rank's part of
-it over a group: the rank's contiguous block of row leaves and its
-subtree, hashed on the rank's host, the cap gathered whole, openings from
+it over a group: its parts' contiguous blocks of row leaves and their
+subtrees, hashed on the rank's host, the cap gathered whole, openings from
 the owner rank. `HOST_TREES` adds up this process's seconds of those
 copies and of the hashing, for a prove's phase split.
 """
@@ -162,48 +162,58 @@ class NaturalMerkleTree:
 
     def part(self, group) -> "ShardedMerkleTree":
         """Rank group.rank's part of this tree over a group (layout:
-        `plonky2_torch.parallel`): its columns c = rank (mod world) and the
-        global levels' digests at the same residues, sliced out of this
-        whole tree with no rehash; the levels above the local roots (where
-        the world exceeds 2^cap_height) and the cap stay whole."""
-        k, r = group.world, group.rank
-        local_cap = max(self.cap_height - group.lg, 0)
-        levels = self._lg_n - group.lg - local_cap
+        `plonky2_torch.parallel`): for each of its parts v the columns
+        c = v (mod P) and the global levels' digests at the same residues,
+        sliced out of this whole tree with no rehash; the levels above the
+        local roots (where P exceeds 2^cap_height) and the cap stay whole."""
+        count, p = group.parts, group.lg_parts
+        local_cap = max(self.cap_height - p, 0)
+        levels = self._lg_n - p - local_cap
+
+        def parts(x):
+            own = group.own_parts
+            if len(own) == 1:
+                return x[:, own[0]::count].contiguous()[None]
+            return torch.stack([x[:, v::count] for v in own])
         return ShardedMerkleTree(
-            self._cols[:, r::k].contiguous(), self.cap_height, group,
-            layers=[layer[:, r::k].contiguous() for layer in self._layers[:levels + 1]],
-            top=self._layers[levels:-1] if group.lg > self.cap_height else [],
+            parts(self._cols), self.cap_height, group,
+            layers=[parts(layer) for layer in self._layers[:levels + 1]],
+            top=self._layers[levels:-1] if p > self.cap_height else [],
             cap_dev=self._layers[-1])
 
 
 class ShardedMerkleTree(NaturalMerkleTree):
     """One rank's part of a natural tree over [width, N] split over a group
-    of k ranks (`plonky2_torch.parallel`): the columns c = rank (mod k) as
-    [width, N / k] and their local natural tree, cut at cap height
-    cap_height - lg k, whose level-l digest i is the global level-l digest
-    rank + k i. The cap is all-gathered (where k > 2^cap_height, the k local
-    roots are, and the levels above them are hashed whole on every rank):
-    `cap_dev` and `cap` are the whole tree's. `gather` opens reference
-    indices: the rank owning a query's natural column gathers its leaf and
-    path, the others zeros, and one SUM all-reduce gives every rank all of
-    them."""
+    (`plonky2_torch.parallel`): for each of the rank's parts v (of P) the
+    columns c = v (mod P), stacked as [L, width, N / P], and their local
+    natural tree, cut at cap height cap_height - p, whose level-l digest i
+    is the global level-l digest v + P i (`_layers[l]`: [L, 4, N / P >> l]).
+    The cap is all-gathered (where P > 2^cap_height, the P local roots are,
+    and the levels above them are hashed whole on every rank): `cap_dev`
+    and `cap` are the whole tree's. `gather` opens reference indices: the
+    rank owning a query's natural column gathers its leaf and path, the
+    others zeros, and one SUM all-reduce gives every rank all of them."""
 
     def __init__(self, cols, cap_height: int, group, layers=None, top=None, cap_dev=None):
         self.group = group
         self.cap_height = cap_height
         self._cols = cols
-        lg_local = int(cols.shape[1]).bit_length() - 1
-        self._lg_n = lg_local + group.lg
-        local_cap = max(cap_height - group.lg, 0)
+        lg_local = int(cols.shape[-1]).bit_length() - 1
+        p = group.lg_parts
+        self._lg_n = lg_local + p
+        local_cap = max(cap_height - p, 0)
         if local_cap > lg_local:
             raise ValueError("cap height exceeds the tree height")
-        self._layers = (layers if layers is not None
-                        else kp.merkle_tree(cols, local_cap, natural=True))
+        if layers is None:
+            trees = [kp.merkle_tree(part, local_cap, natural=True) for part in cols]
+            layers = ([layer[None] for layer in trees[0]] if len(trees) == 1
+                      else [torch.stack(level) for level in zip(*trees)])
+        self._layers = layers
         self._top = list(top or [])
         if cap_dev is None:
-            roots = group.all_gather(self._layers[-1])  # [k, 4, 2^local_cap]
+            roots = group.gather_parts(self._layers[-1])  # [P, 4, 2^local_cap]
             layer = roots.permute(1, 2, 0).reshape(4, -1).contiguous()  # global order
-            if group.lg > cap_height:
+            if p > cap_height:
                 top_layers = kp.merkle_tree(layer, cap_height, natural=True)
                 self._top, cap_dev = top_layers[:-1], top_layers[-1]
             else:
@@ -228,13 +238,24 @@ class ShardedMerkleTree(NaturalMerkleTree):
     def gather(self, idx, shift_bits: int = 0):
         """(leaves [q, width], siblings [q, levels, 4]) at device reference
         indices, whole on every rank."""
+        from plonky2_torch import parallel
         from plonky2_torch.ops.ntt import bit_reverse_index
 
-        group = self.group
+        group = parallel.communicator(self.group)
+        p, k = group.lg_parts, group.world
         c = bit_reverse_index(self._lg_n, self._cols.device)[idx >> shift_bits]
-        own = (c & (group.world - 1)) == group.rank
-        leaves, sibs = _gather_natural(self._cols, self._layers[:-1], c >> group.lg,
-                                       self._lg_n - group.lg)
+        v = c & (group.parts - 1)
+        if k == group.parts:  # one part a rank
+            own, t = v == group.rank, torch.zeros_like(v)
+        else:
+            own = v % k == group.rank
+            t = torch.where(own, v // k, 0)
+        i = c >> p
+        lg_local = self._lg_n - p
+        sibs = [layer[t, :, (i & ((1 << (lg_local - l)) - 1)) ^ (1 << (lg_local - l - 1))]
+                for l, layer in enumerate(self._layers[:-1])]
+        leaves = self._cols[t, :, i]
+        sibs = _stack_sibs(sibs, i.shape[0], i.device)
         flat = group.all_reduce_disjoint(torch.cat([
             torch.where(own[:, None], leaves, 0).reshape(-1),
             torch.where(own[:, None, None], sibs, 0).reshape(-1)]))
@@ -352,55 +373,74 @@ class KeccakMerkleTree:
 
     def part(self, group) -> "ShardedKeccakMerkleTree":
         """Rank group.rank's part of this tree over a group, sliced out with
-        no rehash: its block of row leaves, the same block of each level
-        up to the local cap, the whole levels above the local roots (where
-        the world exceeds 2^cap_height) and the whole cap."""
-        lg_m = int(self.leaves.shape[0]).bit_length() - 1 - group.lg
-        j = reverse_bits(group.rank, group.lg)  # the rank's block of row leaves
-        local_cap = max(self.cap_height - group.lg, 0)
-        layers = [layer[(j << lg_m) >> l:((j + 1) << lg_m) >> l]
-                  for l, layer in enumerate(self._layers[:lg_m - local_cap + 1])]
+        no rehash: its parts' blocks of row leaves, the same blocks of each
+        level up to the local cap, the whole levels above the local roots
+        (where P exceeds 2^cap_height) and the whole cap."""
+        p = group.lg_parts
+        lg_m = int(self.leaves.shape[0]).bit_length() - 1 - p
+        blocks = [reverse_bits(v, p) for v in group.own_parts]  # the parts' blocks of rows
+        local_cap = max(self.cap_height - p, 0)
+
+        def rows(x, l):
+            return np.concatenate([x[(j << lg_m) >> l:((j + 1) << lg_m) >> l] for j in blocks])
         return ShardedKeccakMerkleTree(
-            self.leaves[j << lg_m:(j + 1) << lg_m], self.cap_height, group,
-            layers=layers, top=self._layers[lg_m:-1] if group.lg > self.cap_height else [],
-            cap=self.cap)
+            rows(self.leaves, 0), self.cap_height, group,
+            layers=[rows(layer, l) for l, layer in enumerate(self._layers[:lg_m - local_cap + 1])],
+            top=self._layers[lg_m:-1] if p > self.cap_height else [], cap=self.cap)
 
 
 class ShardedKeccakMerkleTree(KeccakMerkleTree):
     """One rank's part of a Keccak tree over row leaves [N, width] split over
-    a group of k ranks: the rank's natural LDE columns c = rank (mod k)
-    are the row leaves [j N / k, (j + 1) N / k) with j = rev_{lg k}(rank),
-    and `leaves` are those, [N / k, width] (the bit-reversed rows of the
-    rank's columns, `fri.oracle._lde_leaves` of its LDE). The rank hashes
-    their subtree on its host up to cap height cap_height - lg k; the k
-    local caps are all-gathered as digests into the whole cap in block
-    order (where k > 2^cap_height the k roots are, and the levels above
-    them are hashed whole on every rank). `open_many` opens reference
-    indices: the owner of each index's block gathers its leaf and path,
-    the others zeros, and one SUM all-reduce gives every rank all of them."""
+    a group: each of the rank's parts v (of P = 2^p), the natural LDE
+    columns c = v (mod P), is the block of row leaves [j N / P, (j + 1) N / P)
+    with j = rev_p(v), and `leaves` are those blocks in part order,
+    [L N / P, width] (the bit-reversed rows of each part's columns,
+    `fri.oracle._lde_leaves`). The rank hashes their subtrees on its host up
+    to cap height cap_height - p (pairs of adjacent rows never cross a
+    block); the P local caps are all-gathered as digests into the whole cap
+    in block order (where P > 2^cap_height the P roots are, and the levels
+    above them are hashed whole on every rank). `open_many` opens reference
+    indices: the owner of each index's block gathers its leaf and path, the
+    others zeros, and one SUM all-reduce gives every rank all of them."""
 
     def __init__(self, leaves, cap_height: int, group, layers=None, top=None, cap=None):
         from plonky2_torch.hash.hashers import KeccakHasher
 
         self.group = group
-        lg_m = int(leaves.shape[0]).bit_length() - 1
-        local_cap = max(cap_height - group.lg, 0)
+        p = group.lg_parts
+        L = len(group.own_parts)
+        lg_m = int(leaves.shape[0] // L).bit_length() - 1
+        if L << lg_m != leaves.shape[0]:
+            raise ValueError(f"{leaves.shape[0]} leaves are not {L} blocks of a power of two")
+        local_cap = max(cap_height - p, 0)
         if local_cap > lg_m:
             raise ValueError("cap height exceeds the tree height")
         if layers is None:
-            super().__init__(leaves, local_cap)
+            t0 = time.perf_counter()
+            if isinstance(leaves, torch.Tensor):
+                leaves = g.to_numpy(leaves)
+            self.leaves = np.ascontiguousarray(leaves, dtype=np.uint64)
+            t1 = time.perf_counter()
+            layers = [KeccakHasher.hash_leaves_batch(self.leaves)]
+            for _ in range(lg_m - local_cap):
+                layers.append(KeccakHasher.compress_batch(layers[-1]))
+            HOST_TREES["copy_s"] += t1 - t0
+            HOST_TREES["hash_s"] += time.perf_counter() - t1
+            HOST_TREES["trees"] += 1
         else:
             self.leaves = np.ascontiguousarray(leaves, dtype=np.uint64)
-            self._layers = list(layers)
+        self._layers = list(layers)
+        self._lg_m = lg_m
         self.cap_height = cap_height
         self._top = list(top or [])
         if cap is None:
             local = torch.from_numpy(np.ascontiguousarray(self._layers[-1])).to(group.device)
-            caps = group.all_gather(local).cpu().numpy()  # [k, 2^local_cap, HASH_SIZE]
-            order = [reverse_bits(j, group.lg) for j in range(group.world)]  # block j's rank
-            layer = caps[order].reshape(-1, KeccakHasher.HASH_SIZE)
+            # [P, 2^local_cap, HASH_SIZE] in part order, then in block order
+            caps = group.gather_parts(local.reshape(L, 1 << local_cap, -1)).cpu().numpy()
+            layer = caps[[reverse_bits(j, p) for j in range(group.parts)]].reshape(
+                -1, KeccakHasher.HASH_SIZE)
             t0 = time.perf_counter()
-            for _ in range(group.lg - cap_height):
+            for _ in range(p - cap_height):
                 self._top.append(layer)
                 layer = KeccakHasher.compress_batch(layer)
             HOST_TREES["hash_s"] += time.perf_counter() - t0
@@ -410,22 +450,26 @@ class ShardedKeccakMerkleTree(KeccakMerkleTree):
     def open_many(self, indices: list[int]):
         """(leaf values, MerkleProof) at each reference index, whole on
         every rank."""
-        group = self.group
+        from plonky2_torch import parallel
+
+        group = parallel.communicator(self.group)
+        p, k = group.lg_parts, group.world
         idx = np.asarray(indices, dtype=np.int64)
-        lg_m = int(self.leaves.shape[0]).bit_length() - 1
-        t = idx & ((1 << lg_m) - 1)
-        own = (idx >> lg_m) == reverse_bits(group.rank, group.lg)
-        leaves = np.where(own[:, None], self.leaves[t], np.uint64(0))
+        lg_m = self._lg_m
+        v = np.asarray([reverse_bits(int(j), p) for j in idx >> lg_m], dtype=np.int64)
+        own = v % k == group.rank
+        row = np.where(own, v // k, 0) * (1 << lg_m) + (idx & ((1 << lg_m) - 1))
+        leaves = np.where(own[:, None], self.leaves[row], np.uint64(0))
         sibs = np.zeros((len(idx), len(self._layers) - 1, self._layers[0].shape[1]), np.int64)
-        for k, layer in enumerate(self._layers[:-1]):
-            sibs[:, k] = np.where(own[:, None], layer[(t >> k) ^ 1], 0)
+        for l, layer in enumerate(self._layers[:-1]):
+            sibs[:, l] = np.where(own[:, None], layer[(row >> l) ^ 1], 0)
         flat = torch.from_numpy(np.concatenate([leaves.view(np.int64).reshape(-1),
                                                 sibs.reshape(-1)])).to(group.device)
         flat = group.all_reduce_disjoint(flat).cpu().numpy()
         leaves = flat[:leaves.size].view(np.uint64).reshape(leaves.shape)
         sibs = flat[leaves.size:].astype(np.uint8).reshape(sibs.shape)
         top = [layer[(idx >> (lg_m + m)) ^ 1] for m, layer in enumerate(self._top)]
-        return [([int(v) for v in leaves[qi]],
+        return [([int(x) for x in leaves[qi]],
                  MerkleProof([bytes(level) for level in sibs[qi]]
                              + [bytes(level[qi]) for level in top]))
                 for qi in range(len(indices))]

@@ -50,14 +50,17 @@ Under a process group (`plonky2_torch.parallel.use_mesh`) `prove` and
 `prove_many` run on the group's device on every rank and give the single
 device's proof bytes on each, on both transcript paths and under either
 hasher: the witness, the coefficients, the openings, FRI and the
-transcript are whole on every rank; each commitment holds the rank's LDE
-columns and their part of the tree, the constants-sigmas batch is the
+transcript are whole on every rank; each commitment holds the rank's parts
+of the LDE and their part of the tree, the constants-sigmas batch is the
 part a build under the group left or is sliced out of the one committed
-whole (`_constants_part`), round 2 scans contiguous blocks of the points
-with a cross-rank carry and gathers its values, and the ranks holding
-quotient points evaluate them and gather the values before the coset iFFT
-(`parallel.QuotientPoints`). Any power-of-two world whose ranks split the
-n rows takes any config.
+whole (`_constants_part`), round 2 scans its parts' contiguous blocks of
+the points with a carry across the blocks and gathers its values, and the
+ranks holding quotient points evaluate them and gather the values before
+the coset iFFT (`parallel.QuotientPoints`). Every rank computes its parts of the work
+(the P parts of `parallel.Group.parts`: P = k for a power-of-two world k,
+else the least power of two >= 2k); a world takes any config whose n rows
+split into its P parts, and `_check_group` raises, naming both numbers,
+for one that does not.
 """
 
 from __future__ import annotations
@@ -457,10 +460,10 @@ def prove(prover_data, common, inputs, device=None, timing: TimingTree | None = 
 # -- under a process group ------------------------------------------------------
 
 def _check_group(common, group) -> None:
-    """Under a group the circuit's n rows must split over the world (round
-    2's blocks)."""
-    if group is not None and common.degree % group.world:
-        raise ValueError(f"{common.degree} rows do not split over {group.world} ranks")
+    """Under a group the circuit's n rows must split into the group's P
+    parts (round 2's blocks, the LDE's parts)."""
+    if group is not None:
+        group.check_parts(common.degree, "rows")
 
 
 def _constants_part(prover_data, common, group):
@@ -526,7 +529,7 @@ def _round2_one_challenge(wires_routed, sigmas, s_id, beta, gamma, qdf: int, gro
     quot = g.mul(numer, g.inverse_rows(denom))
     cumprods = g.cumprod(_chunk_products(quot, qdf), 0)
     z_incl, carry = g.cumprod_across(cumprods[-1], group)
-    z = torch.cat([carry.reshape(1), z_incl[:-1]])
+    z = g.exclusive_blocks(z_incl, carry)
     return z, g.mul(z[None, :], cumprods[:-1])
 
 
@@ -640,7 +643,7 @@ def compute_quotient_polys(prover_data, common, constants_sigmas, wires, zs_pp,
     # the Zs' and the lookup columns' values at g·x, in one exchange where
     # they lie on another rank (every rank takes part)
     zs, lk = common.zs_range(), common.lookup_range()
-    zs_q = points.points(zs_pp.lde)
+    zs_q = points.points(zs_pp)
     shifted = points.next_rows(torch.cat([zs_q[zs.start:zs.stop], zs_q[lk.start:lk.stop]]))
     vanishing = None
     if points.holds:
@@ -663,8 +666,8 @@ def _vanishing_at_points(prover_data, common, points, constants_sigmas, wires, z
     num_prods = common.num_partial_products
     t = _quotient_tables(prover_data, common, device, points)
     # natural-order LDEs at the quotient domain's points
-    cs_q = points.points(constants_sigmas.lde)
-    wires_q = points.points(wires.lde)
+    cs_q = points.points(constants_sigmas)
+    wires_q = points.points(wires)
     zs, lk = common.zs_range(), common.lookup_range()
 
     z1_terms, pp_terms = [], []
@@ -883,6 +886,62 @@ def _prove_fused(prover_data, common, constants_sigmas, wires, witness_dev, tran
 
 # -- batched proving -------------------------------------------------------------
 
+def _prove_on_slots(prover_data, common, todo, prepare, device, group, window: int,
+                    threads: int, in_flight, timing) -> list:
+    """`prove_many`'s dispatch threads: proof i (of `todo`, (i, inputs)
+    pairs in order) is proved whole by slot i mod threads, a thread with
+    its own stream and, under a group, its own communicator, which takes
+    its proofs in order from a queue; the caller's thread prepares the
+    witnesses in order and, with `window` proofs in flight, waits for the
+    oldest. Returns the proofs in order."""
+    import queue
+    from concurrent.futures import Future
+
+    slots = group.slots(threads) if group is not None else [None] * threads
+    queues = [queue.Queue() for _ in range(threads)]
+
+    def run(slot, jobs):
+        stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        with parallel.use_mesh(slot):
+            while True:
+                job = jobs.get()
+                if job is None:
+                    return
+                prepared, future = job
+                if not future.set_running_or_notify_cancel():
+                    continue
+                try:
+                    with (torch.cuda.stream(stream) if stream is not None
+                          else contextlib.nullcontext()), in_flight:
+                        future.set_result(prove(prover_data, common, None, device,
+                                                _prepared=prepared))
+                except BaseException as e:  # noqa: BLE001 - handed to the caller
+                    future.set_exception(e)
+
+    workers = [threading.Thread(target=run, args=(slot, jobs), daemon=True)
+               for slot, jobs in zip(slots, queues)]
+    for w in workers:
+        w.start()
+    out, futures = [], collections.deque()
+    try:
+        for i, inputs in todo:
+            future = Future()
+            queues[i % threads].put((prepare(i, inputs), future))
+            futures.append(future)
+            while len(futures) >= window:
+                with timing.scope(f"finish proof {len(out)}"):
+                    out.append(futures.popleft().result())
+        while futures:
+            with timing.scope(f"finish proof {len(out)}"):
+                out.append(futures.popleft().result())
+    finally:
+        for jobs in queues:
+            jobs.put(None)
+        for w in workers:
+            w.join()
+    return out
+
+
 class _InFlight:
     """Counts the proofs whose device chain is queued and not yet fetched."""
 
@@ -923,21 +982,29 @@ def prove_many(prover_data, common, inputs_list, device=None,
     threads == 1 (the default): each proof's chain is queued as
     `prove(_defer=True)` on a CUDA stream of a pool of `window`, and the
     oldest proof is fetched once `window` are queued, so the next witness
-    phase overlaps the device work. threads >= 2: the chains run whole on
-    `threads` dispatch threads, each on its own stream; the threads contend
-    for the GIL over ~10^5 launches a proof, and on one H100 two and three
-    gave fewer proofs/s than one (chip_smoke's prove_many line, PERF.md).
-    Until a prove of the circuit has completed on the device (its
-    per-device cache's "warm", under a group its rank's and world's), the
-    first proof runs alone on the caller's
-    stream, so the per-circuit tables exist before other streams read
-    them. `_LAST_MAX_IN_FLIGHT` holds the most proofs in flight.
+    phase overlaps the device work. threads >= 2: proof i runs whole on
+    dispatch slot i mod threads, a thread with its own stream that runs its
+    proofs in order; the threads contend for the GIL over ~10^5 launches a
+    proof, and on one H100 two and three gave fewer proofs/s than one
+    (chip_smoke's prove_many line, PERF.md). Until a prove of the circuit
+    has completed on the device (its per-device cache's "warm", under a
+    group its rank's and world's), the first proof runs alone on the
+    caller's stream, so the per-circuit tables (and the allocator's
+    blocks) exist before other streams read them. `_LAST_MAX_IN_FLIGHT`
+    holds the most proofs in flight.
 
     Under a process group every rank issues the same collectives in the
-    same order: the caller's thread dispatches the proofs in order, so
-    threads >= 2 raises there (dispatch threads would issue the collectives
-    of several proofs at once, in an order that may differ between
-    ranks)."""
+    same order on each communicator: with one thread the caller's thread
+    dispatches the proofs in order; with dispatch threads each slot proves
+    under its own communicator (`parallel.Group.slots`, made and started
+    in slot order before the threads), so a communicator's collectives are
+    its slot's proofs' in proof order on every rank. That holds over gloo.
+    Over NCCL with more than one rank, dispatch threads raise ValueError:
+    there the slots' communicators deadlocked against each other (ranks
+    waiting in different communicators' all-reduces until their 120 s
+    timeout, in chip_smoke.py's `--phases multigpu --world 3` case
+    "prove_many threads 2" on H100s), as NCCL documents for collectives
+    issued on several communicators from several threads."""
     global _LAST_MAX_IN_FLIGHT, _LAST_PROVE_MANY_MODE
     group, device = parallel.placement(device)
     _check_group(common, group)
@@ -945,8 +1012,11 @@ def prove_many(prover_data, common, inputs_list, device=None,
         raise ValueError("window and threads must be at least 1")
     if common.config.zero_knowledge:
         threads = 1
-    if group is not None and threads > 1:
-        raise ValueError(f"prove_many under a process group takes threads=1, not {threads}")
+    if group is not None and threads > 1 and group.world > 1 and device.type == "cuda":
+        raise ValueError(f"prove_many under an NCCL group of {group.world} ranks takes "
+                         f"threads=1, not {threads}: its dispatch slots deadlocked across "
+                         "their communicators on H100s (chip_smoke.py --phases multigpu "
+                         "--world 3, case 'prove_many threads 2')")
     _LAST_PROVE_MANY_MODE = "single-stream" if threads == 1 else "threads"
     timing = timing or TimingTree("prove_many")
     cuda = device.type == "cuda"
@@ -990,25 +1060,7 @@ def prove_many(prover_data, common, inputs_list, device=None,
         while pending:
             finish_oldest()
     else:
-        from concurrent.futures import ThreadPoolExecutor
-
-        local = threading.local()
-
-        def dispatch(prepared):
-            if cuda and not hasattr(local, "stream"):
-                local.stream = torch.cuda.Stream(device)
-            with on(getattr(local, "stream", None)), in_flight:
-                return prove(prover_data, common, None, device, _prepared=prepared)
-
-        with ThreadPoolExecutor(max_workers=threads) as pool:
-            futures = collections.deque()
-            for i, inputs in todo:
-                futures.append(pool.submit(dispatch, prepare(i, inputs)))
-                while len(futures) >= window:
-                    with timing.scope(f"finish proof {len(out)}"):
-                        out.append(futures.popleft().result())
-            while futures:
-                with timing.scope(f"finish proof {len(out)}"):
-                    out.append(futures.popleft().result())
+        out += _prove_on_slots(prover_data, common, todo, prepare, device, group, window,
+                               threads, in_flight, timing)
     _LAST_MAX_IN_FLIGHT = in_flight.most
     return out

@@ -22,8 +22,8 @@ whose trees are hashed on the host), with the same bytes. The prover draws no ra
 
 Under a process group (`plonky2_torch.parallel.use_mesh`) the trace,
 auxiliary and quotient batches are committed in the group's layout (each
-rank its LDE columns and its part of the tree; under Keccak its own
-subtree, hashed on its host) and the ranks holding quotient points
+rank its parts of the LDE and their part of the tree; under Keccak their
+subtrees, hashed on its host) and the ranks holding quotient points
 evaluate them; the logUp and CTL columns, the openings, FRI and the
 transcript are whole on every rank, and every rank's proof is the single
 device's.
@@ -236,7 +236,7 @@ def compute_quotient_polys(stark, config, trace_commitment, public_inputs, alpha
     # in the exchange)
     batches = [trace_commitment] + ([auxiliary_polys_commitment]
                                     if auxiliary_polys_commitment is not None else [])
-    at_points = [points.points(b.lde) for b in batches]
+    at_points = [points.points(b) for b in batches]
     at_next = [points.next_rows(x) for x in at_points]
     evals = None
     if points.holds:

@@ -27,13 +27,13 @@ while the ranks run).
   tables, batch FRI, the Keccak factorial built and proved under the group,
   factorial built under the group (verifier bytes and fixture proof), and
   `prove_many` equal to the reference's sequential proves (one dispatch
-  thread under the group; two, which the group refuses, on one device); the low-degree circuit at three (rate, quotient
+  thread, and two on their own communicators); the low-degree circuit at three (rate, quotient
   degree) configs (a world above 2^rate_bits, the quotient on every 4th and
   every other LDE point) equal to the reference's proof (these five proofs
   from tests/torch_make_data.py --parallel, each also one device's);
-- a world of 3 raises, and a collective that a rank leaves raises on the
-  rank that waits in it, which fails `run_on_group` (a second spawn, of 2
-  ranks).
+- a collective that a rank leaves raises on the rank that waits in it,
+  which fails `run_on_group` (a second spawn, of 2 ranks). Worlds that are
+  not a power of two: tests/test_torch_parallel_any_world.py.
 """
 
 import json
@@ -264,17 +264,14 @@ def _reference_proofs(refs, names) -> list[bytes]:
 
 @pytest.mark.parametrize("threads", [1, 2])
 def test_prove_many_equals_sequential_one_device_proves_on_every_rank(four, refs, threads):
-    """One device's sequential proves, and the reference's: one dispatch
-    thread under the group; two, which the group refuses (they would issue
-    the collectives of several proofs at once), on the rank's
-    single-device path."""
+    """One device's sequential proves, and the reference's, under the
+    group: one dispatch thread, and two (each slot on its own
+    communicator)."""
     want = _reference_proofs(refs, ranks.reference_proof_names()[len(ranks.PLONK_CONFIGS):])
     for r in four:
-        proofs, in_flight, *refused = r["paths"][f"prove_many threads {threads}"]
+        proofs, in_flight = r["paths"][f"prove_many threads {threads}"]
         assert proofs == want, f"rank {r['rank']}"
         assert 1 <= in_flight <= 2  # the window
-        if threads == 2:
-            assert refused == ["prove_many under a process group takes threads=1, not 2"]
 
 
 def test_build_under_the_group_gives_the_fixture_on_every_rank(four):
@@ -297,11 +294,6 @@ def test_plonk_at_any_rate_and_quotient_domain_equals_one_device(four, refs, con
     want, = _reference_proofs(refs, [ranks.reference_proof_names()[i]])
     for r in four:
         assert r["paths"][f"plonk rate {config[0]} qdf {config[1]}"] == want, f"rank {r['rank']}"
-
-
-def test_a_world_of_three_raises():
-    with pytest.raises(ValueError, match="power of two"):
-        parallel.run_on_group(ranks.four_ranks, 3, "gloo")
 
 
 def test_a_rank_missing_from_a_collective_fails_the_group(spawned):

@@ -255,14 +255,8 @@ def _paths(group) -> dict:
             return [proof_to_bytes(p) for p in proofs], tp._LAST_MAX_IN_FLIGHT
 
         out["prove_many threads 1"] = prove_many(1)
-        # two dispatch threads: refused under the group, the single-device path outside it
-        try:
-            prove_many(2)
-            refused = None
-        except ValueError as e:
-            refused = str(e)
-        with parallel.use_mesh(None):
-            out["prove_many threads 2"] = (*prove_many(2), refused)
+        # two dispatch threads, each slot on its own communicator
+        out["prove_many threads 2"] = prove_many(2)
 
         with seeded(), fri_prover.force_host_path():
             data, proof = fact.build_and_prove()
@@ -274,7 +268,8 @@ def _paths(group) -> dict:
     with parallel.use_mesh(None):
         whole = data.prover_only.commitment(data.common, group.device)
     out["factorial build, parts"] = (
-        part is not None and part.lde.shape[-1] * group.world == whole.lde.shape[-1],
+        part is not None and part.lde_parts.shape[0] == len(group.own_parts)
+        and part.lde_parts.shape[-1] * group.parts == whole.lde.shape[-1],
         whole.merkle_tree.cap == data.verifier_only.constants_sigmas_cap)
 
     with parallel.use_mesh(group):
@@ -287,7 +282,8 @@ def _paths(group) -> dict:
 
 
 def four_ranks(group) -> dict:
-    """Everything tests/test_torch_parallel.py holds a 4-rank group to."""
+    """Everything tests/test_torch_parallel.py holds a 4-rank group to, and
+    tests/test_torch_parallel_any_world.py a 3-rank one."""
     out = {"rank": group.rank, "world": group.world}
     out["factorial"] = {path: _prove_factorial(group, path == "host")
                         for path in ("fused", "host")}
@@ -338,3 +334,40 @@ def collective_with_a_missing_rank(group):
     if group.rank == 0:
         group.all_gather(torch.zeros(4, dtype=torch.int64))
     return group.rank
+
+
+def six_ranks(group) -> dict:
+    """What tests/test_torch_parallel_any_world.py holds a 6-rank group (16
+    parts, two or three a rank) to: the commit, the caps and openings, the
+    Z scan and the PLONK config at rate 1 (the fold)."""
+    out = {"rank": group.rank, "world": group.world, "uneven": {}, "caps": {}}
+    for rows, degree in UNEVEN:
+        with parallel.use_mesh(group):
+            batch = PolynomialBatch.from_values(uneven_values(rows, degree), 3, False, 2)
+            lde = parallel.gather_columns(batch.lde)
+        out["uneven"][rows, degree] = dict(
+            coeffs=g.to_numpy(batch.polynomials), lde=g.to_numpy(lde),
+            local_shape=tuple(batch.lde_parts.shape), cap=batch.merkle_tree.cap)
+    wires, sigmas, s_id, beta, gamma = zscan_inputs()
+    z, pp = tp._round2_one_challenge(
+        *(g.tensor(parallel.shard_lanes(m, group), group.device) for m in (wires, sigmas, s_id)),
+        g.scalar_tensor(beta, group.device), g.scalar_tensor(gamma, group.device), 8, group)
+    out["zscan"] = g.to_numpy(parallel.gather_lanes(torch.cat([z[None], pp]), group))
+    for cap_height in CAP_HEIGHTS:
+        with parallel.use_mesh(group):
+            built = PolynomialBatch.from_values(cap_values(), 3, False, cap_height)
+            lde_values = [built.get_lde_values(i) for i in (0, 5, 511)]
+        with parallel.use_mesh(None):
+            whole = PolynomialBatch.from_values(cap_values(), 3, False, cap_height,
+                                                device=group.device)
+        sliced = whole.merkle_tree.part(group)
+        out["caps"][cap_height] = dict(
+            built=(built.merkle_tree.cap, _openings(built.merkle_tree)),
+            sliced=(sliced.cap, _openings(sliced)), lde_values=lde_values)
+    rate_bits, qdf = PLONK_CONFIGS[0]
+    builder, pw = low_degree_circuit(rate_bits, qdf)
+    with parallel.use_mesh(group):
+        data = builder.build()
+        with seeded(), fri_prover.force_host_path():
+            out[f"plonk rate {rate_bits} qdf {qdf}"] = proof_to_bytes(data.prove(pw))
+    return out
